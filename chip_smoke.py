@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256]
+
+Phases, one JSON line each on stdout:
+
+1. ``build``   — both CUDA kernels built from ``omero_ms_pixel_buffer_tpu_torch/
+   csrc`` with nvcc (one process per source, in parallel).
+2. ``fixture`` — an ``--size``² uint16 OME-TIFF with 512x512 zlib tiles:
+   a smooth field plus Gaussian noise, made from ``--seed``.
+3. ``kernels`` — each kernel against its plain PyTorch version on the card
+   at the main path's shapes (32 lanes of 512x512 uint16): the filter in
+   all five modes plus uint8 and RGB uint8, the packer on the real pass-2
+   tokens of those lanes (whose streams must also inflate back). Byte
+   equality is required. A kernel's ``ms`` is its device time from
+   torch.profiler (CUDA events around the wrapper when the profiler
+   records none); wrapper (``call_ms``) and plain times are CUDA events.
+4. ``path``    — the service (``http.server.create_server``, what
+   ``python -m omero_ms_pixel_buffer_tpu_torch`` runs) on 127.0.0.1 in
+   this process; kernel launch counters reset to 0 just before; two
+   warm-up rounds of 32 tiles (the plane is admitted on its second
+   touch), then ``--requests`` 512x512 PNG tiles at concurrency 32 over
+   keep-alive connections, then odd sizes and edge cases. Every PNG is
+   inflated with zlib, unfiltered with numpy and compared with the source
+   pixels; both kernels must have launched, the plane cache must have
+   hits and no encode group may have failed.
+
+Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
+line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before the last line; without CUDA, or without the port package
+beside this file, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import concurrent.futures
+import http.client
+import json
+import os
+import struct
+import sys
+import threading
+import time
+import traceback
+import zlib
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+TILE = 512
+LANES = 32
+COOKIE = {"Cookie": "sessionid=chip-smoke"}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------------------
+# fixture
+# ---------------------------------------------------------------------------
+
+
+def make_field(size: int, seed: int) -> np.ndarray:
+    """Smooth field + noise (compresses like microscopy, unlike white
+    noise): (size, size) uint16."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    base = 2000 + 1500 * np.sin(xx / 97.0) + 1500 * np.cos(yy / 131.0)
+    return (base + rng.normal(0, 120, (size, size))).clip(0, 65535).astype(np.uint16)
+
+
+def write_fixture(data: np.ndarray) -> str:
+    from omero_ms_pixel_buffer_tpu_torch.io.ometiff import write_ome_tiff
+
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "smoke.ome.tiff")
+    write_ome_tiff(path, data[None, None, None], tile_size=(TILE, TILE),
+                   compression="zlib")
+    registry = os.path.join(WORK, "registry.json")
+    with open(registry, "w") as f:
+        json.dump({"images": [{"id": 1, "path": path, "name": "smoke"}]}, f)
+    return registry
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call on the card (CUDA events around a run)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, name: str, iters: int = 10):
+    """Mean device time of the kernels whose name contains ``name``
+    over ``iters`` calls, from torch.profiler's CUDA trace; None when the
+    profiler records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            count += ev.count
+    return total / count / 1e3 if count and total else None
+
+
+def device_breakdown(torch, fn, top: int = 10) -> dict:
+    """Device milliseconds of one call of ``fn`` in total and for its
+    ``top`` most expensive kernels (torch.profiler's CUDA trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if t:
+            rows.append((t / 1e3, ev.count, ev.key[:60]))
+    rows.sort(reverse=True)
+    return {"total": sum(r[0] for r in rows),
+            "top": [{"ms": ms, "n": n, "kernel": k} for ms, n, k in rows[:top]]}
+
+
+def lane_tiles(data: np.ndarray, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed + 1)
+    size = data.shape[0]
+    ys = rng.integers(0, (size - TILE) // 64 + 1, LANES) * 64
+    xs = rng.integers(0, (size - TILE) // 64 + 1, LANES) * 64
+    return np.stack([data[y:y + TILE, x:x + TILE] for y, x in zip(ys, xs)])
+
+
+def check_kernels(torch, device, tiles: np.ndarray) -> list:
+    from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens,
+        pack_tokens_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.filter import (
+        filter_tiles,
+        filter_tiles_plain,
+    )
+
+    def max_err(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+    u16 = bits_tensor(tiles).to(device)
+    rng = np.random.default_rng(7)
+    cases = {f"u16_{m}": (u16, m) for m in ("none", "sub", "up", "average", "paeth")}
+    cases["u8_up"] = (bits_tensor((tiles >> 4).astype(np.uint8)).to(device), "up")
+    rgb = rng.integers(0, 256, (LANES, TILE, TILE, 3), dtype=np.uint8)
+    cases["rgb8_paeth"] = (bits_tensor(rgb).to(device), "paeth")
+    filter_errs = {}
+    for name, (x, mode) in cases.items():
+        got, want = filter_tiles(x, mode), filter_tiles_plain(x, mode)
+        torch.cuda.synchronize()
+        filter_errs[name] = max_err(got, want)
+        require(torch.equal(got, want), f"filter kernel != plain for {name}")
+    f_call = time_ms(torch, lambda: filter_tiles(u16, "up"))
+    f_ms = kernel_ms(torch, lambda: filter_tiles(u16, "up"), "filter_rows")
+    f_plain = time_ms(torch, lambda: filter_tiles_plain(u16, "up"))
+    f_bytes = u16.numel() * 2 + LANES * TILE * (1 + TILE * 2)
+
+    # the packer on the real pass-2 tokens of these lanes
+    row_bytes = 1 + TILE * 2
+    flat, counts, extras, real = dd.fused_filter_histogram_batch(u16, TILE, row_bytes, 2)
+    tables = dd.build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(), real=real)
+    bits, nbits = dd.emit_tokens(flat, dd.tables_from_numpy(tables, device))
+    maxbits = dd._packing_maxbits(flat.shape[1])
+    got_p, got_t = pack_tokens(bits, nbits, maxbits)
+    want_p, want_t = pack_tokens_plain(bits, nbits, maxbits)
+    torch.cuda.synchronize()
+    require(torch.equal(got_p, want_p) and torch.equal(got_t, want_t),
+            "bitpack kernel != plain on pass-2 tokens")
+    streams, lengths = dd._frame_lanes(flat, got_p, got_t)
+    streams_np, lengths_np, flat_np = streams.cpu().numpy(), lengths.cpu().numpy(), flat.cpu().numpy()
+    for i in range(real):
+        require(zlib.decompress(streams_np[i, : lengths_np[i]].tobytes())
+                == flat_np[i].tobytes(), f"lane {i} stream does not inflate back")
+    # device time of one whole 32-lane group (both passes), by kernel
+    def group():
+        f, c, e, r = dd.fused_filter_histogram_batch(u16, TILE, row_bytes, 2)
+        dd.dynamic_emit(f, dd.tables_from_numpy(tables, device))
+
+    group_top = device_breakdown(torch, group)
+    b_call = time_ms(torch, lambda: pack_tokens(bits, nbits, maxbits))
+    b_ms = kernel_ms(torch, lambda: pack_tokens(bits, nbits, maxbits), "pack_block")
+    b_plain = time_ms(torch, lambda: pack_tokens_plain(bits, nbits, maxbits), iters=5)
+    b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
+    emit({"phase": "kernels", "filter_cases_max_abs_err": filter_errs,
+          "group_device_ms": group_top,
+          "bitpack": {"lanes": int(bits.shape[0]), "ntok": int(bits.shape[1]),
+                      "maxbits": maxbits, "body_bits_mean": float(got_t.float().mean()),
+                      "stream_bytes_mean": float(lengths_np[:real].mean())}})
+    return [
+        {"name": "filter", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/filter.py:137",
+         "max_abs_err": max(filter_errs.values()), "ms": f_ms if f_ms else f_call,
+         "ms_from": "profiler" if f_ms else "events", "call_ms": f_call, "plain_ms": f_plain,
+         "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "bitpack", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:201",
+         "max_abs_err": max_err(got_p, want_p), "ms": b_ms if b_ms else b_call,
+         "ms_from": "profiler" if b_ms else "events", "call_ms": b_call, "plain_ms": b_plain,
+         "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# the served path
+# ---------------------------------------------------------------------------
+
+
+def decode_png(body: bytes) -> np.ndarray:
+    """Grayscale 8/16-bit PNG -> array, with zlib and a numpy unfilter
+    (filter types none and up: what the service emits)."""
+    require(body[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat = 8, b""
+    while pos < len(body):
+        (n,) = struct.unpack(">I", body[pos:pos + 4])
+        tag, data = body[pos + 4:pos + 8], body[pos + 8:pos + 8 + n]
+        require(zlib.crc32(tag + data) & 0xFFFFFFFF
+                == struct.unpack(">I", body[pos + 8 + n:pos + 12 + n])[0], "bad CRC")
+        if tag == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", data[:10])
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    require(color == 0 and depth in (8, 16), "unexpected PNG format")
+    rb = w * depth // 8
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + rb)
+    require(np.isin(rows[:, 0], (0, 2)).all(), "unexpected PNG filter type")
+    res = rows[:, 1:].copy()
+    up = rows[:, 0] == 2
+    out = np.zeros_like(res)
+    prev = np.zeros(rb, np.uint8)
+    for y in range(h):  # row-serial: each up row adds the row above
+        out[y] = res[y] + prev if up[y] else res[y]
+        prev = out[y]
+    return out.view(">u2" if depth == 16 else np.uint8).reshape(h, w)
+
+
+class Client:
+    """Keep-alive HTTP connections, one per worker thread."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self._local = threading.local()
+        self._conns = []
+        self._lock = threading.Lock()
+
+    def close(self) -> None:
+        with self._lock:
+            for conn in self._conns:
+                conn.close()
+            self._conns.clear()
+
+    def get(self, path: str):
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = self._local.conn = http.client.HTTPConnection(
+                "127.0.0.1", self.port, timeout=120)
+            with self._lock:
+                self._conns.append(conn)
+        t0 = time.perf_counter()
+        conn.request("GET", path, headers=COOKIE)
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, body, time.perf_counter() - t0
+
+
+def run_requests(client: Client, reqs, concurrency: int):
+    with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+        t0 = time.perf_counter()
+        out = list(pool.map(lambda r: client.get(r[0]), reqs))
+        return out, time.perf_counter() - t0
+
+
+def tile_requests(rng, size: int, n: int):
+    reqs = []
+    for _ in range(n):
+        x = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        y = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        reqs.append((f"/tile/1/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png",
+                     (x, y, TILE, TILE), 200))
+    return reqs
+
+
+def edge_requests(size: int):
+    def req(x, y, w, h, status=200):
+        return (f"/tile/1/0/0/0?x={x}&y={y}&w={w}&h={h}&format=png", (x, y, w, h), status)
+
+    return [
+        req(64, 128, 300, 200), req(size // 8, size * 3 // 8, 300, 200),
+        req(5, 7, 17, 511),
+        req(size - 300, 640, 300, 200),        # ends at the right edge
+        req(512, size - 200, 300, 200),        # ends at the bottom edge
+        req(size - TILE // 2, 0, TILE, TILE, 404),  # crosses the right edge
+        req(0, 0, 100, 100, 200),
+    ]
+
+
+def get_json(client: Client, path: str) -> dict:
+    status, body, _ = client.get(path)
+    require(status == 200, f"{path} answered {status}")
+    return json.loads(body)
+
+
+def verify(results, reqs, data: np.ndarray) -> int:
+    checked = 0
+    for (status, body, _), (path, (x, y, w, h), want) in zip(results, reqs):
+        require(status == want, f"{path} answered {status}, expected {want}")
+        if status == 200:
+            require(np.array_equal(decode_png(body), data[y:y + h, x:x + w]),
+                    f"{path}: pixels differ from the source")
+            checked += 1
+    return checked
+
+
+def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
+               device: str = "cuda") -> dict:
+    from omero_ms_pixel_buffer_tpu_torch.http.server import create_server
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    server = create_server(registry, dev=True, device=device)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="smoke-server", daemon=True)
+    thread.start()
+    client = None
+    try:
+        port = asyncio.run_coroutine_threadsafe(
+            server.start("127.0.0.1", 0), loop).result(120)
+        client = Client(port)
+        size = data.shape[0]
+        rng = np.random.default_rng(seed + 2)
+        reset_launch_counts()
+        # two warm-up rounds: the plane is admitted on its second touch
+        warm = tile_requests(rng, size, 2 * LANES)
+        t_warm = time.perf_counter()
+        warm_out = []
+        for r in (warm[:LANES], warm[LANES:]):
+            warm_out += run_requests(client, r, LANES)[0]
+        warm_s = time.perf_counter() - t_warm
+        main = tile_requests(rng, size, n_requests)
+        main_out, main_s = run_requests(client, main, LANES)
+        edges = edge_requests(size)
+        edge_out, _ = run_requests(client, edges, len(edges))
+        launches = launch_counts()
+        health = get_json(client, "/healthz")
+        checked = (verify(warm_out, warm, data) + verify(main_out, main, data)
+                   + verify(edge_out, edges, data))
+        lat_ms = np.array([r[2] for r in main_out]) * 1e3
+        require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+        require(health["kernels"] == launches, "healthz counters disagree")
+        require(health["plane_cache"]["hits"] > 0, "plane cache had no hits")
+        require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
+        return {
+            "phase": "path", "tiles_verified": checked, "launches": launches,
+            "requests": n_requests, "concurrency": LANES,
+            "tiles_per_s": n_requests / main_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
+            "plane_cache": health["plane_cache"], "queue": health["queue"],
+            "batcher": health["batcher"], "gpu": health["gpu"],
+        }
+    finally:
+        if client is not None:
+            client.close()
+        asyncio.run_coroutine_threadsafe(server.close(), loop).result(120)
+        server.pipeline.close()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+
+
+def smi_line() -> str:
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--size", type=int, default=8192)
+    p.add_argument("--requests", type=int, default=256)
+    args = p.parse_args(argv)
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        from omero_ms_pixel_buffer_tpu_torch.ops.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port package is not beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    try:
+        t0 = time.perf_counter()
+        report = _build.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "compiled": {k: v["seconds"] for k, v in report.items()},
+              "ptxas": {k: [ln.strip() for ln in v["log"].splitlines()
+                            if "registers" in ln or "spill" in ln]
+                        for k, v in report.items()}})
+        t0 = time.perf_counter()
+        data = make_field(args.size, args.seed)
+        registry = write_fixture(data)
+        emit({"phase": "fixture", "size": args.size, "seconds": time.perf_counter() - t0})
+        device = torch.device("cuda", 0)
+        kernels = check_kernels(torch, device, lane_tiles(data, args.seed))
+        path = drive_path(registry, data, args.seed, args.requests)
+        emit(path)
+        for k in kernels:
+            k["launches"] = path["launches"][k["name"]]
+        emit({"kernels": kernels})
+        print(smi_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Serve /tile from the port:
+
+    python -m omero_ms_pixel_buffer_tpu_torch --dev --registry registry.json \\
+        --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2]
+
+On ``cuda`` the kernels are built (or found built) before the port
+opens; without a GPU the command fails unless ``--device cpu`` is
+given. The line ``listening on HOST:PORT`` is printed once serving.
+SIGINT/SIGTERM drain and stop.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import signal
+import sys
+
+
+def _parse(argv):
+    p = argparse.ArgumentParser(description="PyTorch/CUDA pixel-buffer tile service")
+    p.add_argument("--registry", required=True, help="image registry JSON")
+    p.add_argument("--port", type=int, default=8082)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--dev", action="store_true",
+                   help="accept any sessionid cookie as its own session key "
+                   "(never in production)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--buckets", default="256,512,1024",
+                   help="comma-separated square shape buckets")
+    p.add_argument("--queue-depth", type=int, default=2,
+                   help="encode groups in flight on the device")
+    return p.parse_args(argv)
+
+
+async def _serve(args) -> None:
+    from .http.server import create_server
+
+    server = create_server(
+        args.registry, dev=args.dev, device=args.device,
+        buckets=[int(b) for b in args.buckets.split(",")],
+        queue_depth=args.queue_depth,
+    )
+    port = await server.start(args.host, args.port)
+    print(f"listening on {args.host}:{port}", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    try:
+        await stop.wait()
+    finally:
+        await server.close()
+        server.pipeline.close()
+
+
+def main(argv=None) -> int:
+    args = _parse(argv)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    asyncio.run(_serve(args))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,243 @@
+"""HTTP/1.1 front on ``asyncio.start_server`` (counterpart of the /tile
+route of ``omero_ms_pixel_buffer_tpu/http/server.py``, without aiohttp).
+
+Routes: ``GET /tile/{imageId}/{z}/{c}/{t}`` (query x/y/w/h/resolution/
+format) and ``GET /healthz``. Connections are keep-alive. Sessions: a
+``sessionid`` cookie maps to an OMERO session key through an in-memory
+map; with ``dev`` every cookie value is its own key (the echo store). A
+missing or unknown cookie is 403 "Permission denied", a bad parameter
+400 with the parse message, an unknown image 404, as the JAX package
+answers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import http
+import json
+import logging
+import re
+import time
+from http.cookies import CookieError, SimpleCookie
+from typing import Dict, Optional, Tuple
+from urllib.parse import parse_qsl, urlsplit
+
+from ..dispatch.batcher import BatchingTileWorker
+from ..errors import TileError
+from ..ops.kernels import launch_counts
+from ..tile_ctx import TileCtx
+
+log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.http")
+
+CONTENT_TYPES = {
+    None: "application/octet-stream",
+    "png": "image/png",
+    "tif": "image/tiff",
+}
+
+_TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
+_MAX_HEADERS = 100
+_MAX_BODY = 1 << 20
+# per-request deadline (the JAX package's event-bus-send-timeout default)
+REQUEST_BUDGET_S = 15.0
+
+
+class TileServer:
+    """The asyncio HTTP front over a batching worker."""
+
+    def __init__(
+        self,
+        worker: BatchingTileWorker,
+        dev: bool = False,
+        sessions: Optional[Dict[str, str]] = None,
+        gpu: Optional[dict] = None,
+    ):
+        self.worker = worker
+        self.pipeline = worker.pipeline
+        self.dev = dev
+        self.sessions = dict(sessions or {})
+        self.gpu = gpu
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._writers: set = set()  # open connections, closed at shutdown
+        self.port: Optional[int] = None
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Start the worker and listen; returns the bound port."""
+        await self.worker.start()
+        self._server = await asyncio.start_server(self._client, host, port)
+        self.port = self._server.sockets[0].getsockname()[1]
+        return self.port
+
+    async def close(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            for writer in list(self._writers):
+                writer.close()  # idle keep-alive connections end here
+            await self._server.wait_closed()
+            self._server = None
+        await self.worker.close()
+
+    # -- connection loop ---------------------------------------------------
+
+    async def _client(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        self._writers.add(writer)
+        try:
+            while True:
+                request = await self._read_request(reader)
+                if request is None:
+                    break
+                method, target, version, headers = request
+                keep_alive = _keep_alive(version, headers)
+                status, out_headers, body = await self._dispatch(method, target, headers)
+                _write_response(writer, status, out_headers, body, keep_alive)
+                await writer.drain()
+                if not keep_alive:
+                    break
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        except _BadRequest as e:
+            _write_response(writer, 400, {}, str(e).encode(), False)
+        finally:
+            self._writers.discard(writer)
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except ConnectionError:
+                pass
+
+    @staticmethod
+    async def _read_request(reader):
+        line = await reader.readline()
+        if not line:
+            return None
+        try:
+            method, target, version = line.decode("latin-1").rstrip("\r\n").split(" ")
+        except ValueError:
+            raise _BadRequest("Malformed request line") from None
+        headers: Dict[str, str] = {}
+        for _ in range(_MAX_HEADERS + 1):
+            raw = await reader.readline()
+            if raw in (b"\r\n", b"\n", b""):
+                break
+            name, sep, value = raw.decode("latin-1").partition(":")
+            if not sep:
+                raise _BadRequest("Malformed header")
+            headers[name.strip().lower()] = value.strip()
+        else:
+            raise _BadRequest("Too many headers")
+        if "transfer-encoding" in headers:
+            raise _BadRequest("Request bodies are not accepted")
+        length = int(headers.get("content-length", "0") or 0)
+        if length < 0 or length > _MAX_BODY:
+            raise _BadRequest("Bad Content-Length")
+        if length:
+            await reader.readexactly(length)  # discarded: GET only
+        return method, target, version, headers
+
+    async def _dispatch(self, method: str, target: str, headers: Dict[str, str]
+                        ) -> Tuple[int, dict, bytes]:
+        parts = urlsplit(target)
+        if method != "GET":
+            return 405, {}, b"Method Not Allowed"
+        if parts.path == "/healthz":
+            body = json.dumps(self.health()).encode()
+            return 200, {"Content-Type": "application/json"}, body
+        m = _TILE_PATH.match(parts.path)
+        if m is None:
+            return 404, {}, b"Not Found"
+        key = self._session_key(headers.get("cookie"))
+        if not key:
+            return 403, {}, b"Permission denied"
+        query: Dict[str, str] = {}
+        for k, v in parse_qsl(parts.query, keep_blank_values=True):
+            query.setdefault(k, v)  # first value per key, as aiohttp's
+        params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
+        params.update(query)
+        try:
+            ctx = TileCtx.from_params(params, key)
+        except TileError as e:
+            return 400, {}, e.message.encode()
+        ctx.deadline = time.monotonic() + REQUEST_BUDGET_S
+        try:
+            body, meta = await self.worker.handle(ctx)
+        except TileError as e:
+            return (e.code if e.code >= 1 else 500), {}, b""
+        return 200, {
+            "Content-Type": CONTENT_TYPES.get(ctx.format, "application/octet-stream"),
+            "Content-Disposition": f'attachment; filename="{meta["filename"]}"',
+        }, body
+
+    def _session_key(self, cookie_header: Optional[str]) -> Optional[str]:
+        if not cookie_header:
+            return None
+        try:
+            jar = SimpleCookie(cookie_header)
+        except CookieError:
+            return None
+        morsel = jar.get("sessionid")
+        if morsel is None or not morsel.value:
+            return None
+        return morsel.value if self.dev else self.sessions.get(morsel.value)
+
+    def health(self) -> dict:
+        """/healthz body: kernel launch counters, the encode queue's and
+        the plane cache's snapshots."""
+        return {
+            "status": "ok",
+            "device": str(self.pipeline.device),
+            "gpu": self.gpu,
+            "kernels": launch_counts(),
+            "queue": self.pipeline.device_queue_snapshot(),
+            "plane_cache": self.pipeline.plane_cache_snapshot(),
+            "batcher": self.worker.snapshot(),
+        }
+
+
+def create_server(
+    registry_path: str, dev: bool = False, device: str = "cuda",
+    buckets=(256, 512, 1024), queue_depth: int = 2,
+) -> TileServer:
+    """The service as ``python -m omero_ms_pixel_buffer_tpu_torch`` runs
+    it: registry -> pixels service -> pipeline -> batcher -> HTTP front.
+    On CUDA the kernels are built (or found built) here, so a build
+    failure stops start-up."""
+    from ..io.pixels_service import ImageRegistry, PixelsService
+    from ..models.tile_pipeline import TilePipeline
+    from ..runtime.device import gpu_info
+
+    pipeline = TilePipeline(
+        PixelsService(ImageRegistry(registry_path)), buckets=tuple(buckets),
+        queue_depth=queue_depth, device=device,
+    )
+    gpu = None
+    if pipeline.device.type == "cuda":
+        from ..ops.kernels import _build
+
+        _build.build()
+        gpu = gpu_info(pipeline.device.index or 0)
+    return TileServer(BatchingTileWorker(pipeline), dev=dev, gpu=gpu)
+
+
+class _BadRequest(Exception):
+    pass
+
+
+def _keep_alive(version: str, headers: Dict[str, str]) -> bool:
+    conn = headers.get("connection", "").lower()
+    if version == "HTTP/1.0":
+        return conn == "keep-alive"
+    return conn != "close"
+
+
+def _write_response(writer, status: int, headers: dict, body: bytes,
+                    keep_alive: bool) -> None:
+    reason = http.HTTPStatus(status).phrase
+    lines = [f"HTTP/1.1 {status} {reason}"]
+    if body and "Content-Type" not in headers:
+        headers = {**headers, "Content-Type": "text/plain; charset=utf-8"}
+    for k, v in headers.items():
+        lines.append(f"{k}: {v}")
+    lines.append(f"Content-Length: {len(body)}")
+    lines.append(f"Connection: {'keep-alive' if keep_alive else 'close'}")
+    writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + body)

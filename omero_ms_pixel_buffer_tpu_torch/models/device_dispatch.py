@@ -1,0 +1,291 @@
+"""Streaming device-encode queue (counterpart of ``DeviceEncodeDispatcher``
+in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, dynamic
+mode, single device).
+
+Callers get a Future per encode group at once. One SUBMIT thread stages
+each group's host batch to the device and launches pass 1 (filter
+kernel + histogram); one READBACK thread waits on the group's event,
+pulls the (B, 286) counts, builds the Huffman tables on the host,
+launches pass 2 (emit + bit-pack kernel + framing), waits on its event
+and frames the PNGs. A semaphore bounds in-flight groups to
+``queue_depth``. All of a group's device work runs on the queue's side
+CUDA stream and each pass ends with a recorded event, so the threads
+wait on events, never on the whole device.
+
+Failure contract: any failure in a group resolves THAT group's future
+with the exception (its lanes answer 500) and is counted in
+``snapshot()["failed"]``; there is no host re-encode.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import logging
+import threading
+import time
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.device_deflate import (
+    build_dynamic_tables,
+    dynamic_emit,
+    fused_filter_histogram_batch,
+    tables_from_numpy,
+)
+from ..ops.png import frame_png
+
+log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
+
+# per-group stage timings (host wall clock, seconds): H2D + pass-1 launch
+# on the submit thread; then on the readback thread the wait for pass 1
+# with the counts pull, the host Huffman plan, pass 2 launch + wait, the
+# stream pull and the PNG framing
+STAGES = ("stage", "pass1_wait", "plan", "pass2", "pull", "frame")
+
+
+class DeviceEncodeDispatcher:
+    """Submit encode groups into the persistent queue; collect
+    per-group futures resolving to {lane_index: png_bytes}."""
+
+    def __init__(self, device: torch.device, queue_depth: int = 2):
+        self.device = device
+        self.queue_depth = max(1, int(queue_depth))
+        self._stream = (
+            torch.cuda.Stream(device) if device.type == "cuda" else None
+        )
+        self._submit_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="devenc-submit"
+        )
+        self._readback = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="devenc-readback"
+        )
+        self._slots = threading.Semaphore(self.queue_depth)
+        self._closed = False
+        self._pending_lock = threading.Lock()
+        self._pending: set = set()
+        # adaptive compressed-size guess per (w, h): lengths and stream
+        # bytes come back in one pull
+        self._dd_cap: Dict[Tuple[int, int], int] = {}
+        self._stats_lock = threading.Lock()
+        self._inflight = 0
+        self._groups = 0
+        self._lanes = 0
+        self._failed = 0
+        self._completed = 0
+        self._stage_s = dict.fromkeys(STAGES, 0.0)
+
+    # -- streams and events ----------------------------------------------
+
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _mark(self):
+        """Record an event on the side stream (None on the CPU)."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return ev
+
+    @staticmethod
+    def _wait(ev) -> None:
+        if ev is not None:
+            ev.synchronize()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self, drain_timeout: float = 30.0) -> None:
+        """Stop accepting groups, wait up to ``drain_timeout`` for the
+        submitted ones, then release the threads. Idempotent."""
+        self._closed = True
+        self._submit_pool.shutdown(wait=False)
+        with self._pending_lock:
+            pending = list(self._pending)
+        _, not_done = concurrent.futures.wait(pending, timeout=drain_timeout)
+        for fut in not_done:
+            self._resolve_exc(fut, TimeoutError("device encode queue drain timed out"))
+        self._readback.shutdown(wait=not not_done)
+
+    def snapshot(self) -> dict:
+        """/healthz view: groups submitted, lanes encoded, groups failed,
+        in-flight count, and per stage the mean milliseconds of a
+        completed group (``STAGES``)."""
+        with self._stats_lock:
+            done = self._completed
+            return {
+                "queue_depth": self.queue_depth,
+                "inflight": self._inflight,
+                "groups": self._groups,
+                "lanes": self._lanes,
+                "failed": self._failed,
+                "stage_ms_mean": {
+                    k: round(v / done * 1e3, 3) for k, v in self._stage_s.items()
+                } if done > 0 else None,
+            }
+
+    # -- submission --------------------------------------------------------
+
+    def submit(
+        self, tiles, rows: int, row_bytes: int, bpp: int, filter_mode: str,
+        lanes: Sequence[int], sizes: Sequence[Tuple[int, int]],
+        bit_depth: int, color_type: int, staged: bool = False,
+    ) -> "concurrent.futures.Future":
+        """Enqueue one encode group. ``tiles`` is a host bit tensor
+        (bucket route, copied to the device on the submit thread) or an
+        already device-resident batch made on this queue's stream
+        (plane route, ``staged=True``). All lanes share one real (w, h),
+        described by ``rows``/``row_bytes``."""
+        if self._closed:
+            raise RuntimeError("device encode queue is closed")
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        with self._pending_lock:
+            self._pending.add(fut)
+        fut.add_done_callback(self._discard_pending)
+        with self._stats_lock:
+            self._groups += 1
+        args = (tiles, rows, row_bytes, bpp, filter_mode, list(lanes),
+                list(sizes), bit_depth, color_type, staged)
+        try:
+            self._submit_pool.submit(self._run_stage, fut, args)
+        except RuntimeError as e:  # close() raced the check
+            self._fail(fut, e)
+        return fut
+
+    def failed_group(self, exc: Exception) -> "concurrent.futures.Future":
+        """A group that failed before it reached the queue (its batch
+        could not be built or submitted): counted, future raising."""
+        fut: "concurrent.futures.Future" = concurrent.futures.Future()
+        self._fail(fut, exc)
+        return fut
+
+    def stream_context(self):
+        """Context making the queue's side stream current: the pipeline
+        builds staged (plane-cache) batches inside it."""
+        return self._on_stream()
+
+    def _discard_pending(self, fut) -> None:
+        with self._pending_lock:
+            self._pending.discard(fut)
+
+    @staticmethod
+    def _resolve_exc(fut, exc) -> None:
+        try:
+            fut.set_exception(exc)
+        except concurrent.futures.InvalidStateError:
+            pass  # close()'s drain deadline got there first
+
+    def _fail(self, fut, exc) -> None:
+        with self._stats_lock:
+            self._failed += 1
+        log.error("device encode group failed: %r", exc)
+        self._resolve_exc(fut, exc)
+
+    def _release_slot(self) -> None:
+        with self._stats_lock:
+            self._inflight -= 1
+        self._slots.release()
+
+    def _run_stage(self, fut, args) -> None:
+        """Submit thread: take an in-flight slot, stage + launch pass 1,
+        chain the readback."""
+        self._slots.acquire()
+        with self._stats_lock:
+            self._inflight += 1
+        try:
+            t0 = time.perf_counter()
+            pass1 = self._stage_group(*args)
+            t_stage = time.perf_counter() - t0
+            rfut = self._readback.submit(self._readback_group, t_stage, pass1, *args[5:9])
+        except Exception as e:
+            self._release_slot()
+            self._fail(fut, e)
+            return
+        rfut.add_done_callback(lambda rf: self._finish_group(fut, rf))
+
+    def _finish_group(self, fut, rfut) -> None:
+        self._release_slot()
+        exc = rfut.exception()
+        if exc is not None:
+            self._fail(fut, exc)
+            return
+        try:
+            fut.set_result(rfut.result())
+        except concurrent.futures.InvalidStateError:
+            pass
+
+    # -- the two passes ----------------------------------------------------
+
+    def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, lanes,
+                     sizes, bit_depth, color_type, staged):
+        """Submit thread: H2D (bucket route) and pass 1 on the side
+        stream; returns the device tensors plus the pass-1 event."""
+        with self._on_stream():
+            batch = tiles if staged else tiles.to(self.device, non_blocking=True)
+            flat, counts, extras, real_b = fused_filter_histogram_batch(
+                batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+            )
+            return flat, counts, extras, real_b, self._mark()
+
+    def _readback_group(self, t_stage, pass1, lanes, sizes, bit_depth, color_type):
+        """Readback thread: pull the counts once pass 1 is done, plan the
+        tables, run pass 2, pull and frame."""
+        flat, counts, extras, real_b, ev1 = pass1
+        t = [time.perf_counter()]
+
+        def lap():
+            t.append(time.perf_counter())
+            return t[-1] - t[-2]
+
+        self._wait(ev1)
+        counts_np = counts.cpu().numpy()
+        extras_np = extras.cpu().numpy()
+        timing = {"stage": t_stage, "pass1_wait": lap()}
+        tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
+        with self._on_stream():
+            tables = tables_from_numpy(tables, flat.device)
+            timing["plan"] = lap()
+            streams, lengths = dynamic_emit(flat, tables)
+            self._wait(self._mark())
+        timing["pass2"] = lap()
+        streams_np, lengths_np = self._pull(streams[:real_b], lengths[:real_b], sizes[0])
+        timing["pull"] = lap()
+        out = {
+            lane: frame_png(
+                np.ascontiguousarray(streams_np[j, : int(lengths_np[j])]).tobytes(),
+                sizes[j][0], sizes[j][1], bit_depth, color_type,
+            )
+            for j, lane in enumerate(lanes)
+        }
+        timing["frame"] = lap()
+        with self._stats_lock:
+            for k, v in timing.items():
+                self._stage_s[k] += v
+            self._lanes += len(lanes)
+            self._completed += 1
+        return out
+
+    def _pull(self, streams, lengths, size):
+        """Pull lengths and the leading ``cap`` stream bytes (the adaptive
+        pow2 guess per (w, h); one more pull when a lane overflows it)."""
+        full_cap = streams.shape[1]
+        with self._stats_lock:
+            guess = min(
+                self._dd_cap.get(size, 1 << max(full_cap // 4, 64).bit_length()),
+                full_cap,
+            )
+        lengths_np = lengths.cpu().numpy()
+        streams_np = streams[:, :guess].cpu().numpy()
+        max_len = int(lengths_np.max()) if lengths_np.size else 0
+        if max_len > guess:
+            cap = min(full_cap, 1 << max(max_len - 1, 0).bit_length())
+            streams_np = streams[:, :cap].cpu().numpy()
+        with self._stats_lock:
+            self._dd_cap[size] = min(
+                full_cap, 1 << max(2 * max_len - 1, 0).bit_length()
+            )
+        return streams_np, lengths_np

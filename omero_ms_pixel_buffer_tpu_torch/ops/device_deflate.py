@@ -1,0 +1,566 @@
+"""Two-pass dynamic-Huffman zlib streams built on the device
+(counterpart of ``omero_ms_pixel_buffer_tpu/ops/device_deflate.py``,
+mode ``dynamic``).
+
+Pass 1 (``fused_filter_histogram_batch``) runs the PNG filter kernel,
+the Z_RLE run decomposition and a 286-symbol histogram per lane; only
+the (B, 286) counts cross to the host. The host builds per-lane
+length-limited canonical Huffman codes (``build_dynamic_tables``, the
+numpy planner copied verbatim) — the state pass 1 hands to pass 2.
+Pass 2 (``dynamic_emit_batch``) re-runs the decomposition, maps every
+token through its lane's tables, packs the bits with the bit-pack
+kernel and frames each lane as a zlib stream, falling back per lane to
+stored blocks when those are shorter. Every stream is byte-identical to
+the JAX package's for the same payloads and tables.
+
+    payloads (B, L) uint8 -> streams (B, max_stream_len(L)) uint8,
+                             lengths (B,) int64
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .kernels.bitpack import pack_tokens
+from .kernels.filter import filter_tiles
+
+_MOD = 65521  # largest prime < 2^16 (adler32 modulus)
+_BLOCK = 65535  # max stored-block payload (16-bit LEN)
+_MAX_MATCH = 258  # deflate maximum match length
+
+
+# ---------------------------------------------------------------------------
+# Fixed-Huffman code tables (RFC 1951 §3.2.6), precomputed on host and
+# stored pre-bit-reversed for LSB-first emission.
+# ---------------------------------------------------------------------------
+
+
+def _bit_reverse(code: int, nbits: int) -> int:
+    r = 0
+    for _ in range(nbits):
+        r = (r << 1) | (code & 1)
+        code >>= 1
+    return r
+
+
+_LEN_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
+             35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258]
+_LEN_EXTRA = [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2,
+              3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0]
+_NUM_LITLEN = 286  # 0-255 literals, 256 EOB, 257-285 length symbols
+
+
+def _length_code_index(length: int) -> int:
+    if length == _MAX_MATCH:
+        return 28  # code 285, exact, 0 extra
+    return max(
+        k for k in range(28)
+        if _LEN_BASE[k] <= length
+        and length < _LEN_BASE[k] + (1 << _LEN_EXTRA[k])
+    )
+
+
+def _build_tables():
+    lit_bits = np.zeros(256, np.uint32)
+    lit_nbits = np.zeros(256, np.int32)
+    for v in range(256):
+        if v < 144:
+            code, n = 0x30 + v, 8
+        else:
+            code, n = 0x190 + (v - 144), 9
+        lit_bits[v] = _bit_reverse(code, n)
+        lit_nbits[v] = n
+
+    match_bits = np.zeros(_MAX_MATCH + 1, np.uint32)
+    match_nbits = np.zeros(_MAX_MATCH + 1, np.int32)
+    mlen_sym = np.zeros(_MAX_MATCH + 1, np.int32)
+    mlen_extra = np.zeros(_MAX_MATCH + 1, np.int32)
+    mlen_base = np.zeros(_MAX_MATCH + 1, np.int32)
+    for length in range(3, _MAX_MATCH + 1):
+        i = _length_code_index(length)
+        symbol = 257 + i
+        mlen_sym[length] = symbol
+        mlen_extra[length] = _LEN_EXTRA[i]
+        mlen_base[length] = _LEN_BASE[i]
+        if symbol <= 279:
+            rev, n = _bit_reverse(symbol - 256, 7), 7
+        else:
+            rev, n = _bit_reverse(0xC0 + (symbol - 280), 8), 8
+        extra_val = length - _LEN_BASE[i]
+        match_bits[length] = rev | (extra_val << n)
+        match_nbits[length] = n + _LEN_EXTRA[i] + 5
+    return (lit_bits, lit_nbits, match_bits, match_nbits,
+            mlen_sym, mlen_extra, mlen_base)
+
+
+(_LIT_BITS, _LIT_NBITS, _MATCH_BITS, _MATCH_NBITS,
+ _MLEN_SYM, _MLEN_EXTRA, _MLEN_BASE) = _build_tables()
+
+_FIXED_SYM_LEN = np.zeros(_NUM_LITLEN, np.int64)
+_FIXED_SYM_LEN[:144] = 8
+_FIXED_SYM_LEN[144:256] = 9
+_FIXED_SYM_LEN[256:280] = 7
+_FIXED_SYM_LEN[280:] = 8
+
+
+def stored_stream_len(payload_len: int) -> int:
+    """Total zlib-stream bytes for a stored-block encode."""
+    nblocks = max(1, -(-payload_len // _BLOCK))
+    return 2 + 5 * nblocks + payload_len + 4
+
+
+def _packing_maxbits(payload_len: int) -> int:
+    """Worst-case deflate bits (all-literal at 9 bits/byte + 3 header
+    + 7 EOB), rounded up to a multiple of 1024."""
+    raw = 3 + 9 * payload_len + 7
+    return ((raw + 1023) // 1024) * 1024
+
+
+def max_stream_len(payload_len: int) -> int:
+    """Stream capacity: packing capacity + zlib header + adler32."""
+    return 2 + _packing_maxbits(payload_len) // 8 + 4
+
+
+# ---------------------------------------------------------------------------
+# Device passes (batched over lanes)
+# ---------------------------------------------------------------------------
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device`` without a stream sync: a pageable
+    non-blocking copy is staged at once, so the queue's threads never
+    wait here for earlier work on the stream."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, non_blocking=True)
+
+
+def _adler32(payloads: torch.Tensor) -> torch.Tensor:
+    """adler32 per lane: (B, L) uint8 -> (B,) int64. int64 sums mod
+    65521: the weighted sum stays below 2^63 for any tile."""
+    n = payloads.shape[1]
+    data = payloads.to(torch.int64)
+    weights = torch.arange(n, 0, -1, dtype=torch.int64, device=payloads.device) % _MOD
+    s1 = (1 + data.sum(dim=1)) % _MOD
+    s2 = (n % _MOD + (data * weights).sum(dim=1)) % _MOD
+    return (s2 << 16) | s1
+
+
+def _run_decompose(payloads: torch.Tensor):
+    """Z_RLE run decomposition of every lane with two scans: a maximal
+    run of r identical bytes is one literal head, then matches of <= 258
+    (distance 1), short tails literal. Returns per-position
+    ``(is_lit, is_match, mlen)``; pass 1 and pass 2 share it, so pass 2
+    emits exactly the tokens pass 1 counted."""
+    B, n = payloads.shape
+    dev = payloads.device
+    arange = torch.arange(n, dtype=torch.int32, device=dev).expand(B, n)
+    same = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    same[:, 1:] = payloads[:, 1:] == payloads[:, :-1]
+    run_start = ~same
+    start_pos = torch.cummax(
+        torch.where(run_start, arange, torch.full_like(arange, -1)), dim=1
+    ).values
+    p_in_run = arange - start_pos  # 0 at the run head
+    after = torch.full((B, n), n, dtype=torch.int32, device=dev)
+    after[:, :-1] = torch.where(run_start[:, 1:], arange[:, 1:], after[:, 1:])
+    next_start = torch.cummin(after.flip(1), dim=1).values.flip(1)
+    rem = next_start - arange  # bytes from here to run end, inclusive
+    qmod = torch.remainder(p_in_run - 1, _MAX_MATCH)
+    chunk_size = torch.clamp(rem + qmod, max=_MAX_MATCH)
+    is_lit = (p_in_run == 0) | (chunk_size < 3)
+    is_match = (p_in_run >= 1) & (qmod == 0) & (chunk_size >= 3)
+    mlen = torch.clamp(rem, 0, _MAX_MATCH)
+    return is_lit, is_match, mlen
+
+
+def _dyn_stats(payloads: torch.Tensor):
+    """Pass-1 statistics per lane: ((B, 286) int64 literal/length symbol
+    counts, (B,) int64 total match extra bits)."""
+    is_lit, is_match, mlen = _run_decompose(payloads)
+    dev = payloads.device
+    mlen_l = mlen.long()
+    msym = _to_device(_MLEN_SYM.astype(np.int64), dev)[mlen_l]
+    sym = torch.where(
+        is_lit, payloads.long(),
+        torch.where(is_match, msym, torch.full_like(msym, _NUM_LITLEN)),
+    )
+    counts = torch.zeros((payloads.shape[0], _NUM_LITLEN + 1),
+                         dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, sym, torch.ones_like(sym))
+    mextra = _to_device(_MLEN_EXTRA.astype(np.int64), dev)[mlen_l]
+    extras = torch.where(is_match, mextra, torch.zeros_like(mextra)).sum(dim=1)
+    return counts[:, :_NUM_LITLEN], extras
+
+
+def _pad_pow2_lanes(arr: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Pad the lane axis to a power of two with zero lanes (the same
+    lane shapes the JAX package encodes, so streams stay comparable)."""
+    b = arr.shape[0]
+    padded_b = 1 << max(b - 1, 0).bit_length()
+    if padded_b != b:
+        pad = torch.zeros((padded_b - b,) + tuple(arr.shape[1:]),
+                          dtype=arr.dtype, device=arr.device)
+        arr = torch.cat([arr, pad], dim=0)
+    return arr, b
+
+
+def fused_filter_histogram_batch(
+    tiles: torch.Tensor, rows: int, row_bytes: int, bpp: int,
+    filter_mode: str = "up",
+):
+    """Pass 1: PNG filter kernel + flatten + symbol histogram. ``tiles``
+    (B, H, W[, S]) 8/16-bit on the device; the leading ``rows`` x
+    ``row_bytes`` of each filtered lane is the payload. Returns ``(flat,
+    counts, extras, real_b)`` with the lanes pow2-padded; ``flat`` stays
+    on the device for pass 2."""
+    samples = tiles.shape[3] if tiles.ndim == 4 else 1
+    if bpp != samples * tiles.element_size():
+        raise ValueError(
+            f"bpp {bpp} does not match {samples} sample(s) of "
+            f"{tiles.element_size()} byte(s)"
+        )
+    tiles, b = _pad_pow2_lanes(tiles)
+    filtered = filter_tiles(tiles, filter_mode)
+    flat = filtered[:, :rows, :row_bytes].reshape(filtered.shape[0], -1)
+    counts, extras = _dyn_stats(flat)
+    return flat, counts, extras, b
+
+
+# ---------------------------------------------------------------------------
+# Host Huffman planner (numpy; verbatim from the JAX package)
+# ---------------------------------------------------------------------------
+
+_HDR_TOKENS = 320
+
+_CL_ORDER = (16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15)
+
+
+def _build_lengths_np(freq_in, limit: int) -> np.ndarray:
+    """Length-limited canonical Huffman code lengths from symbol
+    frequencies: heap tree build + frequency damping (halve-and-
+    rebuild) until the depth fits — the native fast_deflate.cc
+    algorithm, deterministic via (freq, insertion-order) heap keys."""
+    import heapq
+
+    n = len(freq_in)
+    lengths = np.zeros(n, np.int32)
+    freq = np.asarray(freq_in, np.int64).copy()
+    while True:
+        sym = np.flatnonzero(freq)
+        if sym.size == 0:
+            return lengths
+        if sym.size == 1:
+            lengths[:] = 0
+            lengths[sym[0]] = 1
+            return lengths
+        heap = [(int(freq[s]), int(s), int(s)) for s in sym]
+        heapq.heapify(heap)
+        children = {}
+        next_id = n
+        while len(heap) > 1:
+            fa, _, a = heapq.heappop(heap)
+            fb, _, b = heapq.heappop(heap)
+            children[next_id] = (a, b)
+            heapq.heappush(heap, (fa + fb, next_id, next_id))
+            next_id += 1
+        lengths[:] = 0
+        maxdepth = 0
+        stack = [(heap[0][2], 0)]
+        while stack:
+            node, d = stack.pop()
+            kids = children.get(node)
+            if kids is None:
+                lengths[node] = max(d, 1)
+                maxdepth = max(maxdepth, max(d, 1))
+            else:
+                stack.append((kids[0], d + 1))
+                stack.append((kids[1], d + 1))
+        if maxdepth <= limit:
+            return lengths
+        freq[freq > 0] = (freq[freq > 0] + 1) >> 1  # damp, keep nonzero
+
+
+def _build_codes_np(lengths: np.ndarray, max_len: int) -> np.ndarray:
+    """Canonical codes from lengths (RFC 1951 §3.2.2), pre-bit-reversed
+    for LSB-first emission."""
+    bl_count = np.bincount(lengths, minlength=max_len + 1).astype(np.int64)
+    bl_count[0] = 0
+    next_code = np.zeros(max_len + 1, np.int64)
+    code = 0
+    for bits in range(1, max_len + 1):
+        code = (code + int(bl_count[bits - 1])) << 1
+        next_code[bits] = code
+    codes = np.zeros(len(lengths), np.uint32)
+    for i, ln in enumerate(lengths):
+        if ln:
+            codes[i] = _bit_reverse(int(next_code[ln]), int(ln))
+            next_code[ln] += 1
+    return codes
+
+
+def _encode_code_lengths_np(lens: np.ndarray):
+    """RFC 1951 §3.2.7 run coding of the code-length sequence with CL
+    symbols 16/17/18 -> ([(sym, extra_bits, extra_val)], (19,) freq)."""
+    ops = []
+    cl_freq = np.zeros(19, np.int64)
+    i, n = 0, len(lens)
+    while i < n:
+        v = int(lens[i])
+        run = 1
+        while i + run < n and lens[i + run] == v:
+            run += 1
+        if v == 0:
+            while run >= 3:
+                take = min(run, 138)
+                if take >= 11:
+                    ops.append((18, 7, take - 11))
+                    cl_freq[18] += 1
+                else:
+                    ops.append((17, 3, take - 3))
+                    cl_freq[17] += 1
+                run -= take
+                i += take
+            while run > 0:
+                ops.append((0, 0, 0))
+                cl_freq[0] += 1
+                i += 1
+                run -= 1
+        else:
+            ops.append((v, 0, 0))
+            cl_freq[v] += 1
+            i += 1
+            run -= 1
+            while run >= 3:
+                take = min(run, 6)
+                ops.append((16, 2, take - 3))
+                cl_freq[16] += 1
+                run -= take
+                i += take
+            while run > 0:
+                ops.append((v, 0, 0))
+                cl_freq[v] += 1
+                i += 1
+                run -= 1
+    return ops, cl_freq
+
+
+def _lane_dynamic_plan(counts: np.ndarray, extra_bits: int):
+    """One lane's dynamic-vs-fixed decision from the pass-1 counts.
+
+    Returns ``None`` when the fixed tables win (both totals are exact
+    bit counts computed analytically — no trial emit), else
+    ``(header_tokens, lit_code, lit_len, ml_bits, ml_nbits, eob_bits,
+    eob_len)`` ready to drop into the per-lane emit tables."""
+    counts = counts.astype(np.int64)
+    match_tokens = int(counts[257:].sum())
+    any_run = match_tokens > 0
+    freq = counts.copy()
+    freq[256] = 1  # end-of-block (pass 1 histograms payload tokens only)
+    lit_len = _build_lengths_np(freq, 15)
+    dyn_body = (
+        int((counts * lit_len.astype(np.int64)).sum())
+        + int(extra_bits) + match_tokens + int(lit_len[256])
+    )
+    fixed_total = (
+        3 + int((counts * _FIXED_SYM_LEN).sum())
+        + int(extra_bits) + match_tokens * 5 + 7
+    )
+    hlit = _NUM_LITLEN
+    while hlit > 257 and lit_len[hlit - 1] == 0:
+        hlit -= 1
+    all_lens = np.concatenate(
+        [lit_len[:hlit], np.asarray([1 if any_run else 0], np.int32)]
+    )
+    ops, cl_freq = _encode_code_lengths_np(all_lens)
+    cl_len = _build_lengths_np(cl_freq, 7)
+    nz = np.flatnonzero(cl_len)
+    if nz.size == 1:
+        # a single 1-bit CL code is an incomplete code-length tree,
+        # which inflate rejects; a dummy 1-bit code completes it
+        cl_len[0 if nz[0] != 0 else 1] = 1
+    cl_code = _build_codes_np(cl_len, 7)
+    hclen = 19
+    while hclen > 4 and cl_len[_CL_ORDER[hclen - 1]] == 0:
+        hclen -= 1
+    hdr = [(5, 3), (hlit - 257, 5), (0, 5), (hclen - 4, 4)]
+    hdr += [(int(cl_len[_CL_ORDER[k]]), 3) for k in range(hclen)]
+    for s, eb, ev in ops:
+        cn = int(cl_len[s])
+        hdr.append((int(cl_code[s]) | (ev << cn), cn + eb))
+    dyn_total = sum(t[1] for t in hdr) + dyn_body
+    if dyn_total >= fixed_total or len(hdr) > _HDR_TOKENS:
+        return None
+    lit_code = _build_codes_np(lit_len, 15)
+    ml_bits = np.zeros(_MAX_MATCH + 1, np.uint32)
+    ml_nbits = np.zeros(_MAX_MATCH + 1, np.int32)
+    for ln in range(3, _MAX_MATCH + 1):
+        s = int(_MLEN_SYM[ln])
+        cn = int(lit_len[s])
+        if cn == 0:
+            continue  # symbol absent from this lane: length never occurs
+        ev = ln - int(_MLEN_BASE[ln])
+        ml_bits[ln] = int(lit_code[s]) | (ev << cn)
+        # + extra bits + the 1-bit distance-1 code (value 0)
+        ml_nbits[ln] = cn + int(_MLEN_EXTRA[ln]) + 1
+    return (
+        hdr, lit_code[:256], lit_len[:256], ml_bits, ml_nbits,
+        int(lit_code[256]), int(lit_len[256]),
+    )
+
+
+def build_dynamic_tables(
+    counts: np.ndarray, extras: np.ndarray, real: Optional[int] = None
+):
+    """Per-lane emit tables from the pass-1 stats: lanes where the
+    canonical dynamic code wins get their own header tokens + code
+    tables; lanes where fixed wins keep the fixed tables and the 3-bit
+    fixed header. Only the first ``real`` lanes get a plan (pow2 pad
+    lanes keep the fixed tables). Returns the 8 numpy arrays
+    ``(hdr_b, hdr_n, lit_b, lit_n, ml_b, ml_n, eob_b, eob_n)``."""
+    b = counts.shape[0]
+    hdr_b = np.zeros((b, _HDR_TOKENS), np.uint32)
+    hdr_n = np.zeros((b, _HDR_TOKENS), np.int32)
+    hdr_b[:, 0] = 3
+    hdr_n[:, 0] = 3
+    lit_b = np.tile(_LIT_BITS, (b, 1))
+    lit_n = np.tile(_LIT_NBITS, (b, 1))
+    ml_b = np.tile(_MATCH_BITS, (b, 1))
+    ml_n = np.tile(_MATCH_NBITS, (b, 1))
+    eob_b = np.zeros(b, np.uint32)
+    eob_n = np.full(b, 7, np.int32)  # fixed EOB: 7-bit all-zero code
+    for i in range(b if real is None else min(real, b)):
+        plan = _lane_dynamic_plan(counts[i], int(extras[i]))
+        if plan is None:
+            continue  # fixed wins: the prefilled tables ARE the plan
+        hdr, lcode, llen, mbits, mnbits, ebits, elen = plan
+        hdr_b[i, 0] = hdr_n[i, 0] = 0
+        for j, (v, nb) in enumerate(hdr):
+            hdr_b[i, j], hdr_n[i, j] = v, nb
+        lit_b[i], lit_n[i] = lcode, llen
+        ml_b[i], ml_n[i] = mbits, mnbits
+        eob_b[i], eob_n[i] = ebits, elen
+    return hdr_b, hdr_n, lit_b, lit_n, ml_b, ml_n, eob_b, eob_n
+
+
+# ---------------------------------------------------------------------------
+# Pass 2: emit through per-lane tables, pack, frame
+# ---------------------------------------------------------------------------
+
+
+class EmitTables(NamedTuple):
+    """Per-lane code tables on the device (all int32; every value is
+    below 2^31): header tokens (B, 320), literal codes (B, 256), match
+    codes by length (B, 259), and the end-of-block code (B,)."""
+
+    hdr_b: torch.Tensor
+    hdr_n: torch.Tensor
+    lit_b: torch.Tensor
+    lit_n: torch.Tensor
+    ml_b: torch.Tensor
+    ml_n: torch.Tensor
+    eob_b: torch.Tensor
+    eob_n: torch.Tensor
+
+
+def tables_from_numpy(tables, device) -> EmitTables:
+    """The 8 numpy arrays ``build_dynamic_tables`` returns (from either
+    package) -> the port's device tables: the state pass 1 hands to
+    pass 2."""
+    return EmitTables(*(
+        _to_device(np.asarray(t).astype(np.int32), device) for t in tables
+    ))
+
+
+def emit_tokens(flat: torch.Tensor, tables: EmitTables):
+    """Pass-2 token arrays: header ++ body ++ explicit EOB per lane,
+    ((B, 320 + L + 1) int32 code values, same-shape int32 bit counts)."""
+    is_lit, is_match, mlen = _run_decompose(flat)
+    pay = flat.long()
+    mlen_l = mlen.long()
+    zero = torch.zeros((), dtype=torch.int32, device=flat.device)
+    body_b = torch.where(
+        is_lit, tables.lit_b.gather(1, pay),
+        torch.where(is_match, tables.ml_b.gather(1, mlen_l), zero),
+    )
+    body_n = torch.where(
+        is_lit, tables.lit_n.gather(1, pay),
+        torch.where(is_match, tables.ml_n.gather(1, mlen_l), zero),
+    )
+    bits = torch.cat([tables.hdr_b, body_b, tables.eob_b[:, None]], dim=1)
+    nbits = torch.cat([tables.hdr_n, body_n, tables.eob_n[:, None]], dim=1)
+    return bits, nbits
+
+
+def _stored_streams(payloads: torch.Tensor, adler: torch.Tensor, cap: int):
+    """Every lane's stored-block zlib stream, zero-padded to ``cap``."""
+    B, n = payloads.shape
+    dev = payloads.device
+    nblocks = max(1, -(-n // _BLOCK))
+    pieces = [_to_device(np.array([0x78, 0x01], np.uint8), dev).expand(B, 2)]
+    for i in range(nblocks):
+        start = i * _BLOCK
+        size = min(_BLOCK, n - start)
+        final = 1 if i == nblocks - 1 else 0
+        header = [final, size & 0xFF, size >> 8,
+                  (size & 0xFF) ^ 0xFF, (size >> 8) ^ 0xFF]
+        pieces.append(_to_device(np.array(header, np.uint8), dev).expand(B, 5))
+        pieces.append(payloads[:, start:start + size])
+    pieces.append(adler)
+    stream = torch.cat(pieces, dim=1)
+    out = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
+    out[:, : stream.shape[1]] = stream
+    return out
+
+
+def _frame_lanes(payloads: torch.Tensor, packed: torch.Tensor, body_bits: torch.Tensor):
+    """Zlib-frame every lane's packed deflate body (EOB already a
+    token), then keep per lane the smaller of the coded and stored
+    streams: (streams (B, 2 + packed bytes + 4) uint8, lengths (B,))."""
+    B, n = payloads.shape
+    dev = payloads.device
+    deflate_nbytes = (body_bits + 7) // 8
+    cap = 2 + packed.shape[1] + 4
+    coded_len = 2 + deflate_nbytes + 4
+    adler = _adler32(payloads)
+    shifts = 24 - 8 * torch.arange(4, dtype=torch.int64, device=dev)
+    adler_bytes = ((adler[:, None] >> shifts) & 0xFF).to(torch.uint8)
+    out = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
+    out[:, 0] = 0x78
+    out[:, 1] = 0x01
+    out[:, 2:2 + packed.shape[1]] = packed
+    # adler32 after the last body byte (start clamped into the buffer,
+    # as the JAX dynamic_update_slice clamps)
+    start = torch.clamp(2 + deflate_nbytes, max=cap - 4)
+    pos = start[:, None] + torch.arange(4, device=dev)
+    out.scatter_(1, pos, adler_bytes)
+    stored_len = stored_stream_len(n)
+    use_coded = coded_len <= stored_len
+    out = torch.where(use_coded[:, None], out, _stored_streams(payloads, adler_bytes, cap))
+    lengths = torch.where(use_coded, coded_len, torch.full_like(coded_len, stored_len))
+    return out, lengths
+
+
+def dynamic_emit(flat: torch.Tensor, tables: EmitTables):
+    """Pass 2 on the device: emit through the per-lane tables, pack with
+    the bit-pack kernel, frame. Streams are ``max_stream_len(L)`` wide."""
+    bits, nbits = emit_tokens(flat, tables)
+    packed, body_bits = pack_tokens(bits, nbits, _packing_maxbits(flat.shape[1]))
+    return _frame_lanes(flat, packed, body_bits)
+
+
+def dynamic_emit_batch(
+    flat: torch.Tensor, counts_np: np.ndarray, extras_np: np.ndarray,
+    real: Optional[int] = None,
+):
+    """Pass 2 from the pulled pass-1 counts: host table build, then the
+    device emit. ``real`` bounds the host planning to the real lanes and
+    slices the pow2 padding off the outputs."""
+    tables = build_dynamic_tables(
+        np.asarray(counts_np), np.asarray(extras_np), real=real
+    )
+    streams, lengths = dynamic_emit(flat, tables_from_numpy(tables, flat.device))
+    if real is not None:
+        return streams[:real], lengths[:real]
+    return streams, lengths

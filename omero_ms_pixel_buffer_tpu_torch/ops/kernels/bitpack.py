@@ -1,0 +1,145 @@
+"""Deflate token bit packer: CUDA kernel and plain version.
+
+Replaces the Pallas TPU kernel ``omero_ms_pixel_buffer_tpu/ops/pallas/
+bitpack.py`` ``pack_tokens_sp`` (``pl.pallas_call`` at :201). The kernel
+(``csrc/bitpack.cu``) is bound by bytes: each token (value + bit count,
+8 bytes) is read once and the stream written once. Hopper runs blocks
+in no order, so instead of the TPU's in-order walk with a VMEM-resident
+lane, the wrapper scans per-256-token block bit counts up front and the
+kernel ORs every token into its word with ``atomicOr`` — exact because
+token bit ranges are disjoint.
+
+The plain version is the carry-free prefix-sum packer
+(``device_deflate._pack_bits_scan``) in PyTorch: wrapping uint32 sums
+become int64 sums masked to 32 bits, and the word boundaries come from
+``torch.searchsorted``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+TB = 256  # tokens per kernel block (csrc/bitpack.cu)
+_MASK = 0xFFFFFFFF
+
+# ompb_bitpack(bits, nbits, base, out, B, ntok, nblocks, nwords, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_void_p,
+]
+
+
+def _check_args(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int):
+    if bits.ndim != 2 or bits.shape != nbits.shape:
+        raise ValueError(
+            f"bits/nbits must be equal (B, ntok), got {tuple(bits.shape)} "
+            f"and {tuple(nbits.shape)}"
+        )
+    if maxbits <= 0 or maxbits % 32:
+        raise ValueError(f"maxbits must be a positive multiple of 32: {maxbits}")
+    if bits.device != nbits.device:
+        raise ValueError("bits and nbits must share a device")
+
+
+def _words_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """(B, nwords) int64 words (< 2^32) -> (B, 4*nwords) LSB-first bytes."""
+    shifts = torch.arange(0, 32, 8, device=words.device, dtype=torch.int64)
+    packed = (words[:, :, None] >> shifts) & 0xFF
+    return packed.to(torch.uint8).reshape(words.shape[0], -1)
+
+
+def pack_tokens_plain(
+    bits: torch.Tensor, nbits: torch.Tensor, maxbits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch packer (``_pack_bits_scan`` batched over lanes),
+    on the tensors' device: (B, maxbits // 8) uint8 packed bytes and
+    (B,) int64 body bit totals."""
+    _check_args(bits, nbits, maxbits)
+    B, ntok = bits.shape
+    dev = bits.device
+    nb = nbits.to(torch.int64)
+    offs = torch.cumsum(nb, dim=1) - nb  # exclusive; non-decreasing
+    totals = nb.sum(dim=1)
+    s = offs & 31
+    val = bits.to(torch.int64) & _MASK
+    lo = (val << s) & _MASK
+    hi = (val >> (31 - s)) >> 1  # logical shift by 32 - s without s = 0 UB
+    zero = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    # the sums stay below 2^53, so int64 needs no wrap: segment sums of
+    # disjoint bit ranges are exact differences
+    tl = torch.cat([zero, torch.cumsum(lo, dim=1)], dim=1)
+    th = torch.cat([zero, torch.cumsum(hi, dim=1)], dim=1)
+    nwords = maxbits // 32
+    edges = (torch.arange(nwords, device=dev, dtype=torch.int64) + 1) * 32
+    c = torch.searchsorted(
+        offs.contiguous(), edges.expand(B, nwords).contiguous(), side="left"
+    )
+    gl = tl.gather(1, c)
+    gh = th.gather(1, c)
+    gl1 = torch.cat([zero, gl[:, :-1]], dim=1)
+    gh1 = torch.cat([zero, gh[:, :-1]], dim=1)
+    gh2 = torch.cat([zero, gh1[:, :-1]], dim=1)
+    words = ((gl - gl1) + (gh1 - gh2)) & _MASK
+    return _words_to_bytes(words), totals
+
+
+def block_bases(nbits: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(ntok / 256)) int64 exclusive bit offset of each 256-token
+    block: the scan the kernel's blocks start from."""
+    B, ntok = nbits.shape
+    full, tail = divmod(ntok, TB)
+    nblocks = full + (1 if tail else 0)
+    sums = torch.zeros((B, nblocks), dtype=torch.int64, device=nbits.device)
+    if full:
+        sums[:, :full] = nbits[:, : full * TB].reshape(B, full, TB).sum(
+            dim=2, dtype=torch.int64
+        )
+    if tail:
+        sums[:, full] = nbits[:, full * TB:].sum(dim=1, dtype=torch.int64)
+    return torch.cumsum(sums, dim=1) - sums
+
+
+def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int):
+    if bits.dtype != torch.int32 or nbits.dtype != torch.int32:
+        raise ValueError("bitpack kernel needs int32 bits and nbits")
+    if not (bits.is_contiguous() and nbits.is_contiguous()):
+        raise ValueError("bitpack kernel needs contiguous token arrays")
+    B, ntok = bits.shape
+    if B > 65535:
+        raise ValueError(f"bitpack kernel takes at most 65535 lanes, got {B}")
+    nwords = maxbits // 32
+    base = block_bases(nbits)
+    out = torch.zeros((B, nwords), dtype=torch.int32, device=bits.device)
+    totals = nbits.sum(dim=1, dtype=torch.int64)
+    fn = _build.entry("bitpack", "ompb_bitpack", _ARGTYPES)
+    with torch.cuda.device(bits.device):
+        code = fn(bits.data_ptr(), nbits.data_ptr(), base.data_ptr(),
+                  out.data_ptr(), B, ntok, base.shape[1], nwords,
+                  _build.stream_handle(bits.device))
+    _build.check(code, "bitpack kernel launch")
+    pack_tokens.launches += 1
+    # little-endian words: their bytes in memory are the LSB-first stream
+    return out.view(torch.uint8), totals
+
+
+def pack_tokens(
+    bits: torch.Tensor, nbits: torch.Tensor, maxbits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, ntok) token values and bit counts -> ((B, maxbits // 8) uint8
+    LSB-first packed bytes, (B,) int64 body bit totals). A CUDA tensor
+    launches the kernel (or raises); a CPU tensor takes the plain
+    version."""
+    _check_args(bits, nbits, maxbits)
+    if bits.device.type == "cuda":
+        return _launch(bits, nbits, maxbits)
+    if bits.device.type == "cpu":
+        return pack_tokens_plain(bits, nbits, maxbits)
+    raise ValueError(f"Unsupported device: {bits.device}")
+
+
+pack_tokens.launches = 0
