@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256]
+    python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
+        [--rle-requests 128] [--stored-requests 32]
 
 Phases, one JSON line each on stdout:
 
-1. ``build``   — both CUDA kernels built from ``omero_ms_pixel_buffer_tpu_torch/
-   csrc`` with nvcc (one process per source, in parallel).
+1. ``build``   — the three CUDA kernels built from
+   ``omero_ms_pixel_buffer_tpu_torch/csrc`` with nvcc (one process per
+   source, in parallel).
 2. ``fixture`` — an ``--size``² uint16 OME-TIFF with 512x512 zlib tiles:
    a smooth field plus Gaussian noise, made from ``--seed``.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main path's shapes (32 lanes of 512x512 uint16): the filter in
-   all five modes plus uint8 and RGB uint8, the packer on the real pass-2
-   tokens of those lanes (whose streams must also inflate back). Byte
-   equality is required. A kernel's ``ms`` is its device time from
-   torch.profiler (CUDA events around the wrapper when the profiler
-   records none); wrapper (``call_ms``) and plain times are CUDA events.
+   all five modes plus uint8 and RGB uint8, the scalar-prefetch packer on
+   the real ``dynamic`` pass-2 tokens of those lanes, the dense packer on
+   their real ``rle`` tokens (also against the scalar-prefetch packer).
+   Byte equality is required, and every lane's stream must inflate back.
+   A kernel's ``ms`` is its device time from torch.profiler (CUDA events
+   around the wrapper when the profiler records none); wrapper
+   (``call_ms``) and plain times are CUDA events.
 4. ``path``    — the service (``http.server.create_server``, what
    ``python -m omero_ms_pixel_buffer_tpu_torch`` runs) on 127.0.0.1 in
-   this process; kernel launch counters reset to 0 just before; two
-   warm-up rounds of 32 tiles (the plane is admitted on its second
-   touch), then ``--requests`` 512x512 PNG tiles at concurrency 32 over
-   keep-alive connections, then odd sizes and edge cases. Every PNG is
-   inflated with zlib, unfiltered with numpy and compared with the source
-   pixels; both kernels must have launched, the plane cache must have
-   hits and no encode group may have failed.
+   this process, deflate mode ``dynamic``, packer ``pallas``; kernel
+   launch counters reset to 0 just before; two warm-up rounds of 32
+   tiles (the plane is admitted on its second touch), then ``--requests``
+   512x512 PNG tiles at concurrency 32 over keep-alive connections, then
+   odd sizes and edge cases. Every PNG is inflated with zlib, unfiltered
+   with numpy and compared with the source pixels; the filter and the
+   scalar-prefetch packer must have launched and the dense packer not,
+   the plane cache must have hits and no encode group may have failed.
+5. ``path_rle`` — a second server in the same way, deflate mode ``rle``,
+   packer ``pallas_dense``: warm-up, ``--rle-requests`` timed tiles,
+   edge cases; the filter and the dense packer must have launched and
+   the scalar-prefetch packer not. It reports the mean zlib stream bytes
+   per 512x512 tile beside the ``dynamic`` phase's.
+6. ``path_rle_sp`` — the same with packer ``pallas`` (the scalar-prefetch
+   packer must have launched and the dense one not), so that against
+   ``path`` only the mode differs.
+7. ``path_stored`` — a fourth server, deflate mode ``stored``:
+   ``--stored-requests`` tiles, pixel-checked; the filter must have
+   launched and neither packer.
+
+Each path phase also reports ``timed_window``: the encode queue's groups,
+stage means and thread busy shares over its timed requests alone (two
+``/healthz`` views, just before and just after them).
 
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -52,6 +72,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+# H100 SXM int32 peak outside the tensor cores: 132 SMs x 64 INT32 lanes
+# x 1.98 GHz boost (Hopper architecture white paper); used only to state
+# what the dense formulation's op count would take at that peak
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TILE = 512
 LANES = 32
 COOKIE = {"Cookie": "sessionid=chip-smoke"}
@@ -169,8 +193,13 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
     from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
     from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
-        pack_tokens,
-        pack_tokens_plain,
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_dense import (
+        OPS_PER_TOKEN,
+        pack_tokens_dense,
+        pack_tokens_dense_plain,
     )
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels.filter import (
         filter_tiles,
@@ -203,31 +232,67 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
     tables = dd.build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(), real=real)
     bits, nbits = dd.emit_tokens(flat, dd.tables_from_numpy(tables, device))
     maxbits = dd._packing_maxbits(flat.shape[1])
-    got_p, got_t = pack_tokens(bits, nbits, maxbits)
-    want_p, want_t = pack_tokens_plain(bits, nbits, maxbits)
+    got_p, got_t = pack_tokens_sp(bits, nbits, maxbits)
+    want_p, want_t = pack_tokens_sp_plain(bits, nbits, maxbits)
     torch.cuda.synchronize()
     require(torch.equal(got_p, want_p) and torch.equal(got_t, want_t),
             "bitpack kernel != plain on pass-2 tokens")
-    streams, lengths = dd._frame_lanes(flat, got_p, got_t)
-    streams_np, lengths_np, flat_np = streams.cpu().numpy(), lengths.cpu().numpy(), flat.cpu().numpy()
-    for i in range(real):
-        require(zlib.decompress(streams_np[i, : lengths_np[i]].tobytes())
-                == flat_np[i].tobytes(), f"lane {i} stream does not inflate back")
+    flat_np = flat.cpu().numpy()
+
+    def inflate_all(packed, body_bits, eob_bits, what):
+        streams, lengths = dd._frame_lanes(flat, packed, body_bits, eob_bits=eob_bits)
+        streams_np, lengths_np = streams.cpu().numpy(), lengths.cpu().numpy()
+        for i in range(real):
+            require(zlib.decompress(streams_np[i, : lengths_np[i]].tobytes())
+                    == flat_np[i].tobytes(), f"lane {i} {what} stream does not inflate back")
+        return lengths_np[:real]
+
+    lengths_np = inflate_all(got_p, got_t, 0, "dynamic")
+
+    # the dense packer on the real rle (fixed-Huffman) tokens of these lanes
+    rbits, rnbits = dd._lane_tokens(flat)
+    got_d, got_dt = pack_tokens_dense(rbits, rnbits, maxbits)
+    want_d, want_dt = pack_tokens_dense_plain(rbits, rnbits, maxbits)
+    sp_d, sp_dt = pack_tokens_sp(rbits, rnbits, maxbits)
+    torch.cuda.synchronize()
+    require(torch.equal(got_d, want_d) and torch.equal(got_dt, want_dt),
+            "dense bitpack kernel != plain on rle tokens")
+    require(torch.equal(got_d, sp_d) and torch.equal(got_dt, sp_dt),
+            "dense bitpack kernel != scalar-prefetch kernel on rle tokens")
+    require(torch.equal(pack_tokens_dense(rbits, rnbits, 1 << 20)[0],
+                        pack_tokens_dense_plain(rbits, rnbits, 1 << 20)[0]),
+            "dense bitpack kernel != plain when truncated at 2^20 bits")
+    rle_lengths_np = inflate_all(got_d, got_dt, 7, "rle")
     # device time of one whole 32-lane group (both passes), by kernel
     def group():
         f, c, e, r = dd.fused_filter_histogram_batch(u16, TILE, row_bytes, 2)
         dd.dynamic_emit(f, dd.tables_from_numpy(tables, device))
 
     group_top = device_breakdown(torch, group)
-    b_call = time_ms(torch, lambda: pack_tokens(bits, nbits, maxbits))
-    b_ms = kernel_ms(torch, lambda: pack_tokens(bits, nbits, maxbits), "pack_block")
-    b_plain = time_ms(torch, lambda: pack_tokens_plain(bits, nbits, maxbits), iters=5)
+    b_call = time_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits))
+    b_ms = kernel_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits), "pack_block")
+    b_plain = time_ms(torch, lambda: pack_tokens_sp_plain(bits, nbits, maxbits), iters=5)
     b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
+    d_call = time_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits))
+    d_ms = kernel_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits), "dense_pack_words")
+    d_plain = time_ms(torch, lambda: pack_tokens_dense_plain(rbits, rnbits, maxbits),
+                      iters=2, warmup=1)
+    d_bytes = 8 * rbits.numel() + rbits.shape[0] * maxbits // 8
+    d_ops = OPS_PER_TOKEN * rbits.numel()
     emit({"phase": "kernels", "filter_cases_max_abs_err": filter_errs,
           "group_device_ms": group_top,
           "bitpack": {"lanes": int(bits.shape[0]), "ntok": int(bits.shape[1]),
                       "maxbits": maxbits, "body_bits_mean": float(got_t.float().mean()),
-                      "stream_bytes_mean": float(lengths_np[:real].mean())}})
+                      "stream_bytes_mean": float(lengths_np.mean())},
+          "bitpack_dense": {"lanes": int(rbits.shape[0]), "ntok": int(rbits.shape[1]),
+                            "maxbits": maxbits,
+                            "body_bits_mean": float(got_dt.float().mean()),
+                            "rle_stream_bytes_mean": float(rle_lengths_np.mean()),
+                            # derived, not measured: the dense formulation's
+                            # int op count and that count at the int32 peak
+                            "formulation_ops": d_ops,
+                            "formulation_ops_at_int32_peak_ms":
+                                d_ops / INT32_OPS_PER_S * 1e3}})
     return [
         {"name": "filter", "route": "cuda",
          "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
@@ -242,6 +307,13 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
          "max_abs_err": max_err(got_p, want_p), "ms": b_ms if b_ms else b_call,
          "ms_from": "profiler" if b_ms else "events", "call_ms": b_call, "plain_ms": b_plain,
          "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "bitpack_dense", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack_dense.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:275",
+         "max_abs_err": max_err(got_d, want_d), "ms": d_ms if d_ms else d_call,
+         "ms_from": "profiler" if d_ms else "events", "call_ms": d_call, "plain_ms": d_plain,
+         "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
     ]
 
@@ -357,15 +429,54 @@ def verify(results, reqs, data: np.ndarray) -> int:
     return checked
 
 
+def png_stream_len(body: bytes) -> int:
+    """Bytes of a PNG's zlib stream (its IDAT chunks)."""
+    pos, n_idat = 8, 0
+    while pos < len(body):
+        (n,) = struct.unpack(">I", body[pos:pos + 4])
+        if body[pos + 4:pos + 8] == b"IDAT":
+            n_idat += n
+        pos += 12 + n
+    return n_idat
+
+
+def timed_window(before: dict, after: dict, seconds: float) -> dict:
+    """The encode queue over the timed requests alone: the difference of
+    two ``/healthz`` ``queue`` views taken just before and just after
+    them. ``*_busy_share`` is the share of the window's wall time that the
+    submit thread (stage) and the readback thread (every other stage)
+    spent on its groups."""
+    groups = after["completed"] - before["completed"]
+    total = {k: v - before["stage_ms_total"].get(k, 0.0)
+             for k, v in after["stage_ms_total"].items()}
+    n = {k: v - before["stage_groups"].get(k, 0) for k, v in after["stage_groups"].items()}
+    readback_ms = sum(v for k, v in total.items() if k != "stage")
+    return {
+        "groups": groups,
+        "lanes": after["lanes"] - before["lanes"],
+        "seconds": seconds,
+        "stage_ms_mean": {k: total[k] / n[k] for k in total if n[k]},
+        "submit_busy_share": total.get("stage", 0.0) / 1e3 / seconds,
+        "readback_busy_share": readback_ms / 1e3 / seconds,
+    }
+
+
 def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
-               device: str = "cuda") -> dict:
+               deflate_mode: str, packer: str, launched, idle, warm_rounds: int = 2,
+               edges: bool = True, device: str = "cuda", phase: str = "") -> dict:
+    """Serve ``n_requests`` timed 512x512 PNG tiles (after ``warm_rounds``
+    rounds of 32, then the edge cases) from a fresh server in
+    ``deflate_mode`` with ``packer``, every body pixel-checked. The
+    kernels in ``launched`` must have launched in the run, those in
+    ``idle`` not."""
     from omero_ms_pixel_buffer_tpu_torch.http.server import create_server
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
         launch_counts,
         reset_launch_counts,
     )
 
-    server = create_server(registry, dev=True, device=device)
+    server = create_server(registry, dev=True, device=device,
+                           deflate_mode=deflate_mode, packer=packer)
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, name="smoke-server", daemon=True)
     thread.start()
@@ -377,31 +488,41 @@ def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
         size = data.shape[0]
         rng = np.random.default_rng(seed + 2)
         reset_launch_counts()
-        # two warm-up rounds: the plane is admitted on its second touch
-        warm = tile_requests(rng, size, 2 * LANES)
+        # warm-up rounds: the plane is admitted on its second touch
+        warm = tile_requests(rng, size, warm_rounds * LANES)
         t_warm = time.perf_counter()
         warm_out = []
-        for r in (warm[:LANES], warm[LANES:]):
-            warm_out += run_requests(client, r, LANES)[0]
+        for k in range(warm_rounds):
+            warm_out += run_requests(client, warm[k * LANES:(k + 1) * LANES], LANES)[0]
         warm_s = time.perf_counter() - t_warm
         main = tile_requests(rng, size, n_requests)
+        before = get_json(client, "/healthz")["queue"]
         main_out, main_s = run_requests(client, main, LANES)
-        edges = edge_requests(size)
-        edge_out, _ = run_requests(client, edges, len(edges))
+        window = timed_window(before, get_json(client, "/healthz")["queue"], main_s)
+        edge_reqs = edge_requests(size) if edges else []
+        edge_out = run_requests(client, edge_reqs, len(edge_reqs))[0] if edges else []
         launches = launch_counts()
         health = get_json(client, "/healthz")
         checked = (verify(warm_out, warm, data) + verify(main_out, main, data)
-                   + verify(edge_out, edges, data))
+                   + verify(edge_out, edge_reqs, data))
         lat_ms = np.array([r[2] for r in main_out]) * 1e3
-        require(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+        require(all(launches[k] > 0 for k in launched),
+                f"{deflate_mode}: a kernel of the path never launched: {launches}")
+        require(all(launches[k] == 0 for k in idle),
+                f"{deflate_mode}: a kernel off the path launched: {launches}")
         require(health["kernels"] == launches, "healthz counters disagree")
-        require(health["plane_cache"]["hits"] > 0, "plane cache had no hits")
+        require(health["queue"]["deflate_mode"] == deflate_mode
+                and health["queue"]["packer"] == packer, f"served with {health['queue']}")
         require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
         return {
-            "phase": "path", "tiles_verified": checked, "launches": launches,
+            "phase": phase or ("path" if deflate_mode == "dynamic" else f"path_{deflate_mode}"),
+            "deflate_mode": deflate_mode, "packer": packer,
+            "tiles_verified": checked, "launches": launches,
             "requests": n_requests, "concurrency": LANES,
             "tiles_per_s": n_requests / main_s, "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
+            "stream_bytes_mean": float(np.mean([png_stream_len(r[1]) for r in main_out])),
+            "timed_window": window,
             "plane_cache": health["plane_cache"], "queue": health["queue"],
             "batcher": health["batcher"], "gpu": health["gpu"],
         }
@@ -427,7 +548,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--size", type=int, default=8192)
-    p.add_argument("--requests", type=int, default=256)
+    p.add_argument("--requests", type=int, default=256,
+                   help="timed requests of the dynamic phase")
+    p.add_argument("--rle-requests", type=int, default=128,
+                   help="timed requests of each rle phase")
+    p.add_argument("--stored-requests", type=int, default=32,
+                   help="requests of the stored phase")
     args = p.parse_args(argv)
     try:
         import torch
@@ -459,10 +585,34 @@ def main(argv=None) -> int:
         emit({"phase": "fixture", "size": args.size, "seconds": time.perf_counter() - t0})
         device = torch.device("cuda", 0)
         kernels = check_kernels(torch, device, lane_tiles(data, args.seed))
-        path = drive_path(registry, data, args.seed, args.requests)
+        path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
+                          launched=("filter", "bitpack"), idle=("bitpack_dense",))
+        require(path["plane_cache"]["hits"] > 0, "plane cache had no hits")
         emit(path)
+        rle = drive_path(registry, data, args.seed, args.rle_requests, "rle", "pallas_dense",
+                         launched=("filter", "bitpack_dense"), idle=("bitpack",))
+        require(rle["plane_cache"]["hits"] > 0, "plane cache had no hits (rle)")
+        rle["stream_bytes_mean_dynamic"] = path["stream_bytes_mean"]
+        rle["stream_bytes_ratio_rle_to_dynamic"] = (
+            rle["stream_bytes_mean"] / path["stream_bytes_mean"])
+        emit(rle)
+        # the same mode with the dynamic phase's packer: against ``path`` it
+        # changes the mode alone
+        rle_sp = drive_path(registry, data, args.seed, args.rle_requests, "rle", "pallas",
+                            launched=("filter", "bitpack"), idle=("bitpack_dense",),
+                            phase="path_rle_sp")
+        require(rle_sp["plane_cache"]["hits"] > 0, "plane cache had no hits (rle, pallas)")
+        emit(rle_sp)
+        stored = drive_path(registry, data, args.seed, args.stored_requests, "stored", "pallas",
+                            launched=("filter",), idle=("bitpack", "bitpack_dense"),
+                            warm_rounds=0, edges=False)
+        emit(stored)
+        # each kernel's launches come from the phase that runs it
+        launches = {"filter": path["launches"]["filter"],
+                    "bitpack": path["launches"]["bitpack"],
+                    "bitpack_dense": rle["launches"]["bitpack_dense"]}
         for k in kernels:
-            k["launches"] = path["launches"][k["name"]]
+            k["launches"] = launches[k["name"]]
         emit({"kernels": kernels})
         print(smi_line(), flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,15 @@
 """Serve /tile from the port:
 
     python -m omero_ms_pixel_buffer_tpu_torch --dev --registry registry.json \\
-        --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2]
+        --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2] \\
+        [--deflate-mode dynamic|rle|stored]
 
 On ``cuda`` the kernels are built (or found built) before the port
 opens; without a GPU the command fails unless ``--device cpu`` is
-given. The line ``listening on HOST:PORT`` is printed once serving.
+given. ``--deflate-mode`` is the YAML key ``backend.png.device-deflate-mode``
+of the JAX package; the bit packer comes from ``OMPB_BITPACK``
+(``scan|pallas|pallas_dense|gather``; default ``pallas`` on CUDA), as
+there. The line ``listening on HOST:PORT`` is printed once serving.
 SIGINT/SIGTERM drain and stop.
 """
 
@@ -16,6 +20,8 @@ import asyncio
 import logging
 import signal
 import sys
+
+from .ops.device_deflate import DEFLATE_MODES
 
 
 def _parse(argv):
@@ -31,7 +37,12 @@ def _parse(argv):
                    help="comma-separated square shape buckets")
     p.add_argument("--queue-depth", type=int, default=2,
                    help="encode groups in flight on the device")
-    return p.parse_args(argv)
+    p.add_argument("--deflate-mode", default="dynamic",
+                   help="device deflate mode: dynamic, rle or stored")
+    args = p.parse_args(argv)
+    if args.deflate_mode not in DEFLATE_MODES:
+        raise ValueError(f"Unknown device deflate mode: {args.deflate_mode}")
+    return args
 
 
 async def _serve(args) -> None:
@@ -40,7 +51,7 @@ async def _serve(args) -> None:
     server = create_server(
         args.registry, dev=args.dev, device=args.device,
         buckets=[int(b) for b in args.buckets.split(",")],
-        queue_depth=args.queue_depth,
+        queue_depth=args.queue_depth, deflate_mode=args.deflate_mode,
     )
     port = await server.start(args.host, args.port)
     print(f"listening on {args.host}:{port}", flush=True)

@@ -181,8 +181,9 @@ class TileServer:
         return morsel.value if self.dev else self.sessions.get(morsel.value)
 
     def health(self) -> dict:
-        """/healthz body: kernel launch counters, the encode queue's and
-        the plane cache's snapshots."""
+        """/healthz body: kernel launch counters, the encode queue's
+        (with its deflate mode and packer) and the plane cache's
+        snapshots."""
         return {
             "status": "ok",
             "device": str(self.pipeline.device),
@@ -197,11 +198,15 @@ class TileServer:
 def create_server(
     registry_path: str, dev: bool = False, device: str = "cuda",
     buckets=(256, 512, 1024), queue_depth: int = 2,
+    deflate_mode: str = "dynamic", packer: Optional[str] = None,
 ) -> TileServer:
     """The service as ``python -m omero_ms_pixel_buffer_tpu_torch`` runs
     it: registry -> pixels service -> pipeline -> batcher -> HTTP front.
-    On CUDA the kernels are built (or found built) here, so a build
-    failure stops start-up."""
+    ``deflate_mode`` is the device deflate mode (``dynamic``, ``rle`` or
+    ``stored``), ``packer`` the bit packer (default
+    ``device_deflate.default_packer``: ``OMPB_BITPACK``, else ``pallas``
+    on CUDA). On CUDA the kernels are built (or found built) here, so a
+    build failure stops start-up."""
     from ..io.pixels_service import ImageRegistry, PixelsService
     from ..models.tile_pipeline import TilePipeline
     from ..runtime.device import gpu_info
@@ -209,6 +214,7 @@ def create_server(
     pipeline = TilePipeline(
         PixelsService(ImageRegistry(registry_path)), buckets=tuple(buckets),
         queue_depth=queue_depth, device=device,
+        device_deflate_mode=deflate_mode, packer=packer,
     )
     gpu = None
     if pipeline.device.type == "cuda":

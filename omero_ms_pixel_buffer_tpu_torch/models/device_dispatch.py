@@ -1,16 +1,25 @@
 """Streaming device-encode queue (counterpart of ``DeviceEncodeDispatcher``
-in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, dynamic
-mode, single device).
+in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, single
+device, every device deflate mode).
 
 Callers get a Future per encode group at once. One SUBMIT thread stages
-each group's host batch to the device and launches pass 1 (filter
-kernel + histogram); one READBACK thread waits on the group's event,
-pulls the (B, 286) counts, builds the Huffman tables on the host,
-launches pass 2 (emit + bit-pack kernel + framing), waits on its event
-and frames the PNGs. A semaphore bounds in-flight groups to
-``queue_depth``. All of a group's device work runs on the queue's side
-CUDA stream and each pass ends with a recorded event, so the threads
-wait on events, never on the whole device.
+each group's host batch to the device and launches its first device
+work; one READBACK thread waits on the group's event, finishes it,
+pulls the streams and frames the PNGs:
+
+- ``dynamic`` (two passes): the submit thread launches pass 1 (filter
+  kernel + histogram); the readback thread pulls the (B, 286) counts,
+  builds the Huffman tables on the host and launches pass 2 (emit +
+  bit-pack kernel + framing), then waits on it.
+- ``rle`` and ``stored`` (one pass): the submit thread launches the
+  whole chain (filter kernel, tokens, bit-pack kernel, framing); the
+  readback thread only waits on it.
+
+A semaphore bounds in-flight groups to ``queue_depth``. All of a group's
+device work runs on the queue's side CUDA stream and each pass ends with
+a recorded event, so the threads wait on events, never on the whole
+device. The bit packer is chosen once per queue (``packer``, default
+``device_deflate.default_packer``).
 
 Failure contract: any failure in a group resolves THAT group's future
 with the exception (its lanes answer 500) and is counted in
@@ -24,7 +33,7 @@ import contextlib
 import logging
 import threading
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,27 +41,32 @@ import torch
 from ..ops.device_deflate import (
     build_dynamic_tables,
     dynamic_emit,
+    fused_filter_deflate_batch,
     fused_filter_histogram_batch,
+    resolve_packer,
     tables_from_numpy,
 )
 from ..ops.png import frame_png
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 
-# per-group stage timings (host wall clock, seconds): H2D + pass-1 launch
-# on the submit thread; then on the readback thread the wait for pass 1
-# with the counts pull, the host Huffman plan, pass 2 launch + wait, the
-# stream pull and the PNG framing
-STAGES = ("stage", "pass1_wait", "plan", "pass2", "pull", "frame")
+# per-group stage timings (host wall clock, seconds): H2D + the first
+# launch on the submit thread; then on the readback thread, for a dynamic
+# group the wait for pass 1 with the counts pull, the host Huffman plan
+# and pass 2 launch + wait, for a one-pass group the wait for its chain
+# (compute); for every group the stream pull and the PNG framing
+STAGES = ("stage", "pass1_wait", "plan", "pass2", "compute", "pull", "frame")
 
 
 class DeviceEncodeDispatcher:
     """Submit encode groups into the persistent queue; collect
     per-group futures resolving to {lane_index: png_bytes}."""
 
-    def __init__(self, device: torch.device, queue_depth: int = 2):
+    def __init__(self, device: torch.device, queue_depth: int = 2,
+                 packer: Optional[str] = None):
         self.device = device
         self.queue_depth = max(1, int(queue_depth))
+        self.packer = resolve_packer(packer, device)
         self._stream = (
             torch.cuda.Stream(device) if device.type == "cuda" else None
         )
@@ -76,6 +90,7 @@ class DeviceEncodeDispatcher:
         self._failed = 0
         self._completed = 0
         self._stage_s = dict.fromkeys(STAGES, 0.0)
+        self._stage_n = dict.fromkeys(STAGES, 0)
 
     # -- streams and events ----------------------------------------------
 
@@ -112,34 +127,41 @@ class DeviceEncodeDispatcher:
         self._readback.shutdown(wait=not not_done)
 
     def snapshot(self) -> dict:
-        """/healthz view: groups submitted, lanes encoded, groups failed,
-        in-flight count, and per stage the mean milliseconds of a
-        completed group (``STAGES``)."""
+        """/healthz view: the packer, groups submitted and completed, lanes
+        encoded, groups failed, in-flight count, and per stage (``STAGES``)
+        the completed groups that ran it, their total milliseconds and the
+        mean over them. Two views differ by what ran between them."""
         with self._stats_lock:
-            done = self._completed
+            ran = {k: n for k, n in self._stage_n.items() if n}
             return {
+                "packer": self.packer,
                 "queue_depth": self.queue_depth,
                 "inflight": self._inflight,
                 "groups": self._groups,
+                "completed": self._completed,
                 "lanes": self._lanes,
                 "failed": self._failed,
+                "stage_groups": ran,
+                "stage_ms_total": {k: self._stage_s[k] * 1e3 for k in ran},
                 "stage_ms_mean": {
-                    k: round(v / done * 1e3, 3) for k, v in self._stage_s.items()
-                } if done > 0 else None,
+                    k: round(self._stage_s[k] / n * 1e3, 3) for k, n in ran.items()
+                } if self._completed > 0 else None,
             }
 
     # -- submission --------------------------------------------------------
 
     def submit(
         self, tiles, rows: int, row_bytes: int, bpp: int, filter_mode: str,
-        lanes: Sequence[int], sizes: Sequence[Tuple[int, int]],
+        deflate_mode: str, lanes: Sequence[int], sizes: Sequence[Tuple[int, int]],
         bit_depth: int, color_type: int, staged: bool = False,
     ) -> "concurrent.futures.Future":
         """Enqueue one encode group. ``tiles`` is a host bit tensor
         (bucket route, copied to the device on the submit thread) or an
         already device-resident batch made on this queue's stream
         (plane route, ``staged=True``). All lanes share one real (w, h),
-        described by ``rows``/``row_bytes``."""
+        described by ``rows``/``row_bytes``; ``deflate_mode`` is one of
+        ``DEFLATE_MODES`` (the pipeline checks it; any other fails the
+        group)."""
         if self._closed:
             raise RuntimeError("device encode queue is closed")
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
@@ -148,8 +170,8 @@ class DeviceEncodeDispatcher:
         fut.add_done_callback(self._discard_pending)
         with self._stats_lock:
             self._groups += 1
-        args = (tiles, rows, row_bytes, bpp, filter_mode, list(lanes),
-                list(sizes), bit_depth, color_type, staged)
+        args = (tiles, rows, row_bytes, bpp, filter_mode, deflate_mode,
+                list(lanes), list(sizes), bit_depth, color_type, staged)
         try:
             self._submit_pool.submit(self._run_stage, fut, args)
         except RuntimeError as e:  # close() raced the check
@@ -191,16 +213,16 @@ class DeviceEncodeDispatcher:
         self._slots.release()
 
     def _run_stage(self, fut, args) -> None:
-        """Submit thread: take an in-flight slot, stage + launch pass 1,
-        chain the readback."""
+        """Submit thread: take an in-flight slot, stage + launch the first
+        device work, chain the readback."""
         self._slots.acquire()
         with self._stats_lock:
             self._inflight += 1
         try:
             t0 = time.perf_counter()
-            pass1 = self._stage_group(*args)
+            launched = self._stage_group(*args)
             t_stage = time.perf_counter() - t0
-            rfut = self._readback.submit(self._readback_group, t_stage, pass1, *args[5:9])
+            rfut = self._readback.submit(self._readback_group, t_stage, launched, *args[6:10])
         except Exception as e:
             self._release_slot()
             self._fail(fut, e)
@@ -218,41 +240,56 @@ class DeviceEncodeDispatcher:
         except concurrent.futures.InvalidStateError:
             pass
 
-    # -- the two passes ----------------------------------------------------
+    # -- the device work ---------------------------------------------------
 
-    def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, lanes,
-                     sizes, bit_depth, color_type, staged):
-        """Submit thread: H2D (bucket route) and pass 1 on the side
-        stream; returns the device tensors plus the pass-1 event."""
+    def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode,
+                     lanes, sizes, bit_depth, color_type, staged):
+        """Submit thread: H2D (bucket route), then on the side stream pass 1
+        of a dynamic group or the whole chain of a one-pass group. Returns
+        (mode, device tensors, the event that ends them)."""
         with self._on_stream():
             batch = tiles if staged else tiles.to(self.device, non_blocking=True)
-            flat, counts, extras, real_b = fused_filter_histogram_batch(
-                batch, rows, row_bytes, bpp, filter_mode=filter_mode,
-            )
-            return flat, counts, extras, real_b, self._mark()
+            if deflate_mode == "dynamic":
+                out = fused_filter_histogram_batch(
+                    batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+                )
+            else:
+                out = fused_filter_deflate_batch(
+                    batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+                    mode=deflate_mode, packer=self.packer,
+                )
+            return deflate_mode, out, self._mark()
 
-    def _readback_group(self, t_stage, pass1, lanes, sizes, bit_depth, color_type):
-        """Readback thread: pull the counts once pass 1 is done, plan the
-        tables, run pass 2, pull and frame."""
-        flat, counts, extras, real_b, ev1 = pass1
+    def _readback_group(self, t_stage, launched, lanes, sizes, bit_depth, color_type):
+        """Readback thread: wait for the group's device work (for a dynamic
+        group: pull the counts, plan the tables and run pass 2), then pull
+        and frame."""
+        mode, tensors, ev = launched
         t = [time.perf_counter()]
 
         def lap():
             t.append(time.perf_counter())
             return t[-1] - t[-2]
 
-        self._wait(ev1)
-        counts_np = counts.cpu().numpy()
-        extras_np = extras.cpu().numpy()
-        timing = {"stage": t_stage, "pass1_wait": lap()}
-        tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
-        with self._on_stream():
-            tables = tables_from_numpy(tables, flat.device)
-            timing["plan"] = lap()
-            streams, lengths = dynamic_emit(flat, tables)
-            self._wait(self._mark())
-        timing["pass2"] = lap()
-        streams_np, lengths_np = self._pull(streams[:real_b], lengths[:real_b], sizes[0])
+        self._wait(ev)
+        timing = {"stage": t_stage}
+        if mode == "dynamic":
+            flat, counts, extras, real_b = tensors
+            counts_np = counts.cpu().numpy()
+            extras_np = extras.cpu().numpy()
+            timing["pass1_wait"] = lap()
+            tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
+            with self._on_stream():
+                tables = tables_from_numpy(tables, flat.device)
+                timing["plan"] = lap()
+                streams, lengths = dynamic_emit(flat, tables, packer=self.packer)
+                self._wait(self._mark())
+            timing["pass2"] = lap()
+            streams, lengths = streams[:real_b], lengths[:real_b]
+        else:
+            streams, lengths = tensors
+            timing["compute"] = lap()
+        streams_np, lengths_np = self._pull(streams, lengths, sizes[0])
         timing["pull"] = lap()
         out = {
             lane: frame_png(
@@ -265,6 +302,7 @@ class DeviceEncodeDispatcher:
         with self._stats_lock:
             for k, v in timing.items():
                 self._stage_s[k] += v
+                self._stage_n[k] += 1
             self._lanes += len(lanes)
             self._completed += 1
         return out

@@ -1,6 +1,6 @@
 """The tile pipeline (counterpart of ``TilePipeline`` in
-``omero_ms_pixel_buffer_tpu/models/tile_pipeline.py``; raw and PNG
-lanes on the device engine with device deflate in ``dynamic`` mode).
+``omero_ms_pixel_buffer_tpu/models/tile_pipeline.py``; raw, PNG and TIFF
+lanes on the device engine, PNG with device deflate in any of its modes).
 
     resolve (metadata, buffer, level, region) -> plane-cache staging ->
     batched host reads -> PNG lanes padded into shape buckets ->
@@ -14,9 +14,9 @@ read: the plane route crops them on the device.
 
 There is no host encoder behind the device path: a failed encode group
 answers 500 for its lanes. A PNG lane larger than every bucket is
-encoded on the device at its own size. ``format=tif`` and other
-formats answer as the JAX package does for an unknown format: None
-(404).
+encoded on the device at its own size. A ``tif`` lane is its host-read
+tile framed by ``ops/tiff.encode_tiff`` (no pixel work, as in the JAX
+package); other formats answer None (404).
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ from ..errors import InternalError
 from ..io.pixels_service import PixelsService
 from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
+from ..ops.device_deflate import DEFLATE_MODES
 from ..ops.png import _PNG_DTYPES
+from ..ops.tiff import TiffEncodeError, encode_tiff
 from ..runtime.device import resolve_device
 from ..tile_ctx import TileCtx
 from .device_cache import DevicePlaneCache
@@ -68,10 +70,13 @@ class DeferredTile:
 
 
 class TilePipeline:
-    """Device engine: every PNG lane is Up-filtered and deflated
-    (device deflate, ``dynamic`` mode: the JAX package's defaults) on
-    ``device`` (default ``cuda``; raises without a GPU). Only tests pass
-    ``device="cpu"``, which runs the kernels' plain versions."""
+    """Device engine: every PNG lane is Up-filtered and deflated on
+    ``device`` (default ``cuda``; raises without a GPU) in
+    ``device_deflate_mode`` (``dynamic``, the JAX package's default,
+    ``rle`` or ``stored``: the YAML key ``backend.png.device-deflate-mode``)
+    with the bit packer ``packer`` (default
+    ``device_deflate.default_packer``). Only tests pass ``device="cpu"``,
+    which runs the kernels' plain versions."""
 
     engine = "device"
 
@@ -81,12 +86,18 @@ class TilePipeline:
         buckets: Sequence[int] = (256, 512, 1024),
         queue_depth: int = 2,
         device="cuda",
+        device_deflate_mode: str = "dynamic",
+        packer: Optional[str] = None,
     ):
+        if device_deflate_mode not in DEFLATE_MODES:
+            raise ValueError(f"Unknown device deflate mode: {device_deflate_mode}")
+        self.device_deflate_mode = device_deflate_mode
         self.device = resolve_device(device)
         self.pixels_service = pixels_service
         self.buckets = tuple(sorted(buckets))
         self.plane_cache = DevicePlaneCache(self.device)
-        self.dispatcher = DeviceEncodeDispatcher(self.device, queue_depth=queue_depth)
+        self.dispatcher = DeviceEncodeDispatcher(
+            self.device, queue_depth=queue_depth, packer=packer)
 
     def close(self) -> None:
         self.dispatcher.close()
@@ -95,7 +106,7 @@ class TilePipeline:
         return self.plane_cache.snapshot()
 
     def device_queue_snapshot(self) -> dict:
-        return self.dispatcher.snapshot()
+        return {"deflate_mode": self.device_deflate_mode, **self.dispatcher.snapshot()}
 
     # -- resolve / read ----------------------------------------------------
 
@@ -177,6 +188,11 @@ class TilePipeline:
                 h, w = tile.shape
                 bh, bw = self._bucket(w, h) or (h, w)
                 png_groups.setdefault(((bh, bw), tile.dtype.str), []).append(i)
+            elif ctx.format == "tif":
+                try:
+                    results[i] = encode_tiff(tile)
+                except TiffEncodeError:
+                    pass  # None -> 404, as the JAX package answers
             else:
                 log.error("Unknown output format: %s", ctx.format)
 
@@ -285,7 +301,8 @@ class TilePipeline:
     def _submit(self, batch, h, w, itemsize, idxs, staged):
         try:
             return self.dispatcher.submit(
-                batch, h, 1 + w * itemsize, itemsize, PNG_FILTER, idxs,
+                batch, h, 1 + w * itemsize, itemsize, PNG_FILTER,
+                self.device_deflate_mode, idxs,
                 [(w, h)] * len(idxs), itemsize * 8, 0, staged=staged,
             )
         except Exception as e:

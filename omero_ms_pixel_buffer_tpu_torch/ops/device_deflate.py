@@ -1,30 +1,43 @@
-"""Two-pass dynamic-Huffman zlib streams built on the device
-(counterpart of ``omero_ms_pixel_buffer_tpu/ops/device_deflate.py``,
-mode ``dynamic``).
+"""Zlib streams built on the device (counterpart of
+``omero_ms_pixel_buffer_tpu/ops/device_deflate.py``) in the three device
+deflate modes, each with the Z_RLE match policy:
 
-Pass 1 (``fused_filter_histogram_batch``) runs the PNG filter kernel,
-the Z_RLE run decomposition and a 286-symbol histogram per lane; only
-the (B, 286) counts cross to the host. The host builds per-lane
-length-limited canonical Huffman codes (``build_dynamic_tables``, the
-numpy planner copied verbatim) — the state pass 1 hands to pass 2.
-Pass 2 (``dynamic_emit_batch``) re-runs the decomposition, maps every
-token through its lane's tables, packs the bits with the bit-pack
-kernel and frames each lane as a zlib stream, falling back per lane to
-stored blocks when those are shorter. Every stream is byte-identical to
-the JAX package's for the same payloads and tables.
+- ``dynamic``, two passes. Pass 1 (``fused_filter_histogram_batch``)
+  runs the PNG filter kernel, the run decomposition and a 286-symbol
+  histogram per lane; only the (B, 286) counts cross to the host. The
+  host builds per-lane length-limited canonical Huffman codes
+  (``build_dynamic_tables``, the numpy planner copied verbatim). Pass 2
+  (``dynamic_emit_batch``) re-runs the decomposition, maps every token
+  through its lane's tables, packs the bits and frames each lane.
+- ``rle``, one pass (``zlib_rle_batch``): the same decomposition mapped
+  through the fixed Huffman tables, packed and framed, with no host hop.
+- ``stored``, one pass (``zlib_stored_batch``): stored blocks only.
+
+``fused_filter_deflate_batch`` runs the filter kernel and the chain of
+a one-pass mode. Coded streams fall back per lane to stored blocks when those
+are shorter. The packer is chosen by name as in the JAX package
+(``default_packer``, ``OMPB_BITPACK``): ``pallas`` is the scalar-prefetch
+kernel (``kernels/bitpack.py``), ``pallas_dense`` the dense kernel
+(``kernels/bitpack_dense.py``), ``scan`` and ``gather`` the PyTorch ports
+of the JAX package's XLA packers. Every stream is byte-identical to the
+JAX package's for the same payloads, tables and mode, whatever the packer.
 
     payloads (B, L) uint8 -> streams (B, max_stream_len(L)) uint8,
                              lengths (B,) int64
+    (stored: streams (B, stored_stream_len(L)), every length equal)
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .kernels.bitpack import pack_tokens
+from .kernels.bitpack import pack_bits_scan, pack_tokens_sp
+from .kernels.bitpack_dense import pack_tokens_dense
 from .kernels.filter import filter_tiles
 
 _MOD = 65521  # largest prime < 2^16 (adler32 modulus)
@@ -175,6 +188,39 @@ def _run_decompose(payloads: torch.Tensor):
     return is_lit, is_match, mlen
 
 
+@functools.lru_cache(maxsize=None)
+def _fixed_tables(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The fixed-Huffman code tables on ``device``, uploaded once (with
+    the one stream sync of a blocking copy): (literal bits, literal
+    nbits, match bits, match nbits) int32."""
+    return tuple(torch.from_numpy(t.astype(np.int32)).to(device)
+                 for t in (_LIT_BITS, _LIT_NBITS, _MATCH_BITS, _MATCH_NBITS))
+
+
+def _rle_tokens(payloads: torch.Tensor):
+    """Per-position fixed-Huffman (bits, nbits) token arrays from the
+    Z_RLE decomposition: ((B, L) int32, (B, L) int32)."""
+    is_lit, is_match, mlen = _run_decompose(payloads)
+    lit_bits, lit_nbits, match_bits, match_nbits = _fixed_tables(payloads.device)
+    pay = payloads.long()
+    mlen_l = mlen.long()
+    zero = torch.zeros((), dtype=torch.int32, device=payloads.device)
+    bits = torch.where(is_lit, lit_bits[pay], torch.where(is_match, match_bits[mlen_l], zero))
+    nbits = torch.where(is_lit, lit_nbits[pay], torch.where(is_match, match_nbits[mlen_l], zero))
+    return bits, nbits
+
+
+def _lane_tokens(payloads: torch.Tensor):
+    """(B, L) payloads -> (B, L + 1) (bits, nbits) token arrays including
+    the block-header token (BFINAL=1, BTYPE=01 -> LSB-first value 3, 3
+    bits). The end-of-block code is left implicit (``_frame_lanes``
+    ``eob_bits=7``)."""
+    bits, nbits = _rle_tokens(payloads)
+    head = torch.full((payloads.shape[0], 1), 3, dtype=torch.int32,
+                      device=payloads.device)
+    return torch.cat([head, bits], dim=1), torch.cat([head, nbits], dim=1)
+
+
 def _dyn_stats(payloads: torch.Tensor):
     """Pass-1 statistics per lane: ((B, 286) int64 literal/length symbol
     counts, (B,) int64 total match extra bits)."""
@@ -206,6 +252,23 @@ def _pad_pow2_lanes(arr: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return arr, b
 
 
+def _filtered_payloads(
+    tiles: torch.Tensor, rows: int, row_bytes: int, bpp: int, filter_mode: str,
+) -> Tuple[torch.Tensor, int]:
+    """Pow2 lane padding, the filter kernel, then the leading ``rows`` x
+    ``row_bytes`` of each filtered lane flattened: ((B', L) uint8
+    payloads, real lane count)."""
+    samples = tiles.shape[3] if tiles.ndim == 4 else 1
+    if bpp != samples * tiles.element_size():
+        raise ValueError(
+            f"bpp {bpp} does not match {samples} sample(s) of "
+            f"{tiles.element_size()} byte(s)"
+        )
+    tiles, b = _pad_pow2_lanes(tiles)
+    filtered = filter_tiles(tiles, filter_mode)
+    return filtered[:, :rows, :row_bytes].reshape(filtered.shape[0], -1), b
+
+
 def fused_filter_histogram_batch(
     tiles: torch.Tensor, rows: int, row_bytes: int, bpp: int,
     filter_mode: str = "up",
@@ -215,17 +278,98 @@ def fused_filter_histogram_batch(
     ``row_bytes`` of each filtered lane is the payload. Returns ``(flat,
     counts, extras, real_b)`` with the lanes pow2-padded; ``flat`` stays
     on the device for pass 2."""
-    samples = tiles.shape[3] if tiles.ndim == 4 else 1
-    if bpp != samples * tiles.element_size():
-        raise ValueError(
-            f"bpp {bpp} does not match {samples} sample(s) of "
-            f"{tiles.element_size()} byte(s)"
-        )
-    tiles, b = _pad_pow2_lanes(tiles)
-    filtered = filter_tiles(tiles, filter_mode)
-    flat = filtered[:, :rows, :row_bytes].reshape(filtered.shape[0], -1)
+    flat, b = _filtered_payloads(tiles, rows, row_bytes, bpp, filter_mode)
     counts, extras = _dyn_stats(flat)
     return flat, counts, extras, b
+
+
+# ---------------------------------------------------------------------------
+# Packer choice
+# ---------------------------------------------------------------------------
+
+# Bit-packing geometry of the legacy gather packer: output bits are cut
+# into 128-bit chunks; each chunk's covering tokens come from a window
+# of 24 tokens starting at the last token at or before the chunk start.
+# Real fixed-Huffman tokens are >= 3 bits and all but the header >= 8.
+_CHUNK_BITS = 128
+_WIN = 24
+
+
+def _pack_lane_gather(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int):
+    """One lane of the gather packer: compaction of the real tokens, a
+    token window per 128-bit chunk, a dense one-hot reduce per bit."""
+    dev = bits.device
+    ntok = bits.shape[0]
+    order = torch.sort((nbits == 0).to(torch.int8), stable=True).indices
+    bits_c = bits[order].to(torch.int64)
+    nbits_c = nbits[order].to(torch.int64)
+    offs_c = torch.cumsum(nbits_c, 0) - nbits_c  # exclusive; sorted
+    total = offs_c[-1] + nbits_c[-1]
+    nchunks = maxbits // _CHUNK_BITS
+    chunk_starts = torch.arange(nchunks, dtype=torch.int64, device=dev) * _CHUNK_BITS
+    first = torch.searchsorted(offs_c, chunk_starts, right=True) - 1
+    win = torch.clamp(
+        torch.clamp(first, min=0)[:, None]
+        + torch.arange(_WIN, dtype=torch.int64, device=dev)[None, :],
+        0, ntok - 1,
+    )  # (C, W) token indices
+    wo, wb, wn = offs_c[win], bits_c[win], nbits_c[win]
+    jg = chunk_starts[:, None] + torch.arange(_CHUNK_BITS, dtype=torch.int64, device=dev)
+    # prefix-true per (chunk, bit) row: the covering token is the LAST w
+    # with wo <= j
+    cmp = wo[:, None, :] <= jg[:, :, None]  # (C, CB, W)
+    last = cmp & ~torch.cat([cmp[:, :, 1:], torch.zeros_like(cmp[:, :, :1])], dim=2)
+    onehot = last.to(torch.int64)
+    sel_b = (onehot * wb[:, None, :]).sum(2)
+    sel_n = (onehot * wn[:, None, :]).sum(2)
+    shift = (onehot * (jg[:, :, None] - wo[:, None, :])).sum(2)
+    bit = torch.where(shift < sel_n, (sel_b >> torch.clamp(shift, 0, 31)) & 1, 0)
+    weights = 1 << torch.arange(8, dtype=torch.int64, device=dev)  # LSB-first
+    return (bit.reshape(-1, 8) * weights).sum(1).to(torch.uint8), total
+
+
+def _pack_bits_gather(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int):
+    """The legacy gather packer (the JAX package's XLA
+    ``_pack_bits_gather``), lane by lane: O(maxbits x 24) work per lane,
+    kept because the JAX package keeps it as a packer name."""
+    lanes = [_pack_lane_gather(b, nb, maxbits) for b, nb in zip(bits, nbits)]
+    return (torch.stack([p for p, _ in lanes]),
+            torch.stack([t for _, t in lanes]))
+
+
+# packer name -> (B, ntok) bits/nbits, maxbits -> (packed bytes, totals)
+_PACK_FNS = {
+    "scan": pack_bits_scan,
+    "pallas": pack_tokens_sp,
+    "pallas_dense": pack_tokens_dense,
+    "gather": _pack_bits_gather,
+}
+_PACKERS = tuple(_PACK_FNS)  # the JAX package's names and order
+
+
+def default_packer(device="cuda") -> str:
+    """``pallas`` (the scalar-prefetch kernel) on a CUDA device, ``scan``
+    on the CPU; ``OMPB_BITPACK=scan|pallas|pallas_dense|gather``
+    overrides it, and any other value is ignored, as in the JAX
+    package."""
+    forced = os.environ.get("OMPB_BITPACK")
+    if forced in _PACKERS:
+        return forced
+    return "pallas" if torch.device(device).type == "cuda" else "scan"
+
+
+def resolve_packer(packer: Optional[str], device) -> str:
+    """``packer``, or the default for ``device``; ValueError on an
+    unknown name."""
+    packer = packer or default_packer(device)
+    if packer not in _PACKERS:
+        raise ValueError(f"Unknown bit packer: {packer} (one of {_PACKERS})")
+    return packer
+
+
+def _pack_dispatch(bits, nbits, maxbits: int, packer: str):
+    """Route batched token arrays through the named packer."""
+    return _PACK_FNS[packer](bits, nbits, maxbits)
 
 
 # ---------------------------------------------------------------------------
@@ -514,18 +658,26 @@ def _stored_streams(payloads: torch.Tensor, adler: torch.Tensor, cap: int):
     return out
 
 
-def _frame_lanes(payloads: torch.Tensor, packed: torch.Tensor, body_bits: torch.Tensor):
-    """Zlib-frame every lane's packed deflate body (EOB already a
-    token), then keep per lane the smaller of the coded and stored
-    streams: (streams (B, 2 + packed bytes + 4) uint8, lengths (B,))."""
+def _adler_bytes(payloads: torch.Tensor) -> torch.Tensor:
+    """Every lane's adler32 as its 4 big-endian stream bytes (B, 4)."""
+    shifts = 24 - 8 * torch.arange(4, dtype=torch.int64, device=payloads.device)
+    return ((_adler32(payloads)[:, None] >> shifts) & 0xFF).to(torch.uint8)
+
+
+def _frame_lanes(payloads: torch.Tensor, packed: torch.Tensor,
+                 body_bits: torch.Tensor, eob_bits: int):
+    """Zlib-frame every lane's packed deflate body, then keep per lane
+    the smaller of the coded and stored streams: (streams (B, 2 + packed
+    bytes + 4) uint8, lengths (B,)). ``eob_bits``: the fixed-Huffman
+    emit leaves the end-of-block symbol implicit (its 7-bit all-zero
+    code, counted here as length only); the dynamic emit carries it as
+    a token and passes 0."""
     B, n = payloads.shape
     dev = payloads.device
-    deflate_nbytes = (body_bits + 7) // 8
+    deflate_nbytes = (body_bits + eob_bits + 7) // 8
     cap = 2 + packed.shape[1] + 4
     coded_len = 2 + deflate_nbytes + 4
-    adler = _adler32(payloads)
-    shifts = 24 - 8 * torch.arange(4, dtype=torch.int64, device=dev)
-    adler_bytes = ((adler[:, None] >> shifts) & 0xFF).to(torch.uint8)
+    adler_bytes = _adler_bytes(payloads)
     out = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
     out[:, 0] = 0x78
     out[:, 1] = 0x01
@@ -542,17 +694,23 @@ def _frame_lanes(payloads: torch.Tensor, packed: torch.Tensor, body_bits: torch.
     return out, lengths
 
 
-def dynamic_emit(flat: torch.Tensor, tables: EmitTables):
+def dynamic_emit(flat: torch.Tensor, tables: EmitTables, packer: Optional[str] = None):
     """Pass 2 on the device: emit through the per-lane tables, pack with
-    the bit-pack kernel, frame. Streams are ``max_stream_len(L)`` wide."""
+    the named packer, frame. Streams are ``max_stream_len(L)`` wide."""
+    packer = resolve_packer(packer, flat.device)
+    if packer == "gather":
+        # the gather packer's window assumes >= 7-bit real tokens;
+        # dynamic codes can be 1 bit, so the JAX package routes to scan
+        packer = "scan"
     bits, nbits = emit_tokens(flat, tables)
-    packed, body_bits = pack_tokens(bits, nbits, _packing_maxbits(flat.shape[1]))
-    return _frame_lanes(flat, packed, body_bits)
+    packed, body_bits = _pack_dispatch(
+        bits, nbits, _packing_maxbits(flat.shape[1]), packer)
+    return _frame_lanes(flat, packed, body_bits, eob_bits=0)
 
 
 def dynamic_emit_batch(
     flat: torch.Tensor, counts_np: np.ndarray, extras_np: np.ndarray,
-    real: Optional[int] = None,
+    packer: Optional[str] = None, real: Optional[int] = None,
 ):
     """Pass 2 from the pulled pass-1 counts: host table build, then the
     device emit. ``real`` bounds the host planning to the real lanes and
@@ -560,7 +718,73 @@ def dynamic_emit_batch(
     tables = build_dynamic_tables(
         np.asarray(counts_np), np.asarray(extras_np), real=real
     )
-    streams, lengths = dynamic_emit(flat, tables_from_numpy(tables, flat.device))
+    streams, lengths = dynamic_emit(
+        flat, tables_from_numpy(tables, flat.device), packer=packer)
     if real is not None:
         return streams[:real], lengths[:real]
     return streams, lengths
+
+
+# ---------------------------------------------------------------------------
+# One-pass modes: fixed Huffman (rle) and stored blocks
+# ---------------------------------------------------------------------------
+
+
+def _check_payloads(payloads: torch.Tensor) -> None:
+    if payloads.ndim != 2 or payloads.dtype != torch.uint8:
+        raise ValueError(f"payloads must be (B, L) uint8, got {tuple(payloads.shape)} "
+                         f"{payloads.dtype}")
+    if payloads.shape[1] == 0:
+        raise ValueError("empty payload")
+
+
+def zlib_stored_batch(payloads: torch.Tensor) -> torch.Tensor:
+    """Complete zlib streams of stored blocks for equal-length payloads:
+    (B, L) uint8 -> (B, stored_stream_len(L)) uint8, every stream exactly
+    that long."""
+    _check_payloads(payloads)
+    return _stored_streams(payloads, _adler_bytes(payloads),
+                           stored_stream_len(payloads.shape[1]))
+
+
+def zlib_rle_batch(payloads: torch.Tensor, packer: Optional[str] = None):
+    """Compressive zlib streams (Z_RLE match policy, fixed Huffman,
+    per-lane stored fallback) for equal-length payloads, one device
+    chain with no host hop: (B, L) uint8 -> ((B, max_stream_len(L))
+    uint8, (B,) lengths)."""
+    _check_payloads(payloads)
+    packer = resolve_packer(packer, payloads.device)
+    bits, nbits = _lane_tokens(payloads)
+    maxbits = _packing_maxbits(payloads.shape[1])
+    packed, body_bits = _pack_dispatch(bits, nbits, maxbits, packer)
+    return _frame_lanes(payloads, packed, body_bits, eob_bits=7)
+
+
+def _streams_core(flat: torch.Tensor, mode: str, packer: Optional[str]):
+    if mode == "stored":
+        lengths = torch.full((flat.shape[0],), stored_stream_len(flat.shape[1]),
+                             dtype=torch.int64, device=flat.device)
+        return zlib_stored_batch(flat), lengths
+    return zlib_rle_batch(flat, packer)
+
+
+DEFLATE_MODES = ("dynamic", "rle", "stored")
+
+
+def fused_filter_deflate_batch(
+    tiles: torch.Tensor, rows: int, row_bytes: int, bpp: int,
+    filter_mode: str = "up", mode: str = "rle", packer: Optional[str] = None,
+):
+    """The one-pass device encode chain (``mode`` ``rle`` or ``stored``):
+    tiles (B, H, W[, S]) 8/16-bit -> ((B, cap) uint8 zlib streams, (B,)
+    lengths) for the leading ``rows`` x ``row_bytes`` of each filtered
+    lane. The lanes are padded to a power of two, run through the filter
+    kernel and the chain, and the padding is sliced off. ``dynamic`` is
+    two passes with a host plan between them: ``fused_filter_histogram_batch``
+    then ``dynamic_emit_batch``."""
+    if mode not in ("rle", "stored"):
+        raise ValueError(f"Unknown one-pass device deflate mode: {mode}")
+    packer = resolve_packer(packer, tiles.device)
+    flat, b = _filtered_payloads(tiles, rows, row_bytes, bpp, filter_mode)
+    streams, lengths = _streams_core(flat, mode, packer)
+    return streams[:b], lengths[:b]

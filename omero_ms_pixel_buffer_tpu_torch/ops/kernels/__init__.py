@@ -10,20 +10,20 @@ from __future__ import annotations
 from typing import Dict
 
 
-def launch_counts() -> Dict[str, int]:
-    """{kernel name: launches} for every kernel of the port."""
-    from .bitpack import pack_tokens
+def _wrappers() -> Dict[str, object]:
+    from .bitpack import pack_tokens_sp
+    from .bitpack_dense import pack_tokens_dense
     from .filter import filter_tiles
 
-    return {
-        "filter": filter_tiles.launches,
-        "bitpack": pack_tokens.launches,
-    }
+    return {"filter": filter_tiles, "bitpack": pack_tokens_sp,
+            "bitpack_dense": pack_tokens_dense}
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel name: launches} for every kernel of the port."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from .bitpack import pack_tokens
-    from .filter import filter_tiles
-
-    filter_tiles.launches = 0
-    pack_tokens.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0

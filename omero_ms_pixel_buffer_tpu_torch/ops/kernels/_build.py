@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = {"filter": "filter.cu", "bitpack": "bitpack.cu"}
+SOURCES = {"filter": "filter.cu", "bitpack": "bitpack.cu", "bitpack_dense": "bitpack_dense.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,7 +1,9 @@
-"""Deflate token bit packer: CUDA kernel and plain version.
+"""Deflate token bit packer, scalar-prefetch formulation: CUDA kernel
+and plain version.
 
 Replaces the Pallas TPU kernel ``omero_ms_pixel_buffer_tpu/ops/pallas/
-bitpack.py`` ``pack_tokens_sp`` (``pl.pallas_call`` at :201). The kernel
+bitpack.py`` ``pack_tokens_sp`` (``pl.pallas_call`` at :201, the packer
+named ``pallas``; ``bitpack_dense.py`` ports the other one). The kernel
 (``csrc/bitpack.cu``) is bound by bytes: each token (value + bit count,
 8 bytes) is read once and the stream written once. Hopper runs blocks
 in no order, so instead of the TPU's in-order walk with a VMEM-resident
@@ -9,10 +11,11 @@ lane, the wrapper scans per-256-token block bit counts up front and the
 kernel ORs every token into its word with ``atomicOr`` — exact because
 token bit ranges are disjoint.
 
-The plain version is the carry-free prefix-sum packer
-(``device_deflate._pack_bits_scan``) in PyTorch: wrapping uint32 sums
-become int64 sums masked to 32 bits, and the word boundaries come from
-``torch.searchsorted``.
+The plain version is ``pack_bits_scan``, the carry-free prefix-sum
+packer (the JAX package's XLA ``device_deflate._pack_bits_scan``) batched
+over lanes in PyTorch: wrapping uint32 sums become int64 sums masked to
+32 bits, and the word boundaries come from ``torch.searchsorted``. The
+same function is the packer named ``scan``.
 """
 
 from __future__ import annotations
@@ -53,12 +56,12 @@ def _words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     return packed.to(torch.uint8).reshape(words.shape[0], -1)
 
 
-def pack_tokens_plain(
+def pack_bits_scan(
     bits: torch.Tensor, nbits: torch.Tensor, maxbits: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch packer (``_pack_bits_scan`` batched over lanes),
-    on the tensors' device: (B, maxbits // 8) uint8 packed bytes and
-    (B,) int64 body bit totals."""
+    """The scan packer (``_pack_bits_scan`` batched over lanes), on the
+    tensors' device: (B, maxbits // 8) uint8 packed bytes and (B,) int64
+    body bit totals."""
     _check_args(bits, nbits, maxbits)
     B, ntok = bits.shape
     dev = bits.device
@@ -104,30 +107,37 @@ def block_bases(nbits: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(sums, dim=1) - sums
 
 
-def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int):
+def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int,
+            source: str, symbol: str, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one of the two packer kernels (``source``'s ``symbol``, with
+    the argument list ``_ARGTYPES``) and count it on ``wrapper``."""
     if bits.dtype != torch.int32 or nbits.dtype != torch.int32:
-        raise ValueError("bitpack kernel needs int32 bits and nbits")
+        raise ValueError(f"{source} kernel needs int32 bits and nbits")
     if not (bits.is_contiguous() and nbits.is_contiguous()):
-        raise ValueError("bitpack kernel needs contiguous token arrays")
+        raise ValueError(f"{source} kernel needs contiguous token arrays")
     B, ntok = bits.shape
     if B > 65535:
-        raise ValueError(f"bitpack kernel takes at most 65535 lanes, got {B}")
+        raise ValueError(f"{source} kernel takes at most 65535 lanes, got {B}")
     nwords = maxbits // 32
     base = block_bases(nbits)
     out = torch.zeros((B, nwords), dtype=torch.int32, device=bits.device)
     totals = nbits.sum(dim=1, dtype=torch.int64)
-    fn = _build.entry("bitpack", "ompb_bitpack", _ARGTYPES)
+    fn = _build.entry(source, symbol, _ARGTYPES)
     with torch.cuda.device(bits.device):
         code = fn(bits.data_ptr(), nbits.data_ptr(), base.data_ptr(),
                   out.data_ptr(), B, ntok, base.shape[1], nwords,
                   _build.stream_handle(bits.device))
-    _build.check(code, "bitpack kernel launch")
-    pack_tokens.launches += 1
+    _build.check(code, f"{source} kernel launch")
+    wrapper.launches += 1
     # little-endian words: their bytes in memory are the LSB-first stream
     return out.view(torch.uint8), totals
 
 
-def pack_tokens(
+# the plain version of ``pack_tokens_sp`` is the scan packer
+pack_tokens_sp_plain = pack_bits_scan
+
+
+def pack_tokens_sp(
     bits: torch.Tensor, nbits: torch.Tensor, maxbits: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, ntok) token values and bit counts -> ((B, maxbits // 8) uint8
@@ -136,10 +146,10 @@ def pack_tokens(
     version."""
     _check_args(bits, nbits, maxbits)
     if bits.device.type == "cuda":
-        return _launch(bits, nbits, maxbits)
+        return _launch(bits, nbits, maxbits, "bitpack", "ompb_bitpack", pack_tokens_sp)
     if bits.device.type == "cpu":
-        return pack_tokens_plain(bits, nbits, maxbits)
+        return pack_tokens_sp_plain(bits, nbits, maxbits)
     raise ValueError(f"Unsupported device: {bits.device}")
 
 
-pack_tokens.launches = 0
+pack_tokens_sp.launches = 0

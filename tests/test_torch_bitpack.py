@@ -14,8 +14,8 @@ import torch
 from omero_ms_pixel_buffer_tpu.ops.device_deflate import _pack_bits_scan
 from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
     block_bases,
-    pack_tokens,
-    pack_tokens_plain,
+    pack_tokens_sp,
+    pack_tokens_sp_plain,
 )
 
 
@@ -48,7 +48,7 @@ def test_plain_matches_jax_scan(ntok):
     bits, nbits = _tokens(rng, 3, ntok, one_bit_lane=True)
     maxbits = _maxbits(nbits)
     want_p, want_t = _jax_pack(bits, nbits, maxbits)
-    got_p, got_t = pack_tokens(torch.from_numpy(bits), torch.from_numpy(nbits), maxbits)
+    got_p, got_t = pack_tokens_sp(torch.from_numpy(bits), torch.from_numpy(nbits), maxbits)
     np.testing.assert_array_equal(got_p.numpy(), want_p)
     np.testing.assert_array_equal(got_t.numpy(), want_t)
 
@@ -58,7 +58,7 @@ def test_truncates_at_maxbits_like_jax():
     bits, nbits = _tokens(rng, 2, 600)
     maxbits = 1024  # well below the lanes' totals
     want_p, _ = _jax_pack(bits, nbits, maxbits)
-    got_p, _ = pack_tokens(torch.from_numpy(bits), torch.from_numpy(nbits), maxbits)
+    got_p, _ = pack_tokens_sp(torch.from_numpy(bits), torch.from_numpy(nbits), maxbits)
     np.testing.assert_array_equal(got_p.numpy(), want_p)
 
 
@@ -71,7 +71,7 @@ def test_stored_block_bits_inflate():
            ((n & 0xFF) ^ 0xFF, 8), ((n >> 8) ^ 0xFF, 8)]
     bits = np.array([v for v, _ in hdr] + list(payload), np.int32)[None]
     nbits = np.array([b for _, b in hdr] + [8] * n, np.int32)[None]
-    packed, total = pack_tokens(torch.from_numpy(bits), torch.from_numpy(nbits), 4096)
+    packed, total = pack_tokens_sp(torch.from_numpy(bits), torch.from_numpy(nbits), 4096)
     body = packed.numpy()[0, : (int(total[0]) + 7) // 8].tobytes()
     assert zlib.decompress(body, -15) == payload.astype(np.uint8).tobytes()
 
@@ -87,9 +87,9 @@ def test_block_bases_are_block_start_offsets():
 def test_rejects_bad_arguments():
     z = torch.zeros((2, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
-        pack_tokens(z, z[:1], 64)
+        pack_tokens_sp(z, z[:1], 64)
     with pytest.raises(ValueError):
-        pack_tokens(z, z, 100)
+        pack_tokens_sp(z, z, 100)
 
 
 @pytest.fixture
@@ -107,9 +107,9 @@ def test_cuda_kernel_matches_plain(cuda_device, ntok):
     maxbits = _maxbits(nbits)
     b = torch.from_numpy(bits).to(cuda_device)
     n = torch.from_numpy(nbits).to(cuda_device)
-    before = pack_tokens.launches
-    got_p, got_t = pack_tokens(b, n, maxbits)
-    assert pack_tokens.launches == before + 1
-    want_p, want_t = pack_tokens_plain(b, n, maxbits)
+    before = pack_tokens_sp.launches
+    got_p, got_t = pack_tokens_sp(b, n, maxbits)
+    assert pack_tokens_sp.launches == before + 1
+    want_p, want_t = pack_tokens_sp_plain(b, n, maxbits)
     torch.testing.assert_close(got_p, want_p, rtol=0, atol=0)
     torch.testing.assert_close(got_t, want_t, rtol=0, atol=0)

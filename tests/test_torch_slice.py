@@ -1,11 +1,12 @@
 """The whole slice: the port's ``TilePipeline.handle_batch`` against the
 JAX package's device pipeline (``engine="device"``, device deflate in
-``dynamic`` mode) on one OME-TIFF, over the bucket route (round 1) and
-the plane-cache route (round 2, after the plane's admission touch), and
-the port's HTTP front on the CPU. Tolerance: zero — PNG bodies are
-compared byte for byte."""
+each of its modes ``dynamic``, ``rle`` and ``stored``) on one OME-TIFF,
+over the bucket route (round 1) and the plane-cache route (round 2,
+after the plane's admission touch), and the port's HTTP front on the
+CPU. Tolerance: zero — PNG and TIFF bodies are compared byte for byte."""
 
 import asyncio
+import json
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from omero_ms_pixel_buffer_tpu.io.pixels_service import (
 )
 from omero_ms_pixel_buffer_tpu.models.tile_pipeline import TilePipeline as JaxPipeline
 from omero_ms_pixel_buffer_tpu.ops.png import decode_png
+from omero_ms_pixel_buffer_tpu.ops.tiff import decode_tiff, encode_tiff
 from omero_ms_pixel_buffer_tpu.tile_ctx import RegionDef as JaxRegion
 from omero_ms_pixel_buffer_tpu.tile_ctx import TileCtx as JaxCtx
 from omero_ms_pixel_buffer_tpu_torch.dispatch.batcher import BatchingTileWorker
@@ -42,7 +44,7 @@ LANES = [
     (40, 40, 64, 48, None),
     (1000, 0, 512, 512, "png"),   # overflows the plane: 404
     (0, 0, 64, 64, "bmp"),        # unknown format: None in both
-    (0, 0, 0, 0, "tif"),          # a later slice: None (404) in the port
+    (0, 0, 0, 0, "tif"),          # the full plane as the JAX encode_tiff bytes
 ]
 
 
@@ -58,22 +60,23 @@ def fixture_image(tmp_path_factory):
     return path, data[0, 0, 0]
 
 
-def _port_pipeline(path):
+def _port_pipeline(path, **kwargs):
     reg = ImageRegistry()
     reg.add(1, path)
-    return TilePipeline(PixelsService(reg), buckets=(256, 512), device="cpu")
+    return TilePipeline(PixelsService(reg), buckets=(256, 512), device="cpu", **kwargs)
 
 
-def test_png_bytes_match_jax_on_both_routes(fixture_image):
-    path, truth = fixture_image
+def _match_jax_on_both_routes(path, truth, mode, **port_kwargs):
+    """Two rounds of ``LANES`` through both pipelines in ``mode``; every
+    lane's body equal. Returns the port's queue snapshot."""
     jreg = JaxRegistry()
     jreg.add(1, path)
     jax_pipe = JaxPipeline(
         JaxService(jreg), engine="device", device_deflate=True,
-        device_deflate_mode="dynamic", buckets=(256, 512),
+        device_deflate_mode=mode, buckets=(256, 512),
     )
     jax_pipe.mesh = None  # single device: the plane cache serves
-    port = _port_pipeline(path)
+    port = _port_pipeline(path, device_deflate_mode=mode, **port_kwargs)
     try:
         for _round in range(2):
             jctx = [JaxCtx(1, 0, 0, 0, JaxRegion(x, y, w, h), format=f,
@@ -82,19 +85,37 @@ def test_png_bytes_match_jax_on_both_routes(fixture_image):
                             omero_session_key="k") for x, y, w, h, f in LANES]
             want = jax_pipe.handle_batch(jctx)
             got = port.handle_batch(pctx)
-            for lane, g, w in zip(LANES[:-1], got, want):
+            for lane, g, w in zip(LANES, got, want):
                 assert g == w, lane
             for (x, y, w, h, f), g in zip(LANES, got):
                 if f == "png" and g is not None:
                     np.testing.assert_array_equal(decode_png(g), truth[y:y + h, x:x + w])
-            assert got[-3] is None and got[-2] is None and got[-1] is None
+            assert got[-3] is None and got[-2] is None
             assert got[-4] == truth[40:88, 40:104].astype(">u2").tobytes()
+            assert got[-1] == encode_tiff(truth)
+            np.testing.assert_array_equal(decode_tiff(got[-1]), truth)
         # round 2 staged the plane and routed the fitting lanes through it
         assert len(port.plane_cache) == 1 and len(jax_pipe._plane_cache) == 1
-        assert port.device_queue_snapshot()["failed"] == 0
+        snap = port.device_queue_snapshot()
+        assert snap["failed"] == 0 and snap["deflate_mode"] == mode
+        return snap
     finally:
         jax_pipe.close()
         port.close()
+
+
+def test_png_bytes_match_jax_on_both_routes(fixture_image):
+    path, truth = fixture_image
+    snap = _match_jax_on_both_routes(path, truth, "dynamic")
+    assert {"plan", "pass2"} <= set(snap["stage_ms_mean"])
+
+
+@pytest.mark.parametrize("mode", ["rle", "stored"])
+def test_one_pass_modes_match_jax_on_both_routes(fixture_image, mode):
+    path, truth = fixture_image
+    snap = _match_jax_on_both_routes(path, truth, mode, packer="pallas_dense")
+    assert snap["packer"] == "pallas_dense"
+    assert set(snap["stage_ms_mean"]) == {"stage", "compute", "pull", "frame"}
 
 
 def test_oversize_lane_encodes_on_device_path(fixture_image):
@@ -122,8 +143,9 @@ async def _get(port, path, cookie=None):
     return int(head.split()[1]), body
 
 
-async def test_http_front_on_cpu(fixture_image):
-    path, _ = fixture_image
+async def test_http_front_on_cpu(fixture_image, monkeypatch):
+    monkeypatch.delenv("OMPB_BITPACK", raising=False)
+    path, truth = fixture_image
     pipeline = _port_pipeline(path)
     server = TileServer(BatchingTileWorker(pipeline),
                         sessions={"cookie1": "key1"})
@@ -143,6 +165,11 @@ async def test_http_front_on_cpu(fixture_image):
         assert (await _get(port, "/tile/99/0/0/0?format=png", "cookie1"))[0] == 404
         status, body = await _get(port, "/healthz")
         assert status == 200 and b'"failed": 0' in body
+        queue = json.loads(body)["queue"]
+        assert queue["deflate_mode"] == "dynamic" and queue["packer"] == "scan"
+        status, body = await _get(port, "/tile/1/0/0/0?x=0&y=0&w=64&h=32&format=tif", "cookie1")
+        assert status == 200
+        np.testing.assert_array_equal(decode_tiff(body), truth[:32, :64])
     finally:
         await server.close()
         pipeline.close()
