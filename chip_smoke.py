@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
-        [--rle-requests 128] [--stored-requests 32]
+        [--rle-requests 128] [--stored-requests 32] [--filter-sweep]
 
 Phases, one JSON line each on stdout:
 
@@ -13,9 +13,12 @@ Phases, one JSON line each on stdout:
    a smooth field plus Gaussian noise, made from ``--seed``.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main path's shapes (32 lanes of 512x512 uint16): the filter in
-   all five modes plus uint8 and RGB uint8, the scalar-prefetch packer on
-   the real ``dynamic`` pass-2 tokens of those lanes, the dense packer on
-   their real ``rle`` tokens (also against the scalar-prefetch packer).
+   all five modes plus uint8 and RGB uint8, and in every mode at the
+   geometries of ``FILTER_EDGES`` and on a misaligned input; its
+   ``cold_ms`` is its device time with the L2 flushed before each launch.
+   The scalar-prefetch packer on the real ``dynamic`` pass-2 tokens of
+   those lanes, the dense packer on their real ``rle`` tokens (also
+   against the scalar-prefetch packer).
    Byte equality is required, and every lane's stream must inflate back.
    A kernel's ``ms`` is its device time from torch.profiler (CUDA events
    around the wrapper when the profiler records none); wrapper
@@ -47,7 +50,9 @@ stage means and thread busy shares over its timed requests alone (two
 ``/healthz`` views, just before and just after them).
 
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
-line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
+after the fixture and prints instead the filter kernel's device times over
+rows per warp and by mode (``filter_sweep``), and the nvidia-smi line. Any failure exits
 non-zero before the last line; without CUDA, or without the port package
 beside this file, it exits non-zero at once.
 """
@@ -78,6 +83,19 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 TILE = 512
 LANES = 32
+# filter geometries at the CUDA kernel's edges (shape, dtype)
+FILTER_EDGES = {
+    "pixel_1x1": ((1, 1, 1), np.uint16),
+    "h17_u16": ((3, 17, 512), np.uint16),     # row groups straddle lanes, end short
+    "rows_u8": ((7, 11, 600), np.uint8),
+    "rgb16_w21": ((2, 5, 21, 3), np.uint16),  # bpp 6, rows of 126 bytes
+    "u16_1024": ((4, 8, 1024), np.uint16),
+    "rgba16": ((2, 6, 9, 4), np.uint16),      # bpp 8
+    "rgb16_w16": ((2, 7, 16, 3), np.uint16),  # bpp 6, rows of 96 bytes
+    "rgba8_w36": ((3, 5, 36, 4), np.uint8),   # bpp 4, rows of 144 bytes
+    "rgba16_w400": ((1, 4, 400, 4), np.uint16),  # 3,200-byte rows
+    "row_80kb": ((1, 3, 40000), np.uint16),   # 157 column steps, the last ragged
+}
 COOKIE = {"Cookie": "sessionid=chip-smoke"}
 
 
@@ -141,16 +159,19 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(torch, fn, name: str, iters: int = 10):
+def kernel_ms(torch, fn, name: str, iters: int = 10, before=None):
     """Mean device time of the kernels whose name contains ``name``
     over ``iters`` calls, from torch.profiler's CUDA trace; None when the
-    profiler records no device time for them."""
+    profiler records no device time for them. ``before`` runs ahead of
+    each call (its kernels must not match ``name``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     total = count = 0
@@ -215,6 +236,20 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
     cases["u8_up"] = (bits_tensor((tiles >> 4).astype(np.uint8)).to(device), "up")
     rgb = rng.integers(0, 256, (LANES, TILE, TILE, 3), dtype=np.uint8)
     cases["rgb8_paeth"] = (bits_tensor(rgb).to(device), "paeth")
+    # the kernel's edges: groups of scanlines that straddle lanes or end
+    # short, rows that are not a multiple of 16 bytes and a misaligned
+    # input (its byte-load branch), wide rows with a ragged last step
+    for name, (shape, dtype) in FILTER_EDGES.items():
+        info = np.iinfo(dtype)
+        x = bits_tensor(rng.integers(info.min, info.max, shape, dtype=dtype,
+                                     endpoint=True)).to(device)
+        for m in ("none", "sub", "up", "average", "paeth"):
+            cases[f"{name}_{m}"] = (x, m)
+    flat = torch.from_numpy(rng.integers(0, 256, 1 + 5 * 19 * 37 * 3, dtype=np.uint8))
+    misaligned = flat.to(device)[1:].view(5, 19, 37, 3)
+    require(misaligned.data_ptr() % 16 == 1, "misaligned case is aligned")
+    for m in ("none", "sub", "up", "average", "paeth"):
+        cases[f"misaligned_rgb8_{m}"] = (misaligned, m)
     filter_errs = {}
     for name, (x, mode) in cases.items():
         got, want = filter_tiles(x, mode), filter_tiles_plain(x, mode)
@@ -222,7 +257,12 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
         filter_errs[name] = max_err(got, want)
         require(torch.equal(got, want), f"filter kernel != plain for {name}")
     f_call = time_ms(torch, lambda: filter_tiles(u16, "up"))
-    f_ms = kernel_ms(torch, lambda: filter_tiles(u16, "up"), "filter_rows")
+    f_ms = kernel_ms(torch, lambda: filter_tiles(u16, "up"), "filter_row_groups")
+    # cold: a 256 MB buffer zeroed before each launch flushes the 50 MB L2
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    f_cold = kernel_ms(torch, lambda: filter_tiles(u16, "up"), "filter_row_groups",
+                       before=flush.zero_)
+    del flush
     f_plain = time_ms(torch, lambda: filter_tiles_plain(u16, "up"))
     f_bytes = u16.numel() * 2 + LANES * TILE * (1 + TILE * 2)
 
@@ -298,7 +338,8 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
          "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
          "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/filter.py:137",
          "max_abs_err": max(filter_errs.values()), "ms": f_ms if f_ms else f_call,
-         "ms_from": "profiler" if f_ms else "events", "call_ms": f_call, "plain_ms": f_plain,
+         "ms_from": "profiler" if f_ms else "events", "cold_ms": f_cold,
+         "call_ms": f_call, "plain_ms": f_plain,
          "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
         {"name": "bitpack", "route": "cuda",
@@ -316,6 +357,56 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
          "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
     ]
+
+
+def filter_sweep(torch, device, tiles: np.ndarray) -> dict:
+    """Device ms of the filter kernel on the main path's 32 lanes over
+    the rows a warp owns (``group_bytes`` of output, rounded up to whole
+    rows), mode Up, warm and with the L2 flushed, each checked byte-equal
+    to the plain version (through the C entry ``ompb_filter_tuned``);
+    then every mode at the default, through the wrapper."""
+    import ctypes
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import _build
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.filter import (
+        filter_tiles,
+        filter_tiles_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import FILTER_CODES
+
+    fn = _build.entry("filter", "ompb_filter_tuned",
+                      [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p])
+    u16 = bits_tensor(tiles).to(device)
+    want = filter_tiles_plain(u16, "up")
+    out = torch.empty_like(want)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+    rows, width = u16.shape[0] * u16.shape[1], u16.shape[2]
+
+    def run(group_bytes):
+        _build.check(fn(u16.data_ptr(), out.data_ptr(), rows, u16.shape[1], width, 1, 2,
+                        FILTER_CODES["up"], group_bytes, _build.stream_handle(device)),
+                     "filter sweep")
+
+    table = []
+    for group_bytes in (1024, 2048, 4096, 8192, 16384, 32768):
+        out.zero_()
+        run(group_bytes)
+        torch.cuda.synchronize()
+        require(torch.equal(out, want), f"filter sweep {group_bytes} != plain")
+        table.append({
+            "group_bytes": group_bytes,
+            "ms": kernel_ms(torch, lambda: run(group_bytes), "filter_row_groups"),
+            "cold_ms": kernel_ms(torch, lambda: run(group_bytes), "filter_row_groups",
+                                 before=flush.zero_),
+        })
+    modes = {m: {"ms": kernel_ms(torch, lambda: filter_tiles(u16, m), "filter_row_groups"),
+                 "cold_ms": kernel_ms(torch, lambda: filter_tiles(u16, m), "filter_row_groups",
+                                      before=flush.zero_)}
+             for m in FILTER_CODES}
+    return {"phase": "filter_sweep", "shape": list(u16.shape), "mode": "up", "table": table,
+            "modes": modes}
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +645,9 @@ def main(argv=None) -> int:
                    help="timed requests of each rle phase")
     p.add_argument("--stored-requests", type=int, default=32,
                    help="requests of the stored phase")
+    p.add_argument("--filter-sweep", action="store_true",
+                   help="only build, then time the filter kernel over launch shapes "
+                        "(no path phases, no result line)")
     args = p.parse_args(argv)
     try:
         import torch
@@ -584,6 +678,10 @@ def main(argv=None) -> int:
         registry = write_fixture(data)
         emit({"phase": "fixture", "size": args.size, "seconds": time.perf_counter() - t0})
         device = torch.device("cuda", 0)
+        if args.filter_sweep:
+            emit(filter_sweep(torch, device, lane_tiles(data, args.seed)))
+            print(smi_line(), flush=True)
+            return 0
         kernels = check_kernels(torch, device, lane_tiles(data, args.seed))
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))

@@ -2,11 +2,20 @@
 
 Replaces the Pallas TPU kernel ``omero_ms_pixel_buffer_tpu/ops/pallas/
 filter.py`` (``_filter_tiles``; ``pl.pallas_call`` at :137). The kernel
-(``csrc/filter.cu``) is bound by bytes — one read of the tiles, one
-write of the scanlines — and runs one thread per output byte with the
-left/above neighbours read through the cache, so the big-endian byte
-image never exists as a separate array. The TPU kernel's VMEM size cap
-does not apply: any shape is taken.
+(``csrc/filter.cu``, ``filter_row_groups``) is bound by bytes — one read
+of the tiles, one write of the scanlines — so it is built around wide
+memory instructions with many of them in flight: each warp owns a group
+of consecutive scanlines and walks them row by row in 512-byte column
+steps, each lane holding one 16-byte chunk in registers (loaded with one
+16-byte load, byteswapped with ``__byte_perm``; left neighbours by
+shuffle, the row above from the previous row's registers, the next row
+already loading). Sixteen output bytes a lane come from SIMD-in-word
+intrinsics, the mode a template parameter, and are written with aligned
+16-byte stores after a shuffle realigns them to the output row's offset.
+Rows that are not 16-byte aligned (a misaligned tensor, a row length
+that is not a multiple of 16) or wider left distances than 16 bytes take
+a byte-load branch of the same entry point. The TPU kernel's VMEM size
+cap does not apply: any shape is taken.
 """
 
 from __future__ import annotations
