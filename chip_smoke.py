@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
-        [--rle-requests 128] [--stored-requests 32] [--filter-sweep]
+        [--rle-requests 128] [--stored-requests 32] [--filter-sweep] \
+        [--bitpack-sweep] [--bitpack-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
 
@@ -17,11 +18,15 @@ Phases, one JSON line each on stdout:
    geometries of ``FILTER_EDGES`` and on a misaligned input; its
    ``cold_ms`` is its device time with the L2 flushed before each launch.
    The scalar-prefetch packer on the real ``dynamic`` pass-2 tokens of
-   those lanes, the dense packer on their real ``rle`` tokens (also
-   against the scalar-prefetch packer).
+   those lanes, at the edge geometries of ``ops/kernels/bitpack_edges.py``
+   (``SP_EDGES``, made from ``--seed``, as the tests make them) and on one
+   lane of 103 M 21-bit tokens (past 2^31 bits); the dense packer on
+   their real ``rle`` tokens (also against the scalar-prefetch packer).
    Byte equality is required, and every lane's stream must inflate back.
    A kernel's ``ms`` is its device time from torch.profiler (CUDA events
-   around the wrapper when the profiler records none); wrapper
+   around the wrapper when the profiler records none): the filter's and
+   the dense packer's of their kernel, the scalar-prefetch packer's per
+   call over every kernel and memset the call issues; wrapper
    (``call_ms``) and plain times are CUDA events.
 4. ``path``    — the service (``http.server.create_server``, what
    ``python -m omero_ms_pixel_buffer_tpu_torch`` runs) on 127.0.0.1 in
@@ -52,7 +57,12 @@ stage means and thread busy shares over its timed requests alone (two
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
-rows per warp and by mode (``filter_sweep``), and the nvidia-smi line. Any failure exits
+rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
+``--bitpack-time`` likewise prints the scalar-prefetch packer's device time
+per call, call time and kernels by name on the real pass-2 tokens
+(``bitpack_time``), with ``--port-root`` taking the port package from
+another checkout (an earlier version timed by the same code), and
+``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``). Any failure exits
 non-zero before the last line; without CUDA, or without the port package
 beside this file, it exits non-zero at once.
 """
@@ -182,6 +192,23 @@ def kernel_ms(torch, fn, name: str, iters: int = 10, before=None):
     return total / count / 1e3 if count and total else None
 
 
+def call_device_ms(torch, fn, iters: int = 10):
+    """Device time of one call of ``fn``: every kernel and memset it issues,
+    summed from torch.profiler's CUDA trace over ``iters`` calls and
+    divided by ``iters``; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+                for ev in prof.key_averages())
+    return total / iters / 1e3 if total else None
+
+
 def device_breakdown(torch, fn, top: int = 10) -> dict:
     """Device milliseconds of one call of ``fn`` in total and for its
     ``top`` most expensive kernels (torch.profiler's CUDA trace)."""
@@ -210,7 +237,178 @@ def lane_tiles(data: np.ndarray, seed: int) -> np.ndarray:
     return np.stack([data[y:y + TILE, x:x + TILE] for y, x in zip(ys, xs)])
 
 
-def check_kernels(torch, device, tiles: np.ndarray) -> list:
+def check_sp_edges(torch, device, seed: int) -> dict:
+    """The scalar-prefetch kernel against its plain version on every edge
+    case, and on one lane whose total passes 2^31 bits (64-bit offsets and
+    look-back values): {name: max_abs_err}; raises on any difference."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_edges import SP_EDGES, sp_edge_case
+
+    errs = {}
+    for name in SP_EDGES:
+        b, n, maxbits = sp_edge_case(name, seed)
+        bt, nt = torch.from_numpy(b).to(device), torch.from_numpy(n).to(device)
+        got, want = pack_tokens_sp(bt, nt, maxbits), pack_tokens_sp_plain(bt, nt, maxbits)
+        torch.cuda.synchronize()
+        errs[name] = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item())
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"bitpack kernel != plain for {name}")
+    # one lane of 103 M 21-bit tokens: 2,163,000,000 bits, past 2^31
+    ntok = 103_000_000
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bt = torch.randint(0, 1 << 21, (1, ntok), generator=gen, device=device, dtype=torch.int32)
+    nt = torch.full((1, ntok), 21, dtype=torch.int32, device=device)
+    maxbits = -(-ntok * 21 // 1024) * 1024 + 1024
+    got = pack_tokens_sp(bt, nt, maxbits)
+    want = pack_tokens_sp_plain(bt, nt, maxbits)
+    torch.cuda.synchronize()
+    require(int(want[1][0]) == ntok * 21 > 1 << 31, "big lane total not past 2^31")
+    errs["lane_past_2e31_bits"] = int(
+        (got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item())
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "bitpack kernel != plain on the lane past 2^31 bits")
+    del got, want, bt, nt
+    torch.cuda.empty_cache()
+    return errs
+
+
+def pass2_tokens(torch, device, tiles: np.ndarray):
+    """The real ``dynamic`` pass-2 tokens of 32 lanes: (bits, nbits,
+    maxbits) on the card, and what framing and inflating them needs."""
+    from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+
+    u16 = bits_tensor(tiles).to(device)
+    row_bytes = 1 + TILE * 2
+    flat, counts, extras, real = dd.fused_filter_histogram_batch(u16, TILE, row_bytes, 2)
+    tables = dd.build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(), real=real)
+    bits, nbits = dd.emit_tokens(flat, dd.tables_from_numpy(tables, device))
+    return bits, nbits, dd._packing_maxbits(flat.shape[1]), (flat, real, tables)
+
+
+def bitpack_time(torch, device, tiles: np.ndarray) -> dict:
+    """The scalar-prefetch packer alone on the real pass-2 tokens: device
+    time per call over everything a call issues, the wrapper's call time,
+    the device kernels by name, byte equality with the plain version."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+    )
+
+    bits, nbits, maxbits, _ = pass2_tokens(torch, device, tiles)
+    got, want = pack_tokens_sp(bits, nbits, maxbits), pack_tokens_sp_plain(bits, nbits, maxbits)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "bitpack kernel != plain on pass-2 tokens")
+    call = lambda: pack_tokens_sp(bits, nbits, maxbits)  # noqa: E731
+    return {"phase": "bitpack_time",
+            "package": os.path.dirname(os.path.dirname(
+                sys.modules["omero_ms_pixel_buffer_tpu_torch"].__file__)),
+            "shape": list(bits.shape), "maxbits": maxbits,
+            "device_ms_per_call": [call_device_ms(torch, call, iters=20) for _ in range(3)],
+            "call_ms": [time_ms(torch, call) for _ in range(3)],
+            "by_kernel": device_breakdown(torch, call)}
+
+
+def bitpack_sweep(torch, device, tiles: np.ndarray, seed: int) -> None:
+    """Emit the scalar-prefetch kernel's two builds, the default (through
+    the wrapper) and the one with ``%globaltimer`` stamps (the C entry
+    ``ompb_sp_pack_stamped``, see ``csrc/bitpack.cu``), with their device
+    time per call (kernel and memset), the CTAs' phase times from one
+    stamped call, and every case, three runs each, where one differs from
+    the plain version (the real pass-2 tokens and every edge case); then
+    fail if any did."""
+    import ctypes
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import _build
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+        sp_tiles,
+        sp_workspace_bytes,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_edges import SP_EDGES, sp_edge_case
+
+    fn = _build.entry("bitpack", "ompb_sp_pack_stamped",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                               ctypes.c_longlong, ctypes.c_longlong,
+                                               ctypes.c_void_p, ctypes.c_void_p])
+
+    def stamped(bits, nbits, maxbits, stamps):
+        B, ntok = bits.shape
+        ws_bytes = sp_workspace_bytes(B, ntok)
+        out = torch.empty((B, maxbits // 32), dtype=torch.int32, device=device)
+        totals = torch.empty((B,), dtype=torch.int64, device=device)
+        ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
+        _build.check(fn(bits.data_ptr(), nbits.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                        ws.data_ptr(), ws_bytes, B, ntok, maxbits // 32,
+                        _build.stream_handle(device), stamps.data_ptr()),
+                     "bitpack stamped build")
+        return out.view(torch.uint8), totals
+
+    def phases():
+        """Per-CTA phase times (us) of one stamped call: median and p90."""
+        n = bits.shape[0] * sp_tiles(bits.shape[1])
+        stamps = torch.zeros((n, 8), dtype=torch.int64, device=device)
+        stamped(bits, nbits, maxbits, stamps)
+        st = stamps.cpu().numpy()
+        t = st[:, :7].astype(np.float64) / 1e3
+        names = ["ticket", "tokens_scanned", "prefix_known", "strip_built",
+                 "handover_thread0", "stores_to_end"]
+        deltas = {k: t[:, i + 1] - t[:, i] for i, k in enumerate(names[:4])}
+        deltas["handover_thread0"] = t[:, 5] - t[:, 4]
+        deltas["stores_to_end"] = t[:, 6] - t[:, 4]
+        life = t[:, 6] - t[:, 0]
+        span = t[:, 6].max() - t[:, 0].min()
+        return {"ctas": int(n), "span_us": float(span),
+                "mean_resident_ctas": float(life.sum() / span),
+                "sms": int(len(np.unique(st[:, 7]))),
+                "last_entry_to_end_us": float(t[:, 6].max() - t[:, 0].max()),
+                "lifetime_us": [float(np.median(life)), float(np.percentile(life, 90))],
+                "phase_us_median_p90": {k: [float(np.median(v)), float(np.percentile(v, 90))]
+                                        for k, v in deltas.items()}}
+
+    bits, nbits, maxbits, _ = pass2_tokens(torch, device, tiles)
+    want = pack_tokens_sp_plain(bits, nbits, maxbits)
+    edges = {}
+    for k in SP_EDGES:
+        b, n, m = sp_edge_case(k, seed)
+        edges[k] = (torch.from_numpy(b).to(device), torch.from_numpy(n).to(device), m)
+    edge_want = {k: pack_tokens_sp_plain(*v) for k, v in edges.items()}
+    cases = {"pass2": (bits, nbits, maxbits), **edges}
+    wants = {"pass2": want, **edge_want}
+
+    def diff(got, want) -> dict:
+        bad = (got[0] != want[0]).nonzero()
+        return {"lane_byte": bad[0].tolist() if len(bad) else None, "bytes": len(bad),
+                "totals_equal": bool(torch.equal(got[1], want[1]))}
+
+    table, failures = [], {}
+    most = max(v[0].shape[0] * sp_tiles(v[0].shape[1]) for v in cases.values())
+    stamps = torch.zeros((most, 8), dtype=torch.int64, device=device)
+    builds = {"default": pack_tokens_sp,
+              "stamped": lambda b, n, m: stamped(b, n, m, stamps)}
+    for build, pack in builds.items():
+        for k, v in cases.items():
+            for rep in range(3):
+                got = pack(*v)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], wants[k][0]) and torch.equal(got[1], wants[k][1])):
+                    failures.setdefault(f"{build}/{k}", []).append(diff(got, wants[k]))
+        call = lambda: pack(bits, nbits, maxbits)  # noqa: E731
+        table.append({"build": build,
+                      "device_ms_per_call": [call_device_ms(torch, call, iters=20)
+                                             for _ in range(3)]})
+    table[1]["phases"] = phases()
+    emit({"phase": "bitpack_sweep", "shape": list(bits.shape), "maxbits": maxbits,
+          "table": table, "failures": failures})
+    require(not failures, f"bitpack builds differ from plain: {sorted(failures)}")
+
+
+def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
     from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
     from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
@@ -268,10 +466,7 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
 
     # the packer on the real pass-2 tokens of these lanes
     row_bytes = 1 + TILE * 2
-    flat, counts, extras, real = dd.fused_filter_histogram_batch(u16, TILE, row_bytes, 2)
-    tables = dd.build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(), real=real)
-    bits, nbits = dd.emit_tokens(flat, dd.tables_from_numpy(tables, device))
-    maxbits = dd._packing_maxbits(flat.shape[1])
+    bits, nbits, maxbits, (flat, real, tables) = pass2_tokens(torch, device, tiles)
     got_p, got_t = pack_tokens_sp(bits, nbits, maxbits)
     want_p, want_t = pack_tokens_sp_plain(bits, nbits, maxbits)
     torch.cuda.synchronize()
@@ -309,8 +504,11 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
         dd.dynamic_emit(f, dd.tables_from_numpy(tables, device))
 
     group_top = device_breakdown(torch, group)
+    sp_errs = check_sp_edges(torch, device, seed)
     b_call = time_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits))
-    b_ms = kernel_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits), "pack_block")
+    # device time per call: the kernel and the memset of its tile records
+    b_ms = call_device_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits))
+    b_kernel = kernel_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits), "sp_pack_tiles")
     b_plain = time_ms(torch, lambda: pack_tokens_sp_plain(bits, nbits, maxbits), iters=5)
     b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
     d_call = time_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits))
@@ -322,6 +520,7 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
     emit({"phase": "kernels", "filter_cases_max_abs_err": filter_errs,
           "group_device_ms": group_top,
           "bitpack": {"lanes": int(bits.shape[0]), "ntok": int(bits.shape[1]),
+                      "edge_cases_max_abs_err": sp_errs, "kernel_only_ms": b_kernel,
                       "maxbits": maxbits, "body_bits_mean": float(got_t.float().mean()),
                       "stream_bytes_mean": float(lengths_np.mean())},
           "bitpack_dense": {"lanes": int(rbits.shape[0]), "ntok": int(rbits.shape[1]),
@@ -345,7 +544,8 @@ def check_kernels(torch, device, tiles: np.ndarray) -> list:
         {"name": "bitpack", "route": "cuda",
          "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack.cu",
          "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:201",
-         "max_abs_err": max_err(got_p, want_p), "ms": b_ms if b_ms else b_call,
+         "max_abs_err": max(max_err(got_p, want_p), *sp_errs.values()),
+         "ms": b_ms if b_ms else b_call,
          "ms_from": "profiler" if b_ms else "events", "call_ms": b_call, "plain_ms": b_plain,
          "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
@@ -648,6 +848,16 @@ def main(argv=None) -> int:
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
+    p.add_argument("--bitpack-time", action="store_true",
+                   help="only build, then time the scalar-prefetch packer on the real "
+                        "pass-2 tokens (no path phases, no result line)")
+    p.add_argument("--bitpack-sweep", action="store_true",
+                   help="only build, then time the scalar-prefetch kernel's default and "
+                        "stamped builds, with the CTAs' phase times "
+                        "(no path phases, no result line)")
+    p.add_argument("--port-root", default=None,
+                   help="import the port package from this checkout instead of the one "
+                        "beside this script (to time another version with this code)")
     args = p.parse_args(argv)
     try:
         import torch
@@ -659,6 +869,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.port_root:
+        sys.path.insert(0, os.path.abspath(args.port_root))
     try:
         from omero_ms_pixel_buffer_tpu_torch.ops.kernels import _build
     except ImportError as e:
@@ -682,7 +894,15 @@ def main(argv=None) -> int:
             emit(filter_sweep(torch, device, lane_tiles(data, args.seed)))
             print(smi_line(), flush=True)
             return 0
-        kernels = check_kernels(torch, device, lane_tiles(data, args.seed))
+        if args.bitpack_time:
+            emit(bitpack_time(torch, device, lane_tiles(data, args.seed)))
+            print(smi_line(), flush=True)
+            return 0
+        if args.bitpack_sweep:
+            bitpack_sweep(torch, device, lane_tiles(data, args.seed), args.seed)
+            print(smi_line(), flush=True)
+            return 0
+        kernels = check_kernels(torch, device, lane_tiles(data, args.seed), args.seed)
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))
         require(path["plane_cache"]["hits"] > 0, "plane cache had no hits")

@@ -4,12 +4,15 @@ and plain version.
 Replaces the Pallas TPU kernel ``omero_ms_pixel_buffer_tpu/ops/pallas/
 bitpack.py`` ``pack_tokens_sp`` (``pl.pallas_call`` at :201, the packer
 named ``pallas``; ``bitpack_dense.py`` ports the other one). The kernel
-(``csrc/bitpack.cu``) is bound by bytes: each token (value + bit count,
-8 bytes) is read once and the stream written once. Hopper runs blocks
-in no order, so instead of the TPU's in-order walk with a VMEM-resident
-lane, the wrapper scans per-256-token block bit counts up front and the
-kernel ORs every token into its word with ``atomicOr`` — exact because
-token bit ranges are disjoint.
+(``csrc/bitpack.cu``, CUDA name ``sp_pack_tiles``) is bound by bytes:
+each token (value + bit count, 8 bytes) is read once and each output
+word written once. Hopper runs blocks in no order, so instead of the
+TPU's in-order walk with a VMEM-resident lane, each CTA packs a tile of
+``SP_TILE`` tokens into a shared-memory word strip and takes its bit
+offset from a single-pass chained scan with decoupled look-back; tiles
+hand their partial last word to their successors the same way. One call
+is one ctypes call: a memset of the tiles' status words and the kernel,
+into outputs from ``torch.empty``.
 
 The plain version is ``pack_bits_scan``, the carry-free prefix-sum
 packer (the JAX package's XLA ``device_deflate._pack_bits_scan``) batched
@@ -27,12 +30,18 @@ import torch
 
 from . import _build
 
-TB = 256  # tokens per kernel block (csrc/bitpack.cu)
+TB = 256  # tokens per block of the dense kernel (csrc/bitpack_dense.cu)
+SP_TILE = 4096  # tokens per CTA of the scalar-prefetch kernel (csrc/bitpack.cu)
 _MASK = 0xFFFFFFFF
 
-# ompb_bitpack(bits, nbits, base, out, B, ntok, nblocks, nwords, stream)
+# ompb_bitpack_dense(bits, nbits, base, out, B, ntok, nblocks, nwords, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_void_p,
+]
+# ompb_sp_pack(bits, nbits, out, totals, ws, ws_bytes, B, ntok, nwords, stream)
+_SP_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p,
 ]
 
@@ -93,7 +102,7 @@ def pack_bits_scan(
 
 def block_bases(nbits: torch.Tensor) -> torch.Tensor:
     """(B, ceil(ntok / 256)) int64 exclusive bit offset of each 256-token
-    block: the scan the kernel's blocks start from."""
+    block: the scan the dense kernel's blocks start from."""
     B, ntok = nbits.shape
     full, tail = divmod(ntok, TB)
     nblocks = full + (1 if tail else 0)
@@ -107,17 +116,22 @@ def block_bases(nbits: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(sums, dim=1) - sums
 
 
-def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int,
-            source: str, symbol: str, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch one of the two packer kernels (``source``'s ``symbol``, with
-    the argument list ``_ARGTYPES``) and count it on ``wrapper``."""
+def _check_kernel_args(bits: torch.Tensor, nbits: torch.Tensor, source: str) -> None:
     if bits.dtype != torch.int32 or nbits.dtype != torch.int32:
         raise ValueError(f"{source} kernel needs int32 bits and nbits")
     if not (bits.is_contiguous() and nbits.is_contiguous()):
         raise ValueError(f"{source} kernel needs contiguous token arrays")
+    if bits.shape[0] > 65535:
+        raise ValueError(f"{source} kernel takes at most 65535 lanes, got {bits.shape[0]}")
+
+
+def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int,
+            source: str, symbol: str, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a block-scan packer kernel (``source``'s ``symbol``, with the
+    argument list ``_ARGTYPES``: the dense packer) and count it on
+    ``wrapper``."""
+    _check_kernel_args(bits, nbits, source)
     B, ntok = bits.shape
-    if B > 65535:
-        raise ValueError(f"{source} kernel takes at most 65535 lanes, got {B}")
     nwords = maxbits // 32
     base = block_bases(nbits)
     out = torch.zeros((B, nwords), dtype=torch.int32, device=bits.device)
@@ -130,6 +144,41 @@ def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int,
     _build.check(code, f"{source} kernel launch")
     wrapper.launches += 1
     # little-endian words: their bytes in memory are the LSB-first stream
+    return out.view(torch.uint8), totals
+
+
+def sp_tiles(ntok: int) -> int:
+    """Tiles per lane of the scalar-prefetch kernel: tiles start on 16-byte
+    boundaries of the flat arrays, so a lane's row may begin up to 3
+    tokens into its first tile."""
+    return -(-(ntok + 3) // SP_TILE)
+
+
+def sp_workspace_bytes(B: int, ntok: int) -> int:
+    """Bytes of the scalar-prefetch kernel's workspace: an 8-byte ticket,
+    then two 8-byte status words per tile (its prefix, its partial last
+    word)."""
+    return 8 + 16 * B * sp_tiles(ntok)
+
+
+def _launch_sp(bits: torch.Tensor, nbits: torch.Tensor,
+               maxbits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ctypes call into ``csrc/bitpack.cu``: the tiles' status words
+    cleared and the kernel launched on the current stream."""
+    _check_kernel_args(bits, nbits, "bitpack")
+    B, ntok = bits.shape
+    nwords = maxbits // 32
+    ws_bytes = sp_workspace_bytes(B, ntok)
+    dev = bits.device
+    out = torch.empty((B, nwords), dtype=torch.int32, device=dev)
+    totals = torch.empty((B,), dtype=torch.int64, device=dev)
+    ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
+    fn = _build.entry("bitpack", "ompb_sp_pack", _SP_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(bits.data_ptr(), nbits.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                  ws.data_ptr(), ws_bytes, B, ntok, nwords, _build.stream_handle(dev))
+    _build.check(code, "bitpack kernel launch")
+    pack_tokens_sp.launches += 1
     return out.view(torch.uint8), totals
 
 
@@ -146,7 +195,7 @@ def pack_tokens_sp(
     version."""
     _check_args(bits, nbits, maxbits)
     if bits.device.type == "cuda":
-        return _launch(bits, nbits, maxbits, "bitpack", "ompb_bitpack", pack_tokens_sp)
+        return _launch_sp(bits, nbits, maxbits)
     if bits.device.type == "cpu":
         return pack_tokens_sp_plain(bits, nbits, maxbits)
     raise ValueError(f"Unsupported device: {bits.device}")
