@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
         [--rle-requests 128] [--stored-requests 32] [--filter-sweep] \
-        [--bitpack-sweep] [--bitpack-time [--port-root DIR]]
+        [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
 
@@ -18,17 +18,25 @@ Phases, one JSON line each on stdout:
    geometries of ``FILTER_EDGES`` and on a misaligned input; its
    ``cold_ms`` is its device time with the L2 flushed before each launch.
    The scalar-prefetch packer on the real ``dynamic`` pass-2 tokens of
-   those lanes, at the edge geometries of ``ops/kernels/bitpack_edges.py``
-   (``SP_EDGES``, made from ``--seed``, as the tests make them) and on one
-   lane of 103 M 21-bit tokens (past 2^31 bits); the dense packer on
-   their real ``rle`` tokens (also against the scalar-prefetch packer).
-   Byte equality is required, and every lane's stream must inflate back.
-   A kernel's ``ms`` is its device time from torch.profiler (CUDA events
-   around the wrapper when the profiler records none): the filter's and
-   the dense packer's of their kernel, the scalar-prefetch packer's per
-   call over every kernel and memset the call issues; wrapper
-   (``call_ms``) and plain times are CUDA events.
-4. ``path``    — the service (``http.server.create_server``, what
+   those lanes, the dense packer on their real ``rle`` tokens (also
+   against the scalar-prefetch packer), and both at the edge geometries of
+   ``ops/kernels/bitpack_edges.py`` (``SP_EDGES``, made from ``--seed``,
+   as the tests make them) and on one lane of 103 M 21-bit tokens (past
+   2^31 bits). Byte equality is required, and every lane's stream must
+   inflate back. A kernel's ``ms`` is its device time from torch.profiler
+   (CUDA events around the wrapper when the profiler records none): the
+   filter's of its kernel, each packer's per call over every kernel and
+   memset the call issues; wrapper (``call_ms``) and plain times are CUDA
+   events.
+4. ``http_contract`` — the service on the card: a lone 512x512 request
+   answered with the host bytes of the single-request path, two 1100x300
+   lanes (larger than every bucket) coalesced into one batch and answered
+   with the host engine's bytes (``host_engine``: the native engine or
+   Python zlib, named on ``/healthz``), ``ETag``/``Cache-Control``/
+   ``X-Cache`` on a miss and a hit, 304 on a matching ``If-None-Match``
+   (strong, ``W/``, in a list) and 200 on ``*``, HEAD, OPTIONS and an
+   unrouted GET's 405.
+5. ``path``    — the service (``http.server.create_server``, what
    ``python -m omero_ms_pixel_buffer_tpu_torch`` runs) on 127.0.0.1 in
    this process, deflate mode ``dynamic``, packer ``pallas``; kernel
    launch counters reset to 0 just before; two warm-up rounds of 32
@@ -38,21 +46,23 @@ Phases, one JSON line each on stdout:
    with numpy and compared with the source pixels; the filter and the
    scalar-prefetch packer must have launched and the dense packer not,
    the plane cache must have hits and no encode group may have failed.
-5. ``path_rle`` — a second server in the same way, deflate mode ``rle``,
+6. ``path_rle`` — a second server in the same way, deflate mode ``rle``,
    packer ``pallas_dense``: warm-up, ``--rle-requests`` timed tiles,
    edge cases; the filter and the dense packer must have launched and
    the scalar-prefetch packer not. It reports the mean zlib stream bytes
    per 512x512 tile beside the ``dynamic`` phase's.
-6. ``path_rle_sp`` — the same with packer ``pallas`` (the scalar-prefetch
+7. ``path_rle_sp`` — the same with packer ``pallas`` (the scalar-prefetch
    packer must have launched and the dense one not), so that against
    ``path`` only the mode differs.
-7. ``path_stored`` — a fourth server, deflate mode ``stored``:
+8. ``path_stored`` — a fourth server, deflate mode ``stored``:
    ``--stored-requests`` tiles, pixel-checked; the filter must have
    launched and neither packer.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
-``/healthz`` views, just before and just after them).
+``/healthz`` views, just before and just after them), and how many of
+those requests bypassed the device: result-cache hits, lone lanes (a
+batch of one, encoded on the host) and host-encoded oversize lanes.
 
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
@@ -60,7 +70,8 @@ after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
 ``--bitpack-time`` likewise prints the scalar-prefetch packer's device time
 per call, call time and kernels by name on the real pass-2 tokens
-(``bitpack_time``), with ``--port-root`` taking the port package from
+(``bitpack_time``), ``--dense-time`` the dense packer's on the real ``rle``
+tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``). Any failure exits
 non-zero before the last line; without CUDA, or without the port package
@@ -237,40 +248,45 @@ def lane_tiles(data: np.ndarray, seed: int) -> np.ndarray:
     return np.stack([data[y:y + TILE, x:x + TILE] for y, x in zip(ys, xs)])
 
 
-def check_sp_edges(torch, device, seed: int) -> dict:
-    """The scalar-prefetch kernel against its plain version on every edge
-    case, and on one lane whose total passes 2^31 bits (64-bit offsets and
-    look-back values): {name: max_abs_err}; raises on any difference."""
+def check_edges(torch, device, seed: int) -> dict:
+    """Both tile packers (scalar-prefetch and dense) against their plain
+    versions on every edge case, and on one lane whose total passes 2^31
+    bits (64-bit offsets and look-back values): {packer: {case:
+    max_abs_err}}; raises on any difference."""
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
         pack_tokens_sp,
         pack_tokens_sp_plain,
     )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_dense import (
+        pack_tokens_dense,
+        pack_tokens_dense_plain,
+    )
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_edges import SP_EDGES, sp_edge_case
 
-    errs = {}
+    packers = {"bitpack": (pack_tokens_sp, pack_tokens_sp_plain),
+               "bitpack_dense": (pack_tokens_dense, pack_tokens_dense_plain)}
+    errs = {k: {} for k in packers}
+
+    def hold(name, bt, nt, maxbits):
+        for k, (pack, plain) in packers.items():
+            got, want = pack(bt, nt, maxbits), plain(bt, nt, maxbits)
+            torch.cuda.synchronize()
+            errs[k][name] = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item())
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                    f"{k} kernel != plain for {name}")
+            del got, want
+
     for name in SP_EDGES:
         b, n, maxbits = sp_edge_case(name, seed)
-        bt, nt = torch.from_numpy(b).to(device), torch.from_numpy(n).to(device)
-        got, want = pack_tokens_sp(bt, nt, maxbits), pack_tokens_sp_plain(bt, nt, maxbits)
-        torch.cuda.synchronize()
-        errs[name] = int((got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item())
-        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                f"bitpack kernel != plain for {name}")
+        hold(name, torch.from_numpy(b).to(device), torch.from_numpy(n).to(device), maxbits)
     # one lane of 103 M 21-bit tokens: 2,163,000,000 bits, past 2^31
     ntok = 103_000_000
     gen = torch.Generator(device=device).manual_seed(seed)
     bt = torch.randint(0, 1 << 21, (1, ntok), generator=gen, device=device, dtype=torch.int32)
     nt = torch.full((1, ntok), 21, dtype=torch.int32, device=device)
-    maxbits = -(-ntok * 21 // 1024) * 1024 + 1024
-    got = pack_tokens_sp(bt, nt, maxbits)
-    want = pack_tokens_sp_plain(bt, nt, maxbits)
-    torch.cuda.synchronize()
-    require(int(want[1][0]) == ntok * 21 > 1 << 31, "big lane total not past 2^31")
-    errs["lane_past_2e31_bits"] = int(
-        (got[0].to(torch.int64) - want[0].to(torch.int64)).abs().max().item())
-    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            "bitpack kernel != plain on the lane past 2^31 bits")
-    del got, want, bt, nt
+    require(int(nt.sum(dtype=torch.int64)) > 1 << 31, "big lane total not past 2^31")
+    hold("lane_past_2e31_bits", bt, nt, -(-ntok * 21 // 1024) * 1024 + 1024)
+    del bt, nt
     torch.cuda.empty_cache()
     return errs
 
@@ -289,22 +305,43 @@ def pass2_tokens(torch, device, tiles: np.ndarray):
     return bits, nbits, dd._packing_maxbits(flat.shape[1]), (flat, real, tables)
 
 
-def bitpack_time(torch, device, tiles: np.ndarray) -> dict:
-    """The scalar-prefetch packer alone on the real pass-2 tokens: device
+def rle_tokens(torch, device, tiles: np.ndarray):
+    """The real ``rle`` (fixed-Huffman) tokens of 32 lanes: (bits, nbits,
+    maxbits) on the card."""
+    from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+
+    u16 = bits_tensor(tiles).to(device)
+    flat = dd.fused_filter_histogram_batch(u16, TILE, 1 + TILE * 2, 2)[0]
+    bits, nbits = dd._lane_tokens(flat)
+    return bits, nbits, dd._packing_maxbits(flat.shape[1])
+
+
+def packer_time(torch, device, tiles: np.ndarray, dense: bool) -> dict:
+    """One packer alone: the scalar-prefetch packer on the real ``dynamic``
+    pass-2 tokens, or the dense packer on the real ``rle`` tokens. Device
     time per call over everything a call issues, the wrapper's call time,
     the device kernels by name, byte equality with the plain version."""
-    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
-        pack_tokens_sp,
-        pack_tokens_sp_plain,
-    )
+    if dense:
+        from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack_dense import (
+            pack_tokens_dense as pack,
+            pack_tokens_dense_plain as plain,
+        )
 
-    bits, nbits, maxbits, _ = pass2_tokens(torch, device, tiles)
-    got, want = pack_tokens_sp(bits, nbits, maxbits), pack_tokens_sp_plain(bits, nbits, maxbits)
+        bits, nbits, maxbits = rle_tokens(torch, device, tiles)
+    else:
+        from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+            pack_tokens_sp as pack,
+            pack_tokens_sp_plain as plain,
+        )
+
+        bits, nbits, maxbits, _ = pass2_tokens(torch, device, tiles)
+    got, want = pack(bits, nbits, maxbits), plain(bits, nbits, maxbits)
     torch.cuda.synchronize()
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-            "bitpack kernel != plain on pass-2 tokens")
-    call = lambda: pack_tokens_sp(bits, nbits, maxbits)  # noqa: E731
-    return {"phase": "bitpack_time",
+            f"{'dense' if dense else 'bitpack'} kernel != plain on its tokens")
+    call = lambda: pack(bits, nbits, maxbits)  # noqa: E731
+    return {"phase": "dense_time" if dense else "bitpack_time",
             "package": os.path.dirname(os.path.dirname(
                 sys.modules["omero_ms_pixel_buffer_tpu_torch"].__file__)),
             "shape": list(bits.shape), "maxbits": maxbits,
@@ -504,7 +541,8 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
         dd.dynamic_emit(f, dd.tables_from_numpy(tables, device))
 
     group_top = device_breakdown(torch, group)
-    sp_errs = check_sp_edges(torch, device, seed)
+    edge_errs = check_edges(torch, device, seed)
+    sp_errs, dense_errs = edge_errs["bitpack"], edge_errs["bitpack_dense"]
     b_call = time_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits))
     # device time per call: the kernel and the memset of its tile records
     b_ms = call_device_ms(torch, lambda: pack_tokens_sp(bits, nbits, maxbits))
@@ -512,7 +550,10 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
     b_plain = time_ms(torch, lambda: pack_tokens_sp_plain(bits, nbits, maxbits), iters=5)
     b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
     d_call = time_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits))
-    d_ms = kernel_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits), "dense_pack_words")
+    # device time per call: the kernel and the memset of its tile records
+    d_ms = call_device_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits))
+    d_kernel = kernel_ms(torch, lambda: pack_tokens_dense(rbits, rnbits, maxbits),
+                         "dense_pack_tiles")
     d_plain = time_ms(torch, lambda: pack_tokens_dense_plain(rbits, rnbits, maxbits),
                       iters=2, warmup=1)
     d_bytes = 8 * rbits.numel() + rbits.shape[0] * maxbits // 8
@@ -524,7 +565,8 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
                       "maxbits": maxbits, "body_bits_mean": float(got_t.float().mean()),
                       "stream_bytes_mean": float(lengths_np.mean())},
           "bitpack_dense": {"lanes": int(rbits.shape[0]), "ntok": int(rbits.shape[1]),
-                            "maxbits": maxbits,
+                            "edge_cases_max_abs_err": dense_errs,
+                            "kernel_only_ms": d_kernel, "maxbits": maxbits,
                             "body_bits_mean": float(got_dt.float().mean()),
                             "rle_stream_bytes_mean": float(rle_lengths_np.mean()),
                             # derived, not measured: the dense formulation's
@@ -552,7 +594,8 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
         {"name": "bitpack_dense", "route": "cuda",
          "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack_dense.cu",
          "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:275",
-         "max_abs_err": max_err(got_d, want_d), "ms": d_ms if d_ms else d_call,
+         "max_abs_err": max(max_err(got_d, want_d), *dense_errs.values()),
+         "ms": d_ms if d_ms else d_call,
          "ms_from": "profiler" if d_ms else "events", "call_ms": d_call, "plain_ms": d_plain,
          "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
@@ -658,7 +701,9 @@ class Client:
                 conn.close()
             self._conns.clear()
 
-    def get(self, path: str):
+    def request(self, method: str, path: str, headers=None):
+        """(status, headers, body, seconds) of one request on this
+        thread's connection, with the session cookie."""
         conn = getattr(self._local, "conn", None)
         if conn is None:
             conn = self._local.conn = http.client.HTTPConnection(
@@ -666,10 +711,14 @@ class Client:
             with self._lock:
                 self._conns.append(conn)
         t0 = time.perf_counter()
-        conn.request("GET", path, headers=COOKIE)
+        conn.request(method, path, headers={**COOKIE, **(headers or {})})
         resp = conn.getresponse()
         body = resp.read()
-        return resp.status, body, time.perf_counter() - t0
+        return resp.status, dict(resp.getheaders()), body, time.perf_counter() - t0
+
+    def get(self, path: str):
+        status, _, body, seconds = self.request("GET", path)
+        return status, body, seconds
 
 
 def run_requests(client: Client, reqs, concurrency: int):
@@ -731,12 +780,15 @@ def png_stream_len(body: bytes) -> int:
     return n_idat
 
 
-def timed_window(before: dict, after: dict, seconds: float) -> dict:
+def timed_window(health_before: dict, health_after: dict, seconds: float) -> dict:
     """The encode queue over the timed requests alone: the difference of
-    two ``/healthz`` ``queue`` views taken just before and just after
-    them. ``*_busy_share`` is the share of the window's wall time that the
+    two ``/healthz`` views taken just before and just after them.
+    ``*_busy_share`` is the share of the window's wall time that the
     submit thread (stage) and the readback thread (every other stage)
-    spent on its groups."""
+    spent on its groups; ``result_cache_hits`` and ``lone_lanes`` count
+    the requests that bypassed the device (a cache hit, or a batch of one
+    encoded on the host)."""
+    before, after = health_before["queue"], health_after["queue"]
     groups = after["completed"] - before["completed"]
     total = {k: v - before["stage_ms_total"].get(k, 0.0)
              for k, v in after["stage_ms_total"].items()}
@@ -749,6 +801,10 @@ def timed_window(before: dict, after: dict, seconds: float) -> dict:
         "stage_ms_mean": {k: total[k] / n[k] for k in total if n[k]},
         "submit_busy_share": total.get("stage", 0.0) / 1e3 / seconds,
         "readback_busy_share": readback_ms / 1e3 / seconds,
+        "result_cache_hits": (health_after["result_cache"]["memory"]["hits"]
+                              - health_before["result_cache"]["memory"]["hits"]),
+        "lone_lanes": health_after["batcher"]["lone"] - health_before["batcher"]["lone"],
+        "host_png_lanes": health_after["host_png_lanes"] - health_before["host_png_lanes"],
     }
 
 
@@ -760,22 +816,13 @@ def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
     ``deflate_mode`` with ``packer``, every body pixel-checked. The
     kernels in ``launched`` must have launched in the run, those in
     ``idle`` not."""
-    from omero_ms_pixel_buffer_tpu_torch.http.server import create_server
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
         launch_counts,
         reset_launch_counts,
     )
 
-    server = create_server(registry, dev=True, device=device,
-                           deflate_mode=deflate_mode, packer=packer)
-    loop = asyncio.new_event_loop()
-    thread = threading.Thread(target=loop.run_forever, name="smoke-server", daemon=True)
-    thread.start()
-    client = None
-    try:
-        port = asyncio.run_coroutine_threadsafe(
-            server.start("127.0.0.1", 0), loop).result(120)
-        client = Client(port)
+    with ServerThread(registry, device=device, deflate_mode=deflate_mode,
+                      packer=packer) as client:
         size = data.shape[0]
         rng = np.random.default_rng(seed + 2)
         reset_launch_counts()
@@ -787,43 +834,134 @@ def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
             warm_out += run_requests(client, warm[k * LANES:(k + 1) * LANES], LANES)[0]
         warm_s = time.perf_counter() - t_warm
         main = tile_requests(rng, size, n_requests)
-        before = get_json(client, "/healthz")["queue"]
+        before = get_json(client, "/healthz")
         main_out, main_s = run_requests(client, main, LANES)
-        window = timed_window(before, get_json(client, "/healthz")["queue"], main_s)
+        window = timed_window(before, get_json(client, "/healthz"), main_s)
         edge_reqs = edge_requests(size) if edges else []
         edge_out = run_requests(client, edge_reqs, len(edge_reqs))[0] if edges else []
         launches = launch_counts()
         health = get_json(client, "/healthz")
-        checked = (verify(warm_out, warm, data) + verify(main_out, main, data)
-                   + verify(edge_out, edge_reqs, data))
-        lat_ms = np.array([r[2] for r in main_out]) * 1e3
-        require(all(launches[k] > 0 for k in launched),
-                f"{deflate_mode}: a kernel of the path never launched: {launches}")
-        require(all(launches[k] == 0 for k in idle),
-                f"{deflate_mode}: a kernel off the path launched: {launches}")
-        require(health["kernels"] == launches, "healthz counters disagree")
-        require(health["queue"]["deflate_mode"] == deflate_mode
-                and health["queue"]["packer"] == packer, f"served with {health['queue']}")
-        require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
-        return {
-            "phase": phase or ("path" if deflate_mode == "dynamic" else f"path_{deflate_mode}"),
-            "deflate_mode": deflate_mode, "packer": packer,
-            "tiles_verified": checked, "launches": launches,
-            "requests": n_requests, "concurrency": LANES,
-            "tiles_per_s": n_requests / main_s, "p50_ms": float(np.percentile(lat_ms, 50)),
-            "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
-            "stream_bytes_mean": float(np.mean([png_stream_len(r[1]) for r in main_out])),
-            "timed_window": window,
-            "plane_cache": health["plane_cache"], "queue": health["queue"],
-            "batcher": health["batcher"], "gpu": health["gpu"],
-        }
-    finally:
-        if client is not None:
-            client.close()
-        asyncio.run_coroutine_threadsafe(server.close(), loop).result(120)
-        server.pipeline.close()
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(30)
+    checked = (verify(warm_out, warm, data) + verify(main_out, main, data)
+               + verify(edge_out, edge_reqs, data))
+    lat_ms = np.array([r[2] for r in main_out]) * 1e3
+    require(all(launches[k] > 0 for k in launched),
+            f"{deflate_mode}: a kernel of the path never launched: {launches}")
+    require(all(launches[k] == 0 for k in idle),
+            f"{deflate_mode}: a kernel off the path launched: {launches}")
+    require(health["kernels"] == launches, "healthz counters disagree")
+    require(health["queue"]["deflate_mode"] == deflate_mode
+            and health["queue"]["packer"] == packer, f"served with {health['queue']}")
+    require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
+    return {
+        "phase": phase or ("path" if deflate_mode == "dynamic" else f"path_{deflate_mode}"),
+        "deflate_mode": deflate_mode, "packer": packer,
+        "tiles_verified": checked, "launches": launches,
+        "requests": n_requests, "concurrency": LANES,
+        "tiles_per_s": n_requests / main_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
+        "stream_bytes_mean": float(np.mean([png_stream_len(r[1]) for r in main_out])),
+        "timed_window": window,
+        "plane_cache": health["plane_cache"], "queue": health["queue"],
+        "batcher": health["batcher"], "result_cache": health["result_cache"],
+        "host_engine": health["host_engine"], "gpu": health["gpu"],
+    }
+
+
+class ServerThread:
+    """The service (``create_server``) on 127.0.0.1 in this process, its
+    event loop on a thread of its own; a context manager that closes it."""
+
+    def __init__(self, registry: str, **kwargs):
+        from omero_ms_pixel_buffer_tpu_torch.http.server import create_server
+
+        self.server = create_server(registry, dev=True, **kwargs)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="smoke-server",
+                                       daemon=True)
+
+    def __enter__(self) -> Client:
+        self.thread.start()
+        port = asyncio.run_coroutine_threadsafe(
+            self.server.start("127.0.0.1", 0), self.loop).result(120)
+        self.client = Client(port)
+        return self.client
+
+    def __exit__(self, *exc) -> None:
+        self.client.close()
+        asyncio.run_coroutine_threadsafe(self.server.close(), self.loop).result(120)
+        self.server.pipeline.close()
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+def http_contract(registry: str, data: np.ndarray, device: str = "cuda") -> dict:
+    """The front's contract with the JAX package on the card's server: a
+    lone request answered with host bytes, lanes larger than every bucket
+    answered with the host engine's bytes, ETag / Cache-Control / X-Cache,
+    304 on a matching If-None-Match (not on ``*``), HEAD, OPTIONS and an
+    unrouted GET's 405."""
+    from omero_ms_pixel_buffer_tpu_torch.cache.result_cache import make_etag
+    from omero_ms_pixel_buffer_tpu_torch.http.server import DISCOVERY
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import encode_png
+    from omero_ms_pixel_buffer_tpu_torch.runtime.native import get_engine
+
+    def url(x, y, w, h):
+        return f"/tile/1/0/0/0?x={x}&y={y}&w={w}&h={h}&format=png"
+
+    with ServerThread(registry, device=device) as client:
+        health0 = get_json(client, "/healthz")
+        engine = health0["host_engine"]
+        require(engine == ("native" if get_engine() is not None else "python"),
+                f"/healthz names host engine {engine}")
+        # a lone request: the single-request path's host bytes
+        x, y = data.shape[1] // 8, data.shape[0] // 4
+        status, hdr, body, _ = client.request("GET", url(x, y, TILE, TILE))
+        require(status == 200 and body == encode_png(data[y:y + TILE, x:x + TILE]),
+                "a lone request was not answered with host bytes")
+        etag = hdr.get("ETag")
+        require(etag == make_etag(body) and hdr.get("X-Cache") == "miss"
+                and hdr.get("Cache-Control") == "private, max-age=60",
+                f"miss headers: {hdr}")
+        require(get_json(client, "/healthz")["batcher"]["lone"] == health0["batcher"]["lone"] + 1,
+                "the lone request was not counted as a batch of one")
+        status, hdr2, body2, _ = client.request("GET", url(x, y, TILE, TILE))
+        require(status == 200 and body2 == body and hdr2.get("ETag") == etag
+                and hdr2.get("X-Cache") == "hit", f"hit headers: {hdr2}")
+        for inm in (etag, "W/" + etag, '"other", ' + etag):
+            status, hdr3, body3, _ = client.request("GET", url(x, y, TILE, TILE),
+                                                    {"If-None-Match": inm})
+            require(status == 304 and body3 == b"" and hdr3.get("ETag") == etag,
+                    f"If-None-Match {inm} answered {status}")
+        status, _, body3, _ = client.request("GET", url(x, y, TILE, TILE), {"If-None-Match": "*"})
+        require(status == 200 and body3 == body, f"If-None-Match * answered {status}")
+        status, hdr4, body4, _ = client.request("HEAD", url(x, y, TILE, TILE))
+        require(status == 200 and body4 == b"" and hdr4.get("ETag") == etag
+                and int(hdr4.get("Content-Length", -1)) == len(body), f"HEAD: {status} {hdr4}")
+        status, _, body5, _ = client.request("OPTIONS", "/anything")
+        require(status == 200 and json.loads(body5) == DISCOVERY, f"OPTIONS: {status} {body5}")
+        status, _, body6, _ = client.request("GET", "/tile/1/0/0")
+        require((status, body6) == (405, b"405: Method Not Allowed"), f"unrouted GET: {status}")
+        # two lanes larger than every bucket in one batch: the host lane
+        # route (the native engine's bytes, or Python zlib without it);
+        # fresh offsets until both coalesce into one batch
+        for attempt in range(8):
+            lanes = [(64 * attempt, 100, 1100, 300), (64 * attempt, 600, 1100, 300)]
+            host0 = get_json(client, "/healthz")["host_png_lanes"]
+            out = run_requests(client, [(url(*r), r, 200) for r in lanes], 2)[0]
+            verify(out, [(url(*r), r, 200) for r in lanes], data)
+            if get_json(client, "/healthz")["host_png_lanes"] == host0 + 2:
+                break
+        else:
+            raise SmokeFailure("the oversize lanes never coalesced into one batch")
+        for (_, got, _), (lx, ly, lw, lh) in zip(out, lanes):
+            tile = data[ly:ly + lh, lx:lx + lw]
+            want = (get_engine().png_encode_batch([tile], "up", 6, "fast")[0]
+                    if engine == "native" else encode_png(tile))
+            require(got == want, "an oversize lane was not answered with host-engine bytes")
+        health = get_json(client, "/healthz")
+    return {"phase": "http_contract", "host_engine": engine, "oversize_attempts": attempt + 1,
+            "host_png_lanes": health["host_png_lanes"], "batcher": health["batcher"],
+            "result_cache": health["result_cache"]}
 
 
 def smi_line() -> str:
@@ -851,6 +989,9 @@ def main(argv=None) -> int:
     p.add_argument("--bitpack-time", action="store_true",
                    help="only build, then time the scalar-prefetch packer on the real "
                         "pass-2 tokens (no path phases, no result line)")
+    p.add_argument("--dense-time", action="store_true",
+                   help="only build, then time the dense packer on the real rle tokens "
+                        "(no path phases, no result line)")
     p.add_argument("--bitpack-sweep", action="store_true",
                    help="only build, then time the scalar-prefetch kernel's default and "
                         "stamped builds, with the CTAs' phase times "
@@ -894,8 +1035,8 @@ def main(argv=None) -> int:
             emit(filter_sweep(torch, device, lane_tiles(data, args.seed)))
             print(smi_line(), flush=True)
             return 0
-        if args.bitpack_time:
-            emit(bitpack_time(torch, device, lane_tiles(data, args.seed)))
+        if args.bitpack_time or args.dense_time:
+            emit(packer_time(torch, device, lane_tiles(data, args.seed), args.dense_time))
             print(smi_line(), flush=True)
             return 0
         if args.bitpack_sweep:
@@ -903,6 +1044,7 @@ def main(argv=None) -> int:
             print(smi_line(), flush=True)
             return 0
         kernels = check_kernels(torch, device, lane_tiles(data, args.seed), args.seed)
+        emit(http_contract(registry, data))
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))
         require(path["plane_cache"]["hits"] > 0, "plane cache had no hits")

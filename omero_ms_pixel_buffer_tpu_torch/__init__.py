@@ -12,3 +12,6 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which only the tests do: on the CPU every kernel wrapper takes its plain
 PyTorch version.
 """
+
+# the service version the discovery document reports (the JAX package's)
+__version__ = "0.1.0"

@@ -4,9 +4,11 @@
 Concurrent requests accumulate for up to 2 ms (or until 32 lanes) and
 run as ONE ``TilePipeline.handle_batch`` call on an executor thread; up
 to 2 x CPUs batches run at once. Lanes equal under ``TileCtx.lane_key``
-execute once. Lanes whose encode group is still in flight come back
-deferred and are delivered from the encode queue's callback, so a
-batch's slot frees before its slowest group.
+execute once. A batch of one lane (after that dedupe) takes the
+single-request path ``TilePipeline.handle`` (host read and encode), as
+the JAX package's batcher does. Lanes whose encode group is still in
+flight come back deferred and are delivered from the encode queue's
+callback, so a batch's slot frees before its slowest group.
 
 Failure codes: pipeline None -> 404 "Cannot find Image:<id>"; a typed
 ``TileError`` result (a failed encode group is a 500) passes through;
@@ -51,6 +53,7 @@ class BatchingTileWorker:
         self._closed = False
         self.batches = 0
         self.lanes = 0
+        self.lone = 0  # batches of one lane, served by ``pipeline.handle``
 
     async def start(self) -> None:
         if self._runner is None:
@@ -75,7 +78,7 @@ class BatchingTileWorker:
         self._executor.shutdown(wait=False)
 
     def snapshot(self) -> dict:
-        return {"batches": self.batches, "lanes": self.lanes,
+        return {"batches": self.batches, "lanes": self.lanes, "lone": self.lone,
                 "queued": self._queue.qsize()}
 
     async def handle(self, ctx: TileCtx) -> Tuple[bytes, dict]:
@@ -154,10 +157,13 @@ class BatchingTileWorker:
         ctxs = [c for c, _ in canonical]
         self.batches += 1
         self.lanes += len(ctxs)
+        if len(ctxs) == 1:
+            self.lone += 1
+            work = lambda: [self.pipeline.handle(ctxs[0])]  # noqa: E731
+        else:
+            work = lambda: self.pipeline.handle_batch(ctxs, defer=True)  # noqa: E731
         try:
-            results = await loop.run_in_executor(
-                self._executor, lambda: self.pipeline.handle_batch(ctxs, defer=True)
-            )
+            results = await loop.run_in_executor(self._executor, work)
         except Exception:
             log.exception("batch execution failed")
             for _, f in batch:

@@ -12,9 +12,13 @@ each (bucket, dtype) group encodes in one queue submission per real
 (w, h). Lanes on a plane that is resident on the device skip the host
 read: the plane route crops them on the device.
 
-There is no host encoder behind the device path: a failed encode group
-answers 500 for its lanes. A PNG lane larger than every bucket is
-encoded on the device at its own size. A ``tif`` lane is its host-read
+Two host routes give the JAX package's host bytes where it takes them:
+``handle`` (a single request: the batcher's batch of one) reads and
+encodes on the host with ``ops/png.encode_png`` (Python zlib), and a PNG
+lane larger than every bucket goes to ``_host_png_lanes``: the native
+engine's fused encode when ``runtime/native`` builds and loads, else
+``encode_png``. The device path has no host encoder behind it: a failed
+encode group answers 500 for its lanes. A ``tif`` lane is its host-read
 tile framed by ``ops/tiff.encode_tiff`` (no pixel work, as in the JAX
 package); other formats answer None (404).
 """
@@ -33,16 +37,23 @@ from ..io.pixels_service import PixelsService
 from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
 from ..ops.device_deflate import DEFLATE_MODES
-from ..ops.png import _PNG_DTYPES
+from ..ops.png import (
+    _PNG_DTYPES,
+    PNG_FILTER,
+    PNG_LEVEL,
+    PNG_STRATEGY,
+    PngEncodeError,
+    encode_png,
+)
 from ..ops.tiff import TiffEncodeError, encode_tiff
 from ..runtime.device import resolve_device
+from ..runtime.native import get_engine
 from ..tile_ctx import TileCtx
 from .device_cache import DevicePlaneCache
 from .device_dispatch import DeviceEncodeDispatcher
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.pipeline")
 
-PNG_FILTER = "up"
 # allocation guard: a w/h=0 request on a huge plane must not materialize
 # more than this (the JAX package's backend.max-tile-mb default)
 MAX_TILE_BYTES = 256 << 20
@@ -98,6 +109,7 @@ class TilePipeline:
         self.plane_cache = DevicePlaneCache(self.device)
         self.dispatcher = DeviceEncodeDispatcher(
             self.device, queue_depth=queue_depth, packer=packer)
+        self.host_png_lanes = 0  # lanes larger than every bucket, host-encoded
 
     def close(self) -> None:
         self.dispatcher.close()
@@ -107,6 +119,11 @@ class TilePipeline:
 
     def device_queue_snapshot(self) -> dict:
         return {"deflate_mode": self.device_deflate_mode, **self.dispatcher.snapshot()}
+
+    def encode_signature(self) -> str:
+        """The 'quality' part of the result-cache key: the PNG encode
+        policy the bytes depend on."""
+        return f"{PNG_FILTER}.{PNG_LEVEL}.{PNG_STRATEGY}"
 
     # -- resolve / read ----------------------------------------------------
 
@@ -136,6 +153,41 @@ class TilePipeline:
         for b in self.buckets:
             if w <= b and h <= b:
                 return (b, b)
+        return None
+
+    # -- single-request path ----------------------------------------------
+
+    def handle(self, ctx: TileCtx) -> Optional[bytes]:
+        """One request on the host: resolve, read, encode. Bytes, or None
+        (-> 404) on any failure, as the JAX package's ``handle``."""
+        try:
+            rt = self.resolve(ctx)
+            if rt is None:
+                return None
+            tile = rt.buffer.get_tile_at(rt.level, ctx.z, ctx.c, ctx.t, rt.x, rt.y, rt.w, rt.h)
+            return self.encode(ctx, tile)
+        except Exception:
+            log.exception("Exception while retrieving tile")
+            return None
+
+    def encode(self, ctx: TileCtx, tile: np.ndarray) -> Optional[bytes]:
+        """Host encode of one read tile: raw big-endian bytes, PNG
+        (``encode_png``) or TIFF; None for an unknown format or pixel type."""
+        fmt = ctx.format
+        if fmt is None:
+            return to_big_endian_bytes_np(tile).tobytes()
+        if fmt == "png":
+            try:
+                return encode_png(tile, PNG_FILTER, PNG_LEVEL, PNG_STRATEGY)
+            except PngEncodeError:
+                log.error("PNG encode failed for %s", tile.dtype)
+                return None
+        if fmt == "tif":
+            try:
+                return encode_tiff(tile)
+            except TiffEncodeError:
+                return None
+        log.error("Unknown output format: %s", fmt)
         return None
 
     # -- batched execution -------------------------------------------------
@@ -176,25 +228,22 @@ class TilePipeline:
                 log.exception("batched read failed; lanes -> 404")
 
         png_groups: Dict[tuple, List[int]] = {}
+        host_lanes: List[int] = []
         for i, (ctx, tile) in enumerate(zip(ctxs, tiles)):
             if tile is None:
                 continue
-            if ctx.format is None:
-                results[i] = to_big_endian_bytes_np(tile).tobytes()
-            elif ctx.format == "png":
-                if tile.dtype not in _PNG_DTYPES or tile.ndim != 2:
-                    log.error("PNG encode failed for %s", tile.dtype)
+            bucket = None
+            if ctx.format == "png" and tile.dtype in _PNG_DTYPES and tile.ndim == 2:
+                bucket = self._bucket(tile.shape[1], tile.shape[0])
+                if bucket is None:
+                    host_lanes.append(i)  # larger than every bucket
                     continue
-                h, w = tile.shape
-                bh, bw = self._bucket(w, h) or (h, w)
-                png_groups.setdefault(((bh, bw), tile.dtype.str), []).append(i)
-            elif ctx.format == "tif":
-                try:
-                    results[i] = encode_tiff(tile)
-                except TiffEncodeError:
-                    pass  # None -> 404, as the JAX package answers
+            if bucket is not None:
+                png_groups.setdefault((bucket, tile.dtype.str), []).append(i)
             else:
-                log.error("Unknown output format: %s", ctx.format)
+                results[i] = self.encode(ctx, tile)
+        if host_lanes:
+            self._host_png_lanes(host_lanes, tiles, ctxs, results)
 
         pending: List[Tuple[List[int], concurrent.futures.Future]] = []
         for ((bh, bw), dtype_str), lanes in png_groups.items():
@@ -221,6 +270,22 @@ class TilePipeline:
             for i in idxs:
                 results[i] = group[i]
         return results
+
+    def _host_png_lanes(self, lanes, tiles, ctxs, results) -> None:
+        """PNG lanes larger than every bucket, on the host: one fused
+        native call for all of them, or ``encode`` per lane without the
+        native engine (and for a lane the engine failed)."""
+        self.host_png_lanes += len(lanes)
+        engine = get_engine()
+        encoded = None
+        if engine is not None:
+            encoded = engine.png_encode_batch(
+                [tiles[i] for i in lanes], filter_mode=PNG_FILTER, level=PNG_LEVEL,
+                strategy=PNG_STRATEGY)
+        if encoded is None:
+            encoded = [None] * len(lanes)
+        for i, png in zip(lanes, encoded):
+            results[i] = png if png is not None else self.encode(ctxs[i], tiles[i])
 
     def _stage_plane_lanes(self, ctxs, resolved):
         """Group PNG lanes by device-resident plane, staging planes on

@@ -30,17 +30,13 @@ import torch
 
 from . import _build
 
-TB = 256  # tokens per block of the dense kernel (csrc/bitpack_dense.cu)
+TB = 256  # tokens per block of the dense formulation (``block_bases``)
 SP_TILE = 4096  # tokens per CTA of the scalar-prefetch kernel (csrc/bitpack.cu)
 _MASK = 0xFFFFFFFF
 
-# ompb_bitpack_dense(bits, nbits, base, out, B, ntok, nblocks, nwords, stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_void_p,
-]
-# ompb_sp_pack(bits, nbits, out, totals, ws, ws_bytes, B, ntok, nwords, stream)
-_SP_ARGTYPES = [ctypes.c_void_p] * 5 + [
+# ompb_sp_pack and ompb_dense_pack (bits, nbits, out, totals, ws, ws_bytes, B,
+# ntok, nwords, stream)
+_TILE_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p,
 ]
@@ -102,7 +98,7 @@ def pack_bits_scan(
 
 def block_bases(nbits: torch.Tensor) -> torch.Tensor:
     """(B, ceil(ntok / 256)) int64 exclusive bit offset of each 256-token
-    block: the scan the dense kernel's blocks start from."""
+    block: the scan the dense formulation's blocks start from."""
     B, ntok = nbits.shape
     full, tail = divmod(ntok, TB)
     nblocks = full + (1 if tail else 0)
@@ -125,28 +121,6 @@ def _check_kernel_args(bits: torch.Tensor, nbits: torch.Tensor, source: str) -> 
         raise ValueError(f"{source} kernel takes at most 65535 lanes, got {bits.shape[0]}")
 
 
-def _launch(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int,
-            source: str, symbol: str, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch a block-scan packer kernel (``source``'s ``symbol``, with the
-    argument list ``_ARGTYPES``: the dense packer) and count it on
-    ``wrapper``."""
-    _check_kernel_args(bits, nbits, source)
-    B, ntok = bits.shape
-    nwords = maxbits // 32
-    base = block_bases(nbits)
-    out = torch.zeros((B, nwords), dtype=torch.int32, device=bits.device)
-    totals = nbits.sum(dim=1, dtype=torch.int64)
-    fn = _build.entry(source, symbol, _ARGTYPES)
-    with torch.cuda.device(bits.device):
-        code = fn(bits.data_ptr(), nbits.data_ptr(), base.data_ptr(),
-                  out.data_ptr(), B, ntok, base.shape[1], nwords,
-                  _build.stream_handle(bits.device))
-    _build.check(code, f"{source} kernel launch")
-    wrapper.launches += 1
-    # little-endian words: their bytes in memory are the LSB-first stream
-    return out.view(torch.uint8), totals
-
-
 def sp_tiles(ntok: int) -> int:
     """Tiles per lane of the scalar-prefetch kernel: tiles start on 16-byte
     boundaries of the flat arrays, so a lane's row may begin up to 3
@@ -161,24 +135,26 @@ def sp_workspace_bytes(B: int, ntok: int) -> int:
     return 8 + 16 * B * sp_tiles(ntok)
 
 
-def _launch_sp(bits: torch.Tensor, nbits: torch.Tensor,
-               maxbits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One ctypes call into ``csrc/bitpack.cu``: the tiles' status words
-    cleared and the kernel launched on the current stream."""
-    _check_kernel_args(bits, nbits, "bitpack")
+def launch_tiles(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int, source: str,
+                 symbol: str, ws_bytes: int, wrapper) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ctypes call into a tile packer (``source``'s C entry ``symbol``,
+    with the argument list ``_TILE_ARGTYPES``): its ``ws_bytes`` of tile
+    status words cleared and the kernel launched on the current stream,
+    into outputs from ``torch.empty``; counted on ``wrapper``."""
+    _check_kernel_args(bits, nbits, source)
     B, ntok = bits.shape
     nwords = maxbits // 32
-    ws_bytes = sp_workspace_bytes(B, ntok)
     dev = bits.device
     out = torch.empty((B, nwords), dtype=torch.int32, device=dev)
     totals = torch.empty((B,), dtype=torch.int64, device=dev)
     ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
-    fn = _build.entry("bitpack", "ompb_sp_pack", _SP_ARGTYPES)
+    fn = _build.entry(source, symbol, _TILE_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(bits.data_ptr(), nbits.data_ptr(), out.data_ptr(), totals.data_ptr(),
                   ws.data_ptr(), ws_bytes, B, ntok, nwords, _build.stream_handle(dev))
-    _build.check(code, "bitpack kernel launch")
-    pack_tokens_sp.launches += 1
+    _build.check(code, f"{source} kernel launch")
+    wrapper.launches += 1
+    # little-endian words: their bytes in memory are the LSB-first stream
     return out.view(torch.uint8), totals
 
 
@@ -195,7 +171,8 @@ def pack_tokens_sp(
     version."""
     _check_args(bits, nbits, maxbits)
     if bits.device.type == "cuda":
-        return _launch_sp(bits, nbits, maxbits)
+        return launch_tiles(bits, nbits, maxbits, "bitpack", "ompb_sp_pack",
+                            sp_workspace_bytes(*bits.shape), pack_tokens_sp)
     if bits.device.type == "cpu":
         return pack_tokens_sp_plain(bits, nbits, maxbits)
     raise ValueError(f"Unsupported device: {bits.device}")

@@ -1,21 +1,24 @@
-"""Deflate token bit packer, dense formulation: CUDA kernel and plain
-version.
+"""Deflate token bit packer, dense (word-owned) formulation: CUDA kernel
+and plain version.
 
 Replaces the Pallas TPU kernel ``omero_ms_pixel_buffer_tpu/ops/pallas/
 bitpack.py`` ``pack_tokens`` (``pl.pallas_call`` at :275, the packer named
 ``pallas_dense``). It computes what ``bitpack.pack_tokens_sp`` computes,
-word-owned instead of token-owned: every 256-token block owns a strip of
-``SPAN`` words starting at its first word, and each word of the strip
-sums, over the block's tokens, the word part of those starting in it and
-the spill of those starting one word below — a (SPAN, TB) one-hot
-compare-reduce, carry-free because token bit ranges are disjoint. The
-kernel (``csrc/bitpack_dense.cu``) takes each block's starting bit offset
-from the same block-sum scan as the SP kernel (``block_bases``) in place
-of the TPU's sequentially carried SMEM scalar.
+word-owned instead of token-owned: each output word is assembled from the
+tokens that touch it. The TPU kernel does that as a one-hot compare-reduce
+(every 256-token block owns a strip of ``SPAN`` words, and each word sums,
+over the block's tokens, the word part of those starting in it and the
+spill of those starting one word below). The kernel
+(``csrc/bitpack_dense.cu``, CUDA name ``dense_pack_tiles``) is bound by
+bytes and drops the sweep: each CTA takes a tile of ``DENSE_TILE`` tokens,
+stages their start bits and values in shared memory, takes its bit offset
+from a decoupled look-back, and each thread gathers its words by a binary
+search of the starts. One call is one ctypes call: a memset of the tiles'
+status words and the kernel, into outputs from ``torch.empty``.
 
-The plain version is the same formulation in PyTorch: int64 values masked
-to 32 bits, the blocks taken in chunks so that no temporary passes
-``_CHUNK_BYTES``.
+The plain version is the TPU formulation in PyTorch: int64 values masked
+to 32 bits, the blocks' offsets from ``block_bases``, the blocks taken in
+chunks so that no temporary passes ``_CHUNK_BYTES``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from .bitpack import TB, _check_args, _launch, _MASK, _words_to_bytes, block_bases
+from .bitpack import TB, _check_args, _MASK, _words_to_bytes, block_bases, launch_tiles
 
 SPAN = (TB * 21 + 31) // 32 + 2  # words one block can touch (21-bit tokens)
 # the formulation's int ops per token: two (SPAN, TB) compare-select-add
@@ -32,6 +35,20 @@ SPAN = (TB * 21 + 31) // 32 + 2  # words one block can touch (21-bit tokens)
 # ``emit_ops_per_token("dense")``)
 OPS_PER_TOKEN = 2 * 3 * SPAN + 2 * (TB.bit_length() - 1)
 _CHUNK_BYTES = 512 << 20  # largest int64 temporary of the plain version
+DENSE_TILE = 4096  # tokens per CTA of the kernel (csrc/bitpack_dense.cu)
+
+
+def dense_tiles(ntok: int) -> int:
+    """Tiles per lane of the kernel: tiles start on 16-byte boundaries of
+    the flat arrays, so a lane's row may begin up to 3 tokens into its
+    first tile."""
+    return -(-(ntok + 3) // DENSE_TILE)
+
+
+def dense_workspace_bytes(B: int, ntok: int) -> int:
+    """Bytes of the kernel's workspace: an 8-byte ticket, then two 8-byte
+    status words per tile (its prefix, its partial last word)."""
+    return 8 + 16 * B * dense_tiles(ntok)
 
 
 def _block_strips(bits: torch.Tensor, nbits: torch.Tensor):
@@ -95,8 +112,8 @@ def pack_tokens_dense(
     version."""
     _check_args(bits, nbits, maxbits)
     if bits.device.type == "cuda":
-        return _launch(bits, nbits, maxbits, "bitpack_dense", "ompb_bitpack_dense",
-                       pack_tokens_dense)
+        return launch_tiles(bits, nbits, maxbits, "bitpack_dense", "ompb_dense_pack",
+                            dense_workspace_bytes(*bits.shape), pack_tokens_dense)
     if bits.device.type == "cpu":
         return pack_tokens_dense_plain(bits, nbits, maxbits)
     raise ValueError(f"Unsupported device: {bits.device}")

@@ -5,7 +5,10 @@ The device path builds complete zlib streams (``ops/device_deflate``);
 the host frames them into PNG chunks (``frame_png``). ``filter_batch``
 is the plain PyTorch filter — the contract the CUDA filter kernel
 (``ops/kernels/filter.py``) is held to — and ``filter_rows_np`` is the
-numpy reference both are tested against.
+numpy reference both are tested against. ``encode_png`` is the host
+encode of one tile (numpy filter + Python zlib): the single-request
+route, and the route of lanes larger than every bucket when the native
+engine is missing.
 """
 
 from __future__ import annotations
@@ -31,6 +34,24 @@ _PNG_DTYPES = {
     np.dtype(np.int8): 8,
     np.dtype(np.uint16): 16,
     np.dtype(np.int16): 16,
+}
+
+
+# the JAX package's PNG encode policy defaults (backend.png: filter,
+# level, strategy)
+PNG_FILTER = "up"
+PNG_LEVEL = 6
+PNG_STRATEGY = "fast"
+
+ZLIB_STRATEGIES = {
+    "default": zlib.Z_DEFAULT_STRATEGY,
+    "filtered": zlib.Z_FILTERED,
+    "huffman": zlib.Z_HUFFMAN_ONLY,
+    "rle": zlib.Z_RLE,
+    "fixed": zlib.Z_FIXED,
+    # "fast" is the native RLE + dynamic-Huffman encoder; the closest
+    # Python behaviour (the same match policy) is Z_RLE
+    "fast": zlib.Z_RLE,
 }
 
 
@@ -61,6 +82,42 @@ def frame_png(
         + _chunk(b"IDAT", idat)
         + _chunk(b"IEND", b"")
     )
+
+
+def assemble_png(filtered_scanlines: bytes, width: int, height: int, bit_depth: int,
+                 color_type: int, level: int = PNG_LEVEL,
+                 strategy: str = PNG_STRATEGY) -> bytes:
+    """Deflate filtered scanline bytes (filter byte + row data per row)
+    with zlib at ``level`` and ``strategy`` into a complete PNG."""
+    co = zlib.compressobj(level, zlib.DEFLATED, 15, 8, ZLIB_STRATEGIES.get(strategy, 0))
+    idat = co.compress(filtered_scanlines) + co.flush()
+    return frame_png(idat, width, height, bit_depth, color_type)
+
+
+def _as_byte_rows(tile: np.ndarray):
+    """(H, W[, 3]) pixel array -> ((H, row_bytes) big-endian byte matrix,
+    width, height, bit depth, colour type, bpp: the filter unit)."""
+    if tile.ndim == 2:
+        samples, color_type = 1, 0  # grayscale
+    elif tile.ndim == 3 and tile.shape[2] == 3:
+        samples, color_type = 3, 2  # RGB
+    else:
+        raise PngEncodeError(f"Unsupported PNG shape: {tile.shape}")
+    dtype = tile.dtype
+    if dtype not in _PNG_DTYPES:
+        raise PngEncodeError(f"Unsupported PNG pixel type: {dtype}")
+    h, w = tile.shape[:2]
+    be = np.ascontiguousarray(tile.astype(dtype.newbyteorder(">"), copy=False))
+    rows = be.view(np.uint8).reshape(h, w * samples * dtype.itemsize)
+    return rows, w, h, _PNG_DTYPES[dtype], color_type, samples * dtype.itemsize
+
+
+def encode_png(tile: np.ndarray, filter_mode: str = PNG_FILTER, level: int = PNG_LEVEL,
+               strategy: str = PNG_STRATEGY) -> bytes:
+    """Host PNG encode of one tile: numpy filter, Python zlib."""
+    rows, w, h, bit_depth, color_type, bpp = _as_byte_rows(tile)
+    filtered = filter_rows_np(rows, bpp, filter_mode)
+    return assemble_png(filtered.tobytes(), w, h, bit_depth, color_type, level, strategy)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 tile_ctx.py`` without the render/analysis fields): imageId/z/c/t are
 required integers, x/y/w/h default to 0, ``resolution`` is optional,
 ``format`` passes through verbatim; a parse failure is a 400 with the
-same message."""
+same message. ``cache_key`` and ``dedupe_key`` give the JAX package's key
+strings."""
 
 from __future__ import annotations
 
@@ -89,6 +90,22 @@ class TileCtx:
     def expired(self) -> bool:
         left = self.remaining()
         return left is not None and left <= 0
+
+    def cache_key(self, quality: str = "") -> str:
+        """Result-cache content key, the JAX package's string: (image, z,
+        c, t, requested region, resolution, format, quality). No session:
+        identical tiles are identical for every authorized caller."""
+        r = self.region
+        return (
+            f"img={self.image_id}|z={self.z}|c={self.c}|t={self.t}"
+            f"|x={r.x}|y={r.y}|w={r.width}|h={r.height}"
+            f"|res={self.resolution}|fmt={self.format}|q={quality}"
+        )
+
+    def dedupe_key(self, quality: str = "") -> str:
+        """Single-flight key: the content key scoped to the caller's
+        session, so one caller never rides another's execution."""
+        return self.cache_key(quality) + f"|sess={self.omero_session_key}"
 
     def lane_key(self) -> tuple:
         """Batch-dedupe key: equal lanes produce identical tiles for the

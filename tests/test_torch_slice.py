@@ -119,12 +119,27 @@ def test_one_pass_modes_match_jax_on_both_routes(fixture_image, mode):
 
 
 def test_oversize_lane_encodes_on_device_path(fixture_image):
+    """A lane larger than every bucket (the full plane, buckets 256/512)
+    leaves the device path for the host route, as in the JAX package: its
+    bytes equal JAX ``handle_batch``'s, beside a bucketed lane."""
     path, truth = fixture_image
+    jreg = JaxRegistry()
+    jreg.add(1, path)
+    jax_pipe = JaxPipeline(JaxService(jreg), engine="device", device_deflate=True,
+                           buckets=(256, 512))
+    jax_pipe.mesh = None
     port = _port_pipeline(path)
+    lanes = [(0, 0, 0, 0), (0, 0, 256, 256)]
     try:
-        out = port.handle_batch([TileCtx(1, 0, 0, 0, RegionDef(0, 0, 0, 0), format="png")])
+        want = jax_pipe.handle_batch([JaxCtx(1, 0, 0, 0, JaxRegion(*r), format="png")
+                                      for r in lanes])
+        out = port.handle_batch([TileCtx(1, 0, 0, 0, RegionDef(*r), format="png")
+                                 for r in lanes])
+        assert out == want
+        assert port.host_png_lanes == 1
         np.testing.assert_array_equal(decode_png(out[0]), truth)
     finally:
+        jax_pipe.close()
         port.close()
 
 
@@ -155,9 +170,9 @@ async def test_http_front_on_cpu(fixture_image, monkeypatch):
         q = "/tile/1/0/0/0?x=64&y=32&w=300&h=200&format=png"
         status, body = await _get(port, q, "cookie1")
         assert status == 200
+        # a lone request takes the single-request path
         ctx = TileCtx(1, 0, 0, 0, RegionDef(64, 32, 300, 200), format="png")
-        direct = await loop.run_in_executor(None, pipeline.handle_batch, [ctx])
-        assert body == direct[0]
+        assert body == await loop.run_in_executor(None, pipeline.handle, ctx)
         assert (await _get(port, q))[0] == 403
         assert (await _get(port, q, "unknown"))[0] == 403
         status, body = await _get(port, "/tile/1/zz/0/0?format=png", "cookie1")
