@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
-        [--rle-requests 128] [--stored-requests 32] [--filter-sweep] \
+        [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
+        [--render-requests 128] [--filter-sweep] \
         [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -11,7 +12,10 @@ Phases, one JSON line each on stdout:
    ``omero_ms_pixel_buffer_tpu_torch/csrc`` with nvcc (one process per
    source, in parallel).
 2. ``fixture`` — an ``--size``² uint16 OME-TIFF with 512x512 zlib tiles:
-   a smooth field plus Gaussian noise, made from ``--seed``.
+   a smooth field plus Gaussian noise, made from ``--seed`` (image 1); and
+   a ``--render-size``² uint16 OME-TIFF of C = 3, Z = 4, T = 1 with
+   512x512 zlib tiles, three distinct smooth fields plus noise (image 2,
+   a small fluorescence stack).
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main path's shapes (32 lanes of 512x512 uint16): the filter in
    all five modes plus uint8 and RGB uint8, and in every mode at the
@@ -27,7 +31,12 @@ Phases, one JSON line each on stdout:
    (CUDA events around the wrapper when the profiler records none): the
    filter's of its kernel, each packer's per call over every kernel and
    memset the call issues; wrapper (``call_ms``) and plain times are CUDA
-   events.
+   events. Then the render shape (``kernels_render``): 32 composites of
+   512x512 from image 2 (the ``path_render`` spec), the filter on the
+   (32, 512, 512, 3) uint8 RGB and the scalar-prefetch packer on the real
+   ``rle`` tokens of those scanlines, each byte-equal to its plain version
+   (every lane's stream inflates back), with the composite's device time
+   beside its byte bound.
 4. ``http_contract`` — the service on the card: a lone 512x512 request
    answered with the host bytes of the single-request path, two 1100x300
    lanes (larger than every bucket) coalesced into one batch and answered
@@ -57,12 +66,29 @@ Phases, one JSON line each on stdout:
 8. ``path_stored`` — a fourth server, deflate mode ``stored``:
    ``--stored-requests`` tiles, pixel-checked; the filter must have
    launched and neither packer.
+9. ``path_render`` — a server with the defaults; counters reset, two
+   warm-up rounds of 32, then ``--render-requests`` 512x512 ``/render``
+   requests of image 2 at concurrency 32 (three channels, windows and
+   colours), then two rounds of 32 each of ``p=intmax|0:3`` (the second
+   must stay on the device: ``projection_host_pulls`` unchanged),
+   ``p=intmean``, ``m=g``, a ``roi=`` rect and ``maps=`` reverse and
+   logarithmic, then the edge cases (a grammar 400, an unknown LUT's 400,
+   an out-of-range channel's 404, a projection over the tile budget's
+   413, JPEG: 200 with Pillow, 404 without). Every PNG is checked pixel by
+   pixel against a numpy composite of the source (the port's
+   ``build_tables``, numpy gathers); the filter and the scalar-prefetch
+   packer must have launched and no encode group failed. Reports the
+   composite's device ms per render group.
+10. ``path_host_deflate`` — a server with ``device_deflate=False``: 32
+   ``/tile`` PNG requests, pixel-checked; the filter must have launched
+   and neither packer (the host deflates: ``host_engine``).
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
 ``/healthz`` views, just before and just after them), and how many of
 those requests bypassed the device: result-cache hits, lone lanes (a
-batch of one, encoded on the host) and host-encoded oversize lanes.
+batch of one, encoded on the host), host-encoded oversize lanes and
+(``path_render``) render lanes on the host mirror.
 
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
@@ -147,16 +173,35 @@ def make_field(size: int, seed: int) -> np.ndarray:
     return (base + rng.normal(0, 120, (size, size))).clip(0, 65535).astype(np.uint16)
 
 
-def write_fixture(data: np.ndarray) -> str:
+def make_stack(size: int, seed: int) -> np.ndarray:
+    """Three channels of four z planes, each channel its own smooth field
+    drifting over z, plus noise: (3, 4, size, size) uint16."""
+    rng = np.random.default_rng(seed + 7)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    out = np.empty((3, 4, size, size), np.uint16)
+    for c, (level, amp, px, py) in enumerate(((9000, 7000, 61.0, 83.0),
+                                              (20000, 15000, 149.0, 37.0),
+                                              (30000, 25000, 211.0, 173.0))):
+        for z in range(4):
+            field = level + amp * np.sin(xx / px + 0.7 * z) * np.cos(yy / py - 0.4 * z)
+            out[c, z] = (field + rng.normal(0, 400, (size, size))).clip(0, 65535)
+    return out
+
+
+def write_fixture(data: np.ndarray, stack: np.ndarray) -> str:
+    """Image 1 (the plane) and image 2 (the stack) and their registry."""
     from omero_ms_pixel_buffer_tpu_torch.io.ometiff import write_ome_tiff
 
     os.makedirs(WORK, exist_ok=True)
     path = os.path.join(WORK, "smoke.ome.tiff")
     write_ome_tiff(path, data[None, None, None], tile_size=(TILE, TILE),
                    compression="zlib")
+    stack_path = os.path.join(WORK, "render.ome.tiff")
+    write_ome_tiff(stack_path, stack[None], tile_size=(TILE, TILE), compression="zlib")
     registry = os.path.join(WORK, "registry.json")
     with open(registry, "w") as f:
-        json.dump({"images": [{"id": 1, "path": path, "name": "smoke"}]}, f)
+        json.dump({"images": [{"id": 1, "path": path, "name": "smoke"},
+                              {"id": 2, "path": stack_path, "name": "render"}]}, f)
     return registry
 
 
@@ -658,8 +703,8 @@ def filter_sweep(torch, device, tiles: np.ndarray) -> dict:
 
 
 def decode_png(body: bytes) -> np.ndarray:
-    """Grayscale 8/16-bit PNG -> array, with zlib and a numpy unfilter
-    (filter types none and up: what the service emits)."""
+    """Grayscale 8/16-bit or RGB8 PNG -> array, with zlib and a numpy
+    unfilter (filter types none and up: what the service emits)."""
     require(body[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
     pos, idat = 8, b""
     while pos < len(body):
@@ -672,8 +717,9 @@ def decode_png(body: bytes) -> np.ndarray:
         elif tag == b"IDAT":
             idat += data
         pos += 12 + n
-    require(color == 0 and depth in (8, 16), "unexpected PNG format")
-    rb = w * depth // 8
+    require((color, depth) in ((0, 8), (0, 16), (2, 8)), "unexpected PNG format")
+    samples = 3 if color == 2 else 1
+    rb = w * samples * depth // 8
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + rb)
     require(np.isin(rows[:, 0], (0, 2)).all(), "unexpected PNG filter type")
     res = rows[:, 1:].copy()
@@ -683,6 +729,8 @@ def decode_png(body: bytes) -> np.ndarray:
     for y in range(h):  # row-serial: each up row adds the row above
         out[y] = res[y] + prev if up[y] else res[y]
         prev = out[y]
+    if samples == 3:
+        return out.reshape(h, w, 3)
     return out.view(">u2" if depth == 16 else np.uint8).reshape(h, w)
 
 
@@ -805,6 +853,9 @@ def timed_window(health_before: dict, health_after: dict, seconds: float) -> dic
                               - health_before["result_cache"]["memory"]["hits"]),
         "lone_lanes": health_after["batcher"]["lone"] - health_before["batcher"]["lone"],
         "host_png_lanes": health_after["host_png_lanes"] - health_before["host_png_lanes"],
+        "render_host_lanes": (health_after["render"]["host_lanes"]
+                              - health_before["render"]["host_lanes"]),
+        "render_groups": after["render_groups"] - before["render_groups"],
     }
 
 
@@ -964,6 +1015,303 @@ def http_contract(registry: str, data: np.ndarray, device: str = "cuda") -> dict
             "result_cache": health["result_cache"]}
 
 
+# ---------------------------------------------------------------------------
+# the render plane
+# ---------------------------------------------------------------------------
+
+RENDER_C = "1|500:30000$FF0000,2|1000:40000$00FF00,3|0:65535$0000FF"
+# the rounds after the timed requests: (name, extra query), two rounds each
+RENDER_ROUNDS = [
+    ("intmax", "&p=intmax|0:3"),
+    ("intmean", "&p=intmean"),
+    ("greyscale", "&m=g"),
+    ("roi", '&roi=[{"type":"rect","x":1000,"y":900,"w":1500,"h":1400}]'),
+    ("maps", '&maps=[{"reverse":{"enabled":true}},{"quantization":'
+             '{"family":"logarithmic","coefficient":4}}]'),
+]
+
+
+def render_lanes(stack: np.ndarray, seed: int) -> np.ndarray:
+    """32 lanes of (3, 512, 512) z=0 channel planes at random offsets."""
+    rng = np.random.default_rng(seed + 3)
+    size = stack.shape[-1]
+    ys = rng.integers(0, (size - TILE) // 64 + 1, LANES) * 64
+    xs = rng.integers(0, (size - TILE) // 64 + 1, LANES) * 64
+    return np.stack([stack[:, 0, y:y + TILE, x:x + TILE] for y, x in zip(ys, xs)])
+
+
+def check_render_kernels(torch, device, stack: np.ndarray, seed: int):
+    """The filter and the scalar-prefetch packer at the render shape, and
+    the composite's device time: returns (kernel rows, phase line)."""
+    from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.filter import (
+        filter_tiles,
+        filter_tiles_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.render import engine as rengine
+    from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
+    from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+
+    lanes = render_lanes(stack, seed)
+    spec = RenderSpec.from_params({"c": RENDER_C})
+    tables, luts = rengine.build_tables(spec, np.dtype(np.uint16), LutRegistry())
+    planes = bits_tensor(lanes).to(device)
+    packed = torch.from_numpy(rengine.packed_rgb_tables(tables, luts)).to(device)
+    rgb = rengine.render_torch(planes, tables, luts, packed=packed)
+    want_rgb = np.stack([rengine.render_host(lane, tables, luts) for lane in lanes[:4]])
+    require(np.array_equal(rgb[:4].cpu().numpy(), want_rgb), "composite != numpy host mirror")
+    composite = lambda: rengine.render_torch(planes, tables, luts, packed=packed)  # noqa: E731
+    c_ms = call_device_ms(torch, composite)
+    c_call = time_ms(torch, composite)
+    c_bytes = lanes.nbytes + rgb.numel()
+    c_breakdown = device_breakdown(torch, composite)
+
+    got, want = filter_tiles(rgb, "up"), filter_tiles_plain(rgb, "up")
+    torch.cuda.synchronize()
+    f_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+    require(torch.equal(got, want), "filter kernel != plain on render composites")
+    f_call = time_ms(torch, lambda: filter_tiles(rgb, "up"))
+    f_ms = kernel_ms(torch, lambda: filter_tiles(rgb, "up"), "filter_row_groups")
+    f_plain = time_ms(torch, lambda: filter_tiles_plain(rgb, "up"))
+    f_bytes = rgb.numel() + got.numel()
+
+    row_bytes = 1 + TILE * 3
+    flat = got[:, :TILE, :row_bytes].contiguous().reshape(LANES, -1)
+    bits, nbits = dd._lane_tokens(flat)
+    maxbits = dd._packing_maxbits(flat.shape[1])
+    got_p, got_t = pack_tokens_sp(bits, nbits, maxbits)
+    want_p, want_t = pack_tokens_sp_plain(bits, nbits, maxbits)
+    torch.cuda.synchronize()
+    b_err = int((got_p.to(torch.int64) - want_p.to(torch.int64)).abs().max().item())
+    require(torch.equal(got_p, want_p) and torch.equal(got_t, want_t),
+            "bitpack kernel != plain on render rle tokens")
+    streams, lengths = dd._frame_lanes(flat, got_p, got_t, eob_bits=7)
+    streams_np, lengths_np, flat_np = streams.cpu().numpy(), lengths.cpu().numpy(), flat.cpu().numpy()
+    for i in range(LANES):
+        require(zlib.decompress(streams_np[i, : lengths_np[i]].tobytes()) == flat_np[i].tobytes(),
+                f"render lane {i} rle stream does not inflate back")
+    call = lambda: pack_tokens_sp(bits, nbits, maxbits)  # noqa: E731
+    b_call = time_ms(torch, call)
+    b_ms = call_device_ms(torch, call)
+    b_kernel = kernel_ms(torch, call, "sp_pack_tiles")
+    b_plain = time_ms(torch, lambda: pack_tokens_sp_plain(bits, nbits, maxbits), iters=5)
+    b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
+    line = {"phase": "kernels_render", "shape": list(rgb.shape),
+            "composite": {"ms": c_ms, "call_ms": c_call, "bytes": c_bytes,
+                          "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                          "by_kernel": c_breakdown},
+            "bitpack": {"ntok": int(bits.shape[1]), "maxbits": maxbits,
+                        "kernel_only_ms": b_kernel,
+                        "body_bits_mean": float(got_t.float().mean()),
+                        "stream_bytes_mean": float(lengths_np.mean())}}
+    rows = [
+        {"name": "filter_render_rgb8", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/filter.py:137",
+         "shape": list(rgb.shape), "max_abs_err": f_err, "ms": f_ms if f_ms else f_call,
+         "ms_from": "profiler" if f_ms else "events", "call_ms": f_call, "plain_ms": f_plain,
+         "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None},
+        {"name": "bitpack_render_rle", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:201",
+         "shape": list(bits.shape), "max_abs_err": b_err, "ms": b_ms if b_ms else b_call,
+         "ms_from": "profiler" if b_ms else "events", "call_ms": b_call, "plain_ms": b_plain,
+         "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None},
+    ]
+    return rows, line
+
+
+class RenderReference:
+    """The expected RGB of a /render request of image 2, from the source
+    stack: the port's ``build_tables``, numpy projection and gathers."""
+
+    def __init__(self, stack: np.ndarray):
+        from omero_ms_pixel_buffer_tpu_torch.render import engine as rengine
+        from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
+
+        self.stack, self.rengine, self.luts = stack, rengine, LutRegistry()
+        self.tables = {}
+
+    def rgb(self, query: dict, x: int, y: int, w: int, h: int) -> np.ndarray:
+        from omero_ms_pixel_buffer_tpu_torch.render.masks import rasterize
+        from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+
+        spec = RenderSpec.from_params(query, default_channel=0)
+        key = spec.signature()
+        if key not in self.tables:
+            self.tables[key] = self.rengine.build_tables(spec, np.dtype(np.uint16), self.luts)
+        tables, luts = self.tables[key]
+        chans = [ch.index for ch in spec.resolve_channels(self.stack.shape[0])]
+        zs = [z for z, _ in spec.plane_range(0, 0, self.stack.shape[1], 1)]
+        region = self.stack[chans][:, zs, y:y + h, x:x + w]
+        if spec.projection == "intmax":
+            planes = region.max(axis=1)
+        elif spec.projection == "intmean":
+            planes = (region.astype(np.int64).sum(axis=1) // len(zs)).astype(np.uint16)
+        else:
+            planes = region[:, 0]
+        acc = np.zeros((h, w, 3), np.int64)
+        for c in range(tables.shape[0]):
+            acc += luts[c][tables[c][planes[c]]]
+        rgb = np.minimum(acc, 255)
+        if spec.masks:
+            rgb = rgb * rasterize(spec.masks, x, y, w, h)[:, :, None]
+        return rgb.astype(np.uint8)
+
+
+def render_requests(rng, size: int, n: int, extra: str = ""):
+    from urllib.parse import parse_qsl
+
+    reqs = []
+    for _ in range(n):
+        x = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        y = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        query = f"c={RENDER_C}{extra}"
+        reqs.append((f"/render/2/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&{query}&format=png",
+                     (x, y, TILE, TILE), 200, dict(parse_qsl(query))))
+    return reqs
+
+
+def verify_render(results, reqs, ref: RenderReference) -> int:
+    checked = 0
+    for (status, body, _), (path, (x, y, w, h), want, query) in zip(results, reqs):
+        require(status == want, f"{path} answered {status}, expected {want}")
+        if status == 200:
+            require(np.array_equal(decode_png(body), ref.rgb(query, x, y, w, h)),
+                    f"{path}: pixels differ from the numpy composite")
+            checked += 1
+    return checked
+
+
+def drive_render(registry: str, stack: np.ndarray, seed: int, n_requests: int,
+                 device: str = "cuda") -> dict:
+    """``path_render``: the /render plane on a server with the defaults."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    ref = RenderReference(stack)
+    size = stack.shape[-1]
+    rng = np.random.default_rng(seed + 5)
+    checked = 0
+    with ServerThread(registry, device=device) as client:
+        reset_launch_counts()
+        warm = render_requests(rng, size, 2 * LANES)
+        t_warm = time.perf_counter()
+        warm_out = []
+        for k in range(2):
+            warm_out += run_requests(client, warm[k * LANES:(k + 1) * LANES], LANES)[0]
+        warm_s = time.perf_counter() - t_warm
+        main = render_requests(rng, size, n_requests)
+        before = get_json(client, "/healthz")
+        main_out, main_s = run_requests(client, main, LANES)
+        after = get_json(client, "/healthz")
+        window = timed_window(before, after, main_s)
+        groups = after["queue"]["composite_groups"] - before["queue"]["composite_groups"]
+        window["composite_device_ms_per_group"] = (
+            (after["queue"]["composite_device_ms_total"]
+             - before["queue"]["composite_device_ms_total"]) / groups if groups else None)
+        rounds = {}
+        for name, extra in RENDER_ROUNDS:
+            per_round = []
+            for _ in range(2):
+                reqs = render_requests(rng, size, LANES, extra)
+                h0 = get_json(client, "/healthz")
+                out, secs = run_requests(client, reqs, LANES)
+                h1 = get_json(client, "/healthz")
+                checked += verify_render(out, reqs, ref)
+                per_round.append({
+                    "seconds": secs,
+                    "projection_host_pulls": (h1["render"]["projection_host_pulls"]
+                                              - h0["render"]["projection_host_pulls"]),
+                    "render_groups": (h1["queue"]["render_groups"]
+                                      - h0["queue"]["render_groups"]),
+                    "render_host_lanes": h1["render"]["host_lanes"] - h0["render"]["host_lanes"]})
+            rounds[name] = per_round
+        require(rounds["intmax"][1]["projection_host_pulls"] == 0
+                and rounds["intmax"][1]["render_groups"] > 0,
+                f"the second intmax round left the device: {rounds['intmax']}")
+        pillow = True
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            pillow = False
+        from omero_ms_pixel_buffer_tpu_torch.models.tile_pipeline import MAX_TILE_BYTES
+
+        base = f"/render/2/0/0/0?x=0&y=0&w={TILE}&h={TILE}"
+        # the whole stack of a full-plane projection: over the tile budget
+        # at the default --render-size (4096: 402,653,184 bytes)
+        over = stack.nbytes > MAX_TILE_BYTES
+        edges = {
+            "grammar_400": (f"{base}&c=1|9:1$FF0000", 400),
+            "unknown_lut_400": (f"{base}&c=1$nope", 400),
+            "channel_404": (f"{base}&c=9", 404),
+            "stack_413": ("/render/2/0/0/0?w=0&h=0&c=1,2,3&p=intmax", 413 if over else 200),
+            "jpeg": (f"{base}&c={RENDER_C}&format=jpeg", 200 if pillow else 404),
+        }
+        edge_status = {}
+        for name, (path, want) in edges.items():
+            status, body, _ = client.get(path)
+            edge_status[name] = status
+            require(status == want, f"{name}: {path} answered {status}, expected {want}")
+            if name == "jpeg" and pillow:
+                require(body[:2] == b"\xff\xd8", "the JPEG body is not a JPEG")
+        launches = launch_counts()
+        health = get_json(client, "/healthz")
+    checked += verify_render(warm_out, warm, ref) + verify_render(main_out, main, ref)
+    lat_ms = np.array([r[2] for r in main_out]) * 1e3
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"render: a kernel of the path never launched: {launches}")
+    require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
+    require(health["kernels"] == launches, "healthz counters disagree")
+    return {
+        "phase": "path_render", "tiles_verified": checked, "launches": launches,
+        "requests": n_requests, "concurrency": LANES,
+        "tiles_per_s": n_requests / main_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
+        "stream_bytes_mean": float(np.mean([png_stream_len(r[1]) for r in main_out])),
+        "timed_window": window, "rounds": rounds, "edges": edge_status, "pillow": pillow,
+        "render": health["render"], "queue": health["queue"],
+        "plane_cache": health["plane_cache"], "batcher": health["batcher"],
+        "result_cache": health["result_cache"], "gpu": health["gpu"],
+    }
+
+
+def drive_host_deflate(registry: str, data: np.ndarray, seed: int, n_requests: int = 32,
+                       device: str = "cuda") -> dict:
+    """``path_host_deflate``: /tile PNG lanes filtered on the card and
+    deflated on the host (``device_deflate=False``)."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    with ServerThread(registry, device=device, device_deflate=False) as client:
+        rng = np.random.default_rng(seed + 9)
+        reset_launch_counts()
+        reqs = tile_requests(rng, data.shape[0], n_requests)
+        before = get_json(client, "/healthz")
+        out, secs = run_requests(client, reqs, LANES)
+        launches = launch_counts()
+        health = get_json(client, "/healthz")
+    checked = verify(out, reqs, data)
+    require(launches["filter"] > 0, f"host deflate: the filter never launched: {launches}")
+    require(launches["bitpack"] == 0 and launches["bitpack_dense"] == 0,
+            f"host deflate: a packer launched: {launches}")
+    require(health["queue"]["groups"] == 0, "host deflate: an encode group was queued")
+    return {"phase": "path_host_deflate", "tiles_verified": checked, "launches": launches,
+            "requests": n_requests, "seconds": secs,
+            "host_deflate_lanes": health["host_deflate_lanes"] - before["host_deflate_lanes"],
+            "lone_lanes": health["batcher"]["lone"] - before["batcher"]["lone"],
+            "host_engine": health["host_engine"], "device_deflate": health["device_deflate"]}
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -983,6 +1331,10 @@ def main(argv=None) -> int:
                    help="timed requests of each rle phase")
     p.add_argument("--stored-requests", type=int, default=32,
                    help="requests of the stored phase")
+    p.add_argument("--render-size", type=int, default=4096,
+                   help="width and height of the render stack (image 2)")
+    p.add_argument("--render-requests", type=int, default=128,
+                   help="timed requests of the render phase")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -1028,8 +1380,10 @@ def main(argv=None) -> int:
                         for k, v in report.items()}})
         t0 = time.perf_counter()
         data = make_field(args.size, args.seed)
-        registry = write_fixture(data)
-        emit({"phase": "fixture", "size": args.size, "seconds": time.perf_counter() - t0})
+        stack = make_stack(args.render_size, args.seed)
+        registry = write_fixture(data, stack)
+        emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
+              "seconds": time.perf_counter() - t0})
         device = torch.device("cuda", 0)
         if args.filter_sweep:
             emit(filter_sweep(torch, device, lane_tiles(data, args.seed)))
@@ -1044,6 +1398,9 @@ def main(argv=None) -> int:
             print(smi_line(), flush=True)
             return 0
         kernels = check_kernels(torch, device, lane_tiles(data, args.seed), args.seed)
+        render_rows, render_line = check_render_kernels(torch, device, stack, args.seed)
+        emit(render_line)
+        kernels += render_rows
         emit(http_contract(registry, data))
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))
@@ -1067,10 +1424,15 @@ def main(argv=None) -> int:
                             launched=("filter",), idle=("bitpack", "bitpack_dense"),
                             warm_rounds=0, edges=False)
         emit(stored)
+        render = drive_render(registry, stack, args.seed, args.render_requests)
+        emit(render)
+        emit(drive_host_deflate(registry, data, args.seed))
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],
-                    "bitpack_dense": rle["launches"]["bitpack_dense"]}
+                    "bitpack_dense": rle["launches"]["bitpack_dense"],
+                    "filter_render_rgb8": render["launches"]["filter"],
+                    "bitpack_render_rle": render["launches"]["bitpack"]}
         for k in kernels:
             k["launches"] = launches[k["name"]]
         emit({"kernels": kernels})

@@ -1,15 +1,20 @@
-"""Serve /tile from the port:
+"""Serve /tile and /render from the port:
 
     python -m omero_ms_pixel_buffer_tpu_torch --dev --registry registry.json \\
         --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2] \\
-        [--deflate-mode dynamic|rle|stored]
+        [--deflate-mode dynamic|rle|stored] [--no-device-deflate] [--lut-dir DIR]
 
 On ``cuda`` the kernels are built (or found built) before the port
 opens; without a GPU the command fails unless ``--device cpu`` is
 given. ``--deflate-mode`` is the YAML key ``backend.png.device-deflate-mode``
 of the JAX package; the bit packer comes from ``OMPB_BITPACK``
 (``scan|pallas|pallas_dense|gather``; default ``pallas`` on CUDA), as
-there. The line ``listening on HOST:PORT`` is printed once serving.
+there. ``--no-device-deflate`` is the YAML key
+``backend.png.device-deflate: false``: PNG lanes are filtered on the
+device and deflated on the host, and render lanes take the host mirror.
+``--lut-dir`` is ``render.lut-dir``: ImageJ ``.lut`` files that ``/render``
+channels may name. The line ``listening on HOST:PORT`` is printed once
+serving.
 SIGINT/SIGTERM drain and stop.
 """
 
@@ -39,6 +44,9 @@ def _parse(argv):
                    help="encode groups in flight on the device")
     p.add_argument("--deflate-mode", default="dynamic",
                    help="device deflate mode: dynamic, rle or stored")
+    p.add_argument("--no-device-deflate", dest="device_deflate", action="store_false",
+                   help="filter PNG lanes on the device, deflate them on the host")
+    p.add_argument("--lut-dir", default=None, help="directory of ImageJ .lut files")
     args = p.parse_args(argv)
     if args.deflate_mode not in DEFLATE_MODES:
         raise ValueError(f"Unknown device deflate mode: {args.deflate_mode}")
@@ -52,6 +60,7 @@ async def _serve(args) -> None:
         args.registry, dev=args.dev, device=args.device,
         buckets=[int(b) for b in args.buckets.split(",")],
         queue_depth=args.queue_depth, deflate_mode=args.deflate_mode,
+        device_deflate=args.device_deflate, lut_dir=args.lut_dir,
     )
     port = await server.start(args.host, args.port)
     print(f"listening on {args.host}:{port}", flush=True)

@@ -4,14 +4,17 @@
 Concurrent requests accumulate for up to 2 ms (or until 32 lanes) and
 run as ONE ``TilePipeline.handle_batch`` call on an executor thread; up
 to 2 x CPUs batches run at once. Lanes equal under ``TileCtx.lane_key``
-execute once. A batch of one lane (after that dedupe) takes the
-single-request path ``TilePipeline.handle`` (host read and encode), as
-the JAX package's batcher does. Lanes whose encode group is still in
+execute once (the render signature is part of that key, so two
+renderings of one region never merge). A batch of one ``/tile`` lane
+(after that dedupe) takes the single-request path ``TilePipeline.handle``
+(host read and encode), as the JAX package's batcher does; a batch of one
+render lane takes ``handle_batch``, as the JAX ``handle`` sends it there. Lanes whose encode group is still in
 flight come back deferred and are delivered from the encode queue's
 callback, so a batch's slot frees before its slowest group.
 
 Failure codes: pipeline None -> 404 "Cannot find Image:<id>"; a typed
-``TileError`` result (a failed encode group is a 500) passes through;
+``TileError`` result (a failed encode group is a 500, a projection over
+budget a 413) passes through;
 an expired deadline -> 504; a full queue or a crashed batch -> 500.
 """
 
@@ -157,7 +160,7 @@ class BatchingTileWorker:
         ctxs = [c for c, _ in canonical]
         self.batches += 1
         self.lanes += len(ctxs)
-        if len(ctxs) == 1:
+        if len(ctxs) == 1 and ctxs[0].render is None:
             self.lone += 1
             work = lambda: [self.pipeline.handle(ctxs[0])]  # noqa: E731
         else:

@@ -42,6 +42,15 @@ class InternalError(TileError):
         super().__init__(500, message)
 
 
+class RequestTooLargeError(TileError):
+    """413 — the request describes more pixel bytes than the service
+    will materialize (``max_tile_bytes``): a z/t-projection whose whole
+    stack exceeds the budget even though each plane fits."""
+
+    def __init__(self, message: str = "Request exceeds max-tile-bytes"):
+        super().__init__(413, message)
+
+
 class GatewayTimeoutError(TileError):
     """504 — the request's deadline expired before a tile was produced."""
 

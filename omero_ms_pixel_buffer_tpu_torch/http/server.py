@@ -1,9 +1,13 @@
 """HTTP/1.1 front on ``asyncio.start_server`` (counterpart of the /tile
-route of ``omero_ms_pixel_buffer_tpu/http/server.py``, without aiohttp).
+and /render routes of ``omero_ms_pixel_buffer_tpu/http/server.py``,
+without aiohttp).
 
 Routes: ``GET``/``HEAD /tile/{imageId}/{z}/{c}/{t}`` (query x/y/w/h/
-resolution/format), ``GET``/``HEAD /healthz`` and ``OPTIONS`` on any path
-(the service discovery JSON). Any other method on a route, and any
+resolution/format), ``GET``/``HEAD /render/{imageId}/{z}/{c}/{t}`` (the
+same region query plus the render dialect of ``render/model.py``: c, m,
+maps, p, roi, format png|jpeg, q; the path's c is the default channel),
+``GET``/``HEAD /healthz`` and ``OPTIONS`` on any path (the service
+discovery JSON). Any other method on a route, and any
 unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
 package's aiohttp app does with its catch-all OPTIONS route. HEAD answers
 the GET's status and headers without the body. Connections are
@@ -12,9 +16,12 @@ through an in-memory map; with ``dev`` every cookie value is its own key
 (the echo store). Every path but ``/healthz`` and every method but
 OPTIONS needs a session: a missing or unknown cookie is 403 "Permission
 denied", a bad parameter 400 with the parse message, an unknown image
-404, as the JAX package answers.
+404, as the JAX package answers. On ``/render`` a grammar error or an
+unknown LUT is a 400 with the JAX message, a channel out of range a 404,
+a projection stack over the tile budget a 413; ``annotations=`` is
+ignored, as the JAX front does without an annotation store.
 
-Tiles go through the result cache's memory tier (``cache/``), keyed by
+Tiles and renders go through the result cache's memory tier (``cache/``), keyed by
 ``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
 full plane's size. A 200 carries the content ``ETag``, ``Cache-Control:
 private, max-age=60`` and ``X-Cache: hit|miss``; an ``If-None-Match``
@@ -41,6 +48,7 @@ from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
 from ..errors import TileError
 from ..ops.kernels import launch_counts
+from ..render.model import RenderSpec
 from ..runtime.native import host_engine
 from ..tile_ctx import TileCtx
 
@@ -50,10 +58,12 @@ CONTENT_TYPES = {
     None: "application/octet-stream",
     "png": "image/png",
     "tif": "image/tiff",
+    "jpeg": "image/jpeg",
 }
 
 JSON_TYPE = "application/json; charset=utf-8"
 _TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
+_RENDER_PATH = re.compile(r"^/render/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 # what a routed path allows (aiohttp's Allow header): GET with its HEAD,
 # and the catch-all OPTIONS; an unrouted path allows OPTIONS alone
 _ROUTE_METHODS = "GET,HEAD,OPTIONS"
@@ -63,6 +73,8 @@ _MAX_HEADERS = 100
 _MAX_BODY = 1 << 20
 # per-request deadline (the JAX package's event-bus-send-timeout default)
 REQUEST_BUDGET_S = 15.0
+# JPEG quality without a q= parameter (the JAX package's render.jpeg-quality)
+JPEG_QUALITY = 90
 
 
 class TileServer:
@@ -167,7 +179,11 @@ class TileServer:
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
         healthz = parts.path == "/healthz"
-        m = None if healthz else _TILE_PATH.match(parts.path)
+        m = render = None
+        if not healthz:
+            m = _TILE_PATH.match(parts.path)
+            if m is None:
+                m = render = _RENDER_PATH.match(parts.path)
         key = None
         if not healthz:
             key = self._session_key(headers.get("cookie"))
@@ -178,19 +194,55 @@ class TileServer:
             return 405, {"Allow": allow}, b"405: Method Not Allowed"
         if healthz:
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(self.health()).encode()
-        return await self._serve_tile(parts.query, m, key, headers.get("if-none-match", ""))
-
-    async def _serve_tile(self, query_string: str, m, key: str, inm: str
-                          ) -> Tuple[int, dict, bytes]:
         query: Dict[str, str] = {}
-        for k, v in parse_qsl(query_string, keep_blank_values=True):
+        for k, v in parse_qsl(parts.query, keep_blank_values=True):
             query.setdefault(k, v)  # first value per key, as aiohttp's
-        params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
-        params.update(query)
+        path_params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
+        if render is not None:
+            ctx, error = self._render_ctx(path_params, query, key)
+        else:
+            ctx, error = self._tile_ctx(path_params, query, key)
+        if error is not None:
+            return 400, {}, error.encode()
+        return await self._serve(ctx, headers.get("if-none-match", ""))
+
+    @staticmethod
+    def _tile_ctx(path_params, query, key):
+        """(ctx, None) for a /tile request, or (None, the 400 message)."""
         try:
-            ctx = TileCtx.from_params(params, key)
+            return TileCtx.from_params({**path_params, **query}, key), None
         except TileError as e:
-            return 400, {}, e.message.encode()
+            return None, e.message
+
+    def _render_ctx(self, path_params, query, key):
+        """(ctx, None) for a /render request, or (None, the 400 message):
+        the path's ids, the RenderSpec of the query (the path's c is the
+        default channel; named LUTs must be known), then the query's
+        x/y/w/h/resolution, parsed in that order as the JAX front does."""
+        try:
+            ctx = TileCtx.from_params(path_params, key)
+            spec = RenderSpec.from_params(query, default_channel=ctx.c,
+                                          default_quality=JPEG_QUALITY)
+        except TileError as e:
+            return None, e.message
+        for ch in spec.channels:
+            if ch.lut is not None and ch.lut not in self.pipeline.lut_registry:
+                return None, f"Unknown LUT: {ch.lut}"
+        ctx.render = spec
+        ctx.format = spec.format  # Content-Type and filename
+        try:
+            ctx.region.x = int(query.get("x", 0))
+            ctx.region.y = int(query.get("y", 0))
+            ctx.region.width = int(query.get("w", 0))
+            ctx.region.height = int(query.get("h", 0))
+            res = query.get("resolution")
+            ctx.resolution = None if res is None else int(res)
+        except (TypeError, ValueError) as e:
+            return None, str(e)
+        return ctx, None
+
+    async def _serve(self, ctx: TileCtx, inm: str) -> Tuple[int, dict, bytes]:
+        """A parsed /tile or /render request through the result cache."""
         await self._normalize_region(ctx)
         quality = self.pipeline.encode_signature()
         cache_key = ctx.cache_key(quality)
@@ -259,9 +311,10 @@ class TileServer:
 
     def health(self) -> dict:
         """/healthz body: kernel launch counters, the host engine and its
-        lanes, the encode queue's (with its deflate mode and packer), the
-        plane cache's, the batcher's (with its lone lanes) and the result
-        cache's snapshots."""
+        lanes (oversize lanes; device-filtered lanes deflated on the host),
+        the encode queue's (with its deflate mode and packer), the plane
+        cache's, the batcher's (with its lone lanes), the result cache's
+        and the render engine's snapshots."""
         return {
             "status": "ok",
             "device": str(self.pipeline.device),
@@ -269,6 +322,9 @@ class TileServer:
             "kernels": launch_counts(),
             "host_engine": host_engine(),
             "host_png_lanes": self.pipeline.host_png_lanes,
+            "device_deflate": self.pipeline.device_deflate,
+            "host_deflate_lanes": self.pipeline.host_deflate_lanes,
+            "render": {"enabled": True, **self.pipeline.render_snapshot()},
             "queue": self.pipeline.device_queue_snapshot(),
             "plane_cache": self.pipeline.plane_cache_snapshot(),
             "batcher": self.worker.snapshot(),
@@ -280,15 +336,19 @@ def create_server(
     registry_path: str, dev: bool = False, device: str = "cuda",
     buckets=(256, 512, 1024), queue_depth: int = 2,
     deflate_mode: str = "dynamic", packer: Optional[str] = None,
+    device_deflate: bool = True, lut_dir: Optional[str] = None,
 ) -> TileServer:
     """The service as ``python -m omero_ms_pixel_buffer_tpu_torch`` runs
     it: registry -> pixels service -> pipeline -> batcher -> HTTP front.
     ``deflate_mode`` is the device deflate mode (``dynamic``, ``rle`` or
     ``stored``), ``packer`` the bit packer (default
     ``device_deflate.default_packer``: ``OMPB_BITPACK``, else ``pallas``
-    on CUDA). On CUDA the kernels are built (or found built) here, so a
-    build failure stops start-up; the host engine is built (or found) here
-    too, so its choice shows on ``/healthz`` from the start."""
+    on CUDA); ``device_deflate=False`` filters PNG lanes on the device and
+    deflates them on the host; ``lut_dir`` holds ``.lut`` files for
+    ``/render``. On CUDA the kernels are built (or found built) here, so a
+    build failure stops start-up; the host engine and the LUT registry
+    are built (or found) here too, so their state shows on ``/healthz``
+    from the start."""
     from ..io.pixels_service import ImageRegistry, PixelsService
     from ..models.tile_pipeline import TilePipeline
     from ..runtime.device import gpu_info
@@ -297,8 +357,10 @@ def create_server(
         PixelsService(ImageRegistry(registry_path)), buckets=tuple(buckets),
         queue_depth=queue_depth, device=device,
         device_deflate_mode=deflate_mode, packer=packer,
+        device_deflate=device_deflate, lut_dir=lut_dir,
     )
     host_engine()
+    pipeline.lut_registry  # noqa: B018 - read the LUT directory before serving
     gpu = None
     if pipeline.device.type == "cuda":
         from ..ops.kernels import _build

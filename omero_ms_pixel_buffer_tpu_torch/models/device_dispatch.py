@@ -14,6 +14,11 @@ pulls the streams and frames the PNGs:
 - ``rle`` and ``stored`` (one pass): the submit thread launches the
   whole chain (filter kernel, tokens, bit-pack kernel, framing); the
   readback thread only waits on it.
+- render groups (``submit_render``, always one pass): the submit thread
+  launches the composite, the mask multiply, the filter kernel on the
+  RGB8 scanlines and the stream build (``render/engine``); the readback
+  thread frames RGB8 PNGs (bit depth 8, colour type 2). CUDA events
+  around the composite give its device time per group.
 
 A semaphore bounds in-flight groups to ``queue_depth``. All of a group's
 device work runs on the queue's side CUDA stream and each pass ends with
@@ -47,6 +52,7 @@ from ..ops.device_deflate import (
     tables_from_numpy,
 )
 from ..ops.png import frame_png
+from ..render.engine import fused_render_filter_deflate_batch, packed_rgb_tables
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 
@@ -91,6 +97,9 @@ class DeviceEncodeDispatcher:
         self._completed = 0
         self._stage_s = dict.fromkeys(STAGES, 0.0)
         self._stage_n = dict.fromkeys(STAGES, 0)
+        self._render_groups = 0
+        self._composite_ms = 0.0  # device ms of render groups' composites
+        self._composite_n = 0
 
     # -- streams and events ----------------------------------------------
 
@@ -128,9 +137,11 @@ class DeviceEncodeDispatcher:
 
     def snapshot(self) -> dict:
         """/healthz view: the packer, groups submitted and completed, lanes
-        encoded, groups failed, in-flight count, and per stage (``STAGES``)
+        encoded, groups failed, in-flight count, per stage (``STAGES``)
         the completed groups that ran it, their total milliseconds and the
-        mean over them. Two views differ by what ran between them."""
+        mean over them, render groups submitted, and the device time of
+        the completed render groups' composites (CUDA only). Two views
+        differ by what ran between them."""
         with self._stats_lock:
             ran = {k: n for k, n in self._stage_n.items() if n}
             return {
@@ -146,6 +157,9 @@ class DeviceEncodeDispatcher:
                 "stage_ms_mean": {
                     k: round(self._stage_s[k] / n * 1e3, 3) for k, n in ran.items()
                 } if self._completed > 0 else None,
+                "render_groups": self._render_groups,
+                "composite_groups": self._composite_n,
+                "composite_device_ms_total": self._composite_ms,
             }
 
     # -- submission --------------------------------------------------------
@@ -162,6 +176,35 @@ class DeviceEncodeDispatcher:
         described by ``rows``/``row_bytes``; ``deflate_mode`` is one of
         ``DEFLATE_MODES`` (the pipeline checks it; any other fails the
         group)."""
+        return self._enqueue(
+            self._stage_group,
+            (tiles, rows, row_bytes, bpp, filter_mode, deflate_mode, staged),
+            (list(lanes), list(sizes), bit_depth, color_type))
+
+    def submit_render(
+        self, planes, index_tables, color_luts, rows: int, row_bytes: int,
+        filter_mode: str, deflate_mode: str, lanes: Sequence[int],
+        sizes: Sequence[Tuple[int, int]], mask=None, staged: bool = False,
+    ) -> "concurrent.futures.Future":
+        """Enqueue one render group (``render/engine``): ``planes`` is a
+        host (B, C, H, W) bit tensor of unsigned channel pixels, copied to
+        the device on the submit thread, or a device-resident batch made
+        on this queue's stream (``staged=True``, plane-cache projection
+        crops: no copy). ``mask`` is an optional (B, H, W) uint8 ROI
+        batch, on the host unless ``staged``. The lanes share one real
+        (w, h) (``rows`` x ``row_bytes`` of RGB8 scanlines);
+        ``deflate_mode`` is ``rle`` or ``stored``."""
+        with self._stats_lock:
+            self._render_groups += 1
+        return self._enqueue(
+            self._stage_render_group,
+            (planes, index_tables, color_luts, rows, row_bytes, filter_mode,
+             deflate_mode, mask, staged),
+            (list(lanes), list(sizes), 8, 2))
+
+    def _enqueue(self, stage_fn, args, frame) -> "concurrent.futures.Future":
+        """Queue ``stage_fn(*args)`` on the submit thread; ``frame`` is
+        (lanes, sizes, bit depth, colour type) for the readback."""
         if self._closed:
             raise RuntimeError("device encode queue is closed")
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
@@ -170,10 +213,8 @@ class DeviceEncodeDispatcher:
         fut.add_done_callback(self._discard_pending)
         with self._stats_lock:
             self._groups += 1
-        args = (tiles, rows, row_bytes, bpp, filter_mode, deflate_mode,
-                list(lanes), list(sizes), bit_depth, color_type, staged)
         try:
-            self._submit_pool.submit(self._run_stage, fut, args)
+            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame)
         except RuntimeError as e:  # close() raced the check
             self._fail(fut, e)
         return fut
@@ -189,6 +230,12 @@ class DeviceEncodeDispatcher:
         """Context making the queue's side stream current: the pipeline
         builds staged (plane-cache) batches inside it."""
         return self._on_stream()
+
+    def synchronize_stream(self) -> None:
+        """Wait for everything queued on the side stream (before a host
+        pull of a tensor made there)."""
+        if self._stream is not None:
+            self._stream.synchronize()
 
     def _discard_pending(self, fut) -> None:
         with self._pending_lock:
@@ -212,7 +259,7 @@ class DeviceEncodeDispatcher:
             self._inflight -= 1
         self._slots.release()
 
-    def _run_stage(self, fut, args) -> None:
+    def _run_stage(self, fut, stage_fn, args, frame) -> None:
         """Submit thread: take an in-flight slot, stage + launch the first
         device work, chain the readback."""
         self._slots.acquire()
@@ -220,9 +267,9 @@ class DeviceEncodeDispatcher:
             self._inflight += 1
         try:
             t0 = time.perf_counter()
-            launched = self._stage_group(*args)
+            launched = stage_fn(*args)
             t_stage = time.perf_counter() - t0
-            rfut = self._readback.submit(self._readback_group, t_stage, launched, *args[6:10])
+            rfut = self._readback.submit(self._readback_group, t_stage, launched, *frame)
         except Exception as e:
             self._release_slot()
             self._fail(fut, e)
@@ -242,11 +289,10 @@ class DeviceEncodeDispatcher:
 
     # -- the device work ---------------------------------------------------
 
-    def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode,
-                     lanes, sizes, bit_depth, color_type, staged):
+    def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode, staged):
         """Submit thread: H2D (bucket route), then on the side stream pass 1
         of a dynamic group or the whole chain of a one-pass group. Returns
-        (mode, device tensors, the event that ends them)."""
+        (mode, device tensors, the event that ends them, None)."""
         with self._on_stream():
             batch = tiles if staged else tiles.to(self.device, non_blocking=True)
             if deflate_mode == "dynamic":
@@ -258,13 +304,37 @@ class DeviceEncodeDispatcher:
                     batch, rows, row_bytes, bpp, filter_mode=filter_mode,
                     mode=deflate_mode, packer=self.packer,
                 )
-            return deflate_mode, out, self._mark()
+            return deflate_mode, out, self._mark(), None
+
+    def _stage_render_group(self, planes, index_tables, color_luts, rows, row_bytes,
+                            filter_mode, deflate_mode, mask, staged):
+        """Submit thread: H2D of the planes and the mask (unless staged),
+        then on the side stream the whole render chain. Returns (mode,
+        device tensors, the event that ends them, the composite's timing
+        events or None)."""
+        packed = packed_rgb_tables(index_tables, color_luts)
+        with self._on_stream():
+            if staged:
+                batch, mask_dev = planes, mask
+            else:
+                batch = planes.to(self.device, non_blocking=True)
+                mask_dev = None if mask is None else mask.to(self.device, non_blocking=True)
+            timing = None
+            if self._stream is not None:
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            out = fused_render_filter_deflate_batch(
+                batch, index_tables, color_luts, rows, row_bytes,
+                filter_mode=filter_mode, mode=deflate_mode, packer=self.packer,
+                mask=mask_dev, packed=packed, composite_events=timing,
+            )
+            return deflate_mode, out, self._mark(), timing
 
     def _readback_group(self, t_stage, launched, lanes, sizes, bit_depth, color_type):
         """Readback thread: wait for the group's device work (for a dynamic
         group: pull the counts, plan the tables and run pass 2), then pull
         and frame."""
-        mode, tensors, ev = launched
+        mode, tensors, ev, composite = launched
         t = [time.perf_counter()]
 
         def lap():
@@ -299,10 +369,14 @@ class DeviceEncodeDispatcher:
             for j, lane in enumerate(lanes)
         }
         timing["frame"] = lap()
+        composite_ms = composite[0].elapsed_time(composite[1]) if composite else None
         with self._stats_lock:
             for k, v in timing.items():
                 self._stage_s[k] += v
                 self._stage_n[k] += 1
+            if composite_ms is not None:
+                self._composite_ms += composite_ms
+                self._composite_n += 1
             self._lanes += len(lanes)
             self._completed += 1
         return out

@@ -12,6 +12,24 @@ each (bucket, dtype) group encodes in one queue submission per real
 (w, h). Lanes on a plane that is resident on the device skip the host
 read: the plane route crops them on the device.
 
+With ``device_deflate=False`` (the JAX package's YAML key
+``backend.png.device-deflate: false``) a PNG lane is filtered on the
+device by the filter kernel and only the filtered scanlines come back:
+the host deflates and frames them (``_finish_png_lanes``: the native
+engine's ``png_assemble_batch``, else Python zlib).
+
+Render lanes (``ctx.render`` set, ``/render``) read one plane per active
+channel (times the z or t range of a projection; warm projection lanes
+crop their planes from the plane cache and stay on the device), project,
+and composite + filter + deflate (``rle``) on the device in one encode
+queue group per (signature, table dtype, size, bucket, mask, residency).
+JPEG lanes, lanes larger than every bucket and every render lane with
+``device_deflate=False`` take the host mirror (``render_host``,
+``zlib_rle_np``): routes, as in the JAX package, counted on ``/healthz``
+(``render.host_lanes``). A render lane that cannot render answers None
+(404); a projection stack over ``max_tile_bytes`` answers 413; a failed
+render group answers 500, with no host re-render.
+
 Two host routes give the JAX package's host bytes where it takes them:
 ``handle`` (a single request: the batcher's batch of one) reads and
 encodes on the host with ``ops/png.encode_png`` (Python zlib), and a PNG
@@ -32,20 +50,26 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..errors import InternalError
+from ..errors import InternalError, RequestTooLargeError
 from ..io.pixels_service import PixelsService
 from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
 from ..ops.device_deflate import DEFLATE_MODES
+from ..ops.kernels.filter import filter_tiles
 from ..ops.png import (
     _PNG_DTYPES,
     PNG_FILTER,
     PNG_LEVEL,
     PNG_STRATEGY,
     PngEncodeError,
+    assemble_png,
     encode_png,
 )
 from ..ops.tiff import TiffEncodeError, encode_tiff
+from ..render import engine as rengine
+from ..render.luts import LutRegistry
+from ..render.masks import MaskRasterCache, bucket_mask_batch
+from ..render.projection import project_np, project_torch
 from ..runtime.device import resolve_device
 from ..runtime.native import get_engine
 from ..tile_ctx import TileCtx
@@ -69,6 +93,19 @@ class ResolvedTile:
         self.level, self.x, self.y, self.w, self.h = level, x, y, w, h
 
 
+class RenderLane:
+    """One staged render lane: the (C, H, W) channel stack (the unsigned
+    view of the pixels), the pixel type its tables are built for, and the
+    ROI mask raster, if any. ``device`` marks a stack that is already a
+    device tensor (warm plane-cache projection crops, bits of an unsigned
+    type): it is batched on the queue's stream and submitted ``staged``."""
+
+    __slots__ = ("stack", "dtype", "mask", "device")
+
+    def __init__(self, stack, dtype, mask=None, device=False):
+        self.stack, self.dtype, self.mask, self.device = stack, dtype, mask, device
+
+
 class DeferredTile:
     """A lane whose encode group is still in flight when
     ``handle_batch(..., defer=True)`` returns; ``future`` resolves to
@@ -86,8 +123,11 @@ class TilePipeline:
     ``device_deflate_mode`` (``dynamic``, the JAX package's default,
     ``rle`` or ``stored``: the YAML key ``backend.png.device-deflate-mode``)
     with the bit packer ``packer`` (default
-    ``device_deflate.default_packer``). Only tests pass ``device="cpu"``,
-    which runs the kernels' plain versions."""
+    ``device_deflate.default_packer``); with ``device_deflate=False`` it
+    is filtered on the device and deflated on the host. ``lut_dir``
+    holds operator ``.lut`` files for render lanes; ``max_tile_bytes``
+    bounds a lane's pixels (a projection's whole stack). Only tests pass
+    ``device="cpu"``, which runs the kernels' plain versions."""
 
     engine = "device"
 
@@ -99,6 +139,9 @@ class TilePipeline:
         device="cuda",
         device_deflate_mode: str = "dynamic",
         packer: Optional[str] = None,
+        device_deflate: bool = True,
+        lut_dir: Optional[str] = None,
+        max_tile_bytes: int = MAX_TILE_BYTES,
     ):
         if device_deflate_mode not in DEFLATE_MODES:
             raise ValueError(f"Unknown device deflate mode: {device_deflate_mode}")
@@ -109,7 +152,20 @@ class TilePipeline:
         self.plane_cache = DevicePlaneCache(self.device)
         self.dispatcher = DeviceEncodeDispatcher(
             self.device, queue_depth=queue_depth, packer=packer)
+        self.device_deflate = device_deflate
+        self.max_tile_bytes = max_tile_bytes
         self.host_png_lanes = 0  # lanes larger than every bucket, host-encoded
+        self.host_deflate_lanes = 0  # device-filtered lanes deflated on the host
+        # render state: the LUT registry (built on first use), the
+        # per-(spec, dtype) table memo, the ROI raster cache, render lanes
+        # on the host mirror, and host pulls of plane-cache projection
+        # crops (a warm projection pan holds it at 0)
+        self.lut_dir = lut_dir
+        self._lut_registry: Optional[LutRegistry] = None
+        self._render_tables: Dict[Tuple[str, str], tuple] = {}
+        self._mask_cache = MaskRasterCache()
+        self.render_host_lanes = 0
+        self._proj_host_pulls = 0
 
     def close(self) -> None:
         self.dispatcher.close()
@@ -119,6 +175,37 @@ class TilePipeline:
 
     def device_queue_snapshot(self) -> dict:
         return {"deflate_mode": self.device_deflate_mode, **self.dispatcher.snapshot()}
+
+    # -- render state ------------------------------------------------------
+
+    @property
+    def lut_registry(self) -> LutRegistry:
+        """The LUT registry (built-ins and ``lut_dir``), built on first use."""
+        if self._lut_registry is None:
+            self._lut_registry = LutRegistry(self.lut_dir)
+        return self._lut_registry
+
+    def _render_tables_for(self, spec, dtype) -> tuple:
+        """(index_tables, color_luts) for a (spec, pixel type), memoized."""
+        key = (spec.signature(), np.dtype(dtype).str)
+        hit = self._render_tables.get(key)
+        if hit is None:
+            hit = rengine.build_tables(spec, np.dtype(dtype), self.lut_registry)
+            if len(self._render_tables) >= 256:
+                self._render_tables.clear()  # coarse but bounded
+            self._render_tables[key] = hit
+        return hit
+
+    def render_snapshot(self) -> dict:
+        """/healthz view of the rendering engine."""
+        return {
+            "specs_cached": len(self._render_tables),
+            "luts": len(self._lut_registry) if self._lut_registry is not None else None,
+            "lut_dir": self.lut_dir,
+            "masks": self._mask_cache.snapshot(),
+            "projection_host_pulls": self._proj_host_pulls,
+            "host_lanes": self.render_host_lanes,
+        }
 
     def encode_signature(self) -> str:
         """The 'quality' part of the result-cache key: the PNG encode
@@ -141,8 +228,8 @@ class TilePipeline:
             level = ctx.resolution
         size_x, size_y = buffer.level_size(level)
         x, y, w, h = resolve_region(ctx.region, size_x, size_y)
-        if w * h * buffer.meta.bytes_per_pixel > MAX_TILE_BYTES:
-            raise ValueError(f"Tile {w}x{h} exceeds max-tile-bytes ({MAX_TILE_BYTES})")
+        if self.max_tile_bytes and w * h * buffer.meta.bytes_per_pixel > self.max_tile_bytes:
+            raise ValueError(f"Tile {w}x{h} exceeds max-tile-bytes ({self.max_tile_bytes})")
         # the resolved region flows back into the ctx (filename header)
         ctx.region.x, ctx.region.y = x, y
         ctx.region.width, ctx.region.height = w, h
@@ -159,7 +246,10 @@ class TilePipeline:
 
     def handle(self, ctx: TileCtx) -> Optional[bytes]:
         """One request on the host: resolve, read, encode. Bytes, or None
-        (-> 404) on any failure, as the JAX package's ``handle``."""
+        (-> 404) on any failure, as the JAX package's ``handle``. A render
+        lane takes the batched machinery, as there."""
+        if ctx.render is not None:
+            return self.handle_batch([ctx])[0]
         try:
             rt = self.resolve(ctx)
             if rt is None:
@@ -195,7 +285,8 @@ class TilePipeline:
     def handle_batch(self, ctxs: Sequence[TileCtx], defer: bool = False
                      ) -> List[Optional[object]]:
         """Coalesced execution of many tile requests. Per lane the result
-        is bytes, None (-> 404), an ``InternalError`` (-> 500: its
+        is bytes, None (-> 404), a ``RequestTooLargeError`` (-> 413: a
+        projection stack over budget), an ``InternalError`` (-> 500: its
         encode group failed) or, with ``defer=True``, a ``DeferredTile``
         for lanes whose encode group is still in flight."""
         n = len(ctxs)
@@ -207,6 +298,11 @@ class TilePipeline:
             except Exception:
                 log.debug("resolve failed for lane %d", i, exc_info=True)
 
+        # render lanes read their channel planes on their own path
+        render_idx = [i for i, ctx in enumerate(ctxs)
+                      if ctx.render is not None and resolved[i] is not None]
+        render_set = set(render_idx)
+
         plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
         in_plane = {i for lanes in plane_groups.values() for i in lanes}
 
@@ -214,7 +310,7 @@ class TilePipeline:
         tiles: List[Optional[np.ndarray]] = [None] * n
         by_image: Dict[Tuple[int, int], List[int]] = {}
         for i, rt in enumerate(resolved):
-            if rt is not None and i not in in_plane:
+            if rt is not None and i not in in_plane and i not in render_set:
                 by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
         for (_, level), lanes in by_image.items():
             buf = resolved[lanes[0]].buffer
@@ -247,12 +343,23 @@ class TilePipeline:
 
         pending: List[Tuple[List[int], concurrent.futures.Future]] = []
         for ((bh, bw), dtype_str), lanes in png_groups.items():
-            pending.extend(self._submit_bucket_groups(
-                lanes, tiles, bh, bw, np.dtype(dtype_str)))
+            if self.device_deflate:
+                pending.extend(self._submit_bucket_groups(
+                    lanes, tiles, bh, bw, np.dtype(dtype_str)))
+            else:
+                self._host_deflate(lambda: self._device_png_lanes(
+                    lanes, tiles, results, bh, bw, np.dtype(dtype_str)), lanes, results)
         for key, lanes in plane_groups.items():
             (_, _, _, _, _, bh, bw, dtype_str) = key
-            pending.extend(self._submit_plane_groups(
-                plane_handles[key], lanes, resolved, bh, bw, np.dtype(dtype_str)))
+            if self.device_deflate:
+                pending.extend(self._submit_plane_groups(
+                    plane_handles[key], lanes, resolved, bh, bw, np.dtype(dtype_str)))
+            else:
+                self._host_deflate(lambda: self._device_plane_png_lanes(
+                    plane_handles[key], lanes, resolved, results, bh, bw,
+                    np.dtype(dtype_str)), lanes, results)
+        if render_idx:
+            pending.extend(self._render_batch_lanes(render_idx, resolved, ctxs, results))
 
         if defer:
             for idxs, fut in pending:
@@ -297,8 +404,9 @@ class TilePipeline:
         planes: Dict[tuple, torch.Tensor] = {}
         attempted: set = set()
         for i, (ctx, rt) in enumerate(zip(ctxs, resolved)):
-            if rt is None or ctx.format != "png" or rt.meta.dtype not in _PNG_DTYPES:
-                continue
+            if (rt is None or ctx.format != "png" or ctx.render is not None
+                    or rt.meta.dtype not in _PNG_DTYPES):
+                continue  # a render lane's format is png too
             bucket = self._bucket(rt.w, rt.h)
             if bucket is None:
                 continue
@@ -372,6 +480,269 @@ class TilePipeline:
             )
         except Exception as e:
             return self.dispatcher.failed_group(e)
+
+    # -- device filter, host deflate (device_deflate=False) ----------------
+
+    def _host_deflate(self, run, lanes, results) -> None:
+        """Run one device-filter group; a failure answers 500 for its
+        lanes (no host re-encode)."""
+        try:
+            run()
+        except Exception:
+            log.exception("device filter group failed; lanes -> 500")
+            for i in lanes:
+                results[i] = InternalError("device filter group failed")
+
+    def _device_png_lanes(self, lanes, tiles, results, bh, bw, dtype) -> None:
+        """Host-read lanes zero-padded into one bucket batch, copied to the
+        device and filtered by the filter kernel; only the filtered
+        scanlines come back, for the host deflate tail."""
+        batch = np.zeros((len(lanes), bh, bw), dtype=dtype)
+        for j, i in enumerate(lanes):
+            t = tiles[i]
+            batch[j, : t.shape[0], : t.shape[1]] = t
+        filtered = filter_tiles(bits_tensor(batch).to(self.device), PNG_FILTER)
+        sizes = [(tiles[i].shape[1], tiles[i].shape[0]) for i in lanes]
+        self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
+
+    def _device_plane_png_lanes(self, plane, lanes, resolved, results, bh, bw, dtype) -> None:
+        """Crops of a resident plane filtered on the device; only the
+        filtered scanlines come back, for the host deflate tail."""
+        coords = [(resolved[i].y, resolved[i].x) for i in lanes]
+        filtered = filter_tiles(self.plane_cache.crop_batch(plane, coords, bh, bw), PNG_FILTER)
+        sizes = [(resolved[i].w, resolved[i].h) for i in lanes]
+        self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
+
+    def _finish_png_lanes(self, filtered, lanes, sizes, results, itemsize) -> None:
+        """Deflate + frame filtered scanlines (B, bh, 1 + bw*itemsize) on
+        the host: the native engine's ``png_assemble_batch``, or Python
+        zlib (``assemble_png``) without it and for a lane it failed. Each
+        lane keeps its real rows and row bytes (filters never look right
+        or down, so the padding cannot reach them)."""
+        self.host_deflate_lanes += len(lanes)
+        bit_depth = itemsize * 8
+        payloads = [filtered[j, :h, : 1 + w * itemsize].tobytes()
+                    for j, (w, h) in enumerate(sizes)]
+        engine = get_engine()
+        pngs = [None] * len(lanes)
+        if engine is not None:
+            pngs = engine.png_assemble_batch(
+                payloads, [w for w, _ in sizes], [h for _, h in sizes],
+                [bit_depth] * len(lanes), [0] * len(lanes),
+                level=PNG_LEVEL, strategy=PNG_STRATEGY)
+        for j, (i, png) in enumerate(zip(lanes, pngs)):
+            w, h = sizes[j]
+            results[i] = png if png is not None else assemble_png(
+                payloads[j], w, h, bit_depth, 0, PNG_LEVEL, PNG_STRATEGY)
+
+    # -- render lanes ------------------------------------------------------
+
+    def _render_batch_lanes(self, idxs, resolved, ctxs, results):
+        """Plan and read every render lane's channel planes (per image;
+        projection lanes crop from the plane cache first, and a lane whose
+        crops are all resident stays on the device), project, rasterize
+        ROI masks, then submit one render group per (signature, pixel
+        type, size, bucket, mask, residency), or encode on the host
+        mirror (JPEG, larger than every bucket, ``device_deflate=False``).
+        Returns [(lanes, group future)]. A lane that cannot render stays
+        None (404); a projection stack over budget gets a 413 marker."""
+        use_fused = self.device_deflate
+        plans: Dict[int, tuple] = {}
+        lane_dev: Dict[int, bool] = {}
+        by_image: Dict[Tuple[int, int], List[int]] = {}
+        for i in idxs:
+            rt, ctx = resolved[i], ctxs[i]
+            spec = ctx.render
+            try:
+                chans = spec.resolve_channels(rt.meta.size_c)
+                zts = spec.plane_range(ctx.z, ctx.t, rt.meta.size_z, rt.meta.size_t)
+            except Exception:
+                log.debug("unrenderable spec for image %d", ctx.image_id, exc_info=True)
+                continue
+            if not rengine.renderable_dtype(rt.meta.dtype):
+                continue  # the port's readers open 8/16-bit integer pixels only
+            nplanes = len(chans) * len(zts)
+            if (self.max_tile_bytes
+                    and rt.w * rt.h * rt.meta.bytes_per_pixel * nplanes > self.max_tile_bytes):
+                results[i] = RequestTooLargeError(
+                    f"Projection stack {rt.w}x{rt.h} x {nplanes} planes exceeds "
+                    f"max-tile-bytes ({self.max_tile_bytes})")
+                continue
+            coords = [(z, ch.index, t, rt.x, rt.y, rt.w, rt.h) for ch in chans for (z, t) in zts]
+            plans[i] = (chans, zts, coords)
+            by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
+
+        stacks: Dict[int, RenderLane] = {}
+        for (image_id, level), lanes in by_image.items():
+            buf = resolved[lanes[0]].buffer
+            per_lane: Dict[int, list] = {}
+            flat: List[tuple] = []
+            owners: List[Tuple[int, int]] = []
+            for i in lanes:
+                chans, zts, coords = plans[i]
+                rt, spec = resolved[i], ctxs[i].render
+                slots = [None] * len(coords)
+                per_lane[i] = slots
+                use_cache = spec.projection is not None
+                # a lane whose crops are all resident stays on the device:
+                # the fused route, unsigned pixels (no view needed), no
+                # mask raster, a bucket to land in
+                lane_dev[i] = (use_cache and use_fused
+                               and spec.format == "png" and not spec.masks
+                               and rt.meta.dtype.kind == "u"
+                               and self._bucket(rt.w, rt.h) is not None)
+                for j, coord in enumerate(coords):
+                    arr = (self._plane_cache_region(buf, level, coord, rt.meta.dtype,
+                                                    device=lane_dev[i])
+                           if use_cache else None)
+                    if arr is not None:
+                        slots[j] = arr
+                    else:
+                        flat.append(coord)
+                        owners.append((i, j))
+            try:
+                planes = buf.read_tiles(flat, level=level) if flat else []
+            except Exception:
+                log.exception("render read failed for image %d; lanes -> 404", image_id)
+                continue
+            for (i, j), arr in zip(owners, planes):
+                per_lane[i][j] = arr
+            for i in lanes:
+                chans, zts, _ = plans[i]
+                lane_planes = per_lane[i]
+                if any(p is None for p in lane_planes):
+                    continue  # a read slot failed -> 404
+                rt, spec = resolved[i], ctxs[i].render
+                try:
+                    if lane_dev[i]:
+                        if all(isinstance(p, torch.Tensor) for p in lane_planes):
+                            with self.dispatcher.stream_context():
+                                stack = project_torch(torch.stack(lane_planes).reshape(
+                                    len(chans), len(zts), rt.h, rt.w), spec.projection)
+                            stacks[i] = RenderLane(stack, rt.meta.dtype, device=True)
+                            continue
+                        # a mixed cold pan: the resident slots come back once
+                        lane_planes = [self._pull_crop(p, rt.meta.dtype) for p in lane_planes]
+                    stack = np.stack(lane_planes).reshape(len(chans), len(zts), rt.h, rt.w)
+                    stack = self._stage_stack(stack, spec, device_project=use_fused)
+                    mask = None
+                    if spec.masks:
+                        mask = self._mask_cache.get(rt.meta.image_id, spec.masks,
+                                                    (rt.x, rt.y, rt.w, rt.h))
+                    stacks[i] = RenderLane(stack, rt.meta.dtype, mask)
+                except Exception:
+                    log.exception("render staging failed for lane %d", i)
+
+        groups: Dict[tuple, List[int]] = {}
+        for i, lane in stacks.items():
+            rt, spec = resolved[i], ctxs[i].render
+            bucket = self._bucket(rt.w, rt.h) if use_fused and spec.format == "png" else None
+            if bucket is None:
+                self._render_host_lane(i, ctxs[i], lane, results)
+                continue
+            groups.setdefault((spec.signature(), lane.dtype.str, (rt.w, rt.h), bucket,
+                               lane.mask is not None, lane.device), []).append(i)
+        pending = []
+        for (_, dtype_str, (w, h), (bw, bh), has_mask, is_dev), lanes in groups.items():
+            lane0 = stacks[lanes[0]]
+            try:
+                tables, luts = self._render_tables_for(ctxs[lanes[0]].render,
+                                                       np.dtype(dtype_str))
+                if is_dev:
+                    with self.dispatcher.stream_context():
+                        real = torch.stack([stacks[i].stack for i in lanes])
+                        batch = torch.zeros(real.shape[:2] + (bh, bw), dtype=real.dtype,
+                                            device=real.device)
+                        batch[:, :, :h, :w] = real
+                else:
+                    host = np.zeros((len(lanes), lane0.stack.shape[0], bh, bw),
+                                    dtype=lane0.stack.dtype)
+                    for j, i in enumerate(lanes):
+                        host[j, :, :h, :w] = stacks[i].stack
+                    batch = bits_tensor(host)
+                mask = None
+                if has_mask:
+                    mask = torch.from_numpy(
+                        bucket_mask_batch([stacks[i].mask for i in lanes], bh, bw))
+                fut = self.dispatcher.submit_render(
+                    batch, tables, luts, h, 1 + w * 3, PNG_FILTER, "rle", lanes,
+                    [(w, h)] * len(lanes), mask=mask, staged=is_dev)
+            except Exception as e:
+                fut = self.dispatcher.failed_group(e)
+            pending.append((lanes, fut))
+        return pending
+
+    def _render_host_lane(self, i, ctx, lane, results) -> None:
+        """One lane on the host mirror: numpy composite (+ mask) and the
+        numpy twin of the device stream (the fused chain's PNG bytes), or
+        Pillow JPEG (None without Pillow, -> 404)."""
+        self.render_host_lanes += 1
+        spec = ctx.render
+        try:
+            stack = lane.stack
+            if isinstance(stack, torch.Tensor):
+                stack = self._pull_crop(stack, lane.dtype)
+            tables, luts = self._render_tables_for(spec, lane.dtype)
+            if spec.format == "png":
+                results[i] = rengine.render_png_host(stack, tables, luts, PNG_FILTER, lane.mask)
+            else:
+                rgb = rengine.render_host(stack, tables, luts, lane.mask)
+                results[i] = rengine.encode_jpeg(rgb, spec.quality)
+        except Exception:
+            log.exception("host render failed for lane %d", i)
+            results[i] = None
+
+    def _stage_stack(self, stack, spec, device_project):
+        """The pointwise tail of render staging (the JAX package's
+        ``_stage_stack``, without the float/int32 quantization the port's
+        readers do not need yet): project in integer arithmetic (on the
+        device when ``device_project``), view signed pixels as their
+        unsigned index. (C, Z, H, W) -> (C, H, W) unsigned."""
+        if spec.projection is None or stack.shape[1] == 1:
+            stack = stack[:, 0]
+        elif device_project:
+            out = project_torch(bits_tensor(stack).to(self.device), spec.projection,
+                                signed=stack.dtype.kind == "i")
+            stack = out.cpu().numpy().view(stack.dtype)
+        else:
+            stack = project_np(stack, spec.projection)
+        return rengine.unsigned_view(np.ascontiguousarray(stack))
+
+    def _plane_cache_region(self, buf, level, coord, dtype, device=False):
+        """One (z, c, t) region cropped from its plane in the plane cache
+        (whose admission sees every touch, so a repeated projection pan
+        stages its planes once); None when the crop would clamp at the
+        plane's edge, the plane is not resident, or anything fails: the
+        caller reads it from the host. ``device=True`` keeps the crop on
+        the device (bits, made on the queue's stream); otherwise it comes
+        back to the host as ``dtype``, counted."""
+        z, c, t, x, y, w, h = coord
+        try:
+            size_x, size_y = buf.level_size(level)
+            if x + w > size_x or y + h > size_y:
+                return None
+            plane = self.plane_cache.get_plane(buf, level, z, c, t)
+            if plane is None:
+                return None
+            if device:
+                with self.dispatcher.stream_context():
+                    return self.plane_cache.crop_batch(plane, [(y, x)], h, w)[0]
+            crop = self.plane_cache.crop_batch(plane, [(y, x)], h, w)[0]
+            self._proj_host_pulls += 1
+            return crop.cpu().numpy().view(dtype)
+        except Exception:
+            log.debug("plane-cache region read failed", exc_info=True)
+            return None
+
+    def _pull_crop(self, arr, dtype):
+        """A slot that may be a device tensor made on the queue's stream,
+        as a host array of ``dtype``; each pull is counted (the round trip
+        the resident route avoids)."""
+        if isinstance(arr, np.ndarray):
+            return arr
+        self._proj_host_pulls += 1
+        self.dispatcher.synchronize_stream()
+        return arr.cpu().numpy().view(dtype)
 
 
 def _lane_future(group_fut, lane) -> "concurrent.futures.Future":

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import os
+import zlib
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -788,3 +789,86 @@ def fused_filter_deflate_batch(
     flat, b = _filtered_payloads(tiles, rows, row_bytes, bpp, filter_mode)
     streams, lengths = _streams_core(flat, mode, packer)
     return streams[:b], lengths[:b]
+
+
+# ---------------------------------------------------------------------------
+# Host twin of the rle stream (the render host mirror's encoder)
+# ---------------------------------------------------------------------------
+
+
+def _rle_tokens_np(payload: np.ndarray):
+    """Numpy twin of ``_rle_tokens`` for one lane: the same run
+    decomposition, tables and token order."""
+    n = payload.shape[0]
+    arange = np.arange(n, dtype=np.int64)
+    same = np.concatenate([np.zeros(1, bool), payload[1:] == payload[:-1]])
+    run_start = ~same
+    start_pos = np.maximum.accumulate(np.where(run_start, arange, -1))
+    p_in_run = arange - start_pos
+    starts = np.where(run_start, arange, n)
+    after = np.concatenate([starts[1:], np.full(1, n, np.int64)])
+    next_start = np.minimum.accumulate(after[::-1])[::-1]
+    rem = next_start - arange
+    qmod = (p_in_run - 1) % _MAX_MATCH
+    chunk_size = np.minimum(_MAX_MATCH, rem + qmod)
+    is_lit = (p_in_run == 0) | (chunk_size < 3)
+    is_match = (p_in_run >= 1) & (qmod == 0) & (chunk_size >= 3)
+    mlen = np.clip(rem, 0, _MAX_MATCH)
+    bits = np.where(is_lit, _LIT_BITS[payload],
+                    np.where(is_match, _MATCH_BITS[mlen], 0)).astype(np.uint32)
+    nbits = np.where(is_lit, _LIT_NBITS[payload],
+                     np.where(is_match, _MATCH_NBITS[mlen], 0)).astype(np.int64)
+    return bits, nbits
+
+
+def _pack_bits_scan_np(bits: np.ndarray, nbits: np.ndarray, maxbits: int):
+    """Numpy twin of the carry-free prefix-sum packer: the same word math
+    on wrapping uint32 cumulative sums, so the bytes equal every device
+    packer's. Returns (LSB-first bytes of ``maxbits`` bits, total bits)."""
+    offs = np.cumsum(nbits) - nbits
+    total_bits = int(offs[-1] + nbits[-1])
+    s = (offs & 31).astype(np.uint32)
+    val = bits.astype(np.uint32)
+    lo = val << s
+    hi = (val >> (np.uint32(31) - s)) >> np.uint32(1)
+    zero = np.zeros(1, np.uint32)
+    tl = np.concatenate([zero, np.cumsum(lo, dtype=np.uint32)])
+    th = np.concatenate([zero, np.cumsum(hi, dtype=np.uint32)])
+    edges = (np.arange(maxbits // 32, dtype=np.int64) + 1) * 32
+    c = np.searchsorted(offs, edges, side="left")
+    gl, gh = tl[c], th[c]
+    gl1 = np.concatenate([zero, gl[:-1]])
+    gh1 = np.concatenate([zero, gh[:-1]])
+    gh2 = np.concatenate([zero, gh1[:-1]])
+    words = (gl - gl1) + (gh1 - gh2)
+    return words.astype("<u4").tobytes(), total_bits
+
+
+def zlib_rle_np(payload) -> bytes:
+    """The ``rle`` stream of one lane built on the host: Z_RLE tokens,
+    fixed Huffman, the carry-free packer and the smaller of the coded and
+    stored streams. Byte-identical to ``zlib_rle_batch`` of the same
+    payload, which keeps the render host mirror's PNGs equal to the
+    device chain's."""
+    data = np.frombuffer(payload, dtype=np.uint8) if isinstance(
+        payload, (bytes, bytearray, memoryview)
+    ) else np.ascontiguousarray(payload, dtype=np.uint8).ravel()
+    n = data.shape[0]
+    if n == 0:
+        raise ValueError("empty payload")
+    tok_bits, tok_nbits = _rle_tokens_np(data)
+    bits = np.concatenate([np.full(1, 3, np.uint32), tok_bits])
+    nbits = np.concatenate([np.full(1, 3, np.int64), tok_nbits])
+    packed, body_bits = _pack_bits_scan_np(bits, nbits, _packing_maxbits(n))
+    deflate_nbytes = (body_bits + 7 + 7) // 8  # + the 7-bit all-zero EOB code
+    adler = (zlib.adler32(data.tobytes()) & 0xFFFFFFFF).to_bytes(4, "big")
+    if 2 + deflate_nbytes + 4 <= stored_stream_len(n):
+        return b"\x78\x01" + packed[:deflate_nbytes] + adler
+    out = bytearray(b"\x78\x01")
+    for i in range(max(1, -(-n // _BLOCK))):
+        start = i * _BLOCK
+        size = min(_BLOCK, n - start)
+        final = 1 if start + size == n else 0
+        out += bytes([final, size & 0xFF, size >> 8, (size & 0xFF) ^ 0xFF, (size >> 8) ^ 0xFF])
+        out += data[start:start + size].tobytes()
+    return bytes(out + adler)

@@ -1,6 +1,7 @@
 """ctypes loader for the native C++ host encoder (counterpart of
 ``omero_ms_pixel_buffer_tpu/runtime/native.py``, bound only as far as the
-port's host PNG route needs it).
+port's host PNG routes need it: the fused encode of whole tiles, and the
+deflate and framing of scanlines the device filtered).
 
 The library is ``native/build/libompb_native.so`` at the root of the
 checkout, built on first use with ``make -C native`` (g++ and zlib) and
@@ -56,8 +57,8 @@ def _build_library() -> bool:
 
 
 class NativeEngine:
-    """The C API's fused PNG encode, its version and its pool size.
-    Thread-safe (the C side has its own pool)."""
+    """The C API's fused PNG encode and PNG assembly, its version and its
+    pool size. Thread-safe (the C side has its own pool)."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
@@ -71,6 +72,40 @@ class NativeEngine:
         if self._has_fused_encode:
             lib.ompb_png_encode_batch.restype = ctypes.c_int
         self.pool_size = lib.ompb_pool_size()
+
+    def png_assemble_batch(
+        self, filtered: Sequence[bytes], widths: Sequence[int], heights: Sequence[int],
+        bit_depths: Sequence[int], color_types: Sequence[int], level: int = 6,
+        strategy: str = "rle",
+    ) -> List[Optional[bytes]]:
+        """N filtered scanline buffers -> N complete PNGs (deflate at
+        ``level``/``strategy`` and framing) in one GIL-released native
+        call; None per lane that failed."""
+        n = len(filtered)
+        if n == 0:
+            return []
+        ins = (_U8P * n)()
+        lens = (ctypes.c_size_t * n)()
+        keep = []  # the bytes objects the pointers point into
+        for i, b in enumerate(filtered):
+            view = ctypes.c_char_p(b)
+            keep.append((b, view))
+            ins[i] = ctypes.cast(view, _U8P)
+            lens[i] = len(b)
+        outs = (_U8P * n)()
+        out_lens = (ctypes.c_size_t * n)()
+        args = [
+            ctypes.c_int(n), ins, lens,
+            (ctypes.c_uint32 * n)(*[int(w) for w in widths]),
+            (ctypes.c_uint32 * n)(*[int(h) for h in heights]),
+            (ctypes.c_uint8 * n)(*[int(b) for b in bit_depths]),
+            (ctypes.c_uint8 * n)(*[int(c) for c in color_types]),
+            ctypes.c_int(level),
+        ]
+        if self.version >= 2:  # the v1 ABI has no strategy argument
+            args.append(ctypes.c_int(ZLIB_STRATEGIES.get(strategy, 0)))
+        self._lib.ompb_png_assemble_batch(*args, outs, out_lens)
+        return self._collect(outs, out_lens, n)
 
     def _collect(self, outs, out_lens, n: int) -> List[Optional[bytes]]:
         results: List[Optional[bytes]] = []

@@ -1,17 +1,20 @@
 """Tile request context (counterpart of ``omero_ms_pixel_buffer_tpu/
-tile_ctx.py`` without the render/analysis fields): imageId/z/c/t are
-required integers, x/y/w/h default to 0, ``resolution`` is optional,
-``format`` passes through verbatim; a parse failure is a 400 with the
-same message. ``cache_key`` and ``dedupe_key`` give the JAX package's key
-strings."""
+tile_ctx.py`` without the analysis field): imageId/z/c/t are required
+integers, x/y/w/h default to 0, ``resolution`` is optional, ``format``
+passes through verbatim; a parse failure is a 400 with the same message.
+A ``/render`` request carries its ``RenderSpec`` in ``render``.
+``cache_key`` and ``dedupe_key`` give the JAX package's key strings."""
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Mapping, Optional
+from typing import TYPE_CHECKING, Any, Mapping, Optional
 
 from .errors import BadRequestError
+
+if TYPE_CHECKING:
+    from .render.model import RenderSpec
 
 
 @dataclasses.dataclass
@@ -59,6 +62,8 @@ class TileCtx:
     # absolute time.monotonic() by which the answer is due; None =
     # unbounded (tests and direct pipeline callers)
     deadline: Optional[float] = None
+    # the rendering of a /render request (render/model.py); None for /tile
+    render: Optional["RenderSpec"] = None
 
     @classmethod
     def from_params(
@@ -93,14 +98,18 @@ class TileCtx:
 
     def cache_key(self, quality: str = "") -> str:
         """Result-cache content key, the JAX package's string: (image, z,
-        c, t, requested region, resolution, format, quality). No session:
-        identical tiles are identical for every authorized caller."""
+        c, t, requested region, resolution, format, quality[, render
+        signature]). No session: identical tiles are identical for every
+        authorized caller."""
         r = self.region
-        return (
+        base = (
             f"img={self.image_id}|z={self.z}|c={self.c}|t={self.t}"
             f"|x={r.x}|y={r.y}|w={r.width}|h={r.height}"
             f"|res={self.resolution}|fmt={self.format}|q={quality}"
         )
+        if self.render is not None:
+            base += f"|render={self.render.signature()}"
+        return base
 
     def dedupe_key(self, quality: str = "") -> str:
         """Single-flight key: the content key scoped to the caller's
@@ -109,12 +118,14 @@ class TileCtx:
 
     def lane_key(self) -> tuple:
         """Batch-dedupe key: equal lanes produce identical tiles for the
-        same caller."""
+        same caller. The render signature joins it, so two renderings of
+        one region never merge."""
         r = self.region
         return (
             self.image_id, self.z, self.c, self.t,
             r.x, r.y, r.width, r.height,
             self.resolution, self.format, self.omero_session_key,
+            None if self.render is None else self.render.signature(),
         )
 
     def filename(self) -> str:
