@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
         [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
-        [--render-requests 128] [--filter-sweep] \
+        [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
+        [--filter-sweep] \
         [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -82,13 +83,40 @@ Phases, one JSON line each on stdout:
 10. ``path_host_deflate`` — a server with ``device_deflate=False``: 32
    ``/tile`` PNG requests, pixel-checked; the filter must have launched
    and neither packer (the host deflates: ``host_engine``).
+11. ``path_histogram`` — a server with the defaults: ``--histogram-requests``
+   ``/histogram`` requests of image 2 (512x512 regions of channels 1-3,
+   bins 256 and 65536 in turn, ``usePixelsTypeRange=1``) plus 8 full-plane
+   ones (w = h = 0), all timed at concurrency 32. Every body's counts are
+   checked against ``np.bincount`` of the source region; every channel
+   plane must have been reduced by the torch histogram on the card
+   (``/healthz`` ``analysis``), and its device ms per group is reported
+   beside its byte bound.
+12. ``path_supertile`` — a server with the defaults (super-tile fusion on),
+   and ``path_supertile_off``, one with ``supertile_enabled=False``, each
+   run twice on a fresh server in the order off, on, on, off (so neither
+   always runs first):
+   ``--viewports`` pans, each a 4x4 grid of adjacent 512x512
+   three-channel ``/render`` PNG tiles (a 2048x2048 viewport, the
+   default 4 Mpx budget) at a seeded random origin on the 512 grid, the
+   last one at the image's edge (its last column and row 256 wide), each
+   viewport with its own windows (no result-cache hit between them); the
+   16 requests of a viewport go at once. Every tile is checked against
+   the numpy composite; fused device lanes must be > 0 and the filter
+   and the scalar-prefetch packer must have launched. Reports the
+   super-tile groups, their encode groups, fused lanes (device, host),
+   fallback lanes, mean lanes per group and the composite + carve's
+   device ms per group beside its byte bound; the off runs must stamp
+   nothing. ``supertile_pair`` then gives both settings' tiles/s side by
+   side.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
 ``/healthz`` views, just before and just after them), and how many of
 those requests bypassed the device: result-cache hits, lone lanes (a
 batch of one, encoded on the host), host-encoded oversize lanes and
-(``path_render``) render lanes on the host mirror.
+(``path_render``) render lanes on the host mirror; and the super-tile
+counts (``supertile``: lanes stamped, groups, fused device and host
+lanes, fallback lanes, crops pulled to the host).
 
 Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
@@ -265,21 +293,23 @@ def call_device_ms(torch, fn, iters: int = 10):
     return total / iters / 1e3 if total else None
 
 
-def device_breakdown(torch, fn, top: int = 10) -> dict:
+def device_breakdown(torch, fn, top: int = 10, iters: int = 1) -> dict:
     """Device milliseconds of one call of ``fn`` in total and for its
-    ``top`` most expensive kernels (torch.profiler's CUDA trace)."""
+    ``top`` most expensive kernels (torch.profiler's CUDA trace over
+    ``iters`` calls, divided by ``iters``; ``n`` counts over all of them)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
         t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         if t:
-            rows.append((t / 1e3, ev.count, ev.key[:60]))
+            rows.append((t / 1e3 / iters, ev.count, ev.key[:60]))
     rows.sort(reverse=True)
     return {"total": sum(r[0] for r in rows),
             "top": [{"ms": ms, "n": n, "kernel": k} for ms, n, k in rows[:top]]}
@@ -856,7 +886,16 @@ def timed_window(health_before: dict, health_after: dict, seconds: float) -> dic
         "render_host_lanes": (health_after["render"]["host_lanes"]
                               - health_before["render"]["host_lanes"]),
         "render_groups": after["render_groups"] - before["render_groups"],
+        "supertile": supertile_delta(health_before, health_after),
     }
+
+
+def supertile_delta(health_before: dict, health_after: dict) -> dict:
+    """The super-tile counts of ``/healthz`` between two views."""
+    before, after = health_before["supertile"], health_after["supertile"]
+    return {k: after[k] - before[k]
+            for k in ("stamped_lanes", "groups", "encode_groups", "device_lanes",
+                      "host_lanes", "fallback_lanes", "host_pulls")}
 
 
 def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
@@ -1232,10 +1271,17 @@ def drive_render(registry: str, stack: np.ndarray, seed: int, n_requests: int,
                                               - h0["render"]["projection_host_pulls"]),
                     "render_groups": (h1["queue"]["render_groups"]
                                       - h0["queue"]["render_groups"]),
-                    "render_host_lanes": h1["render"]["host_lanes"] - h0["render"]["host_lanes"]})
+                    "render_host_lanes": h1["render"]["host_lanes"] - h0["render"]["host_lanes"],
+                    "supertile": supertile_delta(h0, h1)})
             rounds[name] = per_round
-        require(rounds["intmax"][1]["projection_host_pulls"] == 0
-                and rounds["intmax"][1]["render_groups"] > 0,
+        # the second intmax round stays on the card: its independent lanes
+        # crop resident planes on the device (no pull); super-tile groups
+        # gather their bounding rectangle through the host, as the JAX
+        # package does (their pulls are counted apart)
+        second = rounds["intmax"][1]
+        require(second["projection_host_pulls"] == second["supertile"]["host_pulls"]
+                and second["render_groups"] + second["supertile"]["device_lanes"] > 0
+                and second["render_host_lanes"] == 0,
                 f"the second intmax round left the device: {rounds['intmax']}")
         pillow = True
         try:
@@ -1312,6 +1358,273 @@ def drive_host_deflate(registry: str, data: np.ndarray, seed: int, n_requests: i
             "host_engine": health["host_engine"], "device_deflate": health["device_deflate"]}
 
 
+# ---------------------------------------------------------------------------
+# the histogram plane and super-tile fusion
+# ---------------------------------------------------------------------------
+
+HIST_BINS = (256, 65536)
+
+
+def histogram_requests(rng, stack: np.ndarray, n: int):
+    """``n`` 512x512 region histograms of channels 1-3 at random z, bins
+    256 and 65536 in turn, plus 8 full-plane ones (w = h = 0), shuffled:
+    [(path, (z, x, y, w, h, bins))]."""
+    depth, size = stack.shape[1], stack.shape[-1]
+    reqs = []
+    for k in range(n):
+        x = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        y = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
+        z, bins = int(rng.integers(0, depth)), HIST_BINS[k % 2]
+        reqs.append((f"/histogram/2/{z}/0/0?x={x}&y={y}&w={TILE}&h={TILE}&c=1,2,3"
+                     f"&bins={bins}&usePixelsTypeRange=1", (z, x, y, TILE, TILE, bins)))
+    for k in range(8):
+        z, bins = k % depth, HIST_BINS[k * len(HIST_BINS) // 8]
+        reqs.append((f"/histogram/2/{z}/0/0?w=0&h=0&c=1,2,3&bins={bins}&usePixelsTypeRange=1",
+                     (z, 0, 0, size, size, bins)))
+    return [reqs[i] for i in rng.permutation(len(reqs))]
+
+
+def verify_histogram(body: bytes, stack: np.ndarray, spec) -> None:
+    """The body's counts against ``np.bincount`` of the source region over
+    the uint16 range (``usePixelsTypeRange``), channel by channel."""
+    z, x, y, w, h, bins = spec
+    doc = json.loads(body)
+    require(doc["region"] == [x, y, w, h] and doc["bins"] == bins
+            and [ch["index"] for ch in doc["channels"]] == [0, 1, 2],
+            f"histogram body header: {doc['region']} {doc['bins']}")
+    for c, ch in enumerate(doc["channels"]):
+        v = stack[c, z, y:y + h, x:x + w].astype(np.float64)
+        idx = np.minimum(np.floor(v / 65535.0 * bins), bins - 1).astype(np.int64)
+        want = np.bincount(idx.ravel(), minlength=bins)
+        require(ch["counts"] == want.tolist() and ch["stats"]["count"] == w * h,
+                f"histogram z={z} c={c} ({x},{y},{w},{h}) bins={bins}: counts differ")
+    require(doc["data"] == doc["channels"][0]["counts"], "histogram data != first channel")
+
+
+def histogram_program(stack: np.ndarray, lanes: int = 8) -> dict:
+    """The torch histogram alone on the card at a serving group's shape
+    (``lanes`` 512x512 channel regions of image 2), per bins value: device
+    ms of one call (every kernel and memset it issues), its top kernels,
+    its byte bound (planes and tables read once, counts written once), and
+    beside it the same counts through one ``torch.bincount`` (checked
+    equal), the formulation the port does not use."""
+    import torch
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.render.analysis import build_bin_table, histogram_torch
+
+    planes = np.stack([stack[k % 3, k % stack.shape[1], :TILE, k * 64:k * 64 + TILE]
+                       for k in range(lanes)])
+    dev = bits_tensor(planes).to("cuda")
+    out = {}
+    for bins in HIST_BINS:
+        tabs = np.stack([build_bin_table(np.dtype(np.uint16), (0.0, 65535.0), bins)] * lanes)
+        tabs_dev = torch.from_numpy(tabs).to("cuda")
+        call = lambda: histogram_torch(dev, tabs_dev, bins)  # noqa: E731
+        offsets = torch.arange(lanes, device="cuda", dtype=torch.int64)[:, None] * bins
+
+        def bincount():
+            idx = dev.reshape(lanes, -1).to(torch.int64) & 0xFFFF
+            binned = torch.gather(tabs_dev.to(torch.int64), 1, idx) + offsets
+            return torch.bincount(binned.reshape(-1), minlength=lanes * bins)
+
+        require(torch.equal(bincount().reshape(lanes, bins).to(torch.int32), call()),
+                f"histogram_torch != bincount at bins={bins}")
+        nbytes = planes.nbytes + tabs.nbytes + lanes * bins * 4
+        out[str(bins)] = {"lanes": lanes, "device_ms": call_device_ms(torch, call),
+                          "bincount_device_ms": call_device_ms(torch, bincount),
+                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                          "by_kernel": device_breakdown(torch, call, top=6, iters=10)}
+    return out
+
+
+def drive_histogram(registry: str, stack: np.ndarray, seed: int, n_requests: int,
+                    device: str = "cuda") -> dict:
+    """``path_histogram``: /histogram on a server with the defaults."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    reqs = histogram_requests(np.random.default_rng(seed + 11), stack, n_requests)
+    with ServerThread(registry, device=device) as client:
+        reset_launch_counts()
+        before = get_json(client, "/healthz")
+        with concurrent.futures.ThreadPoolExecutor(LANES) as pool:
+            t0 = time.perf_counter()
+            out = list(pool.map(lambda r: client.request("GET", r[0]), reqs))
+            secs = time.perf_counter() - t0
+        after = get_json(client, "/healthz")
+        launches = launch_counts()
+    misses = 0
+    for (status, hdrs, body, _), (path, spec) in zip(out, reqs):
+        require(status == 200, f"{path} answered {status}")
+        verify_histogram(body, stack, spec)
+        misses += hdrs.get("X-Cache") == "miss"
+    a0, a1 = before["analysis"], after["analysis"]
+    groups = a1["device_groups"] - a0["device_groups"]
+    timed = a1["timed_groups"] - a0["timed_groups"]
+    lanes = a1["device_lanes"] - a0["device_lanes"]
+    require(a1["device"].startswith("cuda") and lanes == 3 * misses and a1["failed_groups"] == 0,
+            f"histogram lanes reduced off the card: {a1}, {misses} misses")
+    device_ms = (a1["device_ms_total"] - a0["device_ms_total"]) / timed if timed else None
+    nbytes = (a1["device_bytes_total"] - a0["device_bytes_total"]) / timed if timed else None
+    lat_ms = np.array([r[3] for r in out]) * 1e3
+    return {
+        "phase": "path_histogram", "requests": len(reqs), "concurrency": LANES,
+        "bodies_verified": len(out), "misses": misses,
+        "tiles_per_s": len(reqs) / secs, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "seconds": secs,
+        "device_groups": groups, "device_lanes": lanes,
+        "lanes_reduced_elsewhere": 3 * misses - lanes,
+        "device_ms_per_group": device_ms, "bytes_per_group": nbytes,
+        "bound_ms_per_group": nbytes / HBM_BYTES_PER_S * 1e3 if nbytes else None,
+        "bound_by": "bytes", "launches": launches, "analysis": a1,
+        "program": histogram_program(stack) if device == "cuda" else None,
+        "batcher": after["batcher"], "gpu": after["gpu"],
+    }
+
+
+def viewport_requests(rng, size: int, n: int):
+    """``n`` 4x4 viewports of 512x512 tiles at random origins on the 512
+    grid, the last at the image's edge (origin size - 1792: its last
+    column and row are 256 wide). Each viewport has its own channel
+    windows, so no tile repeats one of another viewport."""
+    span = 4 * TILE
+    origins = [(int(rng.integers(0, (size - span) // TILE + 1)) * TILE,
+                int(rng.integers(0, (size - span) // TILE + 1)) * TILE) for _ in range(n - 1)]
+    origins.append((size - span + TILE // 2, size - span + TILE // 2))
+    from urllib.parse import parse_qsl
+
+    views = []
+    for k, (x0, y0) in enumerate(origins):
+        query = (f"c=1|{500 + k}:30000$FF0000,2|1000:{40000 + k}$00FF00,"
+                 f"3|0:65535$0000FF")
+        reqs = []
+        for r in range(4):
+            for c in range(4):
+                x, y = x0 + c * TILE, y0 + r * TILE
+                w, h = min(TILE, size - x), min(TILE, size - y)
+                reqs.append((f"/render/2/0/0/0?x={x}&y={y}&w={w}&h={h}&{query}&format=png",
+                             (x, y, w, h), 200, dict(parse_qsl(query))))
+        views.append(reqs)
+    return views
+
+
+def composite_carve_program(stack: np.ndarray) -> dict:
+    """The torch composite + carve alone on the card at a viewport's shape
+    (a (3, 2048, 2048) stack of image 2 carved into sixteen 512x512
+    buckets): device ms of one call, its top kernels and its byte bound
+    (stack and packed tables read once, carved batch written once)."""
+    import torch
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.render import engine as rengine
+    from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
+    from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+    from omero_ms_pixel_buffer_tpu_torch.render.supertile import composite_carve_torch
+
+    span = 4 * TILE
+    planes = np.ascontiguousarray(stack[:, 0, :span, :span])
+    tables, luts = rengine.build_tables(RenderSpec.from_params({"c": RENDER_C}),
+                                        np.dtype(np.uint16), LutRegistry())
+    packed = rengine.packed_rgb_tables(tables, luts)
+    packed_dev = torch.from_numpy(packed).to("cuda")
+    dev = bits_tensor(planes).to("cuda")
+    coords = [(y, x) for y in range(0, span, TILE) for x in range(0, span, TILE)]
+    call = lambda: composite_carve_torch(dev, tables, luts, coords, TILE, TILE,  # noqa: E731
+                                         packed=packed_dev)
+    nbytes = planes.nbytes + packed.nbytes + len(coords) * TILE * TILE * 3
+    return {"stack": list(planes.shape), "lanes": len(coords),
+            "device_ms": call_device_ms(torch, call),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "by_kernel": device_breakdown(torch, call, top=8)}
+
+
+def drive_supertile(registry: str, stack: np.ndarray, seed: int, n_views: int,
+                    enabled: bool = True, device: str = "cuda", run: int = 1) -> dict:
+    """``path_supertile`` (``enabled``) or ``path_supertile_off``: the
+    viewports of ``viewport_requests`` one after another on a fresh
+    server, the 16 requests of each at once, every tile checked against
+    the numpy composite. The composite + carve alone is timed in the
+    first fused run."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    ref = RenderReference(stack)
+    views = viewport_requests(np.random.default_rng(seed + 13), stack.shape[-1], n_views)
+    out, secs = [], 0.0
+    with ServerThread(registry, device=device, supertile_enabled=enabled) as client:
+        reset_launch_counts()
+        before = get_json(client, "/healthz")
+        for reqs in views:
+            got, s = run_requests(client, reqs, len(reqs))
+            out.append(got)
+            secs += s
+        after = get_json(client, "/healthz")
+        launches = launch_counts()
+    checked = sum(verify_render(got, reqs, ref) for got, reqs in zip(out, views))
+    st0, st1 = before["supertile"], after["supertile"]
+    st = supertile_delta(before, after)
+    timed = st1["composite_carve_groups"] - st0["composite_carve_groups"]
+    device_ms = ((st1["composite_carve_device_ms_total"] - st0["composite_carve_device_ms_total"])
+                 / timed if timed else None)
+    nbytes = ((st1["composite_carve_bytes_total"] - st0["composite_carve_bytes_total"]) / timed
+              if timed else None)
+    lat_ms = np.array([r[2] for got in out for r in got]) * 1e3
+    require(after["queue"]["failed"] == 0, f"encode groups failed: {after['queue']}")
+    if enabled:
+        require(st["device_lanes"] > 0, f"no lane was fused on the card: {st}")
+        require(launches["filter"] > 0 and launches["bitpack"] > 0,
+                f"supertile: a kernel of the path never launched: {launches}")
+    else:
+        require(st["stamped_lanes"] == 0 and st["groups"] == 0, f"fusion off but fused: {st}")
+    q0, q1 = before["queue"], after["queue"]
+    return {
+        "phase": "path_supertile" if enabled else "path_supertile_off", "run": run,
+        "viewports": len(views), "tiles_verified": checked, "requests": checked,
+        "tiles_per_s": checked / secs, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "seconds": secs,
+        "supertile": st,
+        "mean_lanes_per_group": st["device_lanes"] / st["groups"] if st["groups"] else None,
+        "composite_carve_device_ms_per_group": device_ms, "bytes_per_group": nbytes,
+        "bound_ms_per_group": nbytes / HBM_BYTES_PER_S * 1e3 if nbytes else None,
+        "bound_by": "bytes", "launches": launches,
+        "encode_groups": q1["groups"] - q0["groups"],
+        "render_groups": q1["render_groups"] - q0["render_groups"],
+        "render_host_lanes": after["render"]["host_lanes"] - before["render"]["host_lanes"],
+        "projection_host_pulls": (after["render"]["projection_host_pulls"]
+                                  - before["render"]["projection_host_pulls"]),
+        "plane_cache": after["plane_cache"], "batcher": after["batcher"], "gpu": after["gpu"],
+        "program": (composite_carve_program(stack)
+                    if enabled and run == 1 and device == "cuda" else None),
+    }
+
+
+def supertile_pair(registry: str, stack: np.ndarray, seed: int, n_views: int) -> dict:
+    """``path_supertile`` and ``path_supertile_off`` twice each, in the
+    order off, on, on, off, each emitted; returns both settings' tiles/s,
+    p50 and p99 side by side."""
+    runs = []
+    for run, enabled in ((1, False), (1, True), (2, True), (2, False)):
+        out = drive_supertile(registry, stack, seed, n_views, enabled=enabled, run=run)
+        emit(out)
+        runs.append(out)
+
+    def side(enabled):
+        return {k: [r[k] for r in runs if (r["phase"] == "path_supertile") is enabled]
+                for k in ("tiles_per_s", "p50_ms", "p99_ms", "encode_groups")}
+
+    fused, unfused = side(True), side(False)
+    return {"phase": "supertile_pair", "order": "off, on, on, off",
+            "fused": fused, "unfused": unfused,
+            # adjacent runs: (off 1, on 1) and (on 2, off 2)
+            "tiles_per_s_ratio": [f / u for f, u in
+                                  zip(fused["tiles_per_s"], unfused["tiles_per_s"])]}
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -1335,6 +1648,10 @@ def main(argv=None) -> int:
                    help="width and height of the render stack (image 2)")
     p.add_argument("--render-requests", type=int, default=128,
                    help="timed requests of the render phase")
+    p.add_argument("--histogram-requests", type=int, default=128,
+                   help="timed region requests of the histogram phase (plus 8 full planes)")
+    p.add_argument("--viewports", type=int, default=16,
+                   help="4x4 viewports of the super-tile phases")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -1427,6 +1744,8 @@ def main(argv=None) -> int:
         render = drive_render(registry, stack, args.seed, args.render_requests)
         emit(render)
         emit(drive_host_deflate(registry, data, args.seed))
+        emit(drive_histogram(registry, stack, args.seed, args.histogram_requests))
+        emit(supertile_pair(registry, stack, args.seed, args.viewports))
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],

@@ -1,8 +1,9 @@
-"""Serve /tile and /render from the port:
+"""Serve /tile, /render and /histogram from the port:
 
     python -m omero_ms_pixel_buffer_tpu_torch --dev --registry registry.json \\
         --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2] \\
-        [--deflate-mode dynamic|rle|stored] [--no-device-deflate] [--lut-dir DIR]
+        [--deflate-mode dynamic|rle|stored] [--no-device-deflate] [--lut-dir DIR] \\
+        [--no-supertile]
 
 On ``cuda`` the kernels are built (or found built) before the port
 opens; without a GPU the command fails unless ``--device cpu`` is
@@ -13,8 +14,10 @@ there. ``--no-device-deflate`` is the YAML key
 ``backend.png.device-deflate: false``: PNG lanes are filtered on the
 device and deflated on the host, and render lanes take the host mirror.
 ``--lut-dir`` is ``render.lut-dir``: ImageJ ``.lut`` files that ``/render``
-channels may name. The line ``listening on HOST:PORT`` is printed once
-serving.
+channels may name. ``--no-supertile`` is ``supertile.enabled: false``:
+adjacent ``/render`` lanes of a batch are no longer fused into one
+composite (fusion is on by default, as in the JAX package). The line
+``listening on HOST:PORT`` is printed once serving.
 SIGINT/SIGTERM drain and stop.
 """
 
@@ -47,6 +50,8 @@ def _parse(argv):
     p.add_argument("--no-device-deflate", dest="device_deflate", action="store_false",
                    help="filter PNG lanes on the device, deflate them on the host")
     p.add_argument("--lut-dir", default=None, help="directory of ImageJ .lut files")
+    p.add_argument("--no-supertile", dest="supertile", action="store_false",
+                   help="render adjacent /render lanes of a batch one by one, not fused")
     args = p.parse_args(argv)
     if args.deflate_mode not in DEFLATE_MODES:
         raise ValueError(f"Unknown device deflate mode: {args.deflate_mode}")
@@ -61,6 +66,7 @@ async def _serve(args) -> None:
         buckets=[int(b) for b in args.buckets.split(",")],
         queue_depth=args.queue_depth, deflate_mode=args.deflate_mode,
         device_deflate=args.device_deflate, lut_dir=args.lut_dir,
+        supertile_enabled=args.supertile,
     )
     port = await server.start(args.host, args.port)
     print(f"listening on {args.host}:{port}", flush=True)

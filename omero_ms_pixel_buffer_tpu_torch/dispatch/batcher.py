@@ -4,13 +4,18 @@
 Concurrent requests accumulate for up to 2 ms (or until 32 lanes) and
 run as ONE ``TilePipeline.handle_batch`` call on an executor thread; up
 to 2 x CPUs batches run at once. Lanes equal under ``TileCtx.lane_key``
-execute once (the render signature is part of that key, so two
-renderings of one region never merge). A batch of one ``/tile`` lane
-(after that dedupe) takes the single-request path ``TilePipeline.handle``
-(host read and encode), as the JAX package's batcher does; a batch of one
-render lane takes ``handle_batch``, as the JAX ``handle`` sends it there. Lanes whose encode group is still in
-flight come back deferred and are delivered from the encode queue's
-callback, so a batch's slot frees before its slowest group.
+execute once (the render and histogram signatures are part of that key,
+so two renderings of one region never merge). With super-tiles enabled
+(on by default, as in the JAX package), every batch of two or more lanes
+goes through ``assign_supertiles`` first: adjacent render lanes get a
+shared stamp, which the pipeline serves as one composite and per-lane
+carves; a bucketing failure is logged and costs only the fusion. A batch of one ``/tile`` lane (after that dedupe) takes
+the single-request path ``TilePipeline.handle`` (host read and encode), as
+the JAX package's batcher does; a batch of one render or histogram lane
+takes ``handle_batch``, as the JAX ``handle`` sends it there. Lanes whose
+encode group is still in flight come back deferred and are delivered from
+the encode queue's callback, so a batch's slot frees before its slowest
+group.
 
 Failure codes: pipeline None -> 404 "Cannot find Image:<id>"; a typed
 ``TileError`` result (a failed encode group is a 500, a projection over
@@ -28,6 +33,7 @@ from typing import List, Optional, Set, Tuple
 
 from ..errors import GatewayTimeoutError, InternalError, NotFoundError, TileError
 from ..models.tile_pipeline import DeferredTile, TilePipeline
+from ..render.supertile import assign_supertiles
 from ..tile_ctx import TileCtx
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.batcher")
@@ -45,8 +51,11 @@ class BatchingTileWorker:
     """Coalesces concurrent get-tile requests into batched pipeline
     calls."""
 
-    def __init__(self, pipeline: TilePipeline):
+    def __init__(self, pipeline: TilePipeline, supertile: bool = True):
         self.pipeline = pipeline
+        # adjacency bucketing of render lanes; False keeps every lane on
+        # the independent path
+        self.supertile = supertile
         self._queue: asyncio.Queue = asyncio.Queue(maxsize=MAX_QUEUE)
         self._runner: Optional[asyncio.Task] = None
         self._inflight: Set[asyncio.Task] = set()
@@ -57,6 +66,7 @@ class BatchingTileWorker:
         self.batches = 0
         self.lanes = 0
         self.lone = 0  # batches of one lane, served by ``pipeline.handle``
+        self.stamped = 0  # lanes given a super-tile stamp
 
     async def start(self) -> None:
         if self._runner is None:
@@ -160,7 +170,12 @@ class BatchingTileWorker:
         ctxs = [c for c, _ in canonical]
         self.batches += 1
         self.lanes += len(ctxs)
-        if len(ctxs) == 1 and ctxs[0].render is None:
+        if len(ctxs) >= 2 and self.supertile:
+            try:
+                self.stamped += assign_supertiles(ctxs)
+            except Exception:
+                log.exception("super-tile bucketing failed; lanes serve independently")
+        if len(ctxs) == 1 and ctxs[0].render is None and ctxs[0].analysis is None:
             self.lone += 1
             work = lambda: [self.pipeline.handle(ctxs[0])]  # noqa: E731
         else:

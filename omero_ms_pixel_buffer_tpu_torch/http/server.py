@@ -1,11 +1,14 @@
-"""HTTP/1.1 front on ``asyncio.start_server`` (counterpart of the /tile
-and /render routes of ``omero_ms_pixel_buffer_tpu/http/server.py``,
-without aiohttp).
+"""HTTP/1.1 front on ``asyncio.start_server`` (counterpart of the /tile,
+/render and /histogram routes of ``omero_ms_pixel_buffer_tpu/http/
+server.py``, without aiohttp).
 
 Routes: ``GET``/``HEAD /tile/{imageId}/{z}/{c}/{t}`` (query x/y/w/h/
 resolution/format), ``GET``/``HEAD /render/{imageId}/{z}/{c}/{t}`` (the
 same region query plus the render dialect of ``render/model.py``: c, m,
 maps, p, roi, format png|jpeg, q; the path's c is the default channel),
+``GET``/``HEAD /histogram/{imageId}/{z}/{c}/{t}`` (the same region query
+plus ``bins``, ``usePixelsTypeRange`` and the render channel grammar of
+``c``; a JSON body, ``render/analysis.py``),
 ``GET``/``HEAD /healthz`` and ``OPTIONS`` on any path (the service
 discovery JSON). Any other method on a route, and any
 unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
@@ -19,10 +22,13 @@ denied", a bad parameter 400 with the parse message, an unknown image
 404, as the JAX package answers. On ``/render`` a grammar error or an
 unknown LUT is a 400 with the JAX message, a channel out of range a 404,
 a projection stack over the tile budget a 413; ``annotations=`` is
-ignored, as the JAX front does without an annotation store.
+ignored, as the JAX front does without an annotation store. On
+``/histogram`` a bad ``bins`` or ``c`` is a 400 with the JAX message, a
+channel out of range a 404, a region whose channels exceed the tile
+budget a 413.
 
-Tiles and renders go through the result cache's memory tier (``cache/``), keyed by
-``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
+Tiles, renders and histograms go through the result cache's memory tier
+(``cache/``), keyed by ``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
 full plane's size. A 200 carries the content ``ETag``, ``Cache-Control:
 private, max-age=60`` and ``X-Cache: hit|miss``; an ``If-None-Match``
 that matches the ETag answers 304, on a hit or on a fresh render.
@@ -48,6 +54,7 @@ from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
 from ..errors import TileError
 from ..ops.kernels import launch_counts
+from ..render.analysis import HistogramSpec
 from ..render.model import RenderSpec
 from ..runtime.native import host_engine
 from ..tile_ctx import TileCtx
@@ -59,11 +66,13 @@ CONTENT_TYPES = {
     "png": "image/png",
     "tif": "image/tiff",
     "jpeg": "image/jpeg",
+    "json": "application/json",  # histogram bodies
 }
 
 JSON_TYPE = "application/json; charset=utf-8"
 _TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _RENDER_PATH = re.compile(r"^/render/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
+_HISTOGRAM_PATH = re.compile(r"^/histogram/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 # what a routed path allows (aiohttp's Allow header): GET with its HEAD,
 # and the catch-all OPTIONS; an unrouted path allows OPTIONS alone
 _ROUTE_METHODS = "GET,HEAD,OPTIONS"
@@ -179,11 +188,13 @@ class TileServer:
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
         healthz = parts.path == "/healthz"
-        m = render = None
+        m = render = histogram = None
         if not healthz:
             m = _TILE_PATH.match(parts.path)
             if m is None:
                 m = render = _RENDER_PATH.match(parts.path)
+            if m is None:
+                m = histogram = _HISTOGRAM_PATH.match(parts.path)
         key = None
         if not healthz:
             key = self._session_key(headers.get("cookie"))
@@ -200,6 +211,8 @@ class TileServer:
         path_params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
         if render is not None:
             ctx, error = self._render_ctx(path_params, query, key)
+        elif histogram is not None:
+            ctx, error = self._histogram_ctx(path_params, query, key)
         else:
             ctx, error = self._tile_ctx(path_params, query, key)
         if error is not None:
@@ -230,19 +243,26 @@ class TileServer:
                 return None, f"Unknown LUT: {ch.lut}"
         ctx.render = spec
         ctx.format = spec.format  # Content-Type and filename
+        return _apply_region_params(ctx, query)
+
+    def _histogram_ctx(self, path_params, query, key):
+        """(ctx, None) for a /histogram request, or (None, the 400
+        message): the path's ids, the HistogramSpec of the query (the
+        path's c is the default channel; ``bins`` at most ``MAX_BINS``,
+        the JAX ``analysis.max-bins`` default), then x/y/w/h/resolution, in
+        the JAX front's order."""
         try:
-            ctx.region.x = int(query.get("x", 0))
-            ctx.region.y = int(query.get("y", 0))
-            ctx.region.width = int(query.get("w", 0))
-            ctx.region.height = int(query.get("h", 0))
-            res = query.get("resolution")
-            ctx.resolution = None if res is None else int(res)
-        except (TypeError, ValueError) as e:
-            return None, str(e)
-        return ctx, None
+            ctx = TileCtx.from_params(path_params, key)
+            spec = HistogramSpec.from_params(query, default_channel=ctx.c)
+        except TileError as e:
+            return None, e.message
+        ctx.analysis = spec
+        ctx.format = "json"  # Content-Type and filename
+        return _apply_region_params(ctx, query)
 
     async def _serve(self, ctx: TileCtx, inm: str) -> Tuple[int, dict, bytes]:
-        """A parsed /tile or /render request through the result cache."""
+        """A parsed /tile, /render or /histogram request through the
+        result cache."""
         await self._normalize_region(ctx)
         quality = self.pipeline.encode_signature()
         cache_key = ctx.cache_key(quality)
@@ -313,8 +333,9 @@ class TileServer:
         """/healthz body: kernel launch counters, the host engine and its
         lanes (oversize lanes; device-filtered lanes deflated on the host),
         the encode queue's (with its deflate mode and packer), the plane
-        cache's, the batcher's (with its lone lanes), the result cache's
-        and the render engine's snapshots."""
+        cache's, the batcher's (with its lone lanes and super-tile
+        stamps), the result cache's, the render engine's, the histogram
+        plane's and super-tile fusion's snapshots."""
         return {
             "status": "ok",
             "device": str(self.pipeline.device),
@@ -325,6 +346,10 @@ class TileServer:
             "device_deflate": self.pipeline.device_deflate,
             "host_deflate_lanes": self.pipeline.host_deflate_lanes,
             "render": {"enabled": True, **self.pipeline.render_snapshot()},
+            "analysis": {"enabled": True, **self.pipeline.analysis_snapshot()},
+            "supertile": {"enabled": self.worker.supertile,
+                          "stamped_lanes": self.worker.stamped,
+                          **self.pipeline.supertile_snapshot()},
             "queue": self.pipeline.device_queue_snapshot(),
             "plane_cache": self.pipeline.plane_cache_snapshot(),
             "batcher": self.worker.snapshot(),
@@ -337,6 +362,7 @@ def create_server(
     buckets=(256, 512, 1024), queue_depth: int = 2,
     deflate_mode: str = "dynamic", packer: Optional[str] = None,
     device_deflate: bool = True, lut_dir: Optional[str] = None,
+    supertile_enabled: bool = True,
 ) -> TileServer:
     """The service as ``python -m omero_ms_pixel_buffer_tpu_torch`` runs
     it: registry -> pixels service -> pipeline -> batcher -> HTTP front.
@@ -345,10 +371,12 @@ def create_server(
     ``device_deflate.default_packer``: ``OMPB_BITPACK``, else ``pallas``
     on CUDA); ``device_deflate=False`` filters PNG lanes on the device and
     deflates them on the host; ``lut_dir`` holds ``.lut`` files for
-    ``/render``. On CUDA the kernels are built (or found built) here, so a
-    build failure stops start-up; the host engine and the LUT registry
-    are built (or found) here too, so their state shows on ``/healthz``
-    from the start."""
+    ``/render``; ``supertile_enabled`` is the JAX ``supertile.enabled``
+    (fusion on by default, with the JAX package's default limits). On
+    CUDA the kernels are built (or found built) here, so a build failure
+    stops start-up; the host engine and the LUT registry are built (or
+    found) here too, so their state shows on ``/healthz`` from the
+    start."""
     from ..io.pixels_service import ImageRegistry, PixelsService
     from ..models.tile_pipeline import TilePipeline
     from ..runtime.device import gpu_info
@@ -367,11 +395,28 @@ def create_server(
 
         _build.build()
         gpu = gpu_info(pipeline.device.index or 0)
-    return TileServer(BatchingTileWorker(pipeline), dev=dev, gpu=gpu)
+    return TileServer(BatchingTileWorker(pipeline, supertile=supertile_enabled), dev=dev,
+                      gpu=gpu)
 
 
 class _BadRequest(Exception):
     pass
+
+
+def _apply_region_params(ctx: TileCtx, query):
+    """The query's x/y/w/h/resolution onto ``ctx``, the one parse of every
+    query-region route (/render, /histogram): (ctx, None), or (None, the
+    400 message)."""
+    try:
+        ctx.region.x = int(query.get("x", 0))
+        ctx.region.y = int(query.get("y", 0))
+        ctx.region.width = int(query.get("w", 0))
+        ctx.region.height = int(query.get("h", 0))
+        res = query.get("resolution")
+        ctx.resolution = None if res is None else int(res)
+    except (TypeError, ValueError) as e:
+        return None, str(e)
+    return ctx, None
 
 
 def _keep_alive(version: str, headers: Dict[str, str]) -> bool:

@@ -30,6 +30,28 @@ JPEG lanes, lanes larger than every bucket and every render lane with
 (404); a projection stack over ``max_tile_bytes`` answers 413; a failed
 render group answers 500, with no host re-render.
 
+Super-tiles (``render/supertile.py``): render lanes the batcher stamped
+with one ``SuperTileGroup`` are served together (``_supertile_group``):
+one plane gather over their bounding rectangle (resident planes cropped
+by the plane cache and pulled to the host, as in the JAX package), one
+composite and carve on the device (``composite_carve_torch`` on the
+queue's stream). The carved lanes of every super-tile in the batch then
+go through the filter and SP-packer kernels as one ``rle`` encode group
+per (lane size, bucket), so fusion submits no more groups than the
+independent lanes would. JPEG lanes and ``device_deflate=False``
+take one host composite and host carves. A stamp that re-validates to
+fewer than two lanes, an unrenderable spec, a bounding rectangle over
+``max_tile_bytes`` or a failed gather returns the lanes to the
+independent path (``supertile.fallback_lanes``); a failed fused group
+answers 500, with no host re-render.
+
+Histogram lanes (``ctx.analysis`` set, ``/histogram``) read one plane per
+channel, map values to bins through host-built tables and reduce each
+group of equal shapes in one ``histogram_batch`` on the device, then
+build the canonical JSON body (``render/analysis.py``). A bad channel or
+pixel type answers None (404), a region over ``max_tile_bytes`` 413, a
+failed device reduction 500 (no host mirror behind it).
+
 Two host routes give the JAX package's host bytes where it takes them:
 ``handle`` (a single request: the batcher's batch of one) reads and
 encodes on the host with ``ops/png.encode_png`` (Python zlib), and a PNG
@@ -45,6 +67,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import logging
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,7 +89,9 @@ from ..ops.png import (
     encode_png,
 )
 from ..ops.tiff import TiffEncodeError, encode_tiff
+from ..render import analysis as ranalysis
 from ..render import engine as rengine
+from ..render import supertile as stile
 from ..render.luts import LutRegistry
 from ..render.masks import MaskRasterCache, bucket_mask_batch
 from ..render.projection import project_np, project_torch
@@ -166,6 +191,18 @@ class TilePipeline:
         self._mask_cache = MaskRasterCache()
         self.render_host_lanes = 0
         self._proj_host_pulls = 0
+        # histogram state: the value -> bin table memo; super-tile and
+        # histogram counters (``_count``) and the composite+carve timing
+        # events still in flight on the queue's stream
+        self._hist_tables: Dict[tuple, np.ndarray] = {}
+        self._stats_lock = threading.Lock()
+        self._stats = dict.fromkeys(
+            ("st_groups", "st_device_lanes", "st_host_lanes", "st_fallback_lanes",
+             "st_host_pulls", "st_encode_groups", "st_timed_groups", "st_bytes",
+             "hist_groups", "hist_lanes", "hist_failed_groups", "hist_timed_groups",
+             "hist_bytes"), 0)
+        self._stats_ms = {"st": 0.0, "hist": 0.0}
+        self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
 
     def close(self) -> None:
         self.dispatcher.close()
@@ -187,14 +224,8 @@ class TilePipeline:
 
     def _render_tables_for(self, spec, dtype) -> tuple:
         """(index_tables, color_luts) for a (spec, pixel type), memoized."""
-        key = (spec.signature(), np.dtype(dtype).str)
-        hit = self._render_tables.get(key)
-        if hit is None:
-            hit = rengine.build_tables(spec, np.dtype(dtype), self.lut_registry)
-            if len(self._render_tables) >= 256:
-                self._render_tables.clear()  # coarse but bounded
-            self._render_tables[key] = hit
-        return hit
+        return _memo(self._render_tables, (spec.signature(), np.dtype(dtype).str),
+                     lambda: rengine.build_tables(spec, np.dtype(dtype), self.lut_registry))
 
     def render_snapshot(self) -> dict:
         """/healthz view of the rendering engine."""
@@ -206,6 +237,68 @@ class TilePipeline:
             "projection_host_pulls": self._proj_host_pulls,
             "host_lanes": self.render_host_lanes,
         }
+
+    def _count(self, **deltas) -> None:
+        with self._stats_lock:
+            for k, v in deltas.items():
+                self._stats[k] += v
+
+    def supertile_snapshot(self) -> dict:
+        """/healthz view of super-tile fusion: groups served fused, lanes
+        fused on the device and on the host, lanes returned to the
+        independent path, plane-cache crops the gathers pulled to the
+        host (also in ``render.projection_host_pulls``), the encode groups
+        submitted for the carved lanes, and for the
+        completed device groups the composite + carve's device ms (CUDA
+        events on the queue's stream) and the bytes it must move (the
+        stack and the packed tables read once, the carved batch written
+        once)."""
+        with self._stats_lock:
+            self._drain_st_events()
+            st = self._stats
+            return {
+                "groups": st["st_groups"],
+                "device_lanes": st["st_device_lanes"],
+                "host_lanes": st["st_host_lanes"],
+                "fallback_lanes": st["st_fallback_lanes"],
+                "host_pulls": st["st_host_pulls"],
+                "encode_groups": st["st_encode_groups"],
+                "composite_carve_groups": st["st_timed_groups"],
+                "composite_carve_device_ms_total": self._stats_ms["st"],
+                "composite_carve_bytes_total": st["st_bytes"],
+            }
+
+    def _drain_st_events(self) -> None:
+        """Fold the completed composite + carve timings into the totals
+        (``_stats_lock`` held), so only groups in flight stay listed."""
+        pending = []
+        for ev0, ev1, nbytes in self._st_events:
+            if ev1.query():
+                self._stats_ms["st"] += ev0.elapsed_time(ev1)
+                self._stats["st_timed_groups"] += 1
+                self._stats["st_bytes"] += nbytes
+            else:
+                pending.append((ev0, ev1, nbytes))
+        self._st_events = pending
+
+    def analysis_snapshot(self) -> dict:
+        """/healthz view of the histogram plane: cached bin tables, the
+        groups and channel planes reduced on ``device``, failed groups,
+        and for the timed (CUDA) groups the reductions' device ms and the
+        bytes they must move (planes and tables read once, counts written
+        once)."""
+        with self._stats_lock:
+            st = self._stats
+            return {
+                "hist_tables_cached": len(self._hist_tables),
+                "device": str(self.device),
+                "device_groups": st["hist_groups"],
+                "device_lanes": st["hist_lanes"],
+                "failed_groups": st["hist_failed_groups"],
+                "timed_groups": st["hist_timed_groups"],
+                "device_ms_total": self._stats_ms["hist"],
+                "device_bytes_total": st["hist_bytes"],
+            }
 
     def encode_signature(self) -> str:
         """The 'quality' part of the result-cache key: the PNG encode
@@ -247,8 +340,8 @@ class TilePipeline:
     def handle(self, ctx: TileCtx) -> Optional[bytes]:
         """One request on the host: resolve, read, encode. Bytes, or None
         (-> 404) on any failure, as the JAX package's ``handle``. A render
-        lane takes the batched machinery, as there."""
-        if ctx.render is not None:
+        or histogram lane takes the batched machinery, as there."""
+        if ctx.render is not None or ctx.analysis is not None:
             return self.handle_batch([ctx])[0]
         try:
             rt = self.resolve(ctx)
@@ -286,9 +379,10 @@ class TilePipeline:
                      ) -> List[Optional[object]]:
         """Coalesced execution of many tile requests. Per lane the result
         is bytes, None (-> 404), a ``RequestTooLargeError`` (-> 413: a
-        projection stack over budget), an ``InternalError`` (-> 500: its
-        encode group failed) or, with ``defer=True``, a ``DeferredTile``
-        for lanes whose encode group is still in flight."""
+        projection stack or histogram region over budget), an
+        ``InternalError`` (-> 500: its encode group or device histogram
+        failed) or, with ``defer=True``, a ``DeferredTile`` for lanes whose
+        encode group is still in flight."""
         n = len(ctxs)
         results: List[Optional[object]] = [None] * n
         resolved: List[Optional[ResolvedTile]] = [None] * n
@@ -298,10 +392,14 @@ class TilePipeline:
             except Exception:
                 log.debug("resolve failed for lane %d", i, exc_info=True)
 
-        # render lanes read their channel planes on their own path
+        # render and histogram lanes read their channel planes on their
+        # own paths; a histogram lane is never a render lane
         render_idx = [i for i, ctx in enumerate(ctxs)
-                      if ctx.render is not None and resolved[i] is not None]
-        render_set = set(render_idx)
+                      if ctx.render is not None and ctx.analysis is None
+                      and resolved[i] is not None]
+        analysis_idx = [i for i, ctx in enumerate(ctxs)
+                        if ctx.analysis is not None and resolved[i] is not None]
+        own_path = set(render_idx) | set(analysis_idx)
 
         plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
         in_plane = {i for lanes in plane_groups.values() for i in lanes}
@@ -310,7 +408,7 @@ class TilePipeline:
         tiles: List[Optional[np.ndarray]] = [None] * n
         by_image: Dict[Tuple[int, int], List[int]] = {}
         for i, rt in enumerate(resolved):
-            if rt is not None and i not in in_plane and i not in render_set:
+            if rt is not None and i not in in_plane and i not in own_path:
                 by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
         for (_, level), lanes in by_image.items():
             buf = resolved[lanes[0]].buffer
@@ -360,6 +458,8 @@ class TilePipeline:
                     np.dtype(dtype_str)), lanes, results)
         if render_idx:
             pending.extend(self._render_batch_lanes(render_idx, resolved, ctxs, results))
+        if analysis_idx:
+            self._analysis_batch_lanes(analysis_idx, resolved, ctxs, results)
 
         if defer:
             for idxs, fut in pending:
@@ -538,7 +638,10 @@ class TilePipeline:
     # -- render lanes ------------------------------------------------------
 
     def _render_batch_lanes(self, idxs, resolved, ctxs, results):
-        """Plan and read every render lane's channel planes (per image;
+        """Serve the batcher's super-tile groups first (``_supertile_group``,
+        then one encode group per carved size class, ``_submit_carved``;
+        the lanes a group declines stay here). Then plan and read every
+        other render lane's channel planes (per image;
         projection lanes crop from the plane cache first, and a lane whose
         crops are all resident stays on the device), project, rasterize
         ROI masks, then submit one render group per (signature, pixel
@@ -547,6 +650,20 @@ class TilePipeline:
         Returns [(lanes, group future)]. A lane that cannot render stays
         None (404); a projection stack over budget gets a 413 marker."""
         use_fused = self.device_deflate
+        pending = []
+        st_groups: Dict[int, List[int]] = {}
+        for i in idxs:
+            token = ctxs[i].supertile
+            if token is not None:
+                st_groups.setdefault(id(token), []).append(i)
+        fused: set = set()
+        carved: Dict[tuple, list] = {}
+        for lanes in st_groups.values():
+            fused |= self._supertile_group(lanes, resolved, ctxs, results, use_fused, pending,
+                                           carved)
+        self._submit_carved(carved, pending)
+        if fused:
+            idxs = [i for i in idxs if i not in fused]
         plans: Dict[int, tuple] = {}
         lane_dev: Dict[int, bool] = {}
         by_image: Dict[Tuple[int, int], List[int]] = {}
@@ -642,7 +759,6 @@ class TilePipeline:
                 continue
             groups.setdefault((spec.signature(), lane.dtype.str, (rt.w, rt.h), bucket,
                                lane.mask is not None, lane.device), []).append(i)
-        pending = []
         for (_, dtype_str, (w, h), (bw, bh), has_mask, is_dev), lanes in groups.items():
             lane0 = stacks[lanes[0]]
             try:
@@ -671,6 +787,163 @@ class TilePipeline:
                 fut = self.dispatcher.failed_group(e)
             pending.append((lanes, fut))
         return pending
+
+    # -- super-tiles -------------------------------------------------------
+
+    def _supertile_group(self, lanes, resolved, ctxs, results, use_fused, pending,
+                         carved) -> set:
+        """Serve one batcher-stamped super-tile: one plane gather over the
+        group's bounding rectangle (resident planes cropped by the plane
+        cache, pulled to the host and counted, as in the JAX package), one
+        composite, per-lane carves. The carved lanes of each size class
+        join ``carved[(w, h, bucket w, bucket h)]`` as (lanes, (B, bh, bw,
+        3) uint8 batch made on the queue's stream) for ``_submit_carved``.
+        Returns the lanes it handled (a result written, carved, or a
+        failed group queued on ``pending``); a lane that
+        re-validates out, or a whole group the fusion declines (an
+        unrenderable spec, a rectangle over budget, a failed gather or
+        staging), stays for the independent path."""
+        live = [i for i in lanes
+                if resolved[i] is not None and results[i] is None and not ctxs[i].expired]
+        if len(live) < 2:
+            return self._st_decline(live)
+        rt0, ctx0 = resolved[live[0]], ctxs[live[0]]
+        spec, dtype = ctx0.render, rt0.meta.dtype
+        try:
+            chans = spec.resolve_channels(rt0.meta.size_c)
+            zts = spec.plane_range(ctx0.z, ctx0.t, rt0.meta.size_z, rt0.meta.size_t)
+        except Exception:
+            return self._st_decline(live)  # the independent path answers 404
+        if not rengine.renderable_dtype(dtype):
+            return self._st_decline(live)
+        rects = [(resolved[i].x, resolved[i].y, resolved[i].w, resolved[i].h) for i in live]
+        bx, by, bw_, bh_ = stile.bounding_rect(rects)
+        nplanes = len(chans) * len(zts)
+        if (self.max_tile_bytes
+                and bw_ * bh_ * rt0.meta.bytes_per_pixel * nplanes > self.max_tile_bytes):
+            return self._st_decline(live)  # the tiles may still fit alone
+        buf = rt0.buffer
+        coords = [(z, ch.index, t, bx, by, bw_, bh_) for ch in chans for (z, t) in zts]
+        slots: List[Optional[np.ndarray]] = [None] * len(coords)
+        missing, owners = [], []
+        for j, coord in enumerate(coords):
+            arr = self._plane_cache_region(buf, rt0.level, coord, dtype)
+            if arr is not None:
+                slots[j] = arr
+            else:
+                missing.append(coord)
+                owners.append(j)
+        self._count(st_host_pulls=len(coords) - len(missing))
+        try:
+            for j, arr in zip(owners, buf.read_tiles(missing, level=rt0.level) if missing else []):
+                slots[j] = arr
+            raw = np.stack(slots).reshape(len(chans), len(zts), bh_, bw_)
+            stack = self._stage_stack(raw, spec, device_project=use_fused)
+        except Exception:
+            log.exception("super-tile gather failed; lanes serve independently")
+            return self._st_decline(live)
+        rel = [(resolved[i].x - bx, resolved[i].y - by) for i in live]
+        bucket = (self._bucket(max(r[2] for r in rects), max(r[3] for r in rects))
+                  if use_fused and spec.format == "png" else None)
+        if bucket is None:
+            return self._supertile_host(live, rel, resolved, ctxs, results, stack, spec, dtype)
+        bw_b, bh_b = bucket
+        size_groups: Dict[Tuple[int, int], List[int]] = {}
+        for j, i in enumerate(live):
+            size_groups.setdefault((resolved[i].w, resolved[i].h), []).append(j)
+        self._count(st_groups=1, st_device_lanes=len(live))
+        try:
+            tables, luts = self._render_tables_for(spec, dtype)
+            packed = rengine.packed_rgb_tables(tables, luts)
+            with self.dispatcher.stream_context():
+                planes = bits_tensor(stack).to(self.device, non_blocking=True)
+                start = self._mark_timing()
+                cut = stile.composite_carve_torch(
+                    planes, tables, luts, [(ry, rx) for rx, ry in rel], bh_b, bw_b,
+                    packed=packed)
+                self._st_timed(start, stack.nbytes + packed.nbytes
+                               + len(live) * bh_b * bw_b * 3)
+                subs = {}
+                for size, js in size_groups.items():
+                    subs[size] = cut if len(js) == len(live) else cut.index_select(
+                        0, torch.tensor(js).to(cut.device, non_blocking=True))
+        except Exception as e:
+            log.exception("super-tile composite failed; lanes -> 500")
+            pending.append((list(live), self.dispatcher.failed_group(e)))
+            return set(live)
+        for size, js in size_groups.items():
+            carved.setdefault(size + bucket, []).append(([live[j] for j in js], subs[size]))
+        return set(live)
+
+    def _submit_carved(self, carved, pending) -> None:
+        """One staged ``rle`` encode group per (w, h, bucket) over every
+        super-tile of the batch: the carved batches of a class are joined
+        on the queue's stream, so two super-tiles of one batch share a
+        group as their lanes would unfused."""
+        for (w, h, _, _), parts in carved.items():
+            lane_ids = [i for ids, _ in parts for i in ids]
+            try:
+                tiles = parts[0][1]
+                if len(parts) > 1:
+                    with self.dispatcher.stream_context():
+                        tiles = torch.cat([t for _, t in parts])
+                fut = self.dispatcher.submit(
+                    tiles, h, 1 + w * 3, 3, PNG_FILTER, "rle", lane_ids,
+                    [(w, h)] * len(lane_ids), 8, 2, staged=True)
+                self._count(st_encode_groups=1)
+            except Exception as e:
+                fut = self.dispatcher.failed_group(e)
+            pending.append((lane_ids, fut))
+
+    def _st_decline(self, live) -> set:
+        """Return a group's lanes to the independent path, counted."""
+        self._count(st_fallback_lanes=len(live))
+        return set()
+
+    def _mark_timing(self):
+        """A timing event recorded on the current stream; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _st_timed(self, start, nbytes: int) -> None:
+        """Close a super-tile's composite + carve timing (``start`` from
+        ``_mark_timing``) on the current stream and keep it, with the
+        ``nbytes`` it must move, for ``supertile_snapshot``."""
+        if start is None:
+            return
+        end = self._mark_timing()
+        with self._stats_lock:
+            self._drain_st_events()
+            self._st_events.append((start, end, nbytes))
+
+    def _supertile_host(self, live, rel, resolved, ctxs, results, stack, spec, dtype) -> set:
+        """The host route of a super-tile (JPEG, ``device_deflate=False``,
+        lanes larger than every bucket): one numpy composite, a carve and
+        an encode per lane, as in the JAX package. Counted in
+        ``render.host_lanes`` and ``supertile.host_lanes``."""
+        try:
+            tables, luts = self._render_tables_for(spec, dtype)
+            rgb = rengine.render_host(stack, tables, luts)
+        except Exception:
+            log.exception("super-tile host composite failed; lanes serve independently")
+            return self._st_decline(live)
+        self._count(st_groups=1, st_host_lanes=len(live))
+        self.render_host_lanes += len(live)
+        for (rx, ry), i in zip(rel, live):
+            rt = resolved[i]
+            try:
+                tile_rgb = stile.carve_host(rgb, rx, ry, rt.w, rt.h)
+                if spec.format == "png":
+                    results[i] = rengine.png_from_rgb_host(tile_rgb, PNG_FILTER)
+                else:
+                    results[i] = rengine.encode_jpeg(np.ascontiguousarray(tile_rgb), spec.quality)
+            except Exception:
+                log.exception("super-tile carve encode failed for lane %d", i)
+                results[i] = None
+        return set(live)
 
     def _render_host_lane(self, i, ctx, lane, results) -> None:
         """One lane on the host mirror: numpy composite (+ mask) and the
@@ -743,6 +1016,147 @@ class TilePipeline:
         self._proj_host_pulls += 1
         self.dispatcher.synchronize_stream()
         return arr.cpu().numpy().view(dtype)
+
+    # -- histogram lanes -----------------------------------------------------
+
+    def _hist_table_for(self, dtype, window, bins: int) -> np.ndarray:
+        """Value -> bin table of an integer pixel type, memoized."""
+        key = (np.dtype(dtype).str, float(window[0]), float(window[1]), bins)
+        return _memo(self._hist_tables, key,
+                     lambda: ranalysis.build_bin_table(np.dtype(dtype), window, bins))
+
+    def _quant_hist_table_for(self, bins: int) -> np.ndarray:
+        return _memo(self._hist_tables, ("quant", bins), lambda: ranalysis.quant_bin_table(bins))
+
+    def _analysis_batch_lanes(self, idxs, resolved, ctxs, results) -> None:
+        """Histogram lanes: read each lane's channel regions (grouped per
+        image), map them to bin indices through host-built tables, reduce
+        them on the device (``_reduce_histogram_jobs``) and write each
+        lane's JSON body. A bad channel or pixel type, or a failed read,
+        leaves the lane None (404); a region whose channels exceed
+        ``max_tile_bytes`` gets a 413 marker."""
+        plans: Dict[int, tuple] = {}
+        by_image: Dict[Tuple[int, int], List[int]] = {}
+        for i in idxs:
+            rt, ctx = resolved[i], ctxs[i]
+            try:
+                chans = ctx.analysis.resolve_channels(rt.meta.size_c)
+            except Exception:
+                log.debug("bad histogram channel for image %d", ctx.image_id, exc_info=True)
+                continue
+            d = rt.meta.dtype
+            if not (rengine.renderable_dtype(d) or rengine.quantizable_dtype(d)):
+                continue
+            if (self.max_tile_bytes
+                    and rt.w * rt.h * rt.meta.bytes_per_pixel * len(chans) > self.max_tile_bytes):
+                results[i] = RequestTooLargeError(
+                    f"Histogram region {rt.w}x{rt.h} x {len(chans)} channels exceeds "
+                    f"max-tile-bytes ({self.max_tile_bytes})")
+                continue
+            coords = [(ctx.z, ch.index, ctx.t, rt.x, rt.y, rt.w, rt.h) for ch in chans]
+            plans[i] = (chans, coords)
+            by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
+
+        jobs: List[Tuple[int, list]] = []
+        for (image_id, level), lanes in by_image.items():
+            buf = resolved[lanes[0]].buffer
+            try:
+                planes = buf.read_tiles([c for i in lanes for c in plans[i][1]], level=level)
+            except Exception:
+                log.exception("histogram read failed for image %d; lanes -> 404", image_id)
+                continue
+            pos = 0
+            for i in lanes:
+                chans, coords = plans[i]
+                lane_planes = planes[pos : pos + len(coords)]
+                pos += len(coords)
+                rt, spec = resolved[i], ctxs[i].analysis
+                try:
+                    entry = []
+                    for ch, plane in zip(chans, lane_planes):
+                        window = ranalysis.resolve_window(ch, rt.meta.dtype, spec.use_pixel_range,
+                                                          plane=plane)
+                        if rengine.renderable_dtype(rt.meta.dtype):
+                            tab = self._hist_table_for(rt.meta.dtype, window, spec.bins)
+                            idx_plane = rengine.unsigned_view(np.ascontiguousarray(plane))
+                        else:
+                            # float/int32 pixels: not reached until the
+                            # port's readers open them (8/16-bit only today)
+                            idx_plane = rengine.quantize_to_u16(plane, window)
+                            tab = self._quant_hist_table_for(spec.bins)
+                        entry.append((ch, window, idx_plane, tab))
+                    jobs.append((i, entry))
+                except Exception:
+                    log.exception("histogram staging failed for lane %d", i)
+        if jobs:
+            self._reduce_histogram_jobs(jobs, ctxs, resolved, results)
+
+    def _reduce_histogram_jobs(self, jobs, ctxs, resolved, results) -> None:
+        """Group the staged (plane, table) pairs by shape and reduce each
+        group in one ``histogram_batch`` on the device; a group that fails
+        answers 500 for its lanes (no host mirror behind it)."""
+        counts_map: Dict[Tuple[int, int], np.ndarray] = {}
+        groups: Dict[tuple, List[Tuple[int, int]]] = {}
+        for j, (i, entry) in enumerate(jobs):
+            for e, (_ch, _win, idx_plane, tab) in enumerate(entry):
+                key = (idx_plane.shape, idx_plane.dtype.str, tab.shape[0],
+                       ctxs[i].analysis.bins)
+                groups.setdefault(key, []).append((j, e))
+        failed: set = set()
+        for (_shape, _dstr, _k, bins), members in groups.items():
+            planes = np.stack([jobs[j][1][e][2] for j, e in members])
+            tabs = np.stack([jobs[j][1][e][3] for j, e in members])
+            events = None
+            if self.device.type == "cuda":
+                events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+            try:
+                counts = ranalysis.histogram_batch(planes, tabs, bins, self.device, events)
+            except Exception:
+                log.exception("device histogram failed; lanes -> 500")
+                self._count(hist_failed_groups=1)
+                failed.update(jobs[j][0] for j, _ in members)
+                continue
+            self._count(hist_groups=1, hist_lanes=len(members))
+            if events is not None:
+                ms = events[0].elapsed_time(events[1])
+                with self._stats_lock:
+                    self._stats_ms["hist"] += ms
+                    self._stats["hist_timed_groups"] += 1
+                    self._stats["hist_bytes"] += planes.nbytes + tabs.nbytes + counts.nbytes
+            for (j, e), c in zip(members, counts):
+                counts_map[(j, e)] = c
+        for j, (i, entry) in enumerate(jobs):
+            if i in failed:
+                results[i] = InternalError("device histogram failed")
+                continue
+            try:
+                spec, ctx, rt = ctxs[i].analysis, ctxs[i], resolved[i]
+                ch_results = []
+                for e, (ch, window, _p, _t) in enumerate(entry):
+                    counts = counts_map[(j, e)]
+                    ch_results.append({
+                        "index": ch.index,
+                        "window": [round(float(window[0]), 6), round(float(window[1]), 6)],
+                        "counts": [int(x) for x in counts],
+                        "stats": ranalysis.stats_from_counts(counts, window, spec.bins),
+                    })
+                results[i] = ranalysis.histogram_body(
+                    ctx.image_id, ctx.z, ctx.t, (rt.x, rt.y, rt.w, rt.h), ctx.resolution,
+                    spec, ch_results)
+            except Exception:
+                log.exception("histogram assembly failed for lane %d", i)
+
+
+def _memo(store: dict, key, build):
+    """``store[key]``, built on a miss; the store is cleared when it holds
+    256 entries (coarse but bounded)."""
+    hit = store.get(key)
+    if hit is None:
+        hit = build()
+        if len(store) >= 256:
+            store.clear()
+        store[key] = hit
+    return hit
 
 
 def _lane_future(group_fut, lane) -> "concurrent.futures.Future":

@@ -13,4 +13,8 @@ Modules:
                    fused composite -> filter kernel -> deflate chain, the
                    host mirror
 - ``projection`` — the torch max/mean projection and its numpy mirror
+- ``analysis``   — ``HistogramSpec`` and the bin tables, stats and JSON
+                   body of ``/histogram`` (copied); the torch histogram
+- ``supertile``  — the adjacency bucketing of render lanes (copied) and
+                   the torch composite + carve of a super-tile
 """

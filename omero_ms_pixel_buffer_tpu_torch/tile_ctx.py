@@ -1,9 +1,11 @@
 """Tile request context (counterpart of ``omero_ms_pixel_buffer_tpu/
-tile_ctx.py`` without the analysis field): imageId/z/c/t are required
-integers, x/y/w/h default to 0, ``resolution`` is optional, ``format``
-passes through verbatim; a parse failure is a 400 with the same message.
-A ``/render`` request carries its ``RenderSpec`` in ``render``.
-``cache_key`` and ``dedupe_key`` give the JAX package's key strings."""
+tile_ctx.py`` without the degraded and priority fields): imageId/z/c/t
+are required integers, x/y/w/h default to 0, ``resolution`` is optional,
+``format`` passes through verbatim; a parse failure is a 400 with the
+same message. A ``/render`` request carries its ``RenderSpec`` in
+``render``, a ``/histogram`` request its ``HistogramSpec`` in
+``analysis``. ``cache_key`` and ``dedupe_key`` give the JAX package's key
+strings."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import TYPE_CHECKING, Any, Mapping, Optional
 from .errors import BadRequestError
 
 if TYPE_CHECKING:
+    from .render.analysis import HistogramSpec
     from .render.model import RenderSpec
 
 
@@ -64,6 +67,13 @@ class TileCtx:
     deadline: Optional[float] = None
     # the rendering of a /render request (render/model.py); None for /tile
     render: Optional["RenderSpec"] = None
+    # the histogram of a /histogram request (render/analysis.py); its
+    # signature joins every key, as the render signature does
+    analysis: Optional["HistogramSpec"] = None
+    # the batcher's super-tile stamp (render/supertile.py: a shared
+    # ``SuperTileGroup``). Transient: never part of a key, so fusion
+    # changes where pixels are composited, never which bytes a tile serves
+    supertile: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def from_params(
@@ -99,8 +109,8 @@ class TileCtx:
     def cache_key(self, quality: str = "") -> str:
         """Result-cache content key, the JAX package's string: (image, z,
         c, t, requested region, resolution, format, quality[, render
-        signature]). No session: identical tiles are identical for every
-        authorized caller."""
+        signature][, histogram signature]). No session: identical tiles are
+        identical for every authorized caller."""
         r = self.region
         base = (
             f"img={self.image_id}|z={self.z}|c={self.c}|t={self.t}"
@@ -109,6 +119,8 @@ class TileCtx:
         )
         if self.render is not None:
             base += f"|render={self.render.signature()}"
+        if self.analysis is not None:
+            base += f"|hist={self.analysis.signature()}"
         return base
 
     def dedupe_key(self, quality: str = "") -> str:
@@ -118,14 +130,15 @@ class TileCtx:
 
     def lane_key(self) -> tuple:
         """Batch-dedupe key: equal lanes produce identical tiles for the
-        same caller. The render signature joins it, so two renderings of
-        one region never merge."""
+        same caller. The render and histogram signatures join it, so two
+        renderings (or two histograms) of one region never merge."""
         r = self.region
         return (
             self.image_id, self.z, self.c, self.t,
             r.x, r.y, r.width, r.height,
             self.resolution, self.format, self.omero_session_key,
             None if self.render is None else self.render.signature(),
+            None if self.analysis is None else self.analysis.signature(),
         )
 
     def filename(self) -> str:

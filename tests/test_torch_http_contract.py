@@ -3,7 +3,8 @@ URLs: ETag values, ``Cache-Control``, ``X-Cache`` hit/miss, 304 on a
 matching ``If-None-Match`` (strong, ``W/`` and comma lists; ``*`` not
 honoured), a cache hit's session check, single-flight (N concurrent
 identical misses, one pipeline execution), HEAD, OPTIONS and the 405 of
-an unrouted path. The JAX app runs with ``cache.prefetch.enabled: false``
+an unrouted path; ``/histogram`` bodies, headers, 304, HEAD and its 400,
+403, 404 and 405 answers. The JAX app runs with ``cache.prefetch.enabled: false``
 so that no predicted tile warms the cache. Also the cache pieces (ETag,
 If-None-Match matching, key strings, the segmented LRU) against the JAX
 package's. Tolerance: zero (statuses, header values and bodies)."""
@@ -221,6 +222,62 @@ async def test_concurrent_identical_misses_run_once(image_path, front):
         assert [s for s, _, _ in out] == [200] * 6
         etags = {{k.lower(): v for k, v in h.items()}["etag"] for _, h, _ in out}
         assert len(etags) == 1 and len(calls) == 1
+    await _with_fronts(image_path, body)
+
+
+# -- /histogram ----------------------------------------------------------------
+
+HIST_URLS = [  # the image has one channel and two z planes
+    "/histogram/1/0/0/0?w=64&h=64",
+    "/histogram/1/1/0/0?x=10&y=20&w=100&h=50&bins=2",
+    "/histogram/1/0/0/0?c=1|100:40000&bins=65536",
+    "/histogram/1/0/0/0?c=1,-2&usePixelsTypeRange=true&bins=17&w=0&h=0",
+    "/histogram/1/1/0/0?c=1|0:30000&x=200&y=3&w=56&h=250",
+]
+HIST_ERRORS = [
+    ("/histogram/1/0/0/0?bins=1", 400), ("/histogram/1/0/0/0?bins=abc", 400),
+    ("/histogram/1/0/0/0?bins=65537", 400), ("/histogram/1/0/0/0?c=", 400),
+    ("/histogram/1/0/0/0?c=1,1", 400), ("/histogram/1/0/0/0?c=zz", 400),
+    ("/histogram/1/0/0/0?c=-1", 400), ("/histogram/1/0/0/0?x=abc", 400),
+    ("/histogram/1/zz/0/0", 400), ("/histogram/1/0/0/0?c=2", 404),
+    ("/histogram/1/0/5/0", 404), ("/histogram/1/7/0/0", 404), ("/histogram/9/0/0/0", 404),
+    ("/histogram/1/0/0/0?x=300&w=10&h=10", 404),
+]
+
+
+@pytest.mark.parametrize("url", HIST_URLS, ids=range(len(HIST_URLS)))
+async def test_histogram_front_matches_jax(image_path, url):
+    """Miss then hit: equal JSON bodies, Content-Type, ETags,
+    Cache-Control and X-Cache; a matching If-None-Match answers 304; HEAD
+    answers the GET's headers."""
+    async def body(f):
+        status, hdrs, got = await f.both("GET", url, COOKIE)
+        assert (status, hdrs["x-cache"], hdrs["content-type"]) == (
+            200, "miss", "application/json")
+        assert got.startswith(b'{"imageId":1,')
+        assert (await f.both("GET", url, COOKIE))[1]["x-cache"] == "hit"
+        status, _, got = await f.both("GET", url, {**COOKIE, "If-None-Match": hdrs["etag"]})
+        assert (status, got) == (304, b"")
+        status, head, got = await f.both("HEAD", url, COOKIE)
+        assert (status, got, head["etag"]) == (200, b"", hdrs["etag"])
+    await _with_fronts(image_path, body)
+
+
+async def test_histogram_errors_match_jax(image_path):
+    """400s (bins, c, region and path parameters), 404s (channel, plane,
+    image and region out of range), 403 without a session and 405 for
+    another method."""
+    async def body(f):
+        for url, want in HIST_ERRORS:
+            status, _, _ = await f.both("GET", url, COOKIE)
+            assert status == want, url
+        for headers in ({}, {"Cookie": "sessionid=bad"}):
+            assert (await f.both("GET", HIST_URLS[0], headers))[0] == 403
+        status, hdrs, got = await f.both("POST", HIST_URLS[0], COOKIE)
+        assert (status, got, hdrs["allow"]) == (405, b"405: Method Not Allowed",
+                                                "GET,HEAD,OPTIONS")
+        health = f.port.health()
+        assert health["analysis"]["enabled"]
     await _with_fronts(image_path, body)
 
 
