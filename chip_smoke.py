@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
         [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
         [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
-        [--filter-sweep] \
+        [--wsi-size 16384] [--wsi-requests 512] [--filter-sweep] \
         [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -16,10 +16,18 @@ Phases, one JSON line each on stdout:
    a smooth field plus Gaussian noise, made from ``--seed`` (image 1); and
    a ``--render-size``² uint16 OME-TIFF of C = 3, Z = 4, T = 1 with
    512x512 zlib tiles, three distinct smooth fields plus noise (image 2,
-   a small fluorescence stack).
+   a small fluorescence stack). ``fixture_wsi``: a ``--wsi-size``² RGB8
+   whole-slide pyramid from ``--seed`` (image 3: 256x256 JPEG tiles at
+   quality 85 and 4:2:0, SubIFD levels down to <= 1024, no OME-XML, so
+   ``/tile`` gives RGB lanes), and the layout fixtures: LZW (512²),
+   PackBits, zstd (written with raw zstd blocks where the ``zstandard``
+   package is missing), zlib with predictor 2, one strip per plane, a
+   little-endian BigTIFF, a float32 C = 3 image (1024² each) and a ROMIO
+   plane file of C = 2.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main path's shapes (32 lanes of 512x512 uint16): the filter in
-   all five modes plus uint8 and RGB uint8, and in every mode at the
+   all five modes plus uint8, RGB uint8 and RGB16 (bpp 6, 256x256
+   lanes), and in every mode at the
    geometries of ``FILTER_EDGES`` and on a misaligned input; its
    ``cold_ms`` is its device time with the L2 flushed before each launch.
    The scalar-prefetch packer on the real ``dynamic`` pass-2 tokens of
@@ -108,6 +116,30 @@ Phases, one JSON line each on stdout:
    device ms per group beside its byte bound; the off runs must stamp
    nothing. ``supertile_pair`` then gives both settings' tiles/s side by
    side.
+13. ``idct`` — ``idct_blocks_torch`` on the card against its CPU version
+   and a float64 numpy IDCT (at most 1 count from each) on every block of
+   ten JPEG tiles of image 3, equal with TF32 allowed and not; its
+   device time at N = 1024 blocks beside the byte bound. The WSI kernel
+   rows (``filter_wsi_rgb8``, ``bitpack_wsi``: 32 host-decoded RGB8 lanes
+   of 256x256 and their ``dynamic`` pass-2 tokens) are checked and timed
+   first.
+14. ``path_wsi`` — a server with the defaults: 32 warm-up tiles, then
+   ``--wsi-requests`` 256x256 PNG tiles of a DeepZoom-style raster sweep
+   over levels 0 and 1 at concurrency 32. Every body is decoded (colour
+   type 2) and must equal the port's host decode of the region; the
+   filter and the SP packer must have launched, RGB device lanes be > 0
+   and no encode group fail. Reports tiles/s, p50/p99, ``timed_window``
+   and ``reads`` (the batched host reads' milliseconds and their share
+   of ``handle_batch`` time).
+15. ``path_wsi_device_idct`` — the same with ``OMPB_JPEG_DEVICE_IDCT=1``
+   and a quarter of the tiles: device IDCT calls > 0 on ``/healthz``
+   ``jpeg``, every pixel within 3 of the host decode (the count that
+   differ is reported), the IDCT's span per call on its stream.
+16. ``path_layouts`` — ``/tile`` PNG, raw and TIF of every layout fixture
+   and of ROMIO, each against its source; ``/render`` and ``/histogram``
+   of the float image against the port's quantization and tables in
+   numpy; a float render without windows and a float PNG tile answer 404;
+   the zstd image answers 404 without ``zstandard``.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -118,7 +150,8 @@ batch of one, encoded on the host), host-encoded oversize lanes and
 counts (``supertile``: lanes stamped, groups, fused device and host
 lanes, fallback lanes, crops pulled to the host).
 
-Then the kernels' JSON line, the ``nvidia-smi --query-gpu=name,power.limit``
+Then the kernels' JSON line (seven rows; the WSI rows' launches from
+``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
@@ -138,6 +171,7 @@ import argparse
 import asyncio
 import concurrent.futures
 import http.client
+import io
 import json
 import os
 import struct
@@ -546,6 +580,10 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
     cases["u8_up"] = (bits_tensor((tiles >> 4).astype(np.uint8)).to(device), "up")
     rgb = rng.integers(0, 256, (LANES, TILE, TILE, 3), dtype=np.uint8)
     cases["rgb8_paeth"] = (bits_tensor(rgb).to(device), "paeth")
+    # RGB16 lanes (bpp 6) at the whole-slide tile shape
+    rgb16 = rng.integers(0, 65536, (LANES, 256, 256, 3), dtype=np.uint16)
+    for m in ("up", "paeth"):
+        cases[f"rgb16_256_{m}"] = (bits_tensor(rgb16).to(device), m)
     # the kernel's edges: groups of scanlines that straddle lanes or end
     # short, rows that are not a multiple of 16 bytes and a misaligned
     # input (its byte-load branch), wide rows with a ragged last step
@@ -1625,6 +1663,563 @@ def supertile_pair(registry: str, stack: np.ndarray, seed: int, n_views: int) ->
                                   zip(fused["tiles_per_s"], unfused["tiles_per_s"])]}
 
 
+# ---------------------------------------------------------------------------
+# the whole-slide JPEG RGB pyramid, the device IDCT, the TIFF layouts
+# ---------------------------------------------------------------------------
+
+WSI_TILE = 256
+# the small layout fixtures of ``path_layouts``: registry id -> (name,
+# writer keywords); each a 1024x1024 plane (C = 3 for the float image),
+# but LZW's 512x512 (the writer's Python LZW encoder takes ~40 s a MB)
+LAYOUT_SIZE = 1024
+LAYOUTS = {
+    10: ("lzw_u16", dict(compression="lzw")),
+    11: ("packbits_u8", dict(compression="packbits")),
+    12: ("zstd_u16", dict(compression="zstd")),
+    13: ("zlib_pred2_u16", dict(compression="zlib", predictor=2)),
+    14: ("zlib_strips_u16", dict(compression="zlib", tile_size=None)),
+    15: ("bigtiff_le_u16", dict(compression="zlib", bigtiff=True, big_endian=False)),
+    16: ("zlib_f32_c3", dict(compression="zlib")),
+}
+ROMIO_ID = 17
+F32_ID = 16
+F32_C = "1|-1500:2500$FF0000,2|0:3000$00FF00,3|-800:800$0000FF"
+
+
+def make_wsi(size: int, seed: int) -> np.ndarray:
+    """A stained-tissue-like (size, size, 3) uint8 slide: smooth colour
+    fields with structure at several scales plus noise, from ``seed``,
+    made a band of rows at a time."""
+    rng = np.random.default_rng(seed + 11)
+    out = np.empty((size, size, 3), np.uint8)
+    xx = np.arange(size, dtype=np.float32)[None, :]
+    for y0 in range(0, size, 1024):
+        yy = np.arange(y0, min(size, y0 + 1024), dtype=np.float32)[:, None]
+        tissue = (np.sin(xx / 211.0) * np.cos(yy / 157.0)
+                  + 0.5 * np.sin((xx + yy) / 53.0) + 0.25 * np.cos(xx / 9.0 - yy / 13.0))
+        for c, (base, amp) in enumerate(((200.0, 60.0), (150.0, 80.0), (190.0, 50.0))):
+            noise = rng.standard_normal((yy.shape[0], size), dtype=np.float32) * 6.0
+            out[y0:y0 + yy.shape[0], :, c] = (base - amp * tissue + noise).clip(0, 255)
+    return out
+
+
+def wsi_levels(size: int) -> int:
+    """Pyramid levels from ``size`` down to the first at or under 1024."""
+    levels = 1
+    while size > 1024:
+        size = (size + 1) // 2
+        levels += 1
+    return levels
+
+
+def _raw_zstd_frame(data: bytes) -> bytes:
+    """A valid zstd frame (RFC 8878) of raw blocks: magic, a single-
+    segment header with a 4-byte content size, then blocks of at most
+    128 KiB stored as they are. Lets the smoke write a zstd TIFF where
+    the ``zstandard`` package is missing."""
+    out = bytearray(struct.pack("<IB", 0xFD2FB528, (2 << 6) | (1 << 5)))
+    out += struct.pack("<I", len(data))
+    blocks = [data[i:i + 131072] for i in range(0, len(data), 131072)] or [b""]
+    for k, block in enumerate(blocks):
+        out += struct.pack("<I", (k == len(blocks) - 1) | (len(block) << 3))[:3] + block
+    return bytes(out)
+
+
+class _RawZstd:
+    """Stands in for ``zstandard`` while the writer runs without it."""
+
+    class ZstdCompressor:
+        def __init__(self, level=3):
+            pass
+
+        @staticmethod
+        def compress(raw: bytes) -> bytes:
+            return _raw_zstd_frame(raw)
+
+
+def layout_data(seed: int) -> dict:
+    """The source arrays of ``path_layouts``: registry id -> TCZYX data."""
+    rng = np.random.default_rng(seed + 13)
+    yy, xx = np.mgrid[0:LAYOUT_SIZE, 0:LAYOUT_SIZE].astype(np.float32)
+    field = 2000 + 1500 * np.sin(xx / 71.0) * np.cos(yy / 89.0)
+    out = {}
+    for rid in (10, 12, 13, 14, 15, ROMIO_ID):
+        u16 = (field + rng.normal(0, 80, field.shape)).clip(0, 65535).astype(np.uint16)
+        out[rid] = u16[None, None, None]
+    out[11] = ((field / 16) + rng.normal(0, 3, field.shape)).clip(0, 255).astype(np.uint8)[
+        None, None, None]
+    out[10] = out[10][..., :512, :512].copy()
+    out[ROMIO_ID] = np.stack([out[ROMIO_ID][0, 0], out[13][0, 0]])[None]  # C = 2
+    out[F32_ID] = np.stack([(field - 2000) * (c + 1) / 2 + rng.normal(0, 50, field.shape)
+                            for c in range(3)]).astype(np.float32)[None, :, None]
+    return out
+
+
+def write_wsi_fixtures(wsi: np.ndarray, layouts: dict) -> tuple:
+    """Image 3 (the JPEG RGB pyramid), the layout fixtures and a ROMIO
+    plane file, with their registry: (registry path, image 3 path, zstd
+    written with the real codec or not)."""
+    from omero_ms_pixel_buffer_tpu_torch.io.ometiff import write_ome_tiff
+    from omero_ms_pixel_buffer_tpu_torch.io.romio import write_romio
+
+    os.makedirs(WORK, exist_ok=True)
+    wsi_path = os.path.join(WORK, "wsi.tif")
+    write_ome_tiff(wsi_path, wsi[None, None, None], tile_size=(WSI_TILE, WSI_TILE),
+                   pyramid_levels=wsi_levels(wsi.shape[0]), compression="jpeg",
+                   jpeg_quality=85, jpeg_subsampling=2, ome_xml=False)
+    images = [{"id": 3, "path": wsi_path, "name": "wsi"}]
+    try:
+        import zstandard  # noqa: F401
+        real_zstd = True
+    except ImportError:
+        real_zstd = False
+    for rid, (name, kw) in LAYOUTS.items():
+        path = os.path.join(WORK, f"{name}.ome.tif")
+        kw = {"tile_size": (WSI_TILE, WSI_TILE), **kw}
+        if kw["compression"] == "zstd" and not real_zstd:
+            missing = "zstandard" not in sys.modules
+            held = sys.modules.get("zstandard")
+            sys.modules["zstandard"] = _RawZstd
+            try:
+                write_ome_tiff(path, layouts[rid], **kw)
+            finally:
+                if missing:
+                    del sys.modules["zstandard"]
+                else:
+                    sys.modules["zstandard"] = held
+        else:
+            write_ome_tiff(path, layouts[rid], **kw)
+        images.append({"id": rid, "path": path, "name": name})
+    romio = os.path.join(WORK, "Pixels", str(ROMIO_ID))
+    os.makedirs(os.path.dirname(romio), exist_ok=True)
+    write_romio(romio, layouts[ROMIO_ID])
+    images.append({"id": ROMIO_ID, "path": romio, "type": "romio", "sizeX": LAYOUT_SIZE,
+                   "sizeY": LAYOUT_SIZE, "sizeZ": 1, "sizeC": 2, "sizeT": 1,
+                   "pixelsType": "uint16"})
+    registry = os.path.join(WORK, "registry_wsi.json")
+    with open(registry, "w") as f:
+        json.dump({"images": images}, f)
+    return registry, wsi_path, real_zstd
+
+
+class HostDecode:
+    """The port's host decode (islow IDCT) of image 3's regions: the
+    reference every ``/tile`` body of the WSI phases is held against."""
+
+    def __init__(self, path: str):
+        from omero_ms_pixel_buffer_tpu_torch.io.ometiff import OmeTiffPixelBuffer
+
+        self.buf = OmeTiffPixelBuffer(path)
+
+    def region(self, level, x, y, w, h) -> np.ndarray:
+        saved = os.environ.pop("OMPB_JPEG_DEVICE_IDCT", None)
+        try:
+            return self.buf.get_tile_at(level, 0, 0, 0, x, y, w, h)
+        finally:
+            if saved is not None:
+                os.environ["OMPB_JPEG_DEVICE_IDCT"] = saved
+
+    def pillow_tile(self, x, y) -> np.ndarray:
+        """Pillow's decode of the level-0 JPEG tile at (x, y): its stream
+        with the tag-347 tables spliced in, an independent oracle of
+        ``region`` on the grid."""
+        from PIL import Image
+
+        ifd = self.buf.ifds[0]
+        i = (y // WSI_TILE) * (self.buf.level_size(0)[0] // WSI_TILE) + x // WSI_TILE
+        off, cnt = ifd.values("TILE_OFFSETS")[i], ifd.values("TILE_COUNTS")[i]
+        stream = ifd.values("JPEG_TABLES")[0][:-2] + bytes(self.buf.mm[off + 2: off + cnt])
+        return np.asarray(Image.open(io.BytesIO(stream)).convert("RGB"))
+
+    def close(self) -> None:
+        self.buf.close()
+
+
+def wsi_requests(ref: HostDecode, seed: int, n: int, levels=(0, 1)):
+    """A DeepZoom-style raster sweep: per level, rows of 16 adjacent 256x256
+    tiles from a seeded origin on the tile grid, ``n`` in all."""
+    rng = np.random.default_rng(seed + 17)
+    reqs = []
+    per_level = [n // len(levels) + (k < n % len(levels)) for k in range(len(levels))]
+    for level, count in zip(levels, per_level):
+        w, h = ref.buf.level_size(level)
+        cols, rows = w // WSI_TILE, h // WSI_TILE
+        span = min(16, cols)
+        need_rows = -(-count // span)
+        c0 = int(rng.integers(0, cols - span + 1))
+        r0 = int(rng.integers(0, max(1, rows - need_rows + 1)))
+        for k in range(count):
+            x = (c0 + k % span) * WSI_TILE
+            y = ((r0 + k // span) % rows) * WSI_TILE
+            reqs.append((f"/tile/3/0/0/0?x={x}&y={y}&w={WSI_TILE}&h={WSI_TILE}"
+                         f"&format=png&resolution={level}", (level, x, y, WSI_TILE, WSI_TILE),
+                         200))
+    return reqs
+
+
+def wsi_tiles(ref: HostDecode, seed: int, n: int = LANES) -> np.ndarray:
+    """``n`` host-decoded 256x256 RGB tiles of level 0 at seeded grid spots."""
+    rng = np.random.default_rng(seed + 19)
+    w, h = ref.buf.level_size(0)
+    spots = rng.integers(0, [w // WSI_TILE, h // WSI_TILE], (n, 2)) * WSI_TILE
+    return np.stack([ref.region(0, int(x), int(y), WSI_TILE, WSI_TILE) for x, y in spots])
+
+
+def check_wsi_kernels(torch, device, tiles: np.ndarray):
+    """The filter (bpp 3) and the scalar-prefetch packer at the WSI shape:
+    32 RGB8 lanes of 256x256 from image 3, and the packer on their real
+    ``dynamic`` pass-2 tokens, each byte-equal to its plain version (every
+    lane's stream inflates back). Returns the kernel rows."""
+    from omero_ms_pixel_buffer_tpu_torch.ops import device_deflate as dd
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.bitpack import (
+        pack_tokens_sp,
+        pack_tokens_sp_plain,
+    )
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels.filter import (
+        filter_tiles,
+        filter_tiles_plain,
+    )
+
+    rgb = torch.from_numpy(tiles).to(device)
+    got, want = filter_tiles(rgb, "up"), filter_tiles_plain(rgb, "up")
+    torch.cuda.synchronize()
+    f_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+    require(torch.equal(got, want), "filter kernel != plain on WSI RGB lanes")
+    f_call = time_ms(torch, lambda: filter_tiles(rgb, "up"))
+    f_ms = kernel_ms(torch, lambda: filter_tiles(rgb, "up"), "filter_row_groups")
+    f_plain = time_ms(torch, lambda: filter_tiles_plain(rgb, "up"))
+    f_bytes = rgb.numel() + got.numel()
+    row_bytes = 1 + WSI_TILE * 3
+    flat, counts, extras, real = dd.fused_filter_histogram_batch(rgb, WSI_TILE, row_bytes, 3)
+    tables = dd.build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(), real=real)
+    bits, nbits = dd.emit_tokens(flat, dd.tables_from_numpy(tables, device))
+    maxbits = dd._packing_maxbits(flat.shape[1])
+    got_p, got_t = pack_tokens_sp(bits, nbits, maxbits)
+    want_p, want_t = pack_tokens_sp_plain(bits, nbits, maxbits)
+    torch.cuda.synchronize()
+    b_err = int((got_p.to(torch.int64) - want_p.to(torch.int64)).abs().max().item())
+    require(torch.equal(got_p, want_p) and torch.equal(got_t, want_t),
+            "bitpack kernel != plain on WSI pass-2 tokens")
+    streams, lengths = dd._frame_lanes(flat, got_p, got_t, eob_bits=0)
+    streams_np, lengths_np, flat_np = (streams.cpu().numpy(), lengths.cpu().numpy(),
+                                       flat.cpu().numpy())
+    for i in range(real):
+        require(zlib.decompress(streams_np[i, : lengths_np[i]].tobytes())
+                == flat_np[i].tobytes(), f"WSI lane {i} dynamic stream does not inflate back")
+    call = lambda: pack_tokens_sp(bits, nbits, maxbits)  # noqa: E731
+    b_call = time_ms(torch, call)
+    b_ms = call_device_ms(torch, call)
+    b_plain = time_ms(torch, lambda: pack_tokens_sp_plain(bits, nbits, maxbits), iters=5)
+    b_bytes = 8 * bits.numel() + bits.shape[0] * maxbits // 8
+    return [
+        {"name": "filter_wsi_rgb8", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/filter.py:137",
+         "shape": list(rgb.shape), "max_abs_err": f_err, "ms": f_ms if f_ms else f_call,
+         "ms_from": "profiler" if f_ms else "events", "call_ms": f_call, "plain_ms": f_plain,
+         "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None},
+        {"name": "bitpack_wsi", "route": "cuda",
+         "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack.cu",
+         "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:201",
+         "shape": list(bits.shape), "max_abs_err": b_err, "ms": b_ms if b_ms else b_call,
+         "ms_from": "profiler" if b_ms else "events", "call_ms": b_call, "plain_ms": b_plain,
+         "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+         "stream_bytes_mean": float(lengths_np[:real].mean())},
+    ]
+
+
+def idct_f64(coefs: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """The float IDCT in float64 numpy: the reference of the card's."""
+    from omero_ms_pixel_buffer_tpu_torch.io.jpeg import _A
+
+    deq = (coefs.astype(np.int64) * q[None, :]).astype(np.float64).reshape(-1, 8, 8)
+    basis = _A.astype(np.float64)
+    s = np.einsum("uy,nuv,vx->nyx", basis, deq, basis)
+    return np.clip(np.round(s) + 128.0, 0, 255).astype(np.uint8)
+
+
+def check_idct(torch, device, wsi_path: str, seed: int, n_tiles: int = 10) -> dict:
+    """``idct``: ``idct_blocks_torch`` on the card against its CPU version
+    and the float64 numpy IDCT on every coefficient block of ``n_tiles``
+    JPEG tiles of image 3 (caught from the host decode), equal with TF32
+    allowed and not; its device time at N = 1024 blocks beside the byte
+    bound ((N, 64) int32 in, (N, 64) uint8 out)."""
+    from omero_ms_pixel_buffer_tpu_torch.io import jpeg as pj
+    from omero_ms_pixel_buffer_tpu_torch.io.ometiff import OmeTiffPixelBuffer
+
+    buf = OmeTiffPixelBuffer(wsi_path)
+    try:
+        ifd = buf.ifds[0]
+        tables = pj.parse_tables(ifd.values("JPEG_TABLES")[0])
+        offs, cnts = ifd.values("TILE_OFFSETS"), ifd.values("TILE_COUNTS")
+        picks = np.random.default_rng(seed + 23).choice(len(offs), n_tiles, replace=False)
+        caught = []
+        host_idct = pj.idct_blocks_host
+
+        def grab(c, q):
+            caught.append((c.copy(), q.copy()))
+            return host_idct(c, q)
+
+        pj.idct_blocks_host = grab
+        try:
+            for i in picks:
+                pj.decode_jpeg(bytes(buf.mm[offs[i]: offs[i] + cnts[i]]), tables=tables,
+                               idct_mode="host")
+        finally:
+            pj.idct_blocks_host = host_idct
+    finally:
+        buf.close()
+    err_f64 = err_cpu = 0
+    blocks = 0
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for coefs, q in caught:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = pj.idct_blocks_torch(coefs, q, device).cpu().numpy()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = pj.idct_blocks_torch(coefs, q, device).cpu().numpy()
+            require(np.array_equal(on, off), "device IDCT moved with allow_tf32")
+            cpu = pj.idct_blocks_torch(coefs, q, "cpu").numpy()
+            err_f64 = max(err_f64, int(np.abs(off.astype(int) - idct_f64(coefs, q)).max()))
+            err_cpu = max(err_cpu, int(np.abs(off.astype(int) - cpu.astype(int)).max()))
+            blocks += coefs.shape[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    require(err_f64 <= 1, f"device IDCT {err_f64} counts from float64")
+    require(err_cpu <= 1, f"device IDCT {err_cpu} counts from its CPU version")
+    luma = np.concatenate([c for c, _ in caught[::3]])[:1024]
+    c_dev = torch.from_numpy(luma).to(device)
+    q_dev = torch.from_numpy(caught[0][1]).to(device)
+    call = lambda: pj.idct_blocks_torch(c_dev, q_dev, device)  # noqa: E731
+    nbytes = luma.shape[0] * 64 * 4 + luma.shape[0] * 64
+    return {"phase": "idct", "tiles": n_tiles, "blocks": blocks,
+            "max_abs_err_vs_float64": err_f64, "max_abs_err_vs_cpu": err_cpu,
+            "tf32_independent": True, "allow_tf32_flag": flag,
+            "n_blocks_timed": int(luma.shape[0]),
+            "ms": call_device_ms(torch, call), "call_ms": time_ms(torch, call),
+            "cpu_ms": _host_ms(lambda: pj.idct_blocks_torch(luma, caught[0][1], "cpu")),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "by_kernel": device_breakdown(torch, call, iters=10)}
+
+
+def _host_ms(fn, iters: int = 5) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def reads_delta(before: dict, after: dict, seconds: float) -> dict:
+    """The batched host reads between two ``/healthz`` views: the read
+    stage's milliseconds, their share of the ``handle_batch`` time they
+    sit in, and thread-seconds of reading per wall second."""
+    b, a = before["reads"], after["reads"]
+    read_ms = a["ms_total"] - b["ms_total"]
+    batch_ms = a["batch_ms_total"] - b["batch_ms_total"]
+    lanes = a["lanes"] - b["lanes"]
+    return {"calls": a["calls"] - b["calls"], "lanes": lanes, "read_ms": read_ms,
+            "read_ms_per_lane": read_ms / lanes if lanes else None,
+            "batch_ms": batch_ms, "read_share_of_batch": read_ms / batch_ms if batch_ms else None,
+            "read_busy_share": read_ms / 1e3 / seconds,
+            "rgb_device_lanes": a["rgb_device_lanes"] - b["rgb_device_lanes"]}
+
+
+def drive_wsi(registry: str, ref: HostDecode, seed: int, n_requests: int,
+              device_idct: bool = False, device: str = "cuda") -> dict:
+    """``path_wsi`` (or ``path_wsi_device_idct``): a server with the
+    defaults (``OMPB_JPEG_DEVICE_IDCT=1`` for the second); 32 warm-up
+    tiles of level 2, then ``n_requests`` 256x256 PNG tiles of a raster
+    sweep over levels 0 and 1 at concurrency 32, timed. Every body is
+    decoded (colour type 2) and held against the port's host decode:
+    equal, or within 3 with the device IDCT (its pixels that differ are
+    counted; the JAX device mode is 3 from its host mode on RGB streams).
+    The host decode of every level-0 tile is held against Pillow's."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    phase = "path_wsi_device_idct" if device_idct else "path_wsi"
+    saved = os.environ.get("OMPB_JPEG_DEVICE_IDCT")
+    os.environ["OMPB_JPEG_DEVICE_IDCT"] = "1" if device_idct else "0"
+    try:
+        with ServerThread(registry, device=device) as client:
+            reset_launch_counts()
+            warm = wsi_requests(ref, seed + 1, LANES,
+                                levels=(min(2, ref.buf.resolution_levels - 1),))
+            warm_out = run_requests(client, warm, LANES)[0]
+            reqs = wsi_requests(ref, seed + (7 if device_idct else 0), n_requests)
+            before = get_json(client, "/healthz")
+            out, seconds = run_requests(client, reqs, LANES)
+            after = get_json(client, "/healthz")
+            launches = launch_counts()
+    finally:
+        if saved is None:
+            os.environ.pop("OMPB_JPEG_DEVICE_IDCT", None)
+        else:
+            os.environ["OMPB_JPEG_DEVICE_IDCT"] = saved
+    max_diff, diff_px, checked, pillow_checked = 0, 0, 0, 0
+    for (status, body, _), (path, (level, x, y, w, h), want) in zip(warm_out + out, warm + reqs):
+        require(status == want, f"{path} answered {status}, expected {want}")
+        got = decode_png(body)
+        expect = ref.region(level, x, y, w, h)
+        require(got.shape == expect.shape == (h, w, 3), f"{path}: not an RGB tile")
+        if level == 0:
+            require(np.array_equal(expect, ref.pillow_tile(x, y)),
+                    f"{path}: the host decode differs from Pillow's")
+            pillow_checked += 1
+        d = np.abs(got.astype(int) - expect.astype(int))
+        max_diff, diff_px = max(max_diff, int(d.max())), diff_px + int((d > 0).sum())
+        checked += 1
+    if device_idct:
+        require(max_diff <= 3, f"{phase}: {max_diff} counts from the host decode")
+    else:
+        require(max_diff == 0, f"{phase}: pixels differ from the host decode")
+    lat_ms = np.array([r[2] for r in out]) * 1e3
+    require(pillow_checked > 0, f"{phase}: no level-0 tile held against Pillow")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"{phase}: the filter or the SP packer never launched: {launches}")
+    reads = reads_delta(before, after, seconds)
+    require(reads["rgb_device_lanes"] > 0, f"{phase}: no RGB lane went to the device")
+    require(after["queue"]["failed"] == 0, f"{phase}: encode groups failed: {after['queue']}")
+    jb, ja = before["jpeg"], after["jpeg"]
+    calls = ja["device_idct_calls"] - jb["device_idct_calls"]
+    if device_idct:
+        require(calls > 0 and ja["device_idct_failed"] == 0,
+                f"{phase}: device IDCT calls {calls}, failed {ja['device_idct_failed']}")
+    else:
+        require(ja["device_idct_calls"] == 0, f"{phase}: device IDCT ran in host mode")
+    timed = ja["device_idct_timed_calls"] - jb["device_idct_timed_calls"]
+    return {
+        "phase": phase, "requests": n_requests, "concurrency": LANES,
+        "tiles_verified": checked, "host_tiles_equal_to_pillow": pillow_checked,
+        "max_abs_diff_vs_host": max_diff,
+        "pixels_differing": diff_px, "launches": launches,
+        "tiles_per_s": n_requests / seconds, "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "stream_bytes_mean": float(np.mean([png_stream_len(r[1]) for r in out])),
+        "timed_window": timed_window(before, after, seconds), "reads": reads,
+        "jpeg": {"device_idct_calls": calls,
+                 "device_idct_blocks": ja["device_idct_blocks"] - jb["device_idct_blocks"],
+                 # CUDA-event span on the IDCT stream: concurrent readers
+                 # and GIL waits inflate it over the device time alone
+                 "span_ms_per_call": ((ja["device_idct_span_ms_total"]
+                                       - jb["device_idct_span_ms_total"]) / timed
+                                      if timed else None)},
+        "queue": after["queue"], "gpu": after["gpu"],
+    }
+
+
+def _layout_requests(rid: int, data: np.ndarray, c: int = 0):
+    """/tile PNG (an aligned tile, a 300x200 region across blocks, the
+    corner), raw and TIF requests of one layout fixture's channel c."""
+    n = data.shape[-1]
+    regions = [(n // 4, n // 2, 256, 256, "png"), (100, 70, 300, 200, "png"),
+               (n - 100, n - 60, 100, 60, "png"), (33, 44, 120, 90, None),
+               (n // 2 - 100, n // 4, 200, 150, "tif")]
+    out = []
+    for x, y, w, h, fmt in regions:
+        q = f"x={x}&y={y}&w={w}&h={h}" + (f"&format={fmt}" if fmt else "")
+        out.append((f"/tile/{rid}/0/{c}/0?{q}", fmt, data[0, c, 0, y:y + h, x:x + w]))
+    return out
+
+
+def _check_tile(body: bytes, fmt, want: np.ndarray, path: str) -> None:
+    from omero_ms_pixel_buffer_tpu_torch.ops.tiff import decode_tiff
+
+    if fmt == "png":
+        got = decode_png(body)
+    elif fmt == "tif":
+        got = decode_tiff(body)
+    else:
+        got = np.frombuffer(body, want.dtype.newbyteorder(">")).reshape(want.shape)
+    require(np.array_equal(got, want), f"{path}: pixels differ from the source")
+
+
+def drive_layouts(registry: str, layouts: dict, real_zstd: bool, device: str = "cuda") -> dict:
+    """``path_layouts``: a server with the defaults; ``/tile`` PNG, raw and
+    TIF of every layout fixture and of the ROMIO image, each checked
+    against its source array; ``/render`` (windowed composite, intmax
+    projection off a single z) and ``/histogram`` of the float image
+    against the port's own quantization and tables in numpy; a float
+    render without windows answers 404; the zstd image answers 404
+    without the ``zstandard`` package, and its pixels with it."""
+    from urllib.parse import parse_qsl
+
+    from omero_ms_pixel_buffer_tpu_torch.render import analysis as ranalysis
+    from omero_ms_pixel_buffer_tpu_torch.render import engine as rengine
+    from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
+    from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+
+    reqs = []
+    for rid in LAYOUTS:
+        if rid != F32_ID:
+            reqs += [(rid,) + r for r in _layout_requests(rid, layouts[rid])]
+    for c in range(2):
+        reqs += [(ROMIO_ID,) + r for r in _layout_requests(ROMIO_ID, layouts[ROMIO_ID], c)]
+    f32 = layouts[F32_ID][0, :, 0]
+    render = []
+    for x, y, w, h, extra in ((0, 0, 256, 256, ""), (300, 200, 256, 256, ""),
+                              (256, 256, 200, 100, "&m=g"), (512, 0, 256, 256, "&p=intmax")):
+        query = f"c={F32_C}{extra}" if "m=g" not in extra else "c=2|0:3000&m=g"
+        render.append((f"/render/{F32_ID}/0/0/0?x={x}&y={y}&w={w}&h={h}&{query}&format=png",
+                       (x, y, w, h), dict(parse_qsl(query))))
+    hist = [(f"/histogram/{F32_ID}/0/0/0?x={x}&y={y}&w={w}&h={h}&c=1,2,3&bins={b}",
+             (x, y, w, h), b) for x, y, w, h, b in ((0, 0, 256, 256, 256),
+                                                     (100, 200, 300, 200, 1000))]
+    edge = [(f"/render/{F32_ID}/0/0/0?x=0&y=0&w=64&h=64&c=1,2&format=png", 404),
+            (f"/tile/{F32_ID}/0/0/0?x=0&y=0&w=64&h=64&format=png", 404)]
+    with ServerThread(registry, device=device) as client:
+        tile_out = run_requests(client, [(r[1],) for r in reqs], 16)[0]
+        render_out = run_requests(client, [(r[0],) for r in render], 8)[0]
+        hist_out = run_requests(client, [(r[0],) for r in hist], 2)[0]
+        edge_out = [client.get(path) for path, _ in edge]
+        health = get_json(client, "/healthz")
+    checked, zstd_404 = 0, 0
+    for (status, body, _), (rid, path, fmt, want) in zip(tile_out, reqs):
+        if rid == 12 and not real_zstd:
+            require(status == 404, f"{path}: zstd without zstandard answered {status}")
+            zstd_404 += 1
+            continue
+        require(status == 200, f"{path} answered {status}")
+        _check_tile(body, fmt, want, path)
+        checked += 1
+    luts = LutRegistry()
+    for (status, body, _), (path, (x, y, w, h), query) in zip(render_out, render):
+        require(status == 200, f"{path} answered {status}")
+        spec = RenderSpec.from_params(query, default_channel=0)
+        chans = spec.resolve_channels(3)
+        planes = np.stack([rengine.quantize_to_u16(f32[ch.index, y:y + h, x:x + w], ch.window)
+                           for ch in chans])
+        tables, clut = rengine.build_tables(spec.without_windows(), np.dtype(np.uint16), luts)
+        acc = np.zeros((h, w, 3), np.int64)
+        for k in range(tables.shape[0]):
+            acc += clut[k][tables[k][planes[k]]]
+        require(np.array_equal(decode_png(body), np.minimum(acc, 255).astype(np.uint8)),
+                f"{path}: pixels differ from the numpy composite")
+        checked += 1
+    for (status, body, _), (path, (x, y, w, h), bins) in zip(hist_out, hist):
+        require(status == 200, f"{path} answered {status}")
+        doc = json.loads(body)
+        for c, ch in enumerate(doc["channels"]):
+            plane = f32[c, y:y + h, x:x + w]
+            window = ranalysis.resolve_window(
+                ranalysis.HistogramSpec.from_params({"c": str(c + 1)}).channels[0],
+                np.dtype(np.float32), False, plane=plane)
+            idx = ranalysis.quant_bin_table(bins)[rengine.quantize_to_u16(plane, window)]
+            require(ch["counts"] == np.bincount(idx.ravel(), minlength=bins).tolist(),
+                    f"{path}: channel {c} counts differ")
+        checked += 1
+    for (status, _, _), (path, want) in zip(edge_out, edge):
+        require(status == want, f"{path} answered {status}, expected {want}")
+    require(health["queue"]["failed"] == 0, f"path_layouts: encode groups failed")
+    return {"phase": "path_layouts", "fixtures": {rid: name for rid, (name, _) in LAYOUTS.items()},
+            "romio": ROMIO_ID, "zstandard": real_zstd, "zstd_404": zstd_404,
+            "responses_verified": checked, "edge_statuses": [s for s, _, _ in edge_out],
+            "analysis": health["analysis"], "reads": health["reads"]}
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -1652,6 +2247,10 @@ def main(argv=None) -> int:
                    help="timed region requests of the histogram phase (plus 8 full planes)")
     p.add_argument("--viewports", type=int, default=16,
                    help="4x4 viewports of the super-tile phases")
+    p.add_argument("--wsi-size", type=int, default=16384,
+                   help="width and height of the RGB JPEG pyramid (image 3)")
+    p.add_argument("--wsi-requests", type=int, default=512,
+                   help="timed tiles of path_wsi (path_wsi_device_idct takes a quarter)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -1687,6 +2286,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port package is not beside this script: {e}",
               file=sys.stderr)
         return 2
+    closers = []
     try:
         t0 = time.perf_counter()
         report = _build.build()
@@ -1700,6 +2300,16 @@ def main(argv=None) -> int:
         stack = make_stack(args.render_size, args.seed)
         registry = write_fixture(data, stack)
         emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        wsi = make_wsi(args.wsi_size, args.seed)
+        layouts = layout_data(args.seed)
+        wsi_registry, wsi_path, real_zstd = write_wsi_fixtures(wsi, layouts)
+        del wsi
+        emit({"phase": "fixture_wsi", "size": args.wsi_size, "tile": WSI_TILE,
+              "levels": wsi_levels(args.wsi_size), "jpeg": "quality 85, 4:2:0",
+              "file_bytes": os.path.getsize(wsi_path), "zstandard": real_zstd,
+              "layouts": {rid: name for rid, (name, _) in LAYOUTS.items()},
               "seconds": time.perf_counter() - t0})
         device = torch.device("cuda", 0)
         if args.filter_sweep:
@@ -1718,6 +2328,12 @@ def main(argv=None) -> int:
         render_rows, render_line = check_render_kernels(torch, device, stack, args.seed)
         emit(render_line)
         kernels += render_rows
+        # the WSI shapes and the IDCT are timed beside the other kernels,
+        # before any server has run in this process
+        ref = HostDecode(wsi_path)
+        closers.append(ref.close)
+        kernels += check_wsi_kernels(torch, device, wsi_tiles(ref, args.seed))
+        emit(check_idct(torch, device, wsi_path, args.seed))
         emit(http_contract(registry, data))
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))
@@ -1746,12 +2362,19 @@ def main(argv=None) -> int:
         emit(drive_host_deflate(registry, data, args.seed))
         emit(drive_histogram(registry, stack, args.seed, args.histogram_requests))
         emit(supertile_pair(registry, stack, args.seed, args.viewports))
+        wsi_run = drive_wsi(wsi_registry, ref, args.seed, args.wsi_requests)
+        emit(wsi_run)
+        emit(drive_wsi(wsi_registry, ref, args.seed, max(LANES, args.wsi_requests // 4),
+                       device_idct=True))
+        emit(drive_layouts(wsi_registry, layouts, real_zstd))
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],
                     "bitpack_dense": rle["launches"]["bitpack_dense"],
                     "filter_render_rgb8": render["launches"]["filter"],
-                    "bitpack_render_rle": render["launches"]["bitpack"]}
+                    "bitpack_render_rle": render["launches"]["bitpack"],
+                    "filter_wsi_rgb8": wsi_run["launches"]["filter"],
+                    "bitpack_wsi": wsi_run["launches"]["bitpack"]}
         for k in kernels:
             k["launches"] = launches[k["name"]]
         emit({"kernels": kernels})
@@ -1763,6 +2386,9 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        for close in closers:
+            close()
 
 
 if __name__ == "__main__":

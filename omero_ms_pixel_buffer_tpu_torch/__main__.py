@@ -16,8 +16,10 @@ device and deflated on the host, and render lanes take the host mirror.
 ``--lut-dir`` is ``render.lut-dir``: ImageJ ``.lut`` files that ``/render``
 channels may name. ``--no-supertile`` is ``supertile.enabled: false``:
 adjacent ``/render`` lanes of a batch are no longer fused into one
-composite (fusion is on by default, as in the JAX package). The line
-``listening on HOST:PORT`` is printed once serving.
+composite (fusion is on by default, as in the JAX package).
+``OMPB_JPEG_DEVICE_IDCT=1`` moves JPEG tiles' IDCT to the device and
+``OMPB_MEMO_DIR`` keeps parsed TIFF IFD chains, as in the JAX package.
+The line ``listening on HOST:PORT`` is printed once serving.
 SIGINT/SIGTERM drain and stop.
 """
 

@@ -335,7 +335,9 @@ class TileServer:
         the encode queue's (with its deflate mode and packer), the plane
         cache's, the batcher's (with its lone lanes and super-tile
         stamps), the result cache's, the render engine's, the histogram
-        plane's and super-tile fusion's snapshots."""
+        plane's and super-tile fusion's snapshots, the batched host reads
+        (``reads``, with the RGB lanes sent to the device) and the JPEG
+        device IDCT's (``jpeg``: its mode, calls and device ms)."""
         return {
             "status": "ok",
             "device": str(self.pipeline.device),
@@ -354,6 +356,8 @@ class TileServer:
             "plane_cache": self.pipeline.plane_cache_snapshot(),
             "batcher": self.worker.snapshot(),
             "result_cache": self.cache.snapshot(),
+            "reads": self.pipeline.read_snapshot(),
+            "jpeg": self.pipeline.pixels_service.idct.snapshot(),
         }
 
 
@@ -372,7 +376,9 @@ def create_server(
     on CUDA); ``device_deflate=False`` filters PNG lanes on the device and
     deflates them on the host; ``lut_dir`` holds ``.lut`` files for
     ``/render``; ``supertile_enabled`` is the JAX ``supertile.enabled``
-    (fusion on by default, with the JAX package's default limits). On
+    (fusion on by default, with the JAX package's default limits). JPEG
+    blocks' device IDCT (``OMPB_JPEG_DEVICE_IDCT=1``) runs on ``device``
+    too; ``OMPB_MEMO_DIR`` keeps parsed TIFF IFD chains. On
     CUDA the kernels are built (or found built) here, so a build failure
     stops start-up; the host engine and the LUT registry are built (or
     found) here too, so their state shows on ``/healthz`` from the
@@ -382,7 +388,7 @@ def create_server(
     from ..runtime.device import gpu_info
 
     pipeline = TilePipeline(
-        PixelsService(ImageRegistry(registry_path)), buckets=tuple(buckets),
+        PixelsService(ImageRegistry(registry_path), device=device), buckets=tuple(buckets),
         queue_depth=queue_depth, device=device,
         device_deflate_mode=deflate_mode, packer=packer,
         device_deflate=device_deflate, lut_dir=lut_dir,

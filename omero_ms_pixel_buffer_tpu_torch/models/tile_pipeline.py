@@ -8,8 +8,10 @@ lanes on the device engine, PNG with device deflate in any of its modes).
 
 Bucket padding: PNG filters only look up and left, so zero padding on
 the right and bottom leaves the real region's filtered bytes unchanged;
-each (bucket, dtype) group encodes in one queue submission per real
-(w, h). Lanes on a plane that is resident on the device skip the host
+each (bucket, dtype, samples) group encodes in one queue submission per
+real (w, h). A page of three interleaved samples read without OME
+channel factoring (a scanner's RGB TIFF) gives (h, w, 3) tiles: RGB
+lanes, filtered at 3 (or 6) bytes a pixel and framed as colour type 2. Lanes on a plane that is resident on the device skip the host
 read: the plane route crops them on the device.
 
 With ``device_deflate=False`` (the JAX package's YAML key
@@ -26,9 +28,12 @@ queue group per (signature, table dtype, size, bucket, mask, residency).
 JPEG lanes, lanes larger than every bucket and every render lane with
 ``device_deflate=False`` take the host mirror (``render_host``,
 ``zlib_rle_np``): routes, as in the JAX package, counted on ``/healthz``
-(``render.host_lanes``). A render lane that cannot render answers None
-(404); a projection stack over ``max_tile_bytes`` answers 413; a failed
-render group answers 500, with no host re-render.
+(``render.host_lanes``). Float and 32-bit channels are quantized onto
+the 16-bit bin space on the host (``_stage_stack``, float64) and render
+through tables over it. A render lane that cannot render answers None
+(404: so does a float render without an explicit window); a projection
+stack over ``max_tile_bytes`` answers 413; a failed render group answers
+500, with no host re-render.
 
 Super-tiles (``render/supertile.py``): render lanes the batcher stamped
 with one ``SuperTileGroup`` are served together (``_supertile_group``):
@@ -60,7 +65,9 @@ engine's fused encode when ``runtime/native`` builds and loads, else
 ``encode_png``. The device path has no host encoder behind it: a failed
 encode group answers 500 for its lanes. A ``tif`` lane is its host-read
 tile framed by ``ops/tiff.encode_tiff`` (no pixel work, as in the JAX
-package); other formats answer None (404).
+package); other formats answer None (404). A read whose JPEG blocks'
+device IDCT fails (``OMPB_JPEG_DEVICE_IDCT=1``) answers 500 for its lanes
+(``DeviceIdctError``; the JAX package decodes on the host instead).
 """
 
 from __future__ import annotations
@@ -68,12 +75,14 @@ from __future__ import annotations
 import concurrent.futures
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..errors import InternalError, RequestTooLargeError
+from ..io.jpeg import DeviceIdctError
 from ..io.pixels_service import PixelsService
 from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
@@ -120,15 +129,18 @@ class ResolvedTile:
 
 class RenderLane:
     """One staged render lane: the (C, H, W) channel stack (the unsigned
-    view of the pixels), the pixel type its tables are built for, and the
-    ROI mask raster, if any. ``device`` marks a stack that is already a
-    device tensor (warm plane-cache projection crops, bits of an unsigned
-    type): it is batched on the queue's stream and submitted ``staged``."""
+    view of the pixels), the spec and pixel type its tables are built for
+    (a quantized float/32-bit lane's are the 16-bit bin space with the
+    windows erased: the host quantization applied them), and the ROI mask
+    raster, if any. ``device`` marks a stack that is already a device
+    tensor (warm plane-cache projection crops, bits of an unsigned type):
+    it is batched on the queue's stream and submitted ``staged``."""
 
-    __slots__ = ("stack", "dtype", "mask", "device")
+    __slots__ = ("stack", "spec", "dtype", "mask", "device")
 
-    def __init__(self, stack, dtype, mask=None, device=False):
-        self.stack, self.dtype, self.mask, self.device = stack, dtype, mask, device
+    def __init__(self, stack, spec, dtype, mask=None, device=False):
+        self.stack, self.spec, self.dtype = stack, spec, dtype
+        self.mask, self.device = mask, device
 
 
 class DeferredTile:
@@ -200,8 +212,8 @@ class TilePipeline:
             ("st_groups", "st_device_lanes", "st_host_lanes", "st_fallback_lanes",
              "st_host_pulls", "st_encode_groups", "st_timed_groups", "st_bytes",
              "hist_groups", "hist_lanes", "hist_failed_groups", "hist_timed_groups",
-             "hist_bytes"), 0)
-        self._stats_ms = {"st": 0.0, "hist": 0.0}
+             "hist_bytes", "read_calls", "read_lanes", "batches", "rgb_device_lanes"), 0)
+        self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0}
         self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
 
     def close(self) -> None:
@@ -300,6 +312,31 @@ class TilePipeline:
                 "device_bytes_total": st["hist_bytes"],
             }
 
+    def read_snapshot(self) -> dict:
+        """/healthz view of the host reads of batched lanes (tile, render,
+        histogram and super-tile reads; host clock): calls, regions read,
+        their milliseconds, and the ``handle_batch`` calls and
+        milliseconds they sit in (reads are decodes: JPEG, LZW, inflate),
+        plus the RGB lanes sent to the device."""
+        with self._stats_lock:
+            st = self._stats
+            return {"calls": st["read_calls"], "lanes": st["read_lanes"],
+                    "ms_total": self._stats_ms["read"], "batches": st["batches"],
+                    "batch_ms_total": self._stats_ms["batch"],
+                    "rgb_device_lanes": st["rgb_device_lanes"]}
+
+    def _read(self, buf, coords, level):
+        """``buf.read_tiles``, timed for ``read_snapshot``."""
+        t0 = time.perf_counter()
+        try:
+            return buf.read_tiles(coords, level=level)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            with self._stats_lock:
+                self._stats["read_calls"] += 1
+                self._stats["read_lanes"] += len(coords)
+                self._stats_ms["read"] += ms
+
     def encode_signature(self) -> str:
         """The 'quality' part of the result-cache key: the PNG encode
         policy the bytes depend on."""
@@ -321,7 +358,10 @@ class TilePipeline:
             level = ctx.resolution
         size_x, size_y = buffer.level_size(level)
         x, y, w, h = resolve_region(ctx.region, size_x, size_y)
-        if self.max_tile_bytes and w * h * buffer.meta.bytes_per_pixel > self.max_tile_bytes:
+        # interleaved pages materialize w*h*samples before a channel is cut
+        samples = getattr(buffer, "samples", 1)
+        if (self.max_tile_bytes
+                and w * h * samples * buffer.meta.bytes_per_pixel > self.max_tile_bytes):
             raise ValueError(f"Tile {w}x{h} exceeds max-tile-bytes ({self.max_tile_bytes})")
         # the resolved region flows back into the ctx (filename header)
         ctx.region.x, ctx.region.y = x, y
@@ -339,7 +379,8 @@ class TilePipeline:
 
     def handle(self, ctx: TileCtx) -> Optional[bytes]:
         """One request on the host: resolve, read, encode. Bytes, or None
-        (-> 404) on any failure, as the JAX package's ``handle``. A render
+        (-> 404) on any failure, as the JAX package's ``handle`` (an
+        ``InternalError``, -> 500, when the device IDCT failed). A render
         or histogram lane takes the batched machinery, as there."""
         if ctx.render is not None or ctx.analysis is not None:
             return self.handle_batch([ctx])[0]
@@ -349,6 +390,9 @@ class TilePipeline:
                 return None
             tile = rt.buffer.get_tile_at(rt.level, ctx.z, ctx.c, ctx.t, rt.x, rt.y, rt.w, rt.h)
             return self.encode(ctx, tile)
+        except DeviceIdctError:
+            log.exception("device IDCT failed; lane -> 500")
+            return InternalError("device IDCT failed")
         except Exception:
             log.exception("Exception while retrieving tile")
             return None
@@ -383,6 +427,16 @@ class TilePipeline:
         ``InternalError`` (-> 500: its encode group or device histogram
         failed) or, with ``defer=True``, a ``DeferredTile`` for lanes whose
         encode group is still in flight."""
+        t0 = time.perf_counter()
+        try:
+            return self._handle_batch(ctxs, defer)
+        finally:
+            ms = (time.perf_counter() - t0) * 1e3
+            with self._stats_lock:
+                self._stats["batches"] += 1
+                self._stats_ms["batch"] += ms
+
+    def _handle_batch(self, ctxs, defer):
         n = len(ctxs)
         results: List[Optional[object]] = [None] * n
         resolved: List[Optional[ResolvedTile]] = [None] * n
@@ -416,37 +470,42 @@ class TilePipeline:
                        resolved[i].x, resolved[i].y, resolved[i].w, resolved[i].h)
                       for i in lanes]
             try:
-                for i, tile in zip(lanes, buf.read_tiles(coords, level=level)):
+                for i, tile in zip(lanes, self._read(buf, coords, level)):
                     tiles[i] = tile
+            except DeviceIdctError:
+                _idct_failed(lanes, results)
             except Exception:
                 log.exception("batched read failed; lanes -> 404")
 
+        # PNG lanes: grey (h, w) or interleaved RGB (h, w, 3) tiles
         png_groups: Dict[tuple, List[int]] = {}
         host_lanes: List[int] = []
         for i, (ctx, tile) in enumerate(zip(ctxs, tiles)):
             if tile is None:
                 continue
             bucket = None
-            if ctx.format == "png" and tile.dtype in _PNG_DTYPES and tile.ndim == 2:
+            if ctx.format == "png" and _png_lane(tile):
                 bucket = self._bucket(tile.shape[1], tile.shape[0])
                 if bucket is None:
                     host_lanes.append(i)  # larger than every bucket
                     continue
             if bucket is not None:
-                png_groups.setdefault((bucket, tile.dtype.str), []).append(i)
+                samples = 1 if tile.ndim == 2 else 3
+                png_groups.setdefault((bucket, tile.dtype.str, samples), []).append(i)
             else:
                 results[i] = self.encode(ctx, tile)
         if host_lanes:
             self._host_png_lanes(host_lanes, tiles, ctxs, results)
 
         pending: List[Tuple[List[int], concurrent.futures.Future]] = []
-        for ((bh, bw), dtype_str), lanes in png_groups.items():
+        for ((bh, bw), dtype_str, samples), lanes in png_groups.items():
             if self.device_deflate:
                 pending.extend(self._submit_bucket_groups(
-                    lanes, tiles, bh, bw, np.dtype(dtype_str)))
+                    lanes, tiles, bh, bw, np.dtype(dtype_str), samples))
             else:
                 self._host_deflate(lambda: self._device_png_lanes(
-                    lanes, tiles, results, bh, bw, np.dtype(dtype_str)), lanes, results)
+                    lanes, tiles, results, bh, bw, np.dtype(dtype_str), samples),
+                    lanes, results)
         for key, lanes in plane_groups.items():
             (_, _, _, _, _, bh, bw, dtype_str) = key
             if self.device_deflate:
@@ -498,14 +557,16 @@ class TilePipeline:
         """Group PNG lanes by device-resident plane, staging planes on
         their admission touch (one touch per plane per batch). A lane
         whose bucket would overrun the plane edge stays on the bucket
-        route: the filter needs the region at the crop origin."""
+        route: the filter needs the region at the crop origin; so does
+        every lane of a multi-sample page (as in the JAX package)."""
         groups: Dict[tuple, List[int]] = {}
         handles: Dict[tuple, torch.Tensor] = {}
         planes: Dict[tuple, torch.Tensor] = {}
         attempted: set = set()
         for i, (ctx, rt) in enumerate(zip(ctxs, resolved)):
             if (rt is None or ctx.format != "png" or ctx.render is not None
-                    or rt.meta.dtype not in _PNG_DTYPES):
+                    or rt.meta.dtype not in _PNG_DTYPES
+                    or getattr(rt.buffer, "samples", 1) != 1):
                 continue  # a render lane's format is png too
             bucket = self._bucket(rt.w, rt.h)
             if bucket is None:
@@ -533,22 +594,21 @@ class TilePipeline:
             groups.setdefault(key, []).append(i)
         return groups, handles
 
-    def _submit_bucket_groups(self, lanes, tiles, bh, bw, dtype):
-        """Host-read lanes -> zero-padded (bh, bw) bit batches, one queue
-        submission per real (w, h)."""
-        itemsize = dtype.itemsize
+    def _submit_bucket_groups(self, lanes, tiles, bh, bw, dtype, samples=1):
+        """Host-read lanes -> zero-padded (bh, bw[, samples]) bit batches,
+        one queue submission per real (w, h)."""
         groups: Dict[Tuple[int, int], List[int]] = {}
         for i in lanes:
             t = tiles[i]
             groups.setdefault((t.shape[1], t.shape[0]), []).append(i)
         pending = []
+        if samples == 3:
+            self._count(rgb_device_lanes=len(lanes))
         for (w, h), idxs in groups.items():
-            batch = np.zeros((len(idxs), bh, bw), dtype=dtype)
-            for j, i in enumerate(idxs):
-                t = tiles[i]
-                batch[j, : t.shape[0], : t.shape[1]] = t
+            batch = _pad_batch([tiles[i] for i in idxs], bh, bw, dtype, samples)
             pending.append((idxs, self._submit(
-                bits_tensor(batch), h, w, itemsize, idxs, staged=False)))
+                bits_tensor(batch), h, w, dtype.itemsize, idxs, staged=False,
+                samples=samples)))
         return pending
 
     def _submit_plane_groups(self, plane, lanes, resolved, bh, bw, dtype):
@@ -571,12 +631,14 @@ class TilePipeline:
             pending.append((idxs, self._submit(batch, h, w, itemsize, idxs, staged=True)))
         return pending
 
-    def _submit(self, batch, h, w, itemsize, idxs, staged):
+    def _submit(self, batch, h, w, itemsize, idxs, staged, samples=1):
+        bpp = samples * itemsize
         try:
             return self.dispatcher.submit(
-                batch, h, 1 + w * itemsize, itemsize, PNG_FILTER,
+                batch, h, 1 + w * bpp, bpp, PNG_FILTER,
                 self.device_deflate_mode, idxs,
-                [(w, h)] * len(idxs), itemsize * 8, 0, staged=staged,
+                [(w, h)] * len(idxs), itemsize * 8, 0 if samples == 1 else 2,
+                staged=staged,
             )
         except Exception as e:
             return self.dispatcher.failed_group(e)
@@ -593,17 +655,18 @@ class TilePipeline:
             for i in lanes:
                 results[i] = InternalError("device filter group failed")
 
-    def _device_png_lanes(self, lanes, tiles, results, bh, bw, dtype) -> None:
+    def _device_png_lanes(self, lanes, tiles, results, bh, bw, dtype, samples=1) -> None:
         """Host-read lanes zero-padded into one bucket batch, copied to the
-        device and filtered by the filter kernel; only the filtered
+        device and filtered by the filter kernel (grey and RGB alike: the
+        filter unit is samples*itemsize bytes); only the filtered
         scanlines come back, for the host deflate tail."""
-        batch = np.zeros((len(lanes), bh, bw), dtype=dtype)
-        for j, i in enumerate(lanes):
-            t = tiles[i]
-            batch[j, : t.shape[0], : t.shape[1]] = t
+        if samples == 3:
+            self._count(rgb_device_lanes=len(lanes))
+        batch = _pad_batch([tiles[i] for i in lanes], bh, bw, dtype, samples)
         filtered = filter_tiles(bits_tensor(batch).to(self.device), PNG_FILTER)
         sizes = [(tiles[i].shape[1], tiles[i].shape[0]) for i in lanes]
-        self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
+        self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize,
+                               samples)
 
     def _device_plane_png_lanes(self, plane, lanes, resolved, results, bh, bw, dtype) -> None:
         """Crops of a resident plane filtered on the device; only the
@@ -613,27 +676,30 @@ class TilePipeline:
         sizes = [(resolved[i].w, resolved[i].h) for i in lanes]
         self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
 
-    def _finish_png_lanes(self, filtered, lanes, sizes, results, itemsize) -> None:
-        """Deflate + frame filtered scanlines (B, bh, 1 + bw*itemsize) on
-        the host: the native engine's ``png_assemble_batch``, or Python
-        zlib (``assemble_png``) without it and for a lane it failed. Each
-        lane keeps its real rows and row bytes (filters never look right
-        or down, so the padding cannot reach them)."""
+    def _finish_png_lanes(self, filtered, lanes, sizes, results, itemsize, samples=1) -> None:
+        """Deflate + frame filtered scanlines (B, bh, 1 + bw*bpp) on the
+        host: the native engine's ``png_assemble_batch``, or Python zlib
+        (``assemble_png``) without it and for a lane it failed. Each lane
+        keeps its real rows and row bytes (filters never look right or
+        down, so the padding cannot reach them); RGB lanes are colour
+        type 2."""
         self.host_deflate_lanes += len(lanes)
         bit_depth = itemsize * 8
-        payloads = [filtered[j, :h, : 1 + w * itemsize].tobytes()
+        color_type = 0 if samples == 1 else 2
+        bpp = samples * itemsize
+        payloads = [filtered[j, :h, : 1 + w * bpp].tobytes()
                     for j, (w, h) in enumerate(sizes)]
         engine = get_engine()
         pngs = [None] * len(lanes)
         if engine is not None:
             pngs = engine.png_assemble_batch(
                 payloads, [w for w, _ in sizes], [h for _, h in sizes],
-                [bit_depth] * len(lanes), [0] * len(lanes),
+                [bit_depth] * len(lanes), [color_type] * len(lanes),
                 level=PNG_LEVEL, strategy=PNG_STRATEGY)
         for j, (i, png) in enumerate(zip(lanes, pngs)):
             w, h = sizes[j]
             results[i] = png if png is not None else assemble_png(
-                payloads[j], w, h, bit_depth, 0, PNG_LEVEL, PNG_STRATEGY)
+                payloads[j], w, h, bit_depth, color_type, PNG_LEVEL, PNG_STRATEGY)
 
     # -- render lanes ------------------------------------------------------
 
@@ -676,8 +742,8 @@ class TilePipeline:
             except Exception:
                 log.debug("unrenderable spec for image %d", ctx.image_id, exc_info=True)
                 continue
-            if not rengine.renderable_dtype(rt.meta.dtype):
-                continue  # the port's readers open 8/16-bit integer pixels only
+            if not _render_dtype_ok(rt.meta.dtype, chans):
+                continue  # -> 404
             nplanes = len(chans) * len(zts)
             if (self.max_tile_bytes
                     and rt.w * rt.h * rt.meta.bytes_per_pixel * nplanes > self.max_tile_bytes):
@@ -700,10 +766,10 @@ class TilePipeline:
                 rt, spec = resolved[i], ctxs[i].render
                 slots = [None] * len(coords)
                 per_lane[i] = slots
-                use_cache = spec.projection is not None
+                use_cache = spec.projection is not None and _plane_cacheable(buf, rt.meta.dtype)
                 # a lane whose crops are all resident stays on the device:
-                # the fused route, unsigned pixels (no view needed), no
-                # mask raster, a bucket to land in
+                # the fused route, unsigned pixels (no view needed, no
+                # quantization), no mask raster, a bucket to land in
                 lane_dev[i] = (use_cache and use_fused
                                and spec.format == "png" and not spec.masks
                                and rt.meta.dtype.kind == "u"
@@ -718,7 +784,10 @@ class TilePipeline:
                         flat.append(coord)
                         owners.append((i, j))
             try:
-                planes = buf.read_tiles(flat, level=level) if flat else []
+                planes = self._read(buf, flat, level) if flat else []
+            except DeviceIdctError:
+                _idct_failed(lanes, results)
+                continue
             except Exception:
                 log.exception("render read failed for image %d; lanes -> 404", image_id)
                 continue
@@ -736,17 +805,18 @@ class TilePipeline:
                             with self.dispatcher.stream_context():
                                 stack = project_torch(torch.stack(lane_planes).reshape(
                                     len(chans), len(zts), rt.h, rt.w), spec.projection)
-                            stacks[i] = RenderLane(stack, rt.meta.dtype, device=True)
+                            stacks[i] = RenderLane(stack, spec, rt.meta.dtype, device=True)
                             continue
                         # a mixed cold pan: the resident slots come back once
                         lane_planes = [self._pull_crop(p, rt.meta.dtype) for p in lane_planes]
                     stack = np.stack(lane_planes).reshape(len(chans), len(zts), rt.h, rt.w)
-                    stack = self._stage_stack(stack, spec, device_project=use_fused)
+                    stack, tspec, tdtype = self._stage_stack(stack, spec, chans, rt.meta.dtype,
+                                                             device_project=use_fused)
                     mask = None
                     if spec.masks:
                         mask = self._mask_cache.get(rt.meta.image_id, spec.masks,
                                                     (rt.x, rt.y, rt.w, rt.h))
-                    stacks[i] = RenderLane(stack, rt.meta.dtype, mask)
+                    stacks[i] = RenderLane(stack, tspec, tdtype, mask)
                 except Exception:
                     log.exception("render staging failed for lane %d", i)
 
@@ -762,8 +832,7 @@ class TilePipeline:
         for (_, dtype_str, (w, h), (bw, bh), has_mask, is_dev), lanes in groups.items():
             lane0 = stacks[lanes[0]]
             try:
-                tables, luts = self._render_tables_for(ctxs[lanes[0]].render,
-                                                       np.dtype(dtype_str))
+                tables, luts = self._render_tables_for(lane0.spec, np.dtype(dtype_str))
                 if is_dev:
                     with self.dispatcher.stream_context():
                         real = torch.stack([stacks[i].stack for i in lanes])
@@ -814,7 +883,7 @@ class TilePipeline:
             zts = spec.plane_range(ctx0.z, ctx0.t, rt0.meta.size_z, rt0.meta.size_t)
         except Exception:
             return self._st_decline(live)  # the independent path answers 404
-        if not rengine.renderable_dtype(dtype):
+        if not _render_dtype_ok(dtype, chans):
             return self._st_decline(live)
         rects = [(resolved[i].x, resolved[i].y, resolved[i].w, resolved[i].h) for i in live]
         bx, by, bw_, bh_ = stile.bounding_rect(rects)
@@ -826,8 +895,9 @@ class TilePipeline:
         coords = [(z, ch.index, t, bx, by, bw_, bh_) for ch in chans for (z, t) in zts]
         slots: List[Optional[np.ndarray]] = [None] * len(coords)
         missing, owners = [], []
+        use_cache = _plane_cacheable(buf, dtype)
         for j, coord in enumerate(coords):
-            arr = self._plane_cache_region(buf, rt0.level, coord, dtype)
+            arr = self._plane_cache_region(buf, rt0.level, coord, dtype) if use_cache else None
             if arr is not None:
                 slots[j] = arr
             else:
@@ -835,10 +905,14 @@ class TilePipeline:
                 owners.append(j)
         self._count(st_host_pulls=len(coords) - len(missing))
         try:
-            for j, arr in zip(owners, buf.read_tiles(missing, level=rt0.level) if missing else []):
+            for j, arr in zip(owners, self._read(buf, missing, rt0.level) if missing else []):
                 slots[j] = arr
             raw = np.stack(slots).reshape(len(chans), len(zts), bh_, bw_)
-            stack = self._stage_stack(raw, spec, device_project=use_fused)
+            stack, tspec, tdtype = self._stage_stack(raw, spec, chans, dtype,
+                                                     device_project=use_fused)
+        except DeviceIdctError:
+            _idct_failed(live, results)
+            return set(live)
         except Exception:
             log.exception("super-tile gather failed; lanes serve independently")
             return self._st_decline(live)
@@ -846,14 +920,15 @@ class TilePipeline:
         bucket = (self._bucket(max(r[2] for r in rects), max(r[3] for r in rects))
                   if use_fused and spec.format == "png" else None)
         if bucket is None:
-            return self._supertile_host(live, rel, resolved, ctxs, results, stack, spec, dtype)
+            return self._supertile_host(live, rel, resolved, results, stack, spec, tspec,
+                                        tdtype)
         bw_b, bh_b = bucket
         size_groups: Dict[Tuple[int, int], List[int]] = {}
         for j, i in enumerate(live):
             size_groups.setdefault((resolved[i].w, resolved[i].h), []).append(j)
         self._count(st_groups=1, st_device_lanes=len(live))
         try:
-            tables, luts = self._render_tables_for(spec, dtype)
+            tables, luts = self._render_tables_for(tspec, tdtype)
             packed = rengine.packed_rgb_tables(tables, luts)
             with self.dispatcher.stream_context():
                 planes = bits_tensor(stack).to(self.device, non_blocking=True)
@@ -919,13 +994,14 @@ class TilePipeline:
             self._drain_st_events()
             self._st_events.append((start, end, nbytes))
 
-    def _supertile_host(self, live, rel, resolved, ctxs, results, stack, spec, dtype) -> set:
+    def _supertile_host(self, live, rel, resolved, results, stack, spec, tspec, tdtype) -> set:
         """The host route of a super-tile (JPEG, ``device_deflate=False``,
-        lanes larger than every bucket): one numpy composite, a carve and
-        an encode per lane, as in the JAX package. Counted in
-        ``render.host_lanes`` and ``supertile.host_lanes``."""
+        lanes larger than every bucket): one numpy composite (tables of
+        ``tspec``/``tdtype``), a carve and an encode per lane, as in the
+        JAX package. Counted in ``render.host_lanes`` and
+        ``supertile.host_lanes``."""
         try:
-            tables, luts = self._render_tables_for(spec, dtype)
+            tables, luts = self._render_tables_for(tspec, tdtype)
             rgb = rengine.render_host(stack, tables, luts)
         except Exception:
             log.exception("super-tile host composite failed; lanes serve independently")
@@ -955,7 +1031,7 @@ class TilePipeline:
             stack = lane.stack
             if isinstance(stack, torch.Tensor):
                 stack = self._pull_crop(stack, lane.dtype)
-            tables, luts = self._render_tables_for(spec, lane.dtype)
+            tables, luts = self._render_tables_for(lane.spec, lane.dtype)
             if spec.format == "png":
                 results[i] = rengine.render_png_host(stack, tables, luts, PNG_FILTER, lane.mask)
             else:
@@ -965,12 +1041,23 @@ class TilePipeline:
             log.exception("host render failed for lane %d", i)
             results[i] = None
 
-    def _stage_stack(self, stack, spec, device_project):
-        """The pointwise tail of render staging (the JAX package's
-        ``_stage_stack``, without the float/int32 quantization the port's
-        readers do not need yet): project in integer arithmetic (on the
-        device when ``device_project``), view signed pixels as their
-        unsigned index. (C, Z, H, W) -> (C, H, W) unsigned."""
+    def _stage_stack(self, stack, spec, chans, dtype, device_project):
+        """The shared pointwise tail of render staging (the JAX package's
+        ``_stage_stack``), one implementation for the per-lane and the
+        super-tile paths (their byte identity depends on it): quantize
+        float/32-bit channels onto the 16-bit bin space (host float64;
+        the tables then come from the spec without windows over uint16),
+        project in integer arithmetic (on the device when
+        ``device_project``), view signed pixels as their unsigned index.
+        (C, Z, H, W) -> ((C, H, W) unsigned, table spec, table dtype)."""
+        tspec, tdtype = spec, dtype
+        if not rengine.renderable_dtype(dtype):
+            q = np.empty(stack.shape, dtype=np.uint16)
+            for ci, ch in enumerate(chans):
+                win = ch.window if ch.window is not None else rengine.default_window(dtype)
+                q[ci] = rengine.quantize_to_u16(stack[ci], win)
+            stack = q
+            tspec, tdtype = spec.without_windows(), np.dtype(np.uint16)
         if spec.projection is None or stack.shape[1] == 1:
             stack = stack[:, 0]
         elif device_project:
@@ -979,7 +1066,7 @@ class TilePipeline:
             stack = out.cpu().numpy().view(stack.dtype)
         else:
             stack = project_np(stack, spec.projection)
-        return rengine.unsigned_view(np.ascontiguousarray(stack))
+        return rengine.unsigned_view(np.ascontiguousarray(stack)), tspec, tdtype
 
     def _plane_cache_region(self, buf, level, coord, dtype, device=False):
         """One (z, c, t) region cropped from its plane in the plane cache
@@ -1061,7 +1148,10 @@ class TilePipeline:
         for (image_id, level), lanes in by_image.items():
             buf = resolved[lanes[0]].buffer
             try:
-                planes = buf.read_tiles([c for i in lanes for c in plans[i][1]], level=level)
+                planes = self._read(buf, [c for i in lanes for c in plans[i][1]], level)
+            except DeviceIdctError:
+                _idct_failed(lanes, results)
+                continue
             except Exception:
                 log.exception("histogram read failed for image %d; lanes -> 404", image_id)
                 continue
@@ -1079,9 +1169,7 @@ class TilePipeline:
                         if rengine.renderable_dtype(rt.meta.dtype):
                             tab = self._hist_table_for(rt.meta.dtype, window, spec.bins)
                             idx_plane = rengine.unsigned_view(np.ascontiguousarray(plane))
-                        else:
-                            # float/int32 pixels: not reached until the
-                            # port's readers open them (8/16-bit only today)
+                        else:  # float/32-bit pixels: the 16-bit bin space
                             idx_plane = rengine.quantize_to_u16(plane, window)
                             tab = self._quant_hist_table_for(spec.bins)
                         entry.append((ch, window, idx_plane, tab))
@@ -1145,6 +1233,46 @@ class TilePipeline:
                     spec, ch_results)
             except Exception:
                 log.exception("histogram assembly failed for lane %d", i)
+
+
+def _idct_failed(lanes, results) -> None:
+    """The lanes of a read whose device IDCT failed answer 500."""
+    log.exception("device IDCT failed; lanes -> 500")
+    for i in lanes:
+        results[i] = InternalError("device IDCT failed")
+
+
+def _png_lane(tile: np.ndarray) -> bool:
+    """A tile the PNG lanes take: 8/16-bit, grey (h, w) or RGB (h, w, 3)."""
+    return tile.dtype in _PNG_DTYPES and (
+        tile.ndim == 2 or (tile.ndim == 3 and tile.shape[2] == 3))
+
+
+def _pad_batch(tiles, bh, bw, dtype, samples) -> np.ndarray:
+    """Tiles zero-padded right and bottom into one (B, bh, bw[, samples])
+    batch."""
+    shape = (len(tiles), bh, bw) + ((samples,) if samples > 1 else ())
+    batch = np.zeros(shape, dtype=dtype)
+    for j, t in enumerate(tiles):
+        batch[j, : t.shape[0], : t.shape[1]] = t
+    return batch
+
+
+def _render_dtype_ok(dtype, chans) -> bool:
+    """Whether channels of ``dtype`` render: 8/16-bit integers, or
+    float/32-bit ones quantized, a float only with every window explicit
+    (float pixels have no bounded type range to default to)."""
+    if rengine.renderable_dtype(dtype):
+        return True
+    if not rengine.quantizable_dtype(dtype):
+        return False
+    return dtype.kind != "f" or all(ch.window is not None for ch in chans)
+
+
+def _plane_cacheable(buf, dtype) -> bool:
+    """Whether render reads of ``buf`` may crop from the plane cache: one
+    sample per pixel, and 8/16-bit pixels (the cache holds their bits)."""
+    return getattr(buf, "samples", 1) == 1 and np.dtype(dtype).itemsize <= 2
 
 
 def _memo(store: dict, key, build):

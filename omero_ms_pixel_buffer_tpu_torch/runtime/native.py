@@ -1,7 +1,8 @@
-"""ctypes loader for the native C++ host encoder (counterpart of
-``omero_ms_pixel_buffer_tpu/runtime/native.py``, bound only as far as the
-port's host PNG routes need it: the fused encode of whole tiles, and the
-deflate and framing of scanlines the device filtered).
+"""ctypes loader for the native C++ host engine (counterpart of
+``omero_ms_pixel_buffer_tpu/runtime/native.py``, bound as far as the
+port's host routes need it: the fused PNG encode of whole tiles, the
+deflate and framing of scanlines the device filtered, the batched TIFF
+block decode (zlib, LZW, PackBits) and the JPEG entropy-scan walker).
 
 The library is ``native/build/libompb_native.so`` at the root of the
 checkout, built on first use with ``make -C native`` (g++ and zlib) and
@@ -57,8 +58,9 @@ def _build_library() -> bool:
 
 
 class NativeEngine:
-    """The C API's fused PNG encode and PNG assembly, its version and its
-    pool size. Thread-safe (the C side has its own pool)."""
+    """The C API's fused PNG encode and PNG assembly, batched block decode
+    and JPEG scan walker, its version and its pool size. Thread-safe (the
+    C side has its own pool)."""
 
     def __init__(self, lib: ctypes.CDLL):
         self._lib = lib
@@ -71,7 +73,99 @@ class NativeEngine:
         self._has_fused_encode = self.version >= 2 and hasattr(lib, "ompb_png_encode_batch")
         if self._has_fused_encode:
             lib.ompb_png_encode_batch.restype = ctypes.c_int
+        # ABI v3 added the per-block codec dispatch (zlib/LZW/PackBits)
+        self.has_decode_batch = self.version >= 3 and hasattr(lib, "ompb_decode_batch")
+        if self.has_decode_batch:
+            lib.ompb_decode_batch.restype = ctypes.c_int
+        # ABI v4 added the JPEG entropy-scan walker
+        self.has_jpeg_scan = self.version >= 4 and hasattr(lib, "ompb_jpeg_scan")
+        if self.has_jpeg_scan:
+            lib.ompb_jpeg_scan.restype = ctypes.c_int
         self.pool_size = lib.ompb_pool_size()
+
+    @staticmethod
+    def _in_arrays(buffers: Sequence[bytes]):
+        """Pointer and length arrays over immutable bytes objects (no
+        copy); ``keep`` pins the objects and their views for the call."""
+        n = len(buffers)
+        ins = (_U8P * n)()
+        lens = (ctypes.c_size_t * n)()
+        keep = []
+        for i, b in enumerate(buffers):
+            view = ctypes.c_char_p(b)
+            keep.append((b, view))
+            ins[i] = ctypes.cast(view, _U8P)
+            lens[i] = len(b)
+        return ins, lens, keep
+
+    def decode_batch(
+        self, buffers: Sequence[bytes], out_sizes: Sequence[int], codecs: Sequence[int],
+    ) -> List[Optional[np.ndarray]]:
+        """Decode N TIFF blocks with per-block codec dispatch (8 = zlib,
+        5 = LZW, 32773 = PackBits) into fresh uint8 arrays of the given
+        capacities, in one GIL-released call on the native pool; None per
+        failed block. Needs ABI v3 (``has_decode_batch``): the reader
+        decodes in Python without it."""
+        if not self.has_decode_batch:
+            raise RuntimeError(f"native library ABI v{self.version} has no ompb_decode_batch")
+        n = len(buffers)
+        if n == 0:
+            return []
+        ins, lens, _keep = self._in_arrays(buffers)
+        outs = (_U8P * n)()
+        out_lens = (ctypes.c_size_t * n)()
+        codec_arr = (ctypes.c_int * n)(*[int(c) for c in codecs])
+        arrays = []
+        for i, size in enumerate(out_sizes):
+            arr = np.empty(int(size), dtype=np.uint8)
+            arrays.append(arr)
+            outs[i] = arr.ctypes.data_as(_U8P)
+            out_lens[i] = int(size)
+        rc = self._lib.ompb_decode_batch(ctypes.c_int(n), ins, lens, codec_arr, outs, out_lens)
+        return [None if rc and out_lens[i] == 0 else arr[: out_lens[i]]
+                for i, arr in enumerate(arrays)]
+
+    def jpeg_scan(
+        self, scan: bytes, seg_offsets: Sequence[int], seg_mcu_ranges: Sequence[tuple],
+        mcux: int, comp_h: Sequence[int], comp_v: Sequence[int], comp_bw: Sequence[int],
+        dc_luts: Sequence[tuple], ac_luts: Sequence[tuple], out_blocks: Sequence[np.ndarray],
+    ) -> int:
+        """Baseline JPEG entropy scan (``io/jpeg``'s byte-serial half) over
+        destuffed restart segments; fills the caller's zeroed int32
+        (nblocks, 64) coefficient arrays in natural order. LUTs are the
+        16-bit-peek (sym, nbits) pairs ``io/jpeg`` builds. Returns the C
+        error code (0 = ok; -100 without the ABI v4 symbol); the GIL is
+        released for the walk."""
+        if not self.has_jpeg_scan:
+            return -100
+        ncomp = len(comp_h)
+        n_segs = len(seg_offsets)
+        offs = (ctypes.c_int64 * n_segs)(*seg_offsets)
+        m0 = (ctypes.c_int32 * n_segs)(*[a for a, _ in seg_mcu_ranges])
+        m1 = (ctypes.c_int32 * n_segs)(*[b for _, b in seg_mcu_ranges])
+        ch = (ctypes.c_int32 * ncomp)(*comp_h)
+        cv = (ctypes.c_int32 * ncomp)(*comp_v)
+        cbw = (ctypes.c_int32 * ncomp)(*comp_bw)
+
+        def lut_ptrs(luts, idx):
+            arr = (_U8P * ncomp)()
+            for i, pair in enumerate(luts):
+                arr[i] = pair[idx].ctypes.data_as(_U8P)
+            return arr
+
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        outs = (i32p * ncomp)()
+        for i, blocks in enumerate(out_blocks):
+            if blocks.dtype != np.int32 or not blocks.flags["C_CONTIGUOUS"]:
+                # wrong strides would let C write past the array
+                raise ValueError("jpeg_scan out_blocks must be C-contiguous int32")
+            outs[i] = blocks.ctypes.data_as(i32p)
+        return self._lib.ompb_jpeg_scan(
+            scan, ctypes.c_size_t(len(scan)), offs, ctypes.c_int(n_segs), m0, m1,
+            ctypes.c_int(mcux), ctypes.c_int(ncomp), ch, cv, cbw,
+            lut_ptrs(dc_luts, 0), lut_ptrs(dc_luts, 1),
+            lut_ptrs(ac_luts, 0), lut_ptrs(ac_luts, 1), outs,
+        )
 
     def png_assemble_batch(
         self, filtered: Sequence[bytes], widths: Sequence[int], heights: Sequence[int],
@@ -84,14 +178,7 @@ class NativeEngine:
         n = len(filtered)
         if n == 0:
             return []
-        ins = (_U8P * n)()
-        lens = (ctypes.c_size_t * n)()
-        keep = []  # the bytes objects the pointers point into
-        for i, b in enumerate(filtered):
-            view = ctypes.c_char_p(b)
-            keep.append((b, view))
-            ins[i] = ctypes.cast(view, _U8P)
-            lens[i] = len(b)
+        ins, lens, _keep = self._in_arrays(filtered)
         outs = (_U8P * n)()
         out_lens = (ctypes.c_size_t * n)()
         args = [
