@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
         [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
         [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
-        [--wsi-size 16384] [--wsi-requests 512] [--filter-sweep] \
+        [--wsi-size 16384] [--wsi-requests 512] [--zarr-size 8192] \
+        [--zarr-requests 256] [--zarr-s3-requests 128] [--filter-sweep] \
         [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -23,7 +24,15 @@ Phases, one JSON line each on stdout:
    PackBits, zstd (written with raw zstd blocks where the ``zstandard``
    package is missing), zlib with predictor 2, one strip per plane, a
    little-endian BigTIFF, a float32 C = 3 image (1024² each) and a ROMIO
-   plane file of C = 2.
+   plane file of C = 2. ``fixture_zarr``: image 4, NGFF 0.4 (Zarr v2), a
+   ``--zarr-size``² uint16 plane (smooth field plus noise, from
+   ``--seed``) in 1024² chunks, blosc lz4 clevel 5 with byte shuffle,
+   levels down to 1024 (bioformats2raw's defaults), one level-0 chunk
+   object deleted afterwards; image 5, NGFF 0.5 (Zarr v3), (1, 3, 1, 4096,
+   4096) uint16 in 2048² shards of 512² inner chunks, inner blosc lz4 with
+   shuffle and crc32c indexes, 3 levels. Both are written by the port's
+   ``write_ngff`` with their blosc frames compressed in a process pool
+   (one frame checked against the codec); the write times are printed.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main path's shapes (32 lanes of 512x512 uint16): the filter in
    all five modes plus uint8, RGB uint8 and RGB16 (bpp 6, 256x256
@@ -140,6 +149,31 @@ Phases, one JSON line each on stdout:
    of the float image against the port's quantization and tables in
    numpy; a float render without windows and a float PNG tile answer 404;
    the zstd image answers 404 without ``zstandard``.
+17. ``path_zarr`` — image 4 from the filesystem on a server with the
+   defaults (``dynamic``, packer ``pallas``): 32 warm-up tiles one at a
+   time, each in its own chunk (a lone request that decodes it),
+   ``--zarr-requests`` timed 512x512 PNG tiles at concurrency 32 at
+   distinct seeded random positions of the level-0 512 grid (the plane is
+   staged in this window), the four tiles of the deleted chunk (0, the fill value), then
+   64 tiles of level 1; every PNG against
+   the source, the filter and SP-packer launch counts must rise and no
+   encode group fail. Reports tiles/s, p50/p99, ``timed_window``,
+   ``reads`` (plane-cache staging reads included) and the ``/healthz``
+   ``io`` view over the window (store requests per tile, coalescing,
+   bytes, chunk decodes, the pool).
+18. ``path_zarr_s3`` — image 5 served from an S3 stub in this process on
+   127.0.0.1 (path-style, SigV4 checked with the port's signer, ranged
+   GETs answered 206): 32 warm-up tiles of channels 0 and 1 one at a
+   time, each in its own inner chunk, ``--zarr-s3-requests`` timed
+   ``/tile`` PNG tiles of channels 0 and 1 at distinct positions at
+   concurrency 32, 32 three-channel ``/render`` PNG
+   tiles and 8 ``/histogram`` requests, each against the source (numpy
+   composite, ``np.bincount``). Then the stub stops: 8 sequential level-1
+   tiles answer 404 while the store's retries fail and 503 with
+   ``Retry-After`` once its breaker opens (the fifth failure), as the JAX
+   package answers; the stub restarts, the breaker's 30 s open period is
+   waited out, and the same tiles are served and checked. The same
+   figures as ``path_zarr``.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -160,7 +194,8 @@ per call, call time and kernels by name on the real pass-2 tokens
 (``bitpack_time``), ``--dense-time`` the dense packer's on the real ``rle``
 tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
-``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``). Any failure exits
+``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``); the
+Zarr phases add no kernel row, their launches are on their phase lines. Any failure exits
 non-zero before the last line; without CUDA, or without the port package
 beside this file, it exits non-zero at once.
 """
@@ -208,7 +243,14 @@ FILTER_EDGES = {
 COOKIE = {"Cookie": "sessionid=chip-smoke"}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries ``at_s``, the seconds
+    since the script started (the run's time budget, phase by phase)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1225,7 +1267,9 @@ class RenderReference:
         tables, luts = self.tables[key]
         chans = [ch.index for ch in spec.resolve_channels(self.stack.shape[0])]
         zs = [z for z, _ in spec.plane_range(0, 0, self.stack.shape[1], 1)]
-        region = self.stack[chans][:, zs, y:y + h, x:x + w]
+        # crop before the fancy index: indexing channels first copies the
+        # whole stack (400 MB at 4096^2 x 12 planes) on every tile
+        region = self.stack[:, :, y:y + h, x:x + w][chans][:, zs]
         if spec.projection == "intmax":
             planes = region.max(axis=1)
         elif spec.projection == "intmean":
@@ -1241,7 +1285,7 @@ class RenderReference:
         return rgb.astype(np.uint8)
 
 
-def render_requests(rng, size: int, n: int, extra: str = ""):
+def render_requests(rng, size: int, n: int, extra: str = "", image: int = 2):
     from urllib.parse import parse_qsl
 
     reqs = []
@@ -1249,7 +1293,7 @@ def render_requests(rng, size: int, n: int, extra: str = ""):
         x = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
         y = int(rng.integers(0, (size - TILE) // 64 + 1)) * 64
         query = f"c={RENDER_C}{extra}"
-        reqs.append((f"/render/2/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&{query}&format=png",
+        reqs.append((f"/render/{image}/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&{query}&format=png",
                      (x, y, TILE, TILE), 200, dict(parse_qsl(query))))
     return reqs
 
@@ -2011,9 +2055,10 @@ def _host_ms(fn, iters: int = 5) -> float:
 
 
 def reads_delta(before: dict, after: dict, seconds: float) -> dict:
-    """The batched host reads between two ``/healthz`` views: the read
-    stage's milliseconds, their share of the ``handle_batch`` time they
-    sit in, and thread-seconds of reading per wall second."""
+    """The host reads between two ``/healthz`` views: the read stage's
+    milliseconds (plane-cache staging reads included, and counted apart),
+    their share of the ``handle_batch`` time they sit in, and
+    thread-seconds of reading per wall second."""
     b, a = before["reads"], after["reads"]
     read_ms = a["ms_total"] - b["ms_total"]
     batch_ms = a["batch_ms_total"] - b["batch_ms_total"]
@@ -2022,6 +2067,8 @@ def reads_delta(before: dict, after: dict, seconds: float) -> dict:
             "read_ms_per_lane": read_ms / lanes if lanes else None,
             "batch_ms": batch_ms, "read_share_of_batch": read_ms / batch_ms if batch_ms else None,
             "read_busy_share": read_ms / 1e3 / seconds,
+            "stage_reads": a["stage_reads"] - b["stage_reads"],
+            "stage_read_ms": a["stage_ms_total"] - b["stage_ms_total"],
             "rgb_device_lanes": a["rgb_device_lanes"] - b["rgb_device_lanes"]}
 
 
@@ -2220,6 +2267,471 @@ def drive_layouts(registry: str, layouts: dict, real_zstd: bool, device: str = "
             "analysis": health["analysis"], "reads": health["reads"]}
 
 
+# ---------------------------------------------------------------------------
+# OME-NGFF / Zarr sources: images 4 (filesystem) and 5 (an S3 stub)
+# ---------------------------------------------------------------------------
+
+ZARR_CHUNK = 1024  # image 4: bioformats2raw's default tile size
+ZARR5_SIZE, ZARR5_SHARD, ZARR5_INNER, ZARR5_LEVELS = 4096, 2048, 512, 3
+ZARR_ABSENT = (3, 5)  # image 4's level-0 chunk (row, column) deleted after writing
+ZARR_OUTAGE = 8  # sequential requests while the S3 stub is stopped
+S3_BUCKET, S3_ACCESS, S3_SECRET = "smoke-bucket", "AKIASMOKE", "smoke/secret"
+
+
+def zarr_levels(size: int) -> int:
+    """Image 4's levels: 2x downsamples while a level keeps a whole chunk."""
+    n = 1
+    while size // 2 >= ZARR_CHUNK:
+        size //= 2
+        n += 1
+    return n
+
+
+def _blosc_job(job):
+    """One blosc frame, compressed in a pool process by the port's codec."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.blosc import blosc_compress
+
+    raw, kwargs = job
+    return blosc_compress(raw, **kwargs)
+
+
+def write_ngff_pooled(root: str, data: np.ndarray, pool, **kw) -> int:
+    """The port's ``write_ngff`` with its blosc frames compressed in the
+    process ``pool`` (the pure-Python LZ4 takes about a second a 1024²
+    chunk on one core): a first pass records every frame the writer asks
+    for, the pool compresses them, a second pass writes the tree from the
+    results. One frame is held against the codec called here. Returns the
+    number of frames."""
+    import hashlib
+    import shutil
+
+    from omero_ms_pixel_buffer_tpu_torch.io import zarr as pzarr
+
+    codec = pzarr.blosc_compress
+    jobs = {}
+
+    def key(raw, kwargs):
+        return hashlib.sha256(raw).digest(), tuple(sorted(kwargs.items()))
+
+    def record(raw, **kwargs):
+        jobs.setdefault(key(raw, kwargs), (raw, kwargs))
+        return b""
+
+    pzarr.blosc_compress = record
+    try:
+        pzarr.write_ngff(root, data, **kw)
+        keys = list(jobs)
+        frames = dict(zip(keys, pool.map(_blosc_job, [jobs[k] for k in keys], chunksize=1)))
+        pzarr.blosc_compress = lambda raw, **kwargs: frames[key(raw, kwargs)]
+        shutil.rmtree(root)
+        pzarr.write_ngff(root, data, **kw)
+    finally:
+        pzarr.blosc_compress = codec
+    raw, kwargs = jobs[keys[0]]
+    require(codec(raw, **kwargs) == frames[keys[0]], "a pooled blosc frame differs from the codec's")
+    return len(keys)
+
+
+def make_zarr_images(size: int, seed: int):
+    """Image 4: one ``size``² uint16 plane (TCZYX (1, 1, 1, size, size)),
+    a smooth field plus noise; image 5: (1, 3, 1, 4096, 4096) uint16, three
+    smooth fields plus noise."""
+    return (make_field(size, seed + 4)[None, None, None],
+            make_stack(ZARR5_SIZE, seed + 5)[None, :, :1])
+
+
+def write_zarr_fixtures(img4: np.ndarray, img5: np.ndarray) -> dict:
+    """Image 4 as NGFF 0.4 (Zarr v2): 1024² chunks, blosc lz4 clevel 5 with
+    byte shuffle, levels down to 1024 (bioformats2raw's defaults), one
+    level-0 chunk object deleted afterwards (it reads as the fill value);
+    image 5 as NGFF 0.5 (Zarr v3): 2048² shards of 512² inner chunks, inner
+    blosc lz4 with shuffle, crc32c on chunks and shard indexes, 3 levels.
+    Both written by the port's ``write_ngff``, blosc frames compressed in a
+    process pool. Returns the registry path, roots, frame counts and times."""
+    import multiprocessing
+
+    os.makedirs(WORK, exist_ok=True)
+    root4, root5 = os.path.join(WORK, "zarr4.zarr"), os.path.join(WORK, "zarr5.zarr")
+    workers = len(os.sched_getaffinity(0))
+    spawn = multiprocessing.get_context("spawn")  # no fork of a process holding CUDA
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=spawn) as pool:
+        t0 = time.perf_counter()
+        frames4 = write_ngff_pooled(root4, img4, pool, chunks=(ZARR_CHUNK, ZARR_CHUNK),
+                                    levels=zarr_levels(img4.shape[-1]), compressor="blosc-lz4",
+                                    level_arg=5)
+        t4 = time.perf_counter() - t0
+        frames5 = write_ngff_pooled(root5, img5, pool, chunks=(ZARR5_INNER, ZARR5_INNER),
+                                    levels=ZARR5_LEVELS, compressor="blosc-lz4", level_arg=5,
+                                    zarr_format=3, shards=(ZARR5_SHARD, ZARR5_SHARD))
+        t5 = time.perf_counter() - t0 - t4
+    os.remove(os.path.join(root4, "0", "0.0.0.%d.%d" % ZARR_ABSENT))
+    registry = os.path.join(WORK, "registry_zarr.json")
+    with open(registry, "w") as f:
+        json.dump({"images": [
+            {"id": 4, "path": root4, "name": "ngff-0.4"},
+            {"id": 5, "path": f"s3://{S3_BUCKET}/zarr5.zarr", "type": "zarr",
+             "name": "ngff-0.5"}]}, f)
+
+    def tree_bytes(root):
+        return sum(os.path.getsize(os.path.join(d, n)) for d, _, fs in os.walk(root) for n in fs)
+
+    return {"registry": registry, "root4": root4, "root5": root5, "workers": workers,
+            "frames": [frames4, frames5], "write_s": [t4, t5],
+            "bytes": [tree_bytes(root4), tree_bytes(root5)]}
+
+
+class S3Stub:
+    """A path-style S3 endpoint on 127.0.0.1 over ``WORK``: it checks every
+    request's SigV4 signature (the port's signer with the stub's secret;
+    a Range header must be signed), answers ranged GETs with 206, and
+    counts requests. ``stop`` closes it and its keep-alive connections;
+    ``start`` opens it again on the same port."""
+
+    def __init__(self, root: str):
+        self.root, self.port, self.server = root, 0, None
+        self.conns: set = set()
+        self.requests = 0
+        self.lock = threading.Lock()
+
+    def _handler(self):
+        import datetime
+        import re
+        from http.server import BaseHTTPRequestHandler
+        from urllib.parse import unquote
+
+        from omero_ms_pixel_buffer_tpu_torch.io.stores import sigv4_headers
+
+        stub = self
+        auth_re = re.compile(r"AWS4-HMAC-SHA256 Credential=([^/]+)/\d+/([^/]+)/s3/aws4_request, "
+                             r"SignedHeaders=([^,]+), Signature=([0-9a-f]+)")
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def setup(self):
+                super().setup()
+                with stub.lock:
+                    stub.conns.add(self.connection)
+
+            def finish(self):
+                with stub.lock:
+                    stub.conns.discard(self.connection)
+                super().finish()
+
+            def _reply(self, code, body=b""):
+                self.send_response(code)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                with stub.lock:
+                    stub.requests += 1
+                m = auth_re.match(self.headers.get("Authorization", ""))
+                if m is None or m.group(1) != S3_ACCESS:
+                    return self._reply(403, b"AccessDenied")
+                _, region, signed, signature = m.groups()
+                rng = self.headers.get("Range")
+                if rng is not None and "range" not in signed.split(";"):
+                    return self._reply(403, b"unsigned Range")
+                now = datetime.datetime.strptime(
+                    self.headers.get("x-amz-date", ""), "%Y%m%dT%H%M%SZ"
+                ).replace(tzinfo=datetime.timezone.utc)
+                want = sigv4_headers("GET", self.headers["Host"], self.path.split("?")[0], region,
+                                     S3_ACCESS, S3_SECRET,
+                                     payload_sha256=self.headers.get("x-amz-content-sha256", ""),
+                                     now=now, extra_headers={"range": rng} if rng else None)
+                if want["authorization"].rsplit("Signature=", 1)[1] != signature:
+                    return self._reply(403, b"SignatureDoesNotMatch")
+                prefix = f"/{S3_BUCKET}/"
+                rel = unquote(self.path[len(prefix):]) if self.path.startswith(prefix) else ""
+                path = os.path.join(stub.root, rel)
+                if not rel or ".." in rel.split("/") or not os.path.isfile(path):
+                    return self._reply(404, b"NoSuchKey")
+                with open(path, "rb") as f:
+                    data = f.read()
+                if rng is None:
+                    return self._reply(200, data)
+                spec = rng.split("=", 1)[1]
+                if spec.startswith("-"):
+                    body = data[-int(spec[1:]):]
+                else:
+                    lo, _, hi = spec.partition("-")
+                    if int(lo) >= len(data):
+                        return self._reply(416)
+                    body = data[int(lo):int(hi) + 1 if hi else len(data)]
+                return self._reply(206, body)
+
+        return Handler
+
+    def start(self) -> str:
+        from http.server import ThreadingHTTPServer
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", self.port), self._handler())
+        self.port = self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever, name="s3-stub", daemon=True).start()
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        import socket
+
+        if self.server is None:
+            return
+        self.server.shutdown()
+        self.server.server_close()
+        self.server = None
+        with self.lock:
+            conns = list(self.conns)
+        for conn in conns:  # keep-alive connections would go on answering
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+def zarr_tile_requests(rng, image: int, size: int, n: int, level: int = 0,
+                       channels: int = 1):
+    """``n`` 512x512 PNG tiles of ``level`` (``size`` is that level's
+    width) at distinct seeded random cells (channel, row, column) of its
+    512 grid over ``channels``, cycling only when ``n`` exceeds the cells:
+    [(path, (level, c, x, y), status)]."""
+    grid = size // TILE
+    cells = rng.permutation(channels * grid * grid)
+    res = "" if level == 0 else f"&resolution={level}"
+    reqs = []
+    for k in range(n):
+        c, cell = divmod(int(cells[k % len(cells)]), grid * grid)
+        y, x = (v * TILE for v in divmod(cell, grid))
+        reqs.append((f"/tile/{image}/0/{c}/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png{res}",
+                     (level, c, x, y), 200))
+    return reqs
+
+
+def chunk_warm_requests(rng, image: int, size: int, chunk: int, n: int, skip=None,
+                        channels: int = 1):
+    """Level-0 512x512 PNG tiles, one in each of ``n`` chunks (``chunk``
+    wide; over ``channels``) drawn at random, ``skip`` (row, column) of
+    channel 0 left out. Sent one at a time, each is a lone request that
+    decodes its chunk well within the request budget; the timed window
+    then stages the planes' other chunks (a cold plane staged while its
+    batch also decodes lanes beside it, under one GIL, can outlast the
+    15 s budget: 504)."""
+    grid, per = size // chunk, chunk // TILE
+    cells = [(i // (grid * grid),) + divmod(i % (grid * grid), grid)
+             for i in (int(v) for v in rng.permutation(channels * grid * grid))]
+    reqs = []
+    for c, cy, cx in [cell for cell in cells if skip is None or cell != (0,) + skip][:n]:
+        dy, dx = (int(v) for v in rng.integers(0, per, 2))
+        x, y = cx * chunk + dx * TILE, cy * chunk + dy * TILE
+        reqs.append((f"/tile/{image}/0/{c}/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png",
+                     (0, c, x, y), 200))
+    return reqs
+
+
+def verify_zarr(results, reqs, source) -> int:
+    """Every PNG against ``source(level, c)``'s 512x512 region."""
+    checked = 0
+    for (status, body, _), (path, (level, c, x, y), want) in zip(results, reqs):
+        require(status == want, f"{path} answered {status}, expected {want}")
+        if status == 200:
+            require(np.array_equal(decode_png(body),
+                                   source(level, c)[y:y + TILE, x:x + TILE]),
+                    f"{path}: pixels differ from the source")
+            checked += 1
+    return checked
+
+
+def io_delta(before: dict, after: dict, n_requests: int) -> dict:
+    """The read plane (``/healthz`` ``io``) between two views: store
+    requests issued by the fetch planner (per tile the batched reads
+    planned, and per timed request), coalescing, bytes, chunk decodes,
+    and the connection pool after."""
+    b, a = before["io"], after["io"]
+    d = {k: a[k] - b[k] for k in ("planned", "issued", "ranged", "coalesced_saved",
+                                  "bytes_fetched", "bytes_discarded", "fallbacks", "batches",
+                                  "tiles", "decodes")}
+    d["requests_per_tile"] = d["issued"] / d["tiles"] if d["tiles"] else None
+    d["requests_per_request"] = d["issued"] / n_requests
+    d["coalesced_ratio"] = d["coalesced_saved"] / d["planned"] if d["planned"] else 0.0
+    d["pool"] = a["pool"]
+    return d
+
+
+def zarr_report(phase, n, out, secs, before, after, launches) -> dict:
+    """The figures both Zarr phases report over their timed requests."""
+    lat_ms = np.array([r[2] for r in out]) * 1e3
+    return {"phase": phase, "requests": n, "concurrency": LANES, "launches": launches,
+            "tiles_per_s": n / secs, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "timed_window": timed_window(before, after, secs),
+            "reads": reads_delta(before, after, secs), "io": io_delta(before, after, n),
+            "plane_cache": after["plane_cache"], "queue": after["queue"], "gpu": after["gpu"]}
+
+
+def drive_zarr(registry: str, img4: np.ndarray, seed: int, n_requests: int,
+               device: str = "cuda") -> dict:
+    """``path_zarr``: image 4 from the filesystem on a server with the
+    defaults (``dynamic``, packer ``pallas``): 32 warm-up tiles one at a
+    time, each in its own chunk (``chunk_warm_requests``), ``n_requests``
+    timed 512x512 PNG tiles at concurrency 32 at distinct seeded random
+    positions of the level-0 512 grid, the four tiles of the deleted chunk, then 64
+    tiles of level 1. Every PNG is held against the source array (the
+    deleted chunk's pixels against 0, the fill value)."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    plane = img4[0, 0, 0]
+    level0 = plane.copy()
+    ay, ax = ZARR_ABSENT
+    level0[ay * ZARR_CHUNK:(ay + 1) * ZARR_CHUNK, ax * ZARR_CHUNK:(ax + 1) * ZARR_CHUNK] = 0
+
+    def source(level, c):
+        return level0 if level == 0 else plane[::2 ** level, ::2 ** level]
+
+    size = plane.shape[0]
+    rng = np.random.default_rng(seed + 40)
+    warm = chunk_warm_requests(rng, 4, size, ZARR_CHUNK, LANES, skip=ZARR_ABSENT)
+    per = ZARR_CHUNK // TILE
+    absent = [(f"/tile/4/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png", (0, 0, x, y), 200)
+              for x, y in ((ax * ZARR_CHUNK + dx * TILE, ay * ZARR_CHUNK + dy * TILE)
+                           for dy in range(per) for dx in range(per))]
+    with ServerThread(registry, device=device) as client:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        warm_out = run_requests(client, warm, 1)[0]
+        warm_s = time.perf_counter() - t0
+        main = zarr_tile_requests(rng, 4, size, n_requests)
+        before = get_json(client, "/healthz")
+        main_out, secs = run_requests(client, main, LANES)
+        after = get_json(client, "/healthz")
+        absent_out = run_requests(client, absent, len(absent))[0]
+        lv1 = zarr_tile_requests(rng, 4, size // 2, 2 * LANES, level=1)
+        lv1_out = run_requests(client, lv1, LANES)[0]
+        launches = launch_counts()
+        health = get_json(client, "/healthz")
+    checked = (verify_zarr(warm_out, warm, source) + verify_zarr(main_out, main, source)
+               + verify_zarr(absent_out, absent, source) + verify_zarr(lv1_out, lv1, source))
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"path_zarr: the filter or the SP packer never launched: {launches}")
+    require(health["queue"]["failed"] == 0, f"path_zarr: encode groups failed: {health['queue']}")
+    out = zarr_report("path_zarr", n_requests, main_out, secs, before, after, launches)
+    out.update({"tiles_verified": checked, "absent_chunk_tiles": len(absent), "warmup_s": warm_s,
+                "level1_tiles": len(lv1), "io_total": health["io"]})
+    return out
+
+
+def drive_zarr_s3(registry: str, img5: np.ndarray, seed: int, n_requests: int,
+                  device: str = "cuda") -> dict:
+    """``path_zarr_s3``: image 5 from the S3 stub on a server with the
+    defaults: 32 warm-up tiles of channels 0 and 1 one at a time, each in
+    its own inner chunk (``chunk_warm_requests``), ``n_requests`` timed
+    512x512 PNG ``/tile`` tiles of channels 0 and 1 at concurrency 32 at
+    distinct positions, 32 three-channel
+    ``/render`` PNG tiles and 8 ``/histogram`` requests, each held against
+    the source (numpy composite, ``np.bincount``). Then the stub stops:
+    ``ZARR_OUTAGE`` sequential level-1 tiles must answer 404 while the
+    store's retries fail and 503 with ``Retry-After`` once its breaker
+    opens (its fifth failure), as the JAX package answers; the stub
+    restarts, the breaker's open period is waited out, and the same tiles
+    are served again."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    stack = img5[0]  # (3, 1, H, W)
+
+    def source(level, c):
+        return stack[c, 0, ::2 ** level, ::2 ** level]
+
+    stub = S3Stub(WORK)
+    env = {"OMPB_S3_ENDPOINT": stub.start(), "AWS_ACCESS_KEY_ID": S3_ACCESS,
+           "AWS_SECRET_ACCESS_KEY": S3_SECRET, "AWS_REGION": "us-east-1",
+           "AWS_SHARED_CREDENTIALS_FILE": os.path.join(WORK, "no-aws-credentials"),
+           "AWS_CONFIG_FILE": os.path.join(WORK, "no-aws-config")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    breaker = f"store:s3:{S3_BUCKET}"
+    size = stack.shape[-1]
+    rng = np.random.default_rng(seed + 50)
+    try:
+        with ServerThread(registry, device=device) as client:
+            reset_launch_counts()
+            warm = chunk_warm_requests(rng, 5, size, ZARR5_INNER, LANES, channels=2)
+            warm_out = run_requests(client, warm, 1)[0]
+            main = zarr_tile_requests(rng, 5, size, n_requests, channels=2)
+            before = get_json(client, "/healthz")
+            main_out, secs = run_requests(client, main, LANES)
+            after = get_json(client, "/healthz")
+            render = render_requests(rng, size, LANES, image=5)
+            render_out = run_requests(client, render, LANES)[0]
+            hist = []
+            for k in range(8):
+                x, y = (int(v) * TILE for v in rng.integers(0, size // TILE, 2))
+                bins = HIST_BINS[k % 2]
+                hist.append((f"/histogram/5/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&c=1,2,3"
+                             f"&bins={bins}&usePixelsTypeRange=1", (0, x, y, TILE, TILE, bins)))
+            hist_out = run_requests(client, hist, len(hist))[0]
+            launches = launch_counts()
+            served = get_json(client, "/healthz")
+            stub_requests = stub.requests
+            # the outage: uncached level-1 tiles, one at a time (each a
+            # batch of one, one inner chunk, one store failure)
+            stub.stop()
+            grid = size // 2 // TILE
+            cells = [((k // 3) % grid * TILE, (k // 3) // grid * TILE, k % 3)
+                     for k in range(ZARR_OUTAGE)]
+            outage = [(f"/tile/5/0/{c}/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png&resolution=1",
+                       (1, c, x, y), 200) for x, y, c in cells]
+            statuses = []
+            for path, _, _ in outage:
+                status, headers, _, _ = client.request("GET", path)
+                statuses.append((status, headers.get("Retry-After")))
+            down = get_json(client, "/healthz")
+            stub.start()
+            t0 = time.perf_counter()
+            while (get_json(client, "/healthz")["breakers"][breaker]["state"] == "open"
+                   and time.perf_counter() - t0 < 45):
+                time.sleep(0.5)
+            waited = time.perf_counter() - t0
+            recovered = [client.get(path) for path, _, _ in outage]
+            healed = get_json(client, "/healthz")
+    finally:
+        stub.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    checked = verify_zarr(warm_out, warm, source) + verify_zarr(main_out, main, source)
+    checked += verify_render(render_out, render, RenderReference(stack))
+    for (status, body, _), (path, spec) in zip(hist_out, hist):
+        require(status == 200, f"{path} answered {status}")
+        verify_histogram(body, stack, spec)
+        checked += 1
+    # the JAX sequence: a store error is a 404 until the breaker's fifth
+    # failure opens it; then 503 with Retry-After (whole seconds, <= 30)
+    require([s for s, _ in statuses] == [404] * 5 + [503] * (ZARR_OUTAGE - 5)
+            and all((r is None) == (s == 404) for s, r in statuses)
+            and all(1 <= int(r) <= 30 for s, r in statuses if s == 503),
+            f"path_zarr_s3: outage statuses {statuses}")
+    require(down["breakers"][breaker]["state"] == "open" and down["status"] == "degraded",
+            f"path_zarr_s3: breaker not open in the outage: {down['breakers']}")
+    checked += verify_zarr(recovered, outage, source)
+    require(healed["breakers"][breaker]["state"] == "closed",
+            f"path_zarr_s3: breaker did not heal: {healed['breakers'][breaker]}")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"path_zarr_s3: the filter or the SP packer never launched: {launches}")
+    require(served["queue"]["failed"] == 0, f"path_zarr_s3: encode groups failed")
+    out = zarr_report("path_zarr_s3", n_requests, main_out, secs, before, after, launches)
+    out.update({"tiles_verified": checked, "render_tiles": len(render),
+                "histograms": len(hist), "stub_requests": stub_requests,
+                "outage_statuses": statuses, "breaker_wait_s": waited,
+                "breaker_after": healed["breakers"][breaker], "retries": healed["retries"],
+                "io_total": healed["io"]})
+    return out
+
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -2251,6 +2763,12 @@ def main(argv=None) -> int:
                    help="width and height of the RGB JPEG pyramid (image 3)")
     p.add_argument("--wsi-requests", type=int, default=512,
                    help="timed tiles of path_wsi (path_wsi_device_idct takes a quarter)")
+    p.add_argument("--zarr-size", type=int, default=8192,
+                   help="width and height of the NGFF 0.4 image (image 4)")
+    p.add_argument("--zarr-requests", type=int, default=256,
+                   help="timed level-0 tiles of path_zarr")
+    p.add_argument("--zarr-s3-requests", type=int, default=128,
+                   help="timed tiles of path_zarr_s3")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -2311,6 +2829,21 @@ def main(argv=None) -> int:
               "file_bytes": os.path.getsize(wsi_path), "zstandard": real_zstd,
               "layouts": {rid: name for rid, (name, _) in LAYOUTS.items()},
               "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        img4, img5 = make_zarr_images(args.zarr_size, args.seed)
+        zarr_fx = write_zarr_fixtures(img4, img5)
+        emit({"phase": "fixture_zarr",
+              "image4": {"ngff": "0.4", "zarr_format": 2, "shape": list(img4.shape),
+                         "chunks": [ZARR_CHUNK, ZARR_CHUNK], "levels": zarr_levels(args.zarr_size),
+                         "codec": "blosc lz4 clevel 5, byte shuffle",
+                         "absent_chunk": list(ZARR_ABSENT), "frames": zarr_fx["frames"][0],
+                         "bytes": zarr_fx["bytes"][0], "write_s": zarr_fx["write_s"][0]},
+              "image5": {"ngff": "0.5", "zarr_format": 3, "shape": list(img5.shape),
+                         "shards": [ZARR5_SHARD] * 2, "inner_chunks": [ZARR5_INNER] * 2,
+                         "levels": ZARR5_LEVELS, "codec": "blosc lz4, shuffle, crc32c",
+                         "frames": zarr_fx["frames"][1], "bytes": zarr_fx["bytes"][1],
+                         "write_s": zarr_fx["write_s"][1], "store": f"s3://{S3_BUCKET} (stub)"},
+              "pool_workers": zarr_fx["workers"], "seconds": time.perf_counter() - t0})
         device = torch.device("cuda", 0)
         if args.filter_sweep:
             emit(filter_sweep(torch, device, lane_tiles(data, args.seed)))
@@ -2367,6 +2900,8 @@ def main(argv=None) -> int:
         emit(drive_wsi(wsi_registry, ref, args.seed, max(LANES, args.wsi_requests // 4),
                        device_idct=True))
         emit(drive_layouts(wsi_registry, layouts, real_zstd))
+        emit(drive_zarr(zarr_fx["registry"], img4, args.seed, args.zarr_requests))
+        emit(drive_zarr_s3(zarr_fx["registry"], img5, args.seed, args.zarr_s3_requests))
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],

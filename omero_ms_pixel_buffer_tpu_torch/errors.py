@@ -51,6 +51,16 @@ class RequestTooLargeError(TileError):
         super().__init__(413, message)
 
 
+class ServiceUnavailableError(TileError):
+    """503 — a dependency behind an open circuit breaker (a store) cannot
+    take the request now; ``retry_after_s`` rides to the front, which
+    answers with a ``Retry-After`` header."""
+
+    def __init__(self, message: str = "Service unavailable", retry_after_s: float = 1.0):
+        super().__init__(503, message)
+        self.retry_after_s = retry_after_s
+
+
 class GatewayTimeoutError(TileError):
     """504 — the request's deadline expired before a tile was produced."""
 

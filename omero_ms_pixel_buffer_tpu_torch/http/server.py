@@ -25,7 +25,9 @@ a projection stack over the tile budget a 413; ``annotations=`` is
 ignored, as the JAX front does without an annotation store. On
 ``/histogram`` a bad ``bins`` or ``c`` is a 400 with the JAX message, a
 channel out of range a 404, a region whose channels exceed the tile
-budget a 413.
+budget a 413. A request whose image store's circuit breaker is open
+answers 503 with ``Retry-After`` (whole seconds, rounded up, until the
+breaker's next probe), as the JAX front does.
 
 Tiles, renders and histograms go through the result cache's memory tier
 (``cache/``), keyed by ``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
@@ -53,9 +55,12 @@ from ..cache.result_cache import MAX_AGE_S, CachedTile, TileResultCache, etag_ma
 from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
 from ..errors import TileError
+from ..io.fetch import io_snapshot
 from ..ops.kernels import launch_counts
 from ..render.analysis import HistogramSpec
 from ..render.model import RenderSpec
+from ..resilience import retry
+from ..resilience.breaker import BOARD
 from ..runtime.native import host_engine
 from ..tile_ctx import TileCtx
 
@@ -274,7 +279,11 @@ class TileServer:
                 entry = await self._flight.do(ctx.dedupe_key(quality),
                                               lambda: self._render(ctx, cache_key))
             except TileError as e:
-                return (e.code if e.code >= 1 else 500), {}, b""
+                status = e.code if e.code >= 1 else 500
+                headers = {}
+                if status == 503:  # a store's breaker is open
+                    headers["Retry-After"] = _retry_after(getattr(e, "retry_after_s", 1.0) or 1.0)
+                return status, headers, b""
         if inm and etag_matches(inm, entry.etag):
             return 304, _cache_headers(entry.etag), b""
         return 200, {
@@ -337,9 +346,15 @@ class TileServer:
         stamps), the result cache's, the render engine's, the histogram
         plane's and super-tile fusion's snapshots, the batched host reads
         (``reads``, with the RGB lanes sent to the device) and the JPEG
-        device IDCT's (``jpeg``: its mode, calls and device ms)."""
+        device IDCT's (``jpeg``: its mode, calls and device ms), the read
+        plane's (``io``: store requests, coalescing, bytes, chunk decodes,
+        the connection pool) and the stores' circuit breakers
+        (``breakers``, with the retry counts under ``retries``). The status
+        is "degraded" (still 200) while a breaker is open."""
+        breakers = BOARD.snapshot()
         return {
-            "status": "ok",
+            "status": ("degraded" if any(b["state"] == "open" for b in breakers.values())
+                       else "ok"),
             "device": str(self.pipeline.device),
             "gpu": self.gpu,
             "kernels": launch_counts(),
@@ -358,6 +373,9 @@ class TileServer:
             "result_cache": self.cache.snapshot(),
             "reads": self.pipeline.read_snapshot(),
             "jpeg": self.pipeline.pixels_service.idct.snapshot(),
+            "io": io_snapshot(),
+            "breakers": breakers,
+            "retries": retry.snapshot(),
         }
 
 
@@ -430,6 +448,12 @@ def _keep_alive(version: str, headers: Dict[str, str]) -> bool:
     if version == "HTTP/1.0":
         return conn == "keep-alive"
     return conn != "close"
+
+
+def _retry_after(seconds: float) -> str:
+    """``Retry-After`` in whole seconds, rounded up so a client never
+    probes before the breaker's window opens."""
+    return str(max(1, int(seconds + 0.999)))
 
 
 def _cache_headers(etag: str) -> dict:

@@ -406,7 +406,7 @@ class _LevelReader:
             suffix = "" if self.compression == 7 else f" (compression {self.compression})"
             raise TiffError(f"Corrupt {kind} {i}{suffix}")
         if self.cache is not None:
-            self.cache.put(key, decoded)
+            self.cache[key] = decoded
         return decoded
 
     def read_region(self, x: int, y: int, w: int, h: int, get_block=None) -> np.ndarray:
@@ -723,7 +723,7 @@ class OmeTiffPixelBuffer(PixelBuffer):
                 blocks[key] = arr
         for key in spans:
             if key in blocks:
-                self.block_cache.put(key, blocks[key])
+                self.block_cache[key] = blocks[key]
 
         out: List[Optional[np.ndarray]] = []
         for r, (_, c, _, x, y, w, h) in zip(readers, coords):

@@ -7,8 +7,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
 from collections import OrderedDict
-from typing import Hashable, List, Optional, Sequence, Tuple
+from typing import Any, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -17,38 +18,96 @@ from ..ops.convert import dtype_for
 # monotonic namespace ids: buffers sharing one BlockCache never alias
 _cache_namespace = itertools.count(1).__next__
 
+_MISSING = object()
+
+# An absent chunk (Zarr fill_value) is an answer worth remembering, but a
+# writer may backfill it: negatives expire after a process-wide TTL (the
+# JAX package's ``io.negative-ttl-s`` default; 0 would keep them for good;
+# its setter waits for the YAML ``io:`` block) and charge a nominal size,
+# so a sea of fill_value cannot grow the entry count without bound.
+NEGATIVE_TTL_S = 300.0
+_NEGATIVE_ENTRY_BYTES = 64
+
+
+class _Negative:
+    """A cached absence with its expiry stamp."""
+
+    __slots__ = ("expires_at",)
+
+    def __init__(self, expires_at: Optional[float]):
+        self.expires_at = expires_at
+
+    def expired(self) -> bool:
+        return self.expires_at is not None and time.monotonic() >= self.expires_at
+
 
 class BlockCache:
-    """Byte-bounded, thread-safe LRU of decoded storage blocks: a
-    compressed chunk is inflated once and every later tile that overlaps
-    it assembles from the cached bytes."""
+    """Byte-bounded, thread-safe LRU of decoded storage blocks (the JAX
+    package's ``BlockCache``): a compressed block or chunk is inflated
+    once and every later tile that overlaps it assembles from the cached
+    array. A value of None is a legitimately absent chunk (Zarr
+    fill_value), kept as a TTL-bounded negative; ``purge_ns`` drops a
+    buffer's entries. ``max_bytes`` <= 0 keeps nothing."""
 
     def __init__(self, max_bytes: int = 256 << 20):
         self.max_bytes = max_bytes
-        self._entries: "OrderedDict[Hashable, np.ndarray]" = OrderedDict()
+        self._entries: "OrderedDict[Hashable, Any]" = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
 
-    def get(self, key: Hashable) -> Optional[np.ndarray]:
+    @staticmethod
+    def _size(value: Any) -> int:
+        if isinstance(value, np.ndarray):
+            return int(value.nbytes)
+        if isinstance(value, _Negative):
+            return _NEGATIVE_ENTRY_BYTES
+        return 0
+
+    def get(self, key: Hashable, default: Any = None) -> Any:
+        """The cached array, None for a live negative, else ``default``."""
         with self._lock:
-            value = self._entries.get(key)
-            if value is not None:
-                self._entries.move_to_end(key)
+            value = self._entries.get(key, _MISSING)
+            if isinstance(value, _Negative):
+                if value.expired():
+                    # the chunk may exist by now: ask the store again
+                    self._entries.pop(key)
+                    self._bytes -= _NEGATIVE_ENTRY_BYTES
+                    value = _MISSING
+                else:
+                    value = None
+            if value is _MISSING:
+                return default
+            self._entries.move_to_end(key)
             return value
 
-    def put(self, key: Hashable, value: np.ndarray) -> None:
-        size = int(value.nbytes)
-        if size > self.max_bytes:
+    def __setitem__(self, key: Hashable, value: Any) -> None:
+        if self.max_bytes <= 0:
             return
+        if value is None:
+            value = _Negative(time.monotonic() + NEGATIVE_TTL_S if NEGATIVE_TTL_S > 0 else None)
+        size = self._size(value)
+        if size > self.max_bytes:
+            return  # one oversized block would evict everything
         with self._lock:
-            old = self._entries.pop(key, None)
-            if old is not None:
-                self._bytes -= int(old.nbytes)
+            old = self._entries.pop(key, _MISSING)
+            if old is not _MISSING:
+                self._bytes -= self._size(old)
             self._entries[key] = value
             self._bytes += size
-            while self._bytes > self.max_bytes:
+            while self._bytes > self.max_bytes and self._entries:
                 _, evicted = self._entries.popitem(last=False)
-                self._bytes -= int(evicted.nbytes)
+                self._bytes -= self._size(evicted)
+
+    def purge_ns(self, cache_ns) -> int:
+        """Drop every entry whose tuple key leads with ``cache_ns`` (its
+        decoded blocks and its negatives); returns how many."""
+        dropped = 0
+        with self._lock:
+            for key in [k for k in self._entries
+                        if isinstance(k, tuple) and k and k[0] == cache_ns]:
+                self._bytes -= self._size(self._entries.pop(key))
+                dropped += 1
+        return dropped
 
 
 @dataclasses.dataclass(frozen=True)

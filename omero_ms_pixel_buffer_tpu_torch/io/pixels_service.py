@@ -1,19 +1,23 @@
 """Pixels service: imageId -> metadata -> pixel buffer (counterpart of
 ``ImageRegistry`` and ``PixelsService`` in ``omero_ms_pixel_buffer_tpu/
-io/pixels_service.py``, for OME-TIFF and ROMIO storage).
+io/pixels_service.py``, for OME-TIFF, OME-NGFF/Zarr and ROMIO storage).
 
 Registry file shape::
 
     {"images": [
         {"id": 1, "path": "images/a.ome.tiff", "name": "a"},
+        {"id": 2, "path": "images/b.zarr"},
+        {"id": 4, "path": "s3://bucket/c.zarr", "type": "zarr"},
         {"id": 3, "path": "images/3", "type": "romio",
          "sizeX": 512, "sizeY": 512, "sizeZ": 1, "sizeC": 1,
          "sizeT": 1, "pixelsType": "uint16"}
     ]}
 
-Relative paths resolve against the registry file's directory. A ROMIO
-entry carries its dimensions (the plane file has no header); a TIFF
-carries its own.
+Relative paths resolve against the registry file's directory;
+``s3://``, ``http://`` and ``https://`` URIs stay as they are. An entry
+of type ``zarr``, a directory, or a remote URI without a type opens as
+OME-NGFF (``io/zarr.py``); a ROMIO entry carries its dimensions (the
+plane file has no header); a TIFF carries its own.
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ from .jpeg import DeviceIdct
 from .ometiff import OmeTiffPixelBuffer
 from .pixel_buffer import BlockCache, PixelBuffer, PixelsMeta
 from .romio import RomioPixelBuffer
+from .zarr import ZarrPixelBuffer
+
+_REMOTE = ("s3://", "http://", "https://")
 
 
 class ImageRegistry:
@@ -52,6 +59,8 @@ class ImageRegistry:
 
     def resolve_path(self, entry: dict) -> str:
         p = entry["path"]
+        if p.startswith(_REMOTE):
+            return p  # a remote store URI, never registry-relative
         return p if os.path.isabs(p) else os.path.join(self._root, p)
 
     def romio_meta(self, image_id: int, entry: dict) -> PixelsMeta:
@@ -67,10 +76,10 @@ class ImageRegistry:
 
 class PixelsService:
     """Image id -> open, cached pixel buffer (LRU of ``max_open``), all
-    buffers sharing one decoded-block cache (``OMPB_MEMO_DIR`` keeps
-    parsed TIFF IFD chains across restarts). ``device`` is where JPEG
-    blocks' device IDCT runs when ``OMPB_JPEG_DEVICE_IDCT=1`` (default
-    ``cuda``; ``idct`` counts it)."""
+    buffers sharing one decoded-block cache of TIFF blocks and Zarr
+    chunks (``OMPB_MEMO_DIR`` keeps parsed TIFF IFD chains across
+    restarts). ``device`` is where JPEG blocks' device IDCT runs when
+    ``OMPB_JPEG_DEVICE_IDCT=1`` (default ``cuda``; ``idct`` counts it)."""
 
     def __init__(self, registry: ImageRegistry, max_open: int = 128,
                  block_cache_bytes: int = 256 << 20, device="cuda"):
@@ -95,14 +104,16 @@ class PixelsService:
     def _open(self, image_id: int, entry: dict) -> PixelBuffer:
         path = self.registry.resolve_path(entry)
         kind = entry.get("type")
+        name = entry.get("name", os.path.basename(path))
         if kind == "romio":
             return RomioPixelBuffer(path, self.registry.romio_meta(image_id, entry))
+        if kind == "zarr" or (kind is None and (path.startswith(_REMOTE) or os.path.isdir(path))):
+            return ZarrPixelBuffer(path, image_id=image_id, image_name=name,
+                                   block_cache=self.block_cache)
         if kind not in (None, "ometiff", "tiff"):
             raise ValueError(f"Unknown image type: {kind}")
-        return OmeTiffPixelBuffer(
-            path, image_id=image_id, image_name=entry.get("name", os.path.basename(path)),
-            block_cache=self.block_cache, device_idct=self.idct,
-        )
+        return OmeTiffPixelBuffer(path, image_id=image_id, image_name=name,
+                                  block_cache=self.block_cache, device_idct=self.idct)
 
     def get_pixel_buffer(self, image_id: int) -> Optional[PixelBuffer]:
         image_id = int(image_id)

@@ -41,11 +41,12 @@ class DevicePlaneCache:
         self.hits = 0
         self.misses = 0
 
-    def get_plane(self, buffer, level: int, z: int, c: int, t: int
+    def get_plane(self, buffer, level: int, z: int, c: int, t: int, read
                   ) -> Optional[torch.Tensor]:
         """The device tensor of a whole plane, staged once the admission
         threshold is met; None while not resident (caller reads from
-        the host)."""
+        the host). ``read(buffer, coords, level)`` reads the plane (the
+        pipeline's timed batched reader)."""
         key = (buffer.cache_ns, level, z, c, t)
         with self._lock:
             plane = self._planes.get(key)
@@ -70,7 +71,7 @@ class DevicePlaneCache:
             if self.max_bytes <= 0 or nbytes > self.max_bytes:
                 return None
             # the batched reader inflates the plane's blocks in parallel
-            host = buffer.read_tiles([(z, c, t, 0, 0, size_x, size_y)], level)[0]
+            host = read(buffer, [(z, c, t, 0, 0, size_x, size_y)], level)[0]
             plane = bits_tensor(host).to(self.device)
             if self.device.type == "cuda":
                 # complete before any other stream crops from it

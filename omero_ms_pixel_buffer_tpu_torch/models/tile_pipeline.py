@@ -68,6 +68,11 @@ tile framed by ``ops/tiff.encode_tiff`` (no pixel work, as in the JAX
 package); other formats answer None (404). A read whose JPEG blocks'
 device IDCT fails (``OMPB_JPEG_DEVICE_IDCT=1``) answers 500 for its lanes
 (``DeviceIdctError``; the JAX package decodes on the host instead).
+A lane whose store's circuit breaker is open (``StoreUnavailableError``,
+at resolve or at any read: tile, render, super-tile and histogram reads)
+answers 503 with the breaker's ``retry_after_s``, as in the JAX package;
+another failed read (a corrupt chunk, a store error) answers 404 for
+every lane of its batched read.
 """
 
 from __future__ import annotations
@@ -81,9 +86,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..errors import InternalError, RequestTooLargeError
+from ..errors import InternalError, RequestTooLargeError, ServiceUnavailableError
 from ..io.jpeg import DeviceIdctError
 from ..io.pixels_service import PixelsService
+from ..io.stores import StoreUnavailableError
 from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
 from ..ops.device_deflate import DEFLATE_MODES
@@ -212,8 +218,9 @@ class TilePipeline:
             ("st_groups", "st_device_lanes", "st_host_lanes", "st_fallback_lanes",
              "st_host_pulls", "st_encode_groups", "st_timed_groups", "st_bytes",
              "hist_groups", "hist_lanes", "hist_failed_groups", "hist_timed_groups",
-             "hist_bytes", "read_calls", "read_lanes", "batches", "rgb_device_lanes"), 0)
-        self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0}
+             "hist_bytes", "read_calls", "read_lanes", "batches", "rgb_device_lanes",
+             "stage_reads"), 0)
+        self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0, "stage_read": 0.0}
         self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
 
     def close(self) -> None:
@@ -313,20 +320,25 @@ class TilePipeline:
             }
 
     def read_snapshot(self) -> dict:
-        """/healthz view of the host reads of batched lanes (tile, render,
-        histogram and super-tile reads; host clock): calls, regions read,
-        their milliseconds, and the ``handle_batch`` calls and
-        milliseconds they sit in (reads are decodes: JPEG, LZW, inflate),
-        plus the RGB lanes sent to the device."""
+        """/healthz view of the host reads inside ``handle_batch`` (tile,
+        render, histogram and super-tile reads, and the whole-plane reads
+        that stage a plane into the plane cache, also counted apart as
+        ``stage_reads``/``stage_ms_total``; host clock): calls, regions
+        read, their milliseconds, and the ``handle_batch`` calls and
+        milliseconds they sit in (reads are decodes: JPEG, LZW, inflate,
+        LZ4), plus the RGB lanes sent to the device."""
         with self._stats_lock:
             st = self._stats
             return {"calls": st["read_calls"], "lanes": st["read_lanes"],
                     "ms_total": self._stats_ms["read"], "batches": st["batches"],
                     "batch_ms_total": self._stats_ms["batch"],
+                    "stage_reads": st["stage_reads"],
+                    "stage_ms_total": self._stats_ms["stage_read"],
                     "rgb_device_lanes": st["rgb_device_lanes"]}
 
-    def _read(self, buf, coords, level):
-        """``buf.read_tiles``, timed for ``read_snapshot``."""
+    def _read(self, buf, coords, level, staging: bool = False):
+        """``buf.read_tiles``, timed for ``read_snapshot`` (``staging``: a
+        plane-cache staging read)."""
         t0 = time.perf_counter()
         try:
             return buf.read_tiles(coords, level=level)
@@ -336,6 +348,13 @@ class TilePipeline:
                 self._stats["read_calls"] += 1
                 self._stats["read_lanes"] += len(coords)
                 self._stats_ms["read"] += ms
+                if staging:
+                    self._stats["stage_reads"] += 1
+                    self._stats_ms["stage_read"] += ms
+
+    def _stage_read(self, buf, coords, level):
+        """The plane cache's whole-plane read, timed as a staging read."""
+        return self._read(buf, coords, level, staging=True)
 
     def encode_signature(self) -> str:
         """The 'quality' part of the result-cache key: the PNG encode
@@ -380,8 +399,10 @@ class TilePipeline:
     def handle(self, ctx: TileCtx) -> Optional[bytes]:
         """One request on the host: resolve, read, encode. Bytes, or None
         (-> 404) on any failure, as the JAX package's ``handle`` (an
-        ``InternalError``, -> 500, when the device IDCT failed). A render
-        or histogram lane takes the batched machinery, as there."""
+        ``InternalError``, -> 500, when the device IDCT failed; a
+        ``ServiceUnavailableError``, -> 503, when the store's breaker is
+        open). A render or histogram lane takes the batched machinery, as
+        there."""
         if ctx.render is not None or ctx.analysis is not None:
             return self.handle_batch([ctx])[0]
         try:
@@ -393,6 +414,9 @@ class TilePipeline:
         except DeviceIdctError:
             log.exception("device IDCT failed; lane -> 500")
             return InternalError("device IDCT failed")
+        except StoreUnavailableError as e:
+            log.warning("store unavailable: %s", e)
+            return _lane_unavailable(e)
         except Exception:
             log.exception("Exception while retrieving tile")
             return None
@@ -443,6 +467,8 @@ class TilePipeline:
         for i, ctx in enumerate(ctxs):
             try:
                 resolved[i] = self.resolve(ctx)
+            except StoreUnavailableError as e:
+                results[i] = _lane_unavailable(e)
             except Exception:
                 log.debug("resolve failed for lane %d", i, exc_info=True)
 
@@ -474,6 +500,8 @@ class TilePipeline:
                     tiles[i] = tile
             except DeviceIdctError:
                 _idct_failed(lanes, results)
+            except StoreUnavailableError as e:
+                _unavailable(lanes, results, e)
             except Exception:
                 log.exception("batched read failed; lanes -> 404")
 
@@ -582,7 +610,7 @@ class TilePipeline:
                 attempted.add(plane_key)
                 try:
                     plane = self.plane_cache.get_plane(
-                        rt.buffer, rt.level, ctx.z, ctx.c, ctx.t)
+                        rt.buffer, rt.level, ctx.z, ctx.c, ctx.t, read=self._stage_read)
                 except Exception:
                     log.exception("plane staging failed; host read")
                     plane = None
@@ -788,6 +816,9 @@ class TilePipeline:
             except DeviceIdctError:
                 _idct_failed(lanes, results)
                 continue
+            except StoreUnavailableError as e:
+                _unavailable(lanes, results, e)
+                continue
             except Exception:
                 log.exception("render read failed for image %d; lanes -> 404", image_id)
                 continue
@@ -912,6 +943,9 @@ class TilePipeline:
                                                      device_project=use_fused)
         except DeviceIdctError:
             _idct_failed(live, results)
+            return set(live)
+        except StoreUnavailableError as e:
+            _unavailable(live, results, e)  # as a grouped read
             return set(live)
         except Exception:
             log.exception("super-tile gather failed; lanes serve independently")
@@ -1081,7 +1115,7 @@ class TilePipeline:
             size_x, size_y = buf.level_size(level)
             if x + w > size_x or y + h > size_y:
                 return None
-            plane = self.plane_cache.get_plane(buf, level, z, c, t)
+            plane = self.plane_cache.get_plane(buf, level, z, c, t, read=self._stage_read)
             if plane is None:
                 return None
             if device:
@@ -1151,6 +1185,9 @@ class TilePipeline:
                 planes = self._read(buf, [c for i in lanes for c in plans[i][1]], level)
             except DeviceIdctError:
                 _idct_failed(lanes, results)
+                continue
+            except StoreUnavailableError as e:
+                _unavailable(lanes, results, e)
                 continue
             except Exception:
                 log.exception("histogram read failed for image %d; lanes -> 404", image_id)
@@ -1233,6 +1270,19 @@ class TilePipeline:
                     spec, ch_results)
             except Exception:
                 log.exception("histogram assembly failed for lane %d", i)
+
+
+def _lane_unavailable(e: Exception) -> ServiceUnavailableError:
+    """The 503 marker of a lane whose store's breaker is open."""
+    return ServiceUnavailableError(str(e), retry_after_s=getattr(e, "retry_after_s", 1.0) or 1.0)
+
+
+def _unavailable(lanes, results, e: Exception) -> None:
+    """Every lane of a read whose store's breaker is open answers 503."""
+    log.warning("store unavailable: %s", e)
+    marker = _lane_unavailable(e)
+    for i in lanes:
+        results[i] = marker
 
 
 def _idct_failed(lanes, results) -> None:

@@ -2,7 +2,8 @@
 ``omero_ms_pixel_buffer_tpu/runtime/native.py``, bound as far as the
 port's host routes need it: the fused PNG encode of whole tiles, the
 deflate and framing of scanlines the device filtered, the batched TIFF
-block decode (zlib, LZW, PackBits) and the JPEG entropy-scan walker).
+block decode (zlib, LZW, PackBits), the JPEG entropy-scan walker and the
+CRC-32C of Zarr v3 chunks and shard indexes).
 
 The library is ``native/build/libompb_native.so`` at the root of the
 checkout, built on first use with ``make -C native`` (g++ and zlib) and
@@ -58,8 +59,8 @@ def _build_library() -> bool:
 
 
 class NativeEngine:
-    """The C API's fused PNG encode and PNG assembly, batched block decode
-    and JPEG scan walker, its version and its pool size. Thread-safe (the
+    """The C API's fused PNG encode and PNG assembly, batched block decode,
+    JPEG scan walker and CRC-32C, its version and its pool size. Thread-safe (the
     C side has its own pool)."""
 
     def __init__(self, lib: ctypes.CDLL):
@@ -81,6 +82,9 @@ class NativeEngine:
         self.has_jpeg_scan = self.version >= 4 and hasattr(lib, "ompb_jpeg_scan")
         if self.has_jpeg_scan:
             lib.ompb_jpeg_scan.restype = ctypes.c_int
+        self.has_crc32c = hasattr(lib, "ompb_crc32c")
+        if self.has_crc32c:
+            lib.ompb_crc32c.restype = ctypes.c_uint32
         self.pool_size = lib.ompb_pool_size()
 
     @staticmethod
@@ -124,6 +128,10 @@ class NativeEngine:
         rc = self._lib.ompb_decode_batch(ctypes.c_int(n), ins, lens, codec_arr, outs, out_lens)
         return [None if rc and out_lens[i] == 0 else arr[: out_lens[i]]
                 for i, arr in enumerate(arrays)]
+
+    def crc32c(self, data: bytes) -> int:
+        """CRC-32C of ``data`` (the Zarr v3 ``crc32c`` codec)."""
+        return int(self._lib.ompb_crc32c(data, ctypes.c_size_t(len(data))))
 
     def jpeg_scan(
         self, scan: bytes, seg_offsets: Sequence[int], seg_mcu_ranges: Sequence[tuple],
