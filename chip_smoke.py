@@ -6,7 +6,7 @@
         [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
         [--wsi-size 16384] [--wsi-requests 512] [--zarr-size 8192] \
         [--zarr-requests 256] [--zarr-s3-requests 128] [--filter-sweep] \
-        [--bitpack-sweep] [--bitpack-time | --dense-time [--port-root DIR]]
+        [--bitpack-sweep] [--bitpack-time | --dense-time | --paths-only [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
 
@@ -175,6 +175,36 @@ Phases, one JSON line each on stdout:
    waited out, and the same tiles are served and checked. The same
    figures as ``path_zarr``.
 
+19. ``path_dzi`` — image 4 through the DZI adapter on a server with the
+   defaults, 32 keep-alive clients: ``/dzi/4.dzi`` must equal
+   ``descriptor_xml(8192, 8192, 256)``; a warm-up of two 2x2 blocks of each
+   level (bottom rows) fuses into super-tiles whose second touch stages
+   the level's plane; then a timed row-major sweep of 256x256 PNG tiles,
+   four rows of DZI level 13 (pyramid level 0) and eight of level 12
+   (level 1), 256 tiles; four tiles of level 9, coarser than the stored
+   pyramid, must answer 404. Every tile is held against the numpy
+   composite of its source region, and its native ``/render`` request,
+   sent after, must answer the same bytes and ETag with ``X-Cache: hit``;
+   eight IIIF and eight Iris tiles must equal their DZI twins. Reports
+   tiles/s, p50/p99, ``burst_continuations`` (must be > 0), fused lanes
+   (> 0), super-tile groups, stage means and launches.
+20. ``path_overload`` — a second front over the same pipeline with the
+   JAX names ``max_inflight`` 4, ``queue_size`` 8 and
+   ``request_budget_ms`` 1000: 256 concurrent 512x512 level-0 ``/tile``
+   PNG requests (every cell of the plane) at once, then the same set
+   again. Every status must be 200, 503 or 504, at least one 503, each
+   503 with ``Retry-After``; a 200 equals the source region, or with
+   ``X-OMPB-Degraded`` the level-1 region with rows and columns
+   replicated. The ``/healthz`` ``slo`` sheds must equal the 503s, its
+   expiries plus the 504s counted by stage (``deadline``) the 504s, and
+   its degraded grants the degraded 200s (up to grants that ran out of
+   budget after). A session stepping 18 times at a constant stride is
+   classified bulk; 32 requests one at a time then answer 200 undegraded.
+   Last, 32 level-0 ``/tile`` lanes and 16 ``/render`` lanes with
+   ``degraded=1`` go straight through ``handle_batch``: each equals the
+   replicated level-1 region (or its numpy composite), with their own
+   kernel launches. Reports every count, p50 and p99.
+
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
 ``/healthz`` views, just before and just after them), and how many of
@@ -194,8 +224,11 @@ per call, call time and kernels by name on the real pass-2 tokens
 (``bitpack_time``), ``--dense-time`` the dense packer's on the real ``rle``
 tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
-``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``); the
-Zarr phases add no kernel row, their launches are on their phase lines. Any failure exits
+``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
+``--paths-only`` only the ``path`` (``dynamic``) and ``path_render`` phases
+(with ``--port-root``, to pair two versions in one call); the
+Zarr and viewer phases add no kernel row, their launches are on their phase
+lines. Any failure exits
 non-zero before the last line; without CUDA, or without the port package
 beside this file, it exits non-zero at once.
 """
@@ -2731,6 +2764,280 @@ def drive_zarr_s3(registry: str, img5: np.ndarray, seed: int, n_requests: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the viewer plane: the DZI, IIIF and Iris adapters and the SLO scheduler
+# ---------------------------------------------------------------------------
+
+DZI_TILE = 256
+# the overload front's limits, under the JAX config names
+OVERLOAD = {"max_inflight": 4, "queue_size": 8, "request_budget_ms": 1000}
+SWEEP_STEPS = 18  # one past the sweep detector's 16 constant steps and the first
+
+
+def request_all(client: Client, reqs, concurrency: int):
+    """Like ``run_requests``, keeping each answer's headers: [(status,
+    headers, body, seconds)] in request order, and the wall seconds."""
+    with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+        t0 = time.perf_counter()
+        out = list(pool.map(lambda r: client.request("GET", r[0]), reqs))
+        return out, time.perf_counter() - t0
+
+
+def dzi_sweep(size: int, level: int, rows, top: int):
+    """A row-major sweep of 256x256 tiles of DZI ``level`` (pyramid level
+    ``top - level``) over ``rows`` of its grid: [(path, (res, x, y, w, h),
+    200)]."""
+    res = top - level
+    cols = -(-(size >> res) // DZI_TILE)
+    return [(f"/dzi/4_files/{level}/{c}_{r}.png",
+             (res, c * DZI_TILE, r * DZI_TILE, DZI_TILE, DZI_TILE), 200)
+            for r in rows for c in range(cols)]
+
+
+def degraded_reference(level: np.ndarray, coarse: np.ndarray, x, y, w, h) -> np.ndarray:
+    """A degraded read spelled apart from the port: pixel (Y, X) of
+    ``level`` is ``coarse`` pixel (Y * ch // H, X * cw // W)."""
+    (sh, sw), (ch, cw) = level.shape, coarse.shape
+    ys = np.minimum((y + np.arange(h)) * ch // sh, ch - 1)
+    xs = np.minimum((x + np.arange(w)) * cw // sw, cw - 1)
+    return coarse[np.ix_(ys, xs)]
+
+
+def slo_totals(view: dict) -> dict:
+    """The scheduler's counts, summed over classes, and the 504s counted by
+    the stage that noticed them, from one ``/healthz`` view."""
+    slo = view["slo"]
+    return {"shed": sum(slo["shed"].values()), "degraded": sum(slo["degraded"].values()),
+            "expired_in_queue": sum(slo["expired_in_queue"].values()),
+            "granted": sum(slo["granted"].values()), "bulk": slo["classified"]["bulk"],
+            "sweeps": slo["sweep"]["detected_total"], "exceeded": sum(view["deadline"].values())}
+
+
+def drive_viewer(registry: str, img4: np.ndarray, seed: int, device: str = "cuda"):
+    """``path_dzi``, then ``path_overload`` on a second front over the same
+    pipeline, on one server over image 4 (levels 0-3: DZI levels 13-10);
+    returns both phase lines."""
+    from omero_ms_pixel_buffer_tpu_torch.dispatch.batcher import BatchingTileWorker
+    from omero_ms_pixel_buffer_tpu_torch.http.server import TileServer
+
+    plane = img4[0, 0, 0]
+    ay, ax = ZARR_ABSENT
+    level0 = plane.copy()
+    level0[ay * ZARR_CHUNK:(ay + 1) * ZARR_CHUNK, ax * ZARR_CHUNK:(ax + 1) * ZARR_CHUNK] = 0
+    levels = [level0] + [plane[::2 ** k, ::2 ** k] for k in range(1, zarr_levels(plane.shape[0]))]
+    st = ServerThread(registry, device=device)
+    with st as client:
+        dzi = drive_dzi(client, levels)
+        front = TileServer(BatchingTileWorker(st.server.pipeline), dev=True,
+                           gpu=st.server.gpu, **OVERLOAD)
+        port = asyncio.run_coroutine_threadsafe(front.start("127.0.0.1", 0), st.loop).result(60)
+        overload_client = Client(port)
+        try:
+            overload = drive_overload(overload_client, st.server.pipeline, levels, seed)
+        finally:
+            overload_client.close()
+            asyncio.run_coroutine_threadsafe(front.close(), st.loop).result(60)
+    return dzi, overload
+
+
+def drive_dzi(client: Client, levels) -> dict:
+    """``path_dzi`` (phase 19 of the module docstring)."""
+    from omero_ms_pixel_buffer_tpu_torch.http.protocols.dzi import descriptor_xml, max_level
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    size = levels[0].shape[0]
+    top = max_level(size, size)
+    refs = [RenderReference(lv[None, None]) for lv in levels[:2]]
+    reset_launch_counts()
+    status, hdr, body, _ = client.request("GET", "/dzi/4.dzi")
+    require(status == 200 and body == descriptor_xml(size, size, DZI_TILE)
+            and hdr.get("Content-Type") == "application/xml", f"/dzi/4.dzi: {status} {body[:80]}")
+    # warm-up: two 2x2 blocks of each level (bottom rows, outside the
+    # sweep), fused into super-tile gathers: the second touch stages the
+    # level's plane in the plane cache, one level at a time
+    t0 = time.perf_counter()
+    for level in (top, top - 1):
+        rows = (size >> (top - level)) // DZI_TILE
+        bottom = dzi_sweep(size, level, (rows - 2, rows - 1), top)
+        for k in range(2):
+            block = [r for r in bottom if 2 * k * DZI_TILE <= r[1][1] < 2 * (k + 1) * DZI_TILE]
+            out = run_requests(client, block, len(block))[0]
+            require([s for s, _, _ in out] == [200] * 4, "path_dzi: a warm-up tile failed")
+    warm_s = time.perf_counter() - t0
+    sweep = dzi_sweep(size, top, range(4), top) + dzi_sweep(size, top - 1, range(8), top)
+    before = get_json(client, "/healthz")
+    out, secs = request_all(client, sweep, LANES)
+    after = get_json(client, "/healthz")
+    # DZI level 9 is coarser than the stored pyramid
+    coarse = [(f"/dzi/4_files/{top - len(levels)}/{c}_0.png", None, 404) for c in range(4)]
+    coarse_out = run_requests(client, coarse, len(coarse))[0]
+    require([s for s, _, _ in coarse_out] == [404] * 4,
+            f"path_dzi: a tile coarser than the pyramid answered {coarse_out[0][0]}")
+    checked = twins = 0
+    for k, ((status, hdr, body, _), (path, (res, x, y, w, h), _)) in enumerate(zip(out, sweep)):
+        require(status == 200, f"{path} answered {status}")
+        require(np.array_equal(decode_png(body), refs[res].rgb({"format": "png"}, x, y, w, h)),
+                f"{path}: pixels differ from the numpy composite")
+        etag = hdr.get("ETag")
+        native = f"/render/4/0/0/0?x={x}&y={y}&w={w}&h={h}&resolution={res}&format=png"
+        ns, nh, nb, _ = client.request("GET", native)
+        require((ns, nb, nh.get("ETag"), nh.get("X-Cache")) == (200, body, etag, "hit"),
+                f"{native}: {ns} X-Cache {nh.get('X-Cache')}, not the DZI tile's entry")
+        checked += 1
+        if k % 32:
+            continue
+        s = 1 << res
+        x_tiles = -(-(size >> res) // DZI_TILE)
+        for twin in (f"/iiif/4/{x * s},{y * s},{w * s},{h * s}/{w},{h}/0/default.png",
+                     f"/iris/4/layers/{len(levels) - 1 - res}/tiles/"
+                     f"{(y // DZI_TILE) * x_tiles + x // DZI_TILE}"):
+            ts, th, tb, _ = client.request("GET", twin)
+            require((ts, tb, th.get("ETag")) == (200, body, etag),
+                    f"{twin}: {ts}, not the DZI tile's bytes and ETag")
+            twins += 1
+    launches = launch_counts()
+    health = get_json(client, "/healthz")
+    lat_ms = np.array([r[3] for r in out]) * 1e3
+    window = timed_window(before, after, secs)
+    bursts = after["batcher"]["burst_continuations"] - before["batcher"]["burst_continuations"]
+    require(bursts > 0, "path_dzi: no coalesce window was extended by a burst")
+    require(window["supertile"]["device_lanes"] > 0, "path_dzi: no lane was fused")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"path_dzi: the filter or the SP packer never launched: {launches}")
+    require(health["queue"]["failed"] == 0, "path_dzi: encode groups failed")
+    return {"phase": "path_dzi", "image": 4, "requests": len(sweep),
+            "dzi_levels": {str(level): sum(1 for _, r, _ in sweep if r[0] == top - level)
+                           for level in (top, top - 1)}, "concurrency": LANES,
+            "tiles_per_s": len(sweep) / secs, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)), "warmup_s": warm_s,
+            "tiles_verified": checked, "native_twins_hit": checked, "adapter_twins": twins,
+            "coarse_404": len(coarse), "burst_continuations": bursts,
+            "fused_lanes": window["supertile"]["device_lanes"],
+            "supertile_groups": window["supertile"]["groups"],
+            "stage_ms_mean": window["stage_ms_mean"], "timed_window": window,
+            "reads": reads_delta(before, after, secs), "launches": launches,
+            "protocols": health["protocols"], "gpu": health["gpu"]}
+
+
+def drive_overload(client: Client, pipeline, levels, seed: int) -> dict:
+    """``path_overload`` (phase 20 of the module docstring) on the small
+    front ``client`` talks to; ``pipeline`` is the one it shares."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+    from omero_ms_pixel_buffer_tpu_torch.tile_ctx import RegionDef, TileCtx
+
+    level0, level1 = levels[0], levels[1]
+    size = level0.shape[0]
+    rng = np.random.default_rng(seed + 60)
+    reset_launch_counts()
+    grid = size // TILE
+    cells = [(int(i) % grid * TILE, int(i) // grid * TILE) for i in rng.permutation(grid * grid)]
+    burst = [(f"/tile/4/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png", (x, y)) for x, y in cells]
+    before = get_json(client, "/healthz")
+    answers, rounds_s = [], []
+    for _ in range(2):  # the same set twice: what served first is now a cache hit
+        out, secs = request_all(client, burst, len(burst))
+        answers += list(zip(out, burst))
+        rounds_s.append(secs)
+    after = get_json(client, "/healthz")
+    counts = {200: 0, 503: 0, 504: 0, "degraded": 0, "hits": 0}
+    for (status, hdr, body, _), (path, (x, y)) in answers:
+        require(status in (200, 503, 504), f"{path} answered {status}")
+        counts[status] += 1
+        if status == 503:
+            require(hdr.get("Retry-After") == "1", f"{path}: 503 without Retry-After: {hdr}")
+        if status != 200:
+            continue
+        counts["hits"] += hdr.get("X-Cache") == "hit"
+        if hdr.get("X-OMPB-Degraded") == "1":
+            counts["degraded"] += 1
+            want = degraded_reference(level0, level1, x, y, TILE, TILE)
+        else:
+            require("X-OMPB-Degraded" not in hdr, f"{path}: {hdr}")
+            want = level0[y:y + TILE, x:x + TILE]
+        require(np.array_equal(decode_png(body), want), f"{path}: pixels differ")
+    d = {k: v - slo_totals(before)[k] for k, v in slo_totals(after).items()}
+    require(counts[503] > 0, f"path_overload: no request was shed: {counts}")
+    require(d["shed"] == counts[503],
+            f"path_overload: {d['shed']} sheds counted, {counts[503]} answered 503")
+    require(d["expired_in_queue"] + d["exceeded"] == counts[504],
+            f"path_overload: {d['expired_in_queue']} + {d['exceeded']} expiries counted, "
+            f"{counts[504]} answered 504")
+    # a degraded grant answers degraded, or 504 once its budget ran out
+    require(counts["degraded"] <= d["degraded"] <= counts["degraded"] + d["exceeded"],
+            f"path_overload: {d['degraded']} degraded grants, {counts['degraded']} served")
+    # a constant-stride session: the 17th step's observation marks the
+    # session a sweep, so its 18th request is classified bulk
+    sweeper = {"Cookie": "sessionid=sweeper"}
+    pre = slo_totals(get_json(client, "/healthz"))
+    step = 128
+    for k in range(SWEEP_STEPS):
+        x = k * step
+        path = f"/tile/4/0/0/0?x={x}&y={size - step}&w={step}&h={step}&format=png"
+        status, _, body, _ = client.request("GET", path, sweeper)
+        require(status == 200 and np.array_equal(
+            decode_png(body), level0[size - step:, x:x + step]), f"{path}: {status}")
+    post = slo_totals(get_json(client, "/healthz"))
+    require(post["sweeps"] - pre["sweeps"] == 1 and post["bulk"] - pre["bulk"] == 1,
+            f"path_overload: the sweep was not classified bulk: {pre} -> {post}")
+    # pressure gone: one at a time, all full resolution
+    g1 = size // 2 // TILE
+    quiet = [(f"/tile/4/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png&resolution=1", (x, y))
+             for x, y in ((int(i) % g1 * TILE, int(i) // g1 * TILE)
+                          for i in rng.permutation(g1 * g1)[:LANES])]
+    for path, (x, y) in quiet:
+        status, hdr, body, _ = client.request("GET", path)
+        require(status == 200 and "X-OMPB-Degraded" not in hdr
+                and np.array_equal(decode_png(body), level1[y:y + TILE, x:x + TILE]),
+                f"path_overload: after the burst {path} answered {status} {hdr}")
+    served_launches = launch_counts()
+    health = get_json(client, "/healthz")
+    # degraded lanes straight through handle_batch, so the degraded path runs
+    # on the card whatever the timing above
+    reset_launch_counts()
+    lanes = []
+    for i in rng.permutation(grid * grid)[:32]:
+        x, y = int(i) % grid * TILE, int(i) // grid * TILE
+        lanes.append((TileCtx(4, 0, 0, 0, RegionDef(x, y, TILE, TILE), format="png",
+                              omero_session_key="k", degraded=1), None))
+    for _ in range(16):
+        x, y = (int(v) * DZI_TILE for v in rng.integers(0, size // DZI_TILE, 2))
+        ctx = TileCtx(4, 0, 0, 0, RegionDef(x, y, DZI_TILE, DZI_TILE), format="png",
+                      omero_session_key="k", degraded=1,
+                      render=RenderSpec.from_params({"format": "png"}))
+        lanes.append((ctx, {"format": "png"}))
+    t0 = time.perf_counter()
+    bodies = pipeline.handle_batch([c for c, _ in lanes])
+    direct_s = time.perf_counter() - t0
+    direct_launches = launch_counts()
+    for (ctx, query), body in zip(lanes, bodies):
+        r = ctx.region
+        require(isinstance(body, bytes) and ctx.degraded == 1,
+                f"path_overload: a degraded lane answered {body!r:.80}")
+        plane = degraded_reference(level0, level1, r.x, r.y, r.width, r.height)
+        want = (plane if query is None else
+                RenderReference(plane[None, None]).rgb(query, 0, 0, r.width, r.height))
+        require(np.array_equal(decode_png(body), want),
+                f"path_overload: degraded lane {r} differs from the replicated level 1")
+    require(direct_launches["filter"] > 0 and direct_launches["bitpack"] > 0,
+            f"path_overload: degraded lanes launched no kernel: {direct_launches}")
+    require(served_launches["filter"] > 0 and served_launches["bitpack"] > 0,
+            f"path_overload: the served lanes launched no kernel: {served_launches}")
+    require(health["queue"]["failed"] == 0, "path_overload: encode groups failed")
+    lat_ms = np.array([a[0][3] for a in answers]) * 1e3
+    return {"phase": "path_overload", "image": 4, "limits": OVERLOAD,
+            "requests": len(answers), "round_s": rounds_s,
+            "statuses": {str(k): v for k, v in counts.items()},
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "slo_delta": d, "slo": health["slo"], "admission": health["admission"],
+            "deadline": health["deadline"], "sweep_steps": SWEEP_STEPS,
+            "quiet_tiles": len(quiet), "launches": served_launches,
+            "degraded_direct": {"tile_lanes": 32, "render_lanes": 16, "seconds": direct_s,
+                                "launches": direct_launches},
+            "watchdog": health["watchdog"], "gpu": health["gpu"]}
+
+
 
 def smi_line() -> str:
     import subprocess
@@ -2769,6 +3076,9 @@ def main(argv=None) -> int:
                    help="timed level-0 tiles of path_zarr")
     p.add_argument("--zarr-s3-requests", type=int, default=128,
                    help="timed tiles of path_zarr_s3")
+    p.add_argument("--paths-only", action="store_true",
+                   help="only build, then the path (dynamic) and path_render phases, e.g. "
+                        "to pair two versions with --port-root (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -2819,6 +3129,12 @@ def main(argv=None) -> int:
         registry = write_fixture(data, stack)
         emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
               "seconds": time.perf_counter() - t0})
+        if args.paths_only:
+            emit(drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
+                            launched=("filter", "bitpack"), idle=("bitpack_dense",)))
+            emit(drive_render(registry, stack, args.seed, args.render_requests))
+            print(smi_line(), flush=True)
+            return 0
         t0 = time.perf_counter()
         wsi = make_wsi(args.wsi_size, args.seed)
         layouts = layout_data(args.seed)
@@ -2902,6 +3218,8 @@ def main(argv=None) -> int:
         emit(drive_layouts(wsi_registry, layouts, real_zstd))
         emit(drive_zarr(zarr_fx["registry"], img4, args.seed, args.zarr_requests))
         emit(drive_zarr_s3(zarr_fx["registry"], img5, args.seed, args.zarr_s3_requests))
+        for line in drive_viewer(zarr_fx["registry"], img4, args.seed):
+            emit(line)
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],

@@ -121,6 +121,11 @@ class SegmentedLRU:
                     evicted.append((k, e))
         return evicted
 
+    def __contains__(self, key: str) -> bool:
+        """Presence, without promotion or hit counting."""
+        with self._lock:
+            return key in self._probation or key in self._protected
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._probation) + len(self._protected)
@@ -146,6 +151,10 @@ class TileResultCache:
 
     def get(self, key: str) -> Optional[CachedTile]:
         return self.memory.get(key)
+
+    def contains(self, key: str) -> bool:
+        """The door gate's probe: no promotion, no hit counted."""
+        return key in self.memory
 
     def put(self, key: str, entry: CachedTile) -> None:
         if entry.nbytes <= self.max_entry_bytes:

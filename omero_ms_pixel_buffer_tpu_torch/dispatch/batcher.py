@@ -17,16 +17,32 @@ encode group is still in flight come back deferred and are delivered from
 the encode queue's callback, so a batch's slot frees before its slowest
 group.
 
+The intake is a ``DeadlineQueue`` (``resilience/scheduler.py``): lanes
+pop in (deadline, class) order, so a batch gathers the lanes due soonest.
+Burst continuation (the JAX ``backend.batching.burst-continuation``, on by
+default): when the lanes a window caught share a burst identity (image,
+level, plane, format, render signature, the adapter's ``BurstHint`` grid
+and session: ``_burst_key``) twice or more, or match the burst the
+previous batch dispatched within ``BURST_WINDOW_MS``, the window extends
+by up to ``BURST_WINDOW_MS`` (at most half the tightest lane's remaining
+budget) so a zoom's stragglers join this batch; ``burst_continuations``
+counts the extensions. Each batch's executor work runs with the latest
+lane deadline ambient (``deadline_scope``), so store retries and the
+fetch planner stop once no lane can use their result.
+
 Failure codes: pipeline None -> 404 "Cannot find Image:<id>"; a typed
 ``TileError`` result (a failed encode group is a 500, a projection over
-budget a 413) passes through;
-an expired deadline -> 504; a full queue or a crashed batch -> 500.
+budget a 413) passes through; an expired deadline -> 504 (counted by the
+stage that noticed it, ``resilience/deadline.py``); a full queue or a
+crashed batch -> 500. A lane served from a coarser level answers with
+``degraded`` in its reply headers.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import logging
 import os
 from typing import List, Optional, Set, Tuple
@@ -34,15 +50,18 @@ from typing import List, Optional, Set, Tuple
 from ..errors import GatewayTimeoutError, InternalError, NotFoundError, TileError
 from ..models.tile_pipeline import DeferredTile, TilePipeline
 from ..render.supertile import assign_supertiles
+from ..resilience.deadline import deadline_scope, note_exceeded
+from ..resilience.scheduler import DeadlineQueue
 from ..tile_ctx import TileCtx
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.batcher")
 
 # the JAX package's defaults (backend.batching): lanes per batch, the
-# coalesce window, the queue bound, and batches in flight (2 x CPUs, the
-# reference's worker-pool size)
+# coalesce window, the burst-continuation window, the queue bound, and
+# batches in flight (2 x CPUs, the reference's worker-pool size)
 MAX_BATCH = 32
-COALESCE_WINDOW_S = 0.002
+COALESCE_WINDOW_MS = 2.0
+BURST_WINDOW_MS = 25.0
 MAX_QUEUE = 4096
 WORKERS = 2 * (os.cpu_count() or 1)
 
@@ -56,7 +75,10 @@ class BatchingTileWorker:
         # adjacency bucketing of render lanes; False keeps every lane on
         # the independent path
         self.supertile = supertile
-        self._queue: asyncio.Queue = asyncio.Queue(maxsize=MAX_QUEUE)
+        # (burst key, loop time) of the last dispatched batch's dominant
+        # burst: the carry across windows
+        self._last_burst: Optional[Tuple[tuple, float]] = None
+        self._queue = DeadlineQueue(maxsize=MAX_QUEUE)
         self._runner: Optional[asyncio.Task] = None
         self._inflight: Set[asyncio.Task] = set()
         self._executor = concurrent.futures.ThreadPoolExecutor(
@@ -67,6 +89,7 @@ class BatchingTileWorker:
         self.lanes = 0
         self.lone = 0  # batches of one lane, served by ``pipeline.handle``
         self.stamped = 0  # lanes given a super-tile stamp
+        self.burst_continuations = 0  # windows extended by a burst
 
     async def start(self) -> None:
         if self._runner is None:
@@ -92,11 +115,15 @@ class BatchingTileWorker:
 
     def snapshot(self) -> dict:
         return {"batches": self.batches, "lanes": self.lanes, "lone": self.lone,
-                "queued": self._queue.qsize()}
+                "queued": self._queue.qsize(),
+                "burst_continuations": self.burst_continuations}
 
     async def handle(self, ctx: TileCtx) -> Tuple[bytes, dict]:
-        """Enqueue one request and await its lane's result."""
+        """Enqueue one request and await its lane's result: (body,
+        {"filename", and "degraded" when the lane came from a coarser
+        level})."""
         if ctx.expired:
+            note_exceeded("admission")
             raise GatewayTimeoutError()
         if self._closed:
             raise InternalError("Service shutting down")
@@ -105,16 +132,23 @@ class BatchingTileWorker:
             self._queue.put_nowait((ctx, fut))
         except asyncio.QueueFull:
             raise InternalError("Tile queue overflow") from None
-        left = ctx.remaining()
         try:
-            tile = await (fut if left is None else asyncio.wait_for(fut, left))
+            tile = await (fut if ctx.deadline is None
+                          else asyncio.wait_for(fut, ctx.deadline.remaining()))
         except asyncio.TimeoutError:
+            note_exceeded("bus")
             raise GatewayTimeoutError() from None
         if tile is None:
             if ctx.expired:
+                note_exceeded("pipeline")
                 raise GatewayTimeoutError()
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
-        return tile, {"filename": ctx.filename()}
+        meta = {"filename": ctx.filename()}
+        if ctx.degraded:
+            # the lane's final state: the pipeline clears the flag when no
+            # coarser level exists
+            meta["degraded"] = str(ctx.degraded)
+        return tile, meta
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
@@ -130,22 +164,19 @@ class BatchingTileWorker:
                 raise
 
     async def _coalesce_and_dispatch(self, batch, loop, sem) -> None:
-        """Grow ``batch`` in place until the window closes, then hand it
-        to an executor task."""
-        stop = loop.time() + COALESCE_WINDOW_S
-        while len(batch) < MAX_BATCH:
-            remaining = stop - loop.time()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(await asyncio.wait_for(self._queue.get(), remaining))
-            except asyncio.TimeoutError:
-                break
+        """Grow ``batch`` in place until the window closes (extended once
+        for a burst), then hand it to an executor task."""
+        await self._gather(batch, loop, COALESCE_WINDOW_MS / 1000.0)
+        ext = self._burst_extension(batch, loop)
+        if ext is not None:
+            self.burst_continuations += 1
+            await self._gather(batch, loop, ext)  # other lanes ride along
         live = []
         for c, f in batch:
             if f.done():
                 continue  # the client gave up
             if c.expired:
+                note_exceeded("dispatch")
                 f.set_exception(GatewayTimeoutError())
                 continue
             live.append((c, f))
@@ -155,6 +186,68 @@ class BatchingTileWorker:
         task = asyncio.create_task(self._execute(live, loop))
         self._inflight.add(task)
         task.add_done_callback(lambda t: (self._inflight.discard(t), sem.release()))
+        dominant = self._dominant_burst(live)
+        if dominant is not None:
+            self._last_burst = (dominant[0], loop.time())
+
+    async def _gather(self, batch, loop, seconds: float) -> None:
+        """Append queued lanes to ``batch`` for up to ``seconds``, or until
+        it holds ``MAX_BATCH``."""
+        stop = loop.time() + seconds
+        while len(batch) < MAX_BATCH:
+            remaining = stop - loop.time()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(await asyncio.wait_for(self._queue.get(), remaining))
+            except asyncio.TimeoutError:
+                break
+
+    @staticmethod
+    def _burst_key(ctx) -> Optional[tuple]:
+        """A lane's burst identity; None for lanes that are not render
+        lanes with a burst hint (they never extend a window)."""
+        burst = ctx.burst
+        if burst is None or ctx.render is None:
+            return None
+        return (ctx.image_id, ctx.resolution, ctx.z, ctx.t, ctx.format,
+                ctx.render.signature(), (burst.tile_w, burst.tile_h), ctx.omero_session_key)
+
+    @classmethod
+    def _dominant_burst(cls, batch) -> Optional[Tuple[tuple, int]]:
+        """The burst key most lanes of ``batch`` share, and how many."""
+        counts: dict = {}
+        for c, _ in batch:
+            k = cls._burst_key(c)
+            if k is not None:
+                counts[k] = counts.get(k, 0) + 1
+        if not counts:
+            return None
+        key = max(counts, key=counts.get)
+        return key, counts[key]
+
+    def _burst_extension(self, batch, loop) -> Optional[float]:
+        """Seconds of extra coalescing the batch's burst earns, or None: a
+        full batch, no burst key held by two lanes or carried from the last
+        dispatch within the window, or a deadline bound that leaves
+        nothing. The extension is the window, capped at half the tightest
+        lane's remaining budget."""
+        window = BURST_WINDOW_MS / 1000.0
+        if len(batch) >= MAX_BATCH:
+            return None
+        dominant = self._dominant_burst(batch)
+        if dominant is None:
+            return None
+        key, n = dominant
+        carried = (self._last_burst is not None and self._last_burst[0] == key
+                   and loop.time() - self._last_burst[1] <= window)
+        if n < 2 and not carried:
+            return None
+        extra = window
+        remains = [c.deadline.remaining() for c, _ in batch if c.deadline is not None]
+        if remains:
+            extra = min(extra, max(0.0, min(remains)) * 0.5)
+        return extra if extra > 0 else None
 
     async def _execute(self, batch: List[Tuple[TileCtx, asyncio.Future]], loop) -> None:
         canonical: List[Tuple[TileCtx, asyncio.Future]] = []
@@ -180,8 +273,16 @@ class BatchingTileWorker:
             work = lambda: [self.pipeline.handle(ctxs[0])]  # noqa: E731
         else:
             work = lambda: self.pipeline.handle_batch(ctxs, defer=True)  # noqa: E731
+        # the latest lane budget is ambient for the executor work: store
+        # retries stop once no lane can use the result (a lane without a
+        # deadline leaves the batch unbounded)
+        deadlines = [c.deadline for c in ctxs]
+        batch_deadline = (max(deadlines, key=lambda d: d.expires_at)
+                          if all(d is not None for d in deadlines) else None)
+        with deadline_scope(batch_deadline):
+            run_ctx = contextvars.copy_context()
         try:
-            results = await loop.run_in_executor(self._executor, work)
+            results = await loop.run_in_executor(self._executor, lambda: run_ctx.run(work))
         except Exception:
             log.exception("batch execution failed")
             for _, f in batch:
@@ -192,6 +293,7 @@ class BatchingTileWorker:
             lanes = [(ctx, f)] + followers.get(i, [])
             for lane_ctx, _ in lanes[1:]:
                 lane_ctx.region = ctx.region  # resolved w/h for the filename
+                lane_ctx.degraded = ctx.degraded
             if isinstance(result, DeferredTile):
                 self._chain_deferred(loop, result, [lf for _, lf in lanes])
                 continue

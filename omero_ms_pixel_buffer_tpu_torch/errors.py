@@ -51,10 +51,19 @@ class RequestTooLargeError(TileError):
         super().__init__(413, message)
 
 
+class UnsupportedDialectError(TileError):
+    """501 — valid viewer-protocol grammar (``http/protocols/``) that the
+    service does not serve byte-exactly: arbitrary IIIF scaling or
+    rotation, ``pct:`` regions, bitonal quality, other formats."""
+
+    def __init__(self, message: str):
+        super().__init__(501, message)
+
+
 class ServiceUnavailableError(TileError):
-    """503 — a dependency behind an open circuit breaker (a store) cannot
-    take the request now; ``retry_after_s`` rides to the front, which
-    answers with a ``Retry-After`` header."""
+    """503 — the scheduler shed the request, or a dependency behind an
+    open circuit breaker (a store) cannot take it now; ``retry_after_s``
+    rides to the front, which answers with a ``Retry-After`` header."""
 
     def __init__(self, message: str = "Service unavailable", retry_after_s: float = 1.0):
         super().__init__(503, message)

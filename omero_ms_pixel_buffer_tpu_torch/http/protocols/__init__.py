@@ -1,0 +1,120 @@
+"""Viewer-protocol adapters (counterpart of ``omero_ms_pixel_buffer_tpu/
+http/protocols/``): thin grammar layers over the native ``/render`` core.
+
+DZI (OpenSeadragon's default tile source), IIIF Image API and the Iris
+RESTful dialect each translate their URLs into the same ``TileCtx`` and
+``RenderSpec`` a native ``/render`` request builds and serve them through
+the front's one serving path, so an adapter tile is byte-identical to its
+native request, shares its ETag and cache entry, and is shed, degraded
+and timed out as any tile is. Grammar errors answer 400; dialect features
+the pipeline cannot serve byte-identically answer 501. Every adapter is
+on, on a 256-pixel tile grid (the JAX ``protocols:`` defaults).
+
+On the port's asyncio front a handler takes ``(server, groups, query,
+headers, session key)`` and returns ``(status, headers, body)``;
+``ROUTES`` is the route table the front matches, in order. The JAX
+package counts adapter requests into Prometheus; here
+``PROTOCOL_REQUESTS`` holds plain counts per (dialect, kind).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from ...errors import ServiceUnavailableError, TileError
+from ...io.stores import StoreUnavailableError
+from ...tile_ctx import RegionDef, TileCtx
+
+log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.protocols")
+
+TILE_SIZE = 256  # the JAX protocols.*.tile-size default
+ENABLED = {"dzi": True, "iiif": True, "iris": True}
+
+# an open breaker answers 503 with Retry-After, never the 404 of an
+# unknown image
+_UNAVAILABLE = (StoreUnavailableError, ServiceUnavailableError)
+
+_lock = threading.Lock()
+PROTOCOL_REQUESTS: Dict[str, int] = {}
+
+
+def count(dialect: str, kind: str) -> None:
+    with _lock:
+        key = f"{dialect}.{kind}"
+        PROTOCOL_REQUESTS[key] = PROTOCOL_REQUESTS.get(key, 0) + 1
+
+
+def text(status: int, message: str, headers: Optional[dict] = None):
+    """A plain-text answer, as aiohttp's ``web.Response(text=...)``."""
+    return status, dict(headers or {}), message.encode()
+
+
+async def image_level_sizes(server, image_id: int) -> Optional[List[Tuple[int, int]]]:
+    """[(size_x, size_y)] per pyramid level, or None (-> 404). An open
+    breaker raises (-> 503)."""
+    svc = server.pipeline.pixels_service
+
+    def lookup():
+        try:
+            buf = svc.get_pixel_buffer(image_id)
+            if buf is None:
+                return None
+            return [buf.level_size(r) for r in range(buf.resolution_levels)]
+        except _UNAVAILABLE:
+            raise
+        except Exception:
+            log.debug("extent lookup failed for image %d", image_id, exc_info=True)
+            return None
+
+    return await asyncio.get_running_loop().run_in_executor(None, lookup)
+
+
+async def levels_or_response(server, image_id: int):
+    """(level sizes, None) or (None, the error answer): an unknown image
+    404, an open breaker 503 with ``Retry-After``."""
+    try:
+        sizes = await image_level_sizes(server, image_id)
+    except _UNAVAILABLE as e:
+        retry = getattr(e, "retry_after_s", None) or 1.0
+        return None, text(503, "Service unavailable",
+                          {"Retry-After": str(max(1, int(retry + 0.999)))})
+    if sizes is None:
+        return None, text(404, "Cannot find Image")
+    return sizes, None
+
+
+async def serve_translated(server, query: dict, headers: dict, key: Optional[str],
+                           image_id: int, x: int, y: int, w: int, h: int,
+                           resolution: Optional[int], overrides: Optional[dict] = None,
+                           burst=None):
+    """The shared tail of every adapter tile: the ctx and spec a native
+    ``/render`` request with these parameters builds (the rendering query
+    parameters ride along; ``overrides`` force the dialect's format or
+    model), served through the front's one path. ``burst`` is the
+    dialect's tile grid (``render.supertile.BurstHint``), transient."""
+    q = dict(query)
+    q.update(overrides or {})
+    try:
+        ctx = TileCtx.from_params(
+            {"imageId": str(image_id), "z": q.pop("z", 0), "c": 0, "t": q.pop("t", 0)}, key)
+    except TileError as e:
+        return text(400, e.message)
+    spec, error = server.build_render_spec(q, 0)
+    if error is not None:
+        return text(400, error)
+    ctx.render = spec
+    ctx.format = spec.format
+    ctx.region = RegionDef(x, y, w, h)
+    ctx.resolution = resolution
+    ctx.burst = burst
+    return await server.serve(ctx, headers)
+
+
+def routes():
+    """[(compiled path pattern, handler)] of every adapter."""
+    from . import dzi, iiif, iris
+
+    return dzi.ROUTES + iiif.ROUTES + iris.ROUTES

@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from ..resilience.breaker import BreakerOpenError, CircuitBreaker
 from .pixel_buffer import NEGATIVE_TTL_S
 from ..resilience.deadline import DeadlineExceeded, current_deadline
+from ..resilience.faultinject import INJECTOR
 from ..resilience.retry import retry_call
 
 _RETRY_STATUSES = (500, 502, 503, 504)
@@ -228,18 +229,22 @@ class FetchPool:
 POOL = FetchPool(MAX_CONNS_PER_HOST)
 
 
-def resilient_get(fn, breaker: CircuitBreaker, name: str = "") -> Tuple[int, bytes]:
+def resilient_get(fn, breaker: CircuitBreaker, name: str = "",
+                  point: Optional[str] = None) -> Tuple[int, bytes]:
     """Run a GET closure under the resilience policy: the breaker gates
     the call (open: ``StoreUnavailableError``, no network), transient
     failures (5xx, transport errors) retry with jittered backoff under a
     budget and the ambient deadline, and the outcome feeds the breaker.
-    A 4xx returns at once: it is an answer, not an outage."""
+    A 4xx returns at once: it is an answer, not an outage. ``point`` names
+    the fault-injection point each attempt fires first."""
     try:
         breaker.allow()
     except BreakerOpenError as e:
         raise StoreUnavailableError(str(e), e.retry_after_s) from None
 
     def attempt() -> Tuple[int, bytes]:
+        if point is not None:
+            INJECTOR.fire(point)
         status, body = fn()
         if status in _RETRY_STATUSES:
             raise _TransientStatus(status, body)

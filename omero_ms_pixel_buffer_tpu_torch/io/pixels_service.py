@@ -26,7 +26,7 @@ import json
 import os
 import threading
 from collections import OrderedDict
-from typing import Optional
+from typing import Optional, Tuple
 
 from .jpeg import DeviceIdct
 from .ometiff import OmeTiffPixelBuffer
@@ -137,6 +137,22 @@ class PixelsService:
                 # dropped, not closed: concurrent reads may still hold it
                 self._cache.popitem(last=False)
         return buf
+
+    def peek_extent(self, image_id: int, resolution=None) -> Optional[Tuple[int, int]]:
+        """(size_x, size_y) at ``resolution`` from the open-buffer cache
+        alone: never opens a buffer, never blocks on I/O. None when the
+        image has no open buffer or the level is out of range."""
+        with self._lock:
+            buf = self._cache.get(int(image_id))
+        if buf is None:
+            return None
+        try:
+            level = 0 if resolution is None else int(resolution)
+            if not 0 <= level < buf.resolution_levels:
+                return None
+            return buf.level_size(level)
+        except Exception:
+            return None
 
     def close(self) -> None:
         with self._lock:

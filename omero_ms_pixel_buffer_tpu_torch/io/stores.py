@@ -170,7 +170,7 @@ class HTTPStore:
     def get(self, key: str) -> Optional[bytes]:
         url = self._url(key)
         status, body = resilient_get(lambda: POOL.request(url, {}, self.timeout_s),
-                                     breaker=self.breaker, name=self.base_url)
+                                     breaker=self.breaker, name=self.base_url, point="store.http")
         if status == 200:
             return body
         if status in (404, 410):
@@ -183,7 +183,8 @@ class HTTPStore:
         url = self._url(key)
         headers = {"range": _range_header(start, length)}
         status, body = resilient_get(lambda: POOL.request(url, headers, self.timeout_s),
-                                     breaker=self.breaker, name=self.base_url)
+                                     breaker=self.breaker, name=self.base_url,
+                                     point="io.range-get")
         if status == 206:
             return body
         if status == 200:
@@ -347,7 +348,8 @@ class S3Store:
         return fresh
 
     def _signed_get(self, key: str, creds: Optional[Tuple] = None,
-                    extra_headers: Optional[dict] = None) -> Tuple[int, bytes]:
+                    extra_headers: Optional[dict] = None,
+                    point: str = "store.s3") -> Tuple[int, bytes]:
         """One SigV4-signed GET through the shared pool (unsigned without
         credentials)."""
         url, canonical_path = self._url_and_path(key)
@@ -358,18 +360,19 @@ class S3Store:
             headers = sigv4_headers("GET", host, canonical_path, self.region, access, secret,
                                     token, extra_headers=extra_headers)
         return resilient_get(lambda: POOL.request(url, headers, self.timeout_s),
-                             breaker=self.breaker, name=f"s3://{self.bucket}")
+                             breaker=self.breaker, name=f"s3://{self.bucket}", point=point)
 
-    def _get_refreshing(self, key: str, extra_headers: Optional[dict] = None
-                        ) -> Tuple[int, bytes]:
+    def _get_refreshing(self, key: str, extra_headers: Optional[dict] = None,
+                        point: str = "store.s3") -> Tuple[int, bytes]:
         """A signed GET; on a 403, one retry with re-read credentials,
         kept only if the 403 stops (before any 403-as-missing mapping, so
         stale keys never read an existing chunk as absent)."""
-        status, body = self._signed_get(key, extra_headers=extra_headers)
+        status, body = self._signed_get(key, extra_headers=extra_headers, point=point)
         if status == 403:
             fresh = self._refresh_candidate()
             if fresh is not None:
-                status2, body2 = self._signed_get(key, creds=fresh, extra_headers=extra_headers)
+                status2, body2 = self._signed_get(key, creds=fresh, extra_headers=extra_headers,
+                                                  point=point)
                 if status2 != 403:
                     self._creds = fresh  # rotation confirmed
                     status, body = status2, body2
@@ -395,7 +398,7 @@ class S3Store:
         206 answers the range, a 200 is sliced here, 416 is an error."""
         validate_key(key)
         status, body = self._get_refreshing(
-            key, extra_headers={"range": _range_header(start, length)})
+            key, extra_headers={"range": _range_header(start, length)}, point="io.range-get")
         if status == 206:
             return body
         if status == 200:

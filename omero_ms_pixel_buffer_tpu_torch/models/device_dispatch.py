@@ -53,6 +53,7 @@ from ..ops.device_deflate import (
 )
 from ..ops.png import frame_png
 from ..render.engine import fused_render_filter_deflate_batch, packed_rgb_tables
+from ..resilience.faultinject import INJECTOR
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 
@@ -261,7 +262,13 @@ class DeviceEncodeDispatcher:
 
     def _run_stage(self, fut, stage_fn, args, frame) -> None:
         """Submit thread: take an in-flight slot, stage + launch the first
-        device work, chain the readback."""
+        device work, chain the readback. The ``device.encode-group``
+        fault point (tests) fails the group before it takes a slot."""
+        try:
+            INJECTOR.fire("device.encode-group")
+        except Exception as e:
+            self._fail(fut, e)
+            return
         self._slots.acquire()
         with self._stats_lock:
             self._inflight += 1

@@ -73,6 +73,31 @@ at resolve or at any read: tile, render, super-tile and histogram reads)
 answers 503 with the breaker's ``retry_after_s``, as in the JAX package;
 another failed read (a corrupt chunk, a store error) answers 404 for
 every lane of its batched read.
+
+Deadlines: ``resolve`` and every single-lane read check the lane's
+``Deadline`` (else the ambient one); a spent budget leaves the lane None,
+which the batcher answers 504.
+
+Degraded lanes (``ctx.degraded`` = d, the scheduler's hybrid-resolution
+fallback): ``resolve`` maps the flag to the pyramid level d below the
+requested one, or clears it when no such level exists. A degraded lane
+reads the covering region of that level and replicates its rows and
+columns back to the requested size (``_degrade_plan_rect``: pure integer
+maps from the two levels' extents, so a pixel's source does not depend
+on the rectangle it is planned in). ``/tile`` lanes read one by one and
+then take the same bucket route (filter kernel, SP packer) as any lane;
+render lanes read their channel planes at the coarse level and upscale
+before staging; a degraded super-tile gathers the coarse cover of its
+bounding rectangle and upscales once, with the lanes of its modal level
+(the others serve independently). Degraded lanes never crop from the
+plane cache, so no full-resolution bytes are served under a degraded
+key. Histogram lanes read full resolution, as in the JAX package.
+
+Fault-injection points (``resilience/faultinject.py``, for tests):
+``render.engine`` before each render encode group, ``render.supertile``
+before a fused super-tile's device work, ``analysis.engine`` before each
+device histogram group; a fault fails what it precedes (500), as the
+failure of that work does.
 """
 
 from __future__ import annotations
@@ -110,6 +135,8 @@ from ..render import supertile as stile
 from ..render.luts import LutRegistry
 from ..render.masks import MaskRasterCache, bucket_mask_batch
 from ..render.projection import project_np, project_torch
+from ..resilience.deadline import DeadlineExceeded, current_deadline
+from ..resilience.faultinject import INJECTOR
 from ..runtime.device import resolve_device
 from ..runtime.native import get_engine
 from ..tile_ctx import TileCtx
@@ -124,13 +151,15 @@ MAX_TILE_BYTES = 256 << 20
 
 
 class ResolvedTile:
-    """A ctx bound to its image: metadata, buffer, level, region."""
+    """A ctx bound to its image: metadata, buffer, level, region, and the
+    coarser level a degraded lane reads (None: full resolution)."""
 
-    __slots__ = ("ctx", "meta", "buffer", "level", "x", "y", "w", "h")
+    __slots__ = ("ctx", "meta", "buffer", "level", "x", "y", "w", "h", "degrade_level")
 
-    def __init__(self, ctx, meta, buffer, level, x, y, w, h):
+    def __init__(self, ctx, meta, buffer, level, x, y, w, h, degrade_level=None):
         self.ctx, self.meta, self.buffer = ctx, meta, buffer
         self.level, self.x, self.y, self.w, self.h = level, x, y, w, h
+        self.degrade_level = degrade_level
 
 
 class RenderLane:
@@ -339,14 +368,18 @@ class TilePipeline:
     def _read(self, buf, coords, level, staging: bool = False):
         """``buf.read_tiles``, timed for ``read_snapshot`` (``staging``: a
         plane-cache staging read)."""
+        return self._timed(lambda: buf.read_tiles(coords, level=level), len(coords), staging)
+
+    def _timed(self, read, lanes: int, staging: bool = False):
+        """Run one host read, counted and timed for ``read_snapshot``."""
         t0 = time.perf_counter()
         try:
-            return buf.read_tiles(coords, level=level)
+            return read()
         finally:
             ms = (time.perf_counter() - t0) * 1e3
             with self._stats_lock:
                 self._stats["read_calls"] += 1
-                self._stats["read_lanes"] += len(coords)
+                self._stats["read_lanes"] += lanes
                 self._stats_ms["read"] += ms
                 if staging:
                     self._stats["stage_reads"] += 1
@@ -363,9 +396,19 @@ class TilePipeline:
 
     # -- resolve / read ----------------------------------------------------
 
+    @staticmethod
+    def _check_deadline(ctx: TileCtx, what: str) -> None:
+        """Raise ``DeadlineExceeded`` once the lane's budget (else the
+        ambient one) is spent."""
+        deadline = ctx.deadline or current_deadline()
+        if deadline is not None:
+            deadline.check(what)
+
     def resolve(self, ctx: TileCtx) -> Optional[ResolvedTile]:
-        """Metadata + buffer + region. None when the image is unknown;
-        raises ValueError on invalid coordinates (-> 404)."""
+        """Metadata + buffer + region (+ the degraded lane's level). None
+        when the image is unknown; raises ValueError on invalid
+        coordinates (-> 404), ``DeadlineExceeded`` past the budget."""
+        self._check_deadline(ctx, "resolve")
         buffer = self.pixels_service.get_pixel_buffer(ctx.image_id)
         if buffer is None:
             log.debug("Cannot find Image:%s", ctx.image_id)
@@ -385,7 +428,56 @@ class TilePipeline:
         # the resolved region flows back into the ctx (filename header)
         ctx.region.x, ctx.region.y = x, y
         ctx.region.width, ctx.region.height = w, h
-        return ResolvedTile(ctx, buffer.meta, buffer, level, x, y, w, h)
+        degrade_level = None
+        if ctx.degraded:
+            target = level + int(ctx.degraded)
+            if 0 < target < buffer.resolution_levels:
+                degrade_level = target
+            else:
+                ctx.degraded = 0  # no coarser level: full resolution, untagged
+        return ResolvedTile(ctx, buffer.meta, buffer, level, x, y, w, h, degrade_level)
+
+    def read(self, rt: ResolvedTile) -> np.ndarray:
+        """One lane's host read (its coarse level upscaled when degraded)."""
+        self._check_deadline(rt.ctx, "read")
+        if rt.degrade_level is not None:
+            return self._read_degraded(rt)
+        return rt.buffer.get_tile_at(rt.level, rt.ctx.z, rt.ctx.c, rt.ctx.t,
+                                     rt.x, rt.y, rt.w, rt.h)
+
+    # -- hybrid-resolution degradation --------------------------------------
+
+    @staticmethod
+    def _degrade_plan_rect(buffer, level, degrade_level, x, y, w, h):
+        """The coarse read and upscale of a rectangle at ``level`` served
+        from ``degrade_level``: (cx0, cy0, cw, ch) of the covering coarse
+        region and the row and column index maps back to (h, w). Pure
+        integer maps from the two levels' extents, so odd and
+        non-power-of-two pyramids map right; each pixel's coarse index is
+        absolute, so a fused rectangle's plan equals its lanes' plans."""
+        sx0, sy0 = buffer.level_size(level)
+        sx1, sy1 = buffer.level_size(degrade_level)
+        cx0 = x * sx1 // sx0
+        cy0 = y * sy1 // sy0
+        cx1 = max(min(sx1, ((x + w) * sx1 + sx0 - 1) // sx0), cx0 + 1)
+        cy1 = max(min(sy1, ((y + h) * sy1 + sy0 - 1) // sy0), cy0 + 1)
+        xs = np.minimum((x + np.arange(w)) * sx1 // sx0, cx1 - 1) - cx0
+        ys = np.minimum((y + np.arange(h)) * sy1 // sy0, cy1 - 1) - cy0
+        return cx0, cy0, cx1 - cx0, cy1 - cy0, ys, xs
+
+    @classmethod
+    def _degrade_plan(cls, rt: ResolvedTile):
+        return cls._degrade_plan_rect(rt.buffer, rt.level, rt.degrade_level,
+                                      rt.x, rt.y, rt.w, rt.h)
+
+    def _read_degraded(self, rt: ResolvedTile) -> np.ndarray:
+        """The requested region from the coarser level: the coarse tile
+        with its rows and columns replicated (a trailing samples axis
+        rides along)."""
+        cx0, cy0, cw, ch, ys, xs = self._degrade_plan(rt)
+        coarse = rt.buffer.get_tile_at(rt.degrade_level, rt.ctx.z, rt.ctx.c, rt.ctx.t,
+                                       cx0, cy0, cw, ch)
+        return coarse[np.ix_(ys, xs)]
 
     def _bucket(self, w: int, h: int) -> Optional[Tuple[int, int]]:
         """Smallest bucket covering (w, h); None when none does."""
@@ -409,8 +501,10 @@ class TilePipeline:
             rt = self.resolve(ctx)
             if rt is None:
                 return None
-            tile = rt.buffer.get_tile_at(rt.level, ctx.z, ctx.c, ctx.t, rt.x, rt.y, rt.w, rt.h)
-            return self.encode(ctx, tile)
+            return self.encode(ctx, self.read(rt))
+        except DeadlineExceeded:
+            log.debug("deadline exceeded for image %s", ctx.image_id)
+            return None  # the batcher answers 504
         except DeviceIdctError:
             log.exception("device IDCT failed; lane -> 500")
             return InternalError("device IDCT failed")
@@ -484,12 +578,17 @@ class TilePipeline:
         plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
         in_plane = {i for lanes in plane_groups.values() for i in lanes}
 
-        # host reads, grouped per (image, level) for the batched reader
+        # host reads, grouped per (image, level) for the batched reader;
+        # degraded lanes read their coarse level and upscale one by one
         tiles: List[Optional[np.ndarray]] = [None] * n
         by_image: Dict[Tuple[int, int], List[int]] = {}
         for i, rt in enumerate(resolved):
-            if rt is not None and i not in in_plane and i not in own_path:
-                by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
+            if rt is None or i in in_plane or i in own_path:
+                continue
+            if rt.degrade_level is not None:
+                tiles[i] = self._degraded_lane(i, rt, results)
+                continue
+            by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
         for (_, level), lanes in by_image.items():
             buf = resolved[lanes[0]].buffer
             coords = [(resolved[i].ctx.z, resolved[i].ctx.c, resolved[i].ctx.t,
@@ -565,6 +664,22 @@ class TilePipeline:
                 results[i] = group[i]
         return results
 
+    def _degraded_lane(self, i, rt, results) -> Optional[np.ndarray]:
+        """One degraded lane's upscaled read; a failure writes the lane's
+        marker (503 for an open breaker, 500 for a failed device IDCT) or
+        leaves it None (404, or 504 past the deadline)."""
+        try:
+            return self._timed(lambda: self.read(rt), 1)
+        except DeadlineExceeded:
+            pass
+        except DeviceIdctError:
+            _idct_failed([i], results)
+        except StoreUnavailableError as e:
+            _unavailable([i], results, e)
+        except Exception:
+            log.exception("degraded read failed; lane -> 404")
+        return None
+
     def _host_png_lanes(self, lanes, tiles, ctxs, results) -> None:
         """PNG lanes larger than every bucket, on the host: one fused
         native call for all of them, or ``encode`` per lane without the
@@ -593,9 +708,13 @@ class TilePipeline:
         attempted: set = set()
         for i, (ctx, rt) in enumerate(zip(ctxs, resolved)):
             if (rt is None or ctx.format != "png" or ctx.render is not None
+                    or rt.degrade_level is not None
                     or rt.meta.dtype not in _PNG_DTYPES
                     or getattr(rt.buffer, "samples", 1) != 1):
-                continue  # a render lane's format is png too
+                # a render lane's format is png too; a degraded lane reads
+                # the coarse level (a full-resolution crop would serve
+                # full-resolution bytes under its degraded key)
+                continue
             bucket = self._bucket(rt.w, rt.h)
             if bucket is None:
                 continue
@@ -779,9 +898,19 @@ class TilePipeline:
                     f"Projection stack {rt.w}x{rt.h} x {nplanes} planes exceeds "
                     f"max-tile-bytes ({self.max_tile_bytes})")
                 continue
-            coords = [(z, ch.index, t, rt.x, rt.y, rt.w, rt.h) for ch in chans for (z, t) in zts]
-            plans[i] = (chans, zts, coords)
-            by_image.setdefault((rt.meta.image_id, rt.level), []).append(i)
+            upscale = None
+            if rt.degrade_level is not None:
+                # every channel plane from the coarse level, upscaled after
+                # the read
+                cx0, cy0, crw, crh, ys, xs = self._degrade_plan(rt)
+                coords = [(z, ch.index, t, cx0, cy0, crw, crh) for ch in chans for (z, t) in zts]
+                upscale = (ys, xs, crh, crw)
+            else:
+                coords = [(z, ch.index, t, rt.x, rt.y, rt.w, rt.h)
+                          for ch in chans for (z, t) in zts]
+            plans[i] = (chans, zts, coords, upscale)
+            by_image.setdefault((rt.meta.image_id, rt.level if upscale is None
+                                 else rt.degrade_level), []).append(i)
 
         stacks: Dict[int, RenderLane] = {}
         for (image_id, level), lanes in by_image.items():
@@ -790,11 +919,12 @@ class TilePipeline:
             flat: List[tuple] = []
             owners: List[Tuple[int, int]] = []
             for i in lanes:
-                chans, zts, coords = plans[i]
+                chans, zts, coords, upscale = plans[i]
                 rt, spec = resolved[i], ctxs[i].render
                 slots = [None] * len(coords)
                 per_lane[i] = slots
-                use_cache = spec.projection is not None and _plane_cacheable(buf, rt.meta.dtype)
+                use_cache = (spec.projection is not None and upscale is None
+                             and _plane_cacheable(buf, rt.meta.dtype))
                 # a lane whose crops are all resident stays on the device:
                 # the fused route, unsigned pixels (no view needed, no
                 # quantization), no mask raster, a bucket to land in
@@ -825,7 +955,7 @@ class TilePipeline:
             for (i, j), arr in zip(owners, planes):
                 per_lane[i][j] = arr
             for i in lanes:
-                chans, zts, _ = plans[i]
+                chans, zts, _, upscale = plans[i]
                 lane_planes = per_lane[i]
                 if any(p is None for p in lane_planes):
                     continue  # a read slot failed -> 404
@@ -840,7 +970,12 @@ class TilePipeline:
                             continue
                         # a mixed cold pan: the resident slots come back once
                         lane_planes = [self._pull_crop(p, rt.meta.dtype) for p in lane_planes]
-                    stack = np.stack(lane_planes).reshape(len(chans), len(zts), rt.h, rt.w)
+                    if upscale is not None:
+                        ys, xs, crh, crw = upscale
+                        stack = np.stack(lane_planes).reshape(
+                            len(chans), len(zts), crh, crw)[:, :, ys[:, None], xs[None, :]]
+                    else:
+                        stack = np.stack(lane_planes).reshape(len(chans), len(zts), rt.h, rt.w)
                     stack, tspec, tdtype = self._stage_stack(stack, spec, chans, rt.meta.dtype,
                                                              device_project=use_fused)
                     mask = None
@@ -863,6 +998,7 @@ class TilePipeline:
         for (_, dtype_str, (w, h), (bw, bh), has_mask, is_dev), lanes in groups.items():
             lane0 = stacks[lanes[0]]
             try:
+                INJECTOR.fire("render.engine")
                 tables, luts = self._render_tables_for(lane0.spec, np.dtype(dtype_str))
                 if is_dev:
                     with self.dispatcher.stream_context():
@@ -905,6 +1041,15 @@ class TilePipeline:
         staging), stays for the independent path."""
         live = [i for i in lanes
                 if resolved[i] is not None and results[i] is None and not ctxs[i].expired]
+        # degraded lanes fuse per resolved level (the stamp carries only the
+        # flag; resolve may clear it): the modal level's lanes stay
+        by_level: Dict[Optional[int], List[int]] = {}
+        for i in live:
+            by_level.setdefault(resolved[i].degrade_level, []).append(i)
+        if len(by_level) > 1:
+            keep = max(by_level.values(), key=len)
+            self._st_decline([i for i in live if i not in keep])
+            live = keep
         if len(live) < 2:
             return self._st_decline(live)
         rt0, ctx0 = resolved[live[0]], ctxs[live[0]]
@@ -923,12 +1068,23 @@ class TilePipeline:
                 and bw_ * bh_ * rt0.meta.bytes_per_pixel * nplanes > self.max_tile_bytes):
             return self._st_decline(live)  # the tiles may still fit alone
         buf = rt0.buffer
-        coords = [(z, ch.index, t, bx, by, bw_, bh_) for ch in chans for (z, t) in zts]
+        # a degraded group gathers the coarse cover of the bounding
+        # rectangle and upscales once (equal to its lanes' own upscales:
+        # the plan's indices are absolute)
+        dlevel = rt0.degrade_level
+        read_level, upscale = rt0.level, None
+        if dlevel is not None:
+            cx0, cy0, crw, crh, uys, uxs = self._degrade_plan_rect(
+                buf, rt0.level, dlevel, bx, by, bw_, bh_)
+            coords = [(z, ch.index, t, cx0, cy0, crw, crh) for ch in chans for (z, t) in zts]
+            read_level, upscale = dlevel, (uys, uxs, crh, crw)
+        else:
+            coords = [(z, ch.index, t, bx, by, bw_, bh_) for ch in chans for (z, t) in zts]
         slots: List[Optional[np.ndarray]] = [None] * len(coords)
         missing, owners = [], []
-        use_cache = _plane_cacheable(buf, dtype)
+        use_cache = upscale is None and _plane_cacheable(buf, dtype)
         for j, coord in enumerate(coords):
-            arr = self._plane_cache_region(buf, rt0.level, coord, dtype) if use_cache else None
+            arr = self._plane_cache_region(buf, read_level, coord, dtype) if use_cache else None
             if arr is not None:
                 slots[j] = arr
             else:
@@ -936,9 +1092,14 @@ class TilePipeline:
                 owners.append(j)
         self._count(st_host_pulls=len(coords) - len(missing))
         try:
-            for j, arr in zip(owners, self._read(buf, missing, rt0.level) if missing else []):
+            for j, arr in zip(owners, self._read(buf, missing, read_level) if missing else []):
                 slots[j] = arr
-            raw = np.stack(slots).reshape(len(chans), len(zts), bh_, bw_)
+            if upscale is not None:
+                uys, uxs, crh, crw = upscale
+                raw = np.stack(slots).reshape(len(chans), len(zts), crh, crw)[
+                    :, :, uys[:, None], uxs[None, :]]
+            else:
+                raw = np.stack(slots).reshape(len(chans), len(zts), bh_, bw_)
             stack, tspec, tdtype = self._stage_stack(raw, spec, chans, dtype,
                                                      device_project=use_fused)
         except DeviceIdctError:
@@ -962,6 +1123,7 @@ class TilePipeline:
             size_groups.setdefault((resolved[i].w, resolved[i].h), []).append(j)
         self._count(st_groups=1, st_device_lanes=len(live))
         try:
+            INJECTOR.fire("render.supertile")
             tables, luts = self._render_tables_for(tspec, tdtype)
             packed = rengine.packed_rgb_tables(tables, luts)
             with self.dispatcher.stream_context():
@@ -1235,6 +1397,7 @@ class TilePipeline:
             if self.device.type == "cuda":
                 events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             try:
+                INJECTOR.fire("analysis.engine")
                 counts = ranalysis.histogram_batch(planes, tabs, bins, self.device, events)
             except Exception:
                 log.exception("device histogram failed; lanes -> 500")

@@ -13,13 +13,15 @@ pixel's value does not depend on the rectangle it was rendered in; the
 PNG filter looks only up and left inside the tile, and the stream is
 built from the tile's own scanline bytes.
 
-- ``assign_supertiles`` (copied, with ``SuperTileGroup`` and the
-  pairwise clustering helpers): the batcher stamps adjacent lanes of each
+- ``assign_supertiles`` (copied, with ``SuperTileGroup``, ``BurstHint``
+  and the clustering helpers): the batcher stamps adjacent lanes of each
   coalesced batch with a shared group token (``ctx.supertile``). Masked,
-  analysis, expired and full-plane lanes never fuse. The JAX package's
-  fuse key also carries the degraded flag, and its ``BurstHint`` grid
-  clustering serves the protocol adapters and the prefetcher; the port
-  has neither degraded reads nor those callers yet.
+  analysis, expired and full-plane lanes never fuse; degraded lanes fuse
+  only with degraded lanes (the flag is in the fuse key; the pipeline
+  keeps the lanes of one resolved level). Lanes that share one
+  ``BurstHint`` (the adapters' tile grid) cluster by an O(n) walk of
+  their grid cells and split by the pixel budget at whole grid rows;
+  other lanes take the pairwise touch sweep and a greedy row-major split.
 - ``composite_carve_torch``: the fused device program
   (``composite_carve_batch`` in the JAX package): one composite of the
   bounding stack with the port's ``render_torch``, zero-padded by the
@@ -39,6 +41,7 @@ fusion gathers, ``MIN_LANES`` is the smallest neighbourhood worth fusing,
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +53,16 @@ from .engine import render_torch
 MAX_PIXELS = 4 << 20  # 4 Mpx, a 2048x2048 viewport
 MIN_LANES = 2
 MIN_COVERAGE = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class BurstHint:
+    """An adapter's tile grid (DZI TileSize, IIIF tile width, Iris layer
+    grid), attached to its lanes' ``ctx.burst``. Transient: never part of
+    a key; it only lets ``assign_supertiles`` cluster by grid cell."""
+
+    tile_w: int
+    tile_h: int
 
 
 class SuperTileGroup:
@@ -66,8 +79,8 @@ class SuperTileGroup:
 def _fuse_key(ctx) -> Optional[tuple]:
     """The same-spec bucketing key, or None when the lane must never
     fuse: render lanes only, no ROI masks, explicit regions only, no
-    expired deadline. No session component: every lane still resolves
-    itself."""
+    expired deadline. The degraded flag is part of the key. No session
+    component: every lane still resolves itself."""
     spec = ctx.render
     if spec is None or ctx.analysis is not None:
         return None
@@ -78,7 +91,8 @@ def _fuse_key(ctx) -> Optional[tuple]:
         return None
     if ctx.expired:
         return None
-    return (ctx.image_id, ctx.resolution, ctx.z, ctx.t, ctx.format, spec.signature())
+    return (ctx.image_id, ctx.resolution, ctx.z, ctx.t, ctx.format, spec.signature(),
+            bool(ctx.degraded))
 
 
 def _rect(ctx) -> Tuple[int, int, int, int]:
@@ -117,6 +131,37 @@ def _components(rects: List[tuple]) -> List[List[int]]:
     return list(comps.values())
 
 
+def _grid_components(rects: List[tuple], hint: BurstHint) -> Optional[List[List[int]]]:
+    """O(n) clustering of lanes on the hint's tile grid by the
+    8-neighbourhood of their cells; None when a lane is off the grid."""
+    tw, th = hint.tile_w, hint.tile_h
+    if tw <= 0 or th <= 0:
+        return None
+    cells: Dict[Tuple[int, int], int] = {}
+    for i, (x, y, w, h) in enumerate(rects):
+        if x % tw or y % th or w > tw or h > th:
+            return None
+        cells[(x // tw, y // th)] = i
+    seen: set = set()
+    comps: List[List[int]] = []
+    for cell in cells:
+        if cell in seen:
+            continue
+        stack, comp = [cell], []
+        seen.add(cell)
+        while stack:
+            cx, cy = stack.pop()
+            comp.append(cells[(cx, cy)])
+            for dx in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    nb = (cx + dx, cy + dy)
+                    if nb in cells and nb not in seen:
+                        seen.add(nb)
+                        stack.append(nb)
+        comps.append(comp)
+    return comps
+
+
 def bounding_rect(rects: Sequence[Tuple[int, int, int, int]]) -> Tuple[int, int, int, int]:
     x0 = min(r[0] for r in rects)
     y0 = min(r[1] for r in rects)
@@ -133,14 +178,33 @@ def _fits(trial: List[int], rects: List[tuple], max_pixels: int, min_coverage: f
 
 
 def _split_by_budget(
-    comp: List[int], rects: List[tuple], max_pixels: int, min_coverage: float
+    comp: List[int], rects: List[tuple], max_pixels: int, min_coverage: float,
+    hint: Optional[BurstHint] = None,
 ) -> List[List[int]]:
     """Split one spatial component to fit the pixel budget while the
-    covered share of the bounding rectangle stays above ``min_coverage``:
+    covered share of the bounding rectangle stays above ``min_coverage``.
+    With a ``BurstHint`` whole grid rows accumulate until the next would
+    bust the budget, and a row too wide alone splits greedily (its lanes
+    are one band, so the cut falls between grid columns); without one,
     lanes accumulate greedily in row-major order."""
     order = sorted(comp, key=lambda i: (rects[i][1], rects[i][0]))
     groups: List[List[int]] = []
     cur: List[int] = []
+    if hint is not None and hint.tile_w > 0 and hint.tile_h > 0:
+        rows: Dict[int, List[int]] = {}
+        for i in order:
+            rows.setdefault(rects[i][1] // hint.tile_h, []).append(i)
+        for _, row in sorted(rows.items()):
+            if cur and not _fits(cur + row, rects, max_pixels, min_coverage):
+                groups.append(cur)
+                cur = []
+            if not cur and not _fits(row, rects, max_pixels, min_coverage):
+                groups.extend(_split_by_budget(row, rects, max_pixels, min_coverage))
+                continue
+            cur += row
+        if cur:
+            groups.append(cur)
+        return groups
     for i in order:
         trial = cur + [i]
         if cur and not _fits(trial, rects, max_pixels, min_coverage):
@@ -177,8 +241,18 @@ def assign_supertiles(
         # one tile over the budget makes the neighbourhood unfusable
         if any(w * h > max_pixels for (_, _, w, h) in rects):
             continue
-        for comp in _components(rects):
-            for group in _split_by_budget(comp, rects, max_pixels, min_coverage):
+        # one hint shared by every lane of the key clusters on its grid
+        hints = {ctxs[i].burst for i in lane_ids}
+        hint = next(iter(hints)) if len(hints) == 1 else None
+        comps = None
+        if hint is not None:
+            comps = _grid_components(rects, hint)
+            if comps is None:
+                hint = None  # off-grid lanes: no grid-aligned cuts
+        if comps is None:
+            comps = _components(rects)
+        for comp in comps:
+            for group in _split_by_budget(comp, rects, max_pixels, min_coverage, hint=hint):
                 if len(group) < min_lanes:
                     continue
                 token = SuperTileGroup(key, len(group))

@@ -1,6 +1,6 @@
-"""Resilience layer of the read plane (counterpart of the parts of
-``omero_ms_pixel_buffer_tpu/resilience/`` that the stores and the fetch
-planner use): request deadlines (``deadline.py``), jittered-exponential
-retries (``retry.py``) and per-dependency circuit breakers
-(``breaker.py``). The scheduler, admission control and fault injection
-are not ported yet."""
+"""Resilience layer (counterpart of ``omero_ms_pixel_buffer_tpu/
+resilience/`` without ``timeouts.py``): request deadlines
+(``deadline.py``), jittered-exponential retries (``retry.py``),
+per-dependency circuit breakers (``breaker.py``), the executing-slot
+counter (``admission.py``), the SLO scheduler (``scheduler.py``) and
+deterministic fault injection (``faultinject.py``)."""

@@ -1,21 +1,44 @@
-"""Request deadlines (the part of ``omero_ms_pixel_buffer_tpu/resilience/
-deadline.py`` the read plane uses).
+"""End-to-end request deadlines (copy of ``omero_ms_pixel_buffer_tpu/
+resilience/deadline.py``).
 
-A ``Deadline`` is a monotonic expiry point; the ambient one is a context
-variable that store retries and the fetch planner consult so that no
-backoff outlives its caller. The port's front sets none yet (it has no
-scheduler), so ``current_deadline()`` is None on every request and the
-read plane's limits are its own: the retry budget and the per-call
-timeouts.
+A request's budget is minted once at the HTTP front as a ``Deadline`` and
+carried on the ``TileCtx``: the scheduler's wait, the batcher, the
+pipeline's stages, store retries and the fetch planner all decrement the
+same clock, so no retry or backoff outlives its caller. On the wire a
+deadline is its remaining budget in ms (absolute monotonic times do not
+cross processes). The ambient deadline is a context variable the batcher
+sets around each batch's executor work (``deadline_scope``); synchronous
+depths read it with ``current_deadline``.
+
+The JAX package counts expiries into Prometheus by the stage that noticed
+them; here they are plain counts (``note_exceeded``, ``snapshot``), read by
+``/healthz``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 from ..errors import GatewayTimeoutError
+
+_lock = threading.Lock()
+_exceeded: Dict[str, int] = {}
+
+
+def note_exceeded(stage: str) -> None:
+    """Count one request that ran out of budget at ``stage``."""
+    with _lock:
+        _exceeded[stage] = _exceeded.get(stage, 0) + 1
+
+
+def snapshot() -> Dict[str, int]:
+    """Expired requests by the stage that noticed (``/healthz``)."""
+    with _lock:
+        return dict(_exceeded)
 
 
 class DeadlineExceeded(GatewayTimeoutError):
@@ -35,6 +58,10 @@ class Deadline:
         self.expires_at = expires_at
         self.clock = clock
 
+    @classmethod
+    def after(cls, budget_s: float, clock=time.monotonic) -> "Deadline":
+        return cls(clock() + budget_s, clock)
+
     def remaining(self) -> float:
         """Seconds left, floored at 0."""
         return max(0.0, self.expires_at - self.clock())
@@ -48,6 +75,22 @@ class Deadline:
         if self.expired:
             raise DeadlineExceeded(what)
 
+    def cap(self, timeout_s: Optional[float]) -> float:
+        """A per-call timeout bounded by the remaining budget."""
+        rem = self.remaining()
+        return rem if timeout_s is None else min(timeout_s, rem)
+
+    def to_json(self) -> dict:
+        """The remaining budget: a hop re-mints the deadline from what is
+        left, so transit time is charged to the request."""
+        return {"budgetMs": self.remaining() * 1000.0}
+
+    @classmethod
+    def from_json(cls, obj: Optional[dict]) -> Optional["Deadline"]:
+        if not obj or obj.get("budgetMs") is None:
+            return None
+        return cls.after(float(obj["budgetMs"]) / 1000.0)
+
 
 _current_deadline: contextvars.ContextVar[Optional[Deadline]] = (
     contextvars.ContextVar("resilience_deadline", default=None)
@@ -57,3 +100,14 @@ _current_deadline: contextvars.ContextVar[Optional[Deadline]] = (
 def current_deadline() -> Optional[Deadline]:
     """The ambient deadline, or None outside a request scope."""
     return _current_deadline.get()
+
+
+@contextlib.contextmanager
+def deadline_scope(deadline: Optional[Deadline]):
+    """Make ``deadline`` ambient for the block (and, through
+    ``contextvars.copy_context``, for executor work started inside it)."""
+    token = _current_deadline.set(deadline)
+    try:
+        yield deadline
+    finally:
+        _current_deadline.reset(token)

@@ -1,19 +1,23 @@
 """Tile request context (counterpart of ``omero_ms_pixel_buffer_tpu/
-tile_ctx.py`` without the degraded and priority fields): imageId/z/c/t
-are required integers, x/y/w/h default to 0, ``resolution`` is optional,
-``format`` passes through verbatim; a parse failure is a 400 with the
-same message. A ``/render`` request carries its ``RenderSpec`` in
-``render``, a ``/histogram`` request its ``HistogramSpec`` in
-``analysis``. ``cache_key`` and ``dedupe_key`` give the JAX package's key
-strings."""
+tile_ctx.py``, without the trace context and the flight record):
+imageId/z/c/t are required integers, x/y/w/h default to 0,
+``resolution`` is optional, ``format`` passes through verbatim; a parse
+failure is a 400 with the same message. A ``/render`` request carries its
+``RenderSpec`` in ``render``, a ``/histogram`` request its
+``HistogramSpec`` in ``analysis``. ``deadline`` is the request's
+``Deadline``, minted at the front; ``priority`` is its scheduler class
+(joins no key) and ``degraded`` the number of pyramid levels below the
+requested one its pixels come from (joins every key as ``|deg=N``).
+``cache_key``, ``dedupe_key`` and ``to_json`` give the JAX package's
+strings and fields."""
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import TYPE_CHECKING, Any, Mapping, Optional
 
 from .errors import BadRequestError
+from .resilience.deadline import Deadline
 
 if TYPE_CHECKING:
     from .render.analysis import HistogramSpec
@@ -62,14 +66,22 @@ class TileCtx:
     resolution: Optional[int] = None
     format: Optional[str] = None
     omero_session_key: Optional[str] = None
-    # absolute time.monotonic() by which the answer is due; None =
-    # unbounded (tests and direct pipeline callers)
-    deadline: Optional[float] = None
+    # the request's budget, minted at the front; None = unbounded (tests
+    # and direct pipeline callers)
+    deadline: Optional[Deadline] = None
     # the rendering of a /render request (render/model.py); None for /tile
     render: Optional["RenderSpec"] = None
     # the histogram of a /histogram request (render/analysis.py); its
     # signature joins every key, as the render signature does
     analysis: Optional["HistogramSpec"] = None
+    # the scheduler's class (0 interactive, 1 prefetch, 2 bulk): orders the
+    # batcher's queue, joins no key; ``degraded`` = d serves the pyramid
+    # level d below the requested one, upscaled, and joins every key
+    priority: int = 0
+    degraded: int = 0
+    # an adapter's burst geometry (render/supertile.py ``BurstHint``).
+    # Transient like ``supertile``: never part of a key, never changes bytes
+    burst: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
     # the batcher's super-tile stamp (render/supertile.py: a shared
     # ``SuperTileGroup``). Transient: never part of a key, so fusion
     # changes where pixels are composited, never which bytes a tile serves
@@ -95,16 +107,58 @@ class TileCtx:
             omero_session_key=omero_session_key,
         )
 
-    def remaining(self) -> Optional[float]:
-        """Seconds left before the deadline (None when unbounded)."""
-        if self.deadline is None:
-            return None
-        return self.deadline - time.monotonic()
-
     @property
     def expired(self) -> bool:
-        left = self.remaining()
-        return left is not None and left <= 0
+        return self.deadline is not None and self.deadline.expired
+
+    def to_json(self) -> dict:
+        """The JAX package's dispatch-boundary fields (the deadline as its
+        remaining budget)."""
+        r = self.region
+        return {
+            "imageId": self.image_id, "z": self.z, "c": self.c, "t": self.t,
+            "region": {"x": r.x, "y": r.y, "width": r.width, "height": r.height},
+            "resolution": self.resolution,
+            "format": self.format,
+            "omeroSessionKey": self.omero_session_key,
+            "deadline": None if self.deadline is None else self.deadline.to_json(),
+            "render": None if self.render is None else self.render.to_json(),
+            "analysis": None if self.analysis is None else self.analysis.to_json(),
+            "priority": self.priority,
+            "degraded": self.degraded,
+        }
+
+    @classmethod
+    def from_json(cls, obj: Any) -> "TileCtx":
+        """Inverse of ``to_json``; a malformed object is a 400 "Illegal
+        tile context", as in the JAX package."""
+        from .render.analysis import HistogramSpec  # deferred: render imports errors
+        from .render.model import RenderSpec
+
+        try:
+            region = obj.get("region") or {}
+            return cls(
+                image_id=int(obj["imageId"]), z=int(obj["z"]), c=int(obj["c"]),
+                t=int(obj["t"]),
+                region=RegionDef(
+                    x=int(region.get("x", 0)), y=int(region.get("y", 0)),
+                    width=int(region.get("width", 0)), height=int(region.get("height", 0)),
+                ),
+                resolution=None if obj.get("resolution") is None else int(obj["resolution"]),
+                format=obj.get("format"),
+                omero_session_key=obj.get("omeroSessionKey"),
+                deadline=Deadline.from_json(obj.get("deadline")),
+                render=(None if obj.get("render") is None
+                        else RenderSpec.from_json(obj["render"])),
+                analysis=(None if obj.get("analysis") is None
+                          else HistogramSpec.from_json(obj["analysis"])),
+                priority=int(obj.get("priority", 0) or 0),
+                degraded=int(obj.get("degraded", 0) or 0),
+            )
+        except BadRequestError:
+            raise
+        except Exception:
+            raise BadRequestError("Illegal tile context") from None
 
     def cache_key(self, quality: str = "") -> str:
         """Result-cache content key, the JAX package's string: (image, z,
@@ -121,6 +175,10 @@ class TileCtx:
             base += f"|render={self.render.signature()}"
         if self.analysis is not None:
             base += f"|hist={self.analysis.signature()}"
+        if self.degraded:
+            # a degraded body is another resource: it never overwrites, nor
+            # serves as, the full-resolution entry
+            base += f"|deg={self.degraded}"
         return base
 
     def dedupe_key(self, quality: str = "") -> str:
@@ -139,6 +197,7 @@ class TileCtx:
             self.resolution, self.format, self.omero_session_key,
             None if self.render is None else self.render.signature(),
             None if self.analysis is None else self.analysis.signature(),
+            self.degraded,
         )
 
     def filename(self) -> str:

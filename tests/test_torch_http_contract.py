@@ -198,6 +198,21 @@ async def test_verbs_match_jax(image_path):
     await _with_fronts(image_path, body)
 
 
+@pytest.mark.parametrize("url", ["/tile/9/0/0/0?format=png", "/tile/1/7/0/0?format=png",
+                                 "/tile/1/0/0/0?format=PNG"],
+                         ids=["unknown_image", "z_out_of_range", "format_PNG"])
+async def test_head_of_an_empty_error_matches_jax(image_path, url):
+    """HEAD of a 404 without a body carries no Content-Length, as the JAX
+    aiohttp app answers; the GET of it keeps ``Content-Length: 0``."""
+    async def body(f):
+        status, hdrs, got = await f.both("HEAD", url, COOKIE)
+        assert (status, got) == (404, b"") and "content-length" not in {
+            k.lower() for k in hdrs}
+        status, hdrs, _ = await f.both("GET", url, COOKIE)
+        assert (status, hdrs["content-length"]) == (404, "0")
+    await _with_fronts(image_path, body)
+
+
 @pytest.mark.parametrize("front", ["port", "jax"])
 async def test_concurrent_identical_misses_run_once(image_path, front):
     """Six concurrent identical misses share one pipeline execution (one

@@ -62,6 +62,20 @@ def test_no_import_of_jax_or_the_jax_package(path):
             assert top != "omero_ms_pixel_buffer_tpu", f"{path}: imports {name}"
 
 
+VIEWER_PLANE_MODULES = ["http.protocols", "http.protocols.dzi", "http.protocols.iiif",
+            "http.protocols.iris", "resilience.admission", "resilience.scheduler",
+            "resilience.faultinject", "resilience.deadline", "utils.loop_watchdog"]
+
+
+@pytest.mark.parametrize("name", VIEWER_PLANE_MODULES)
+def test_viewer_plane_modules_are_in_the_port(name):
+    """The viewer plane's modules exist under their JAX paths and sit in the
+    walk the no-jax probe imports."""
+    path = PORT.joinpath(*name.split("."))
+    assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
+    assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
+
+
 def test_pipeline_defaults_to_cuda_and_never_falls_back(tmp_path):
     assert inspect.signature(TilePipeline).parameters["device"].default == "cuda"
     service = PixelsService(ImageRegistry())

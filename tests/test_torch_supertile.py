@@ -27,12 +27,12 @@ tests/test_torch_supertile.py -m cuda --noconftest``). Tolerance: zero
 (stamps, pixels, statuses and bytes)."""
 
 import asyncio
-import time
 
 import numpy as np
 import pytest
 import torch
 
+import omero_ms_pixel_buffer_tpu_torch.dispatch.batcher as batcher_mod
 import omero_ms_pixel_buffer_tpu_torch.models.tile_pipeline as port_tp
 from omero_ms_pixel_buffer_tpu_torch.dispatch.batcher import BatchingTileWorker
 from omero_ms_pixel_buffer_tpu_torch.errors import InternalError
@@ -45,6 +45,7 @@ from omero_ms_pixel_buffer_tpu_torch.render import supertile as pst
 from omero_ms_pixel_buffer_tpu_torch.render.analysis import HistogramSpec
 from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
 from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+from omero_ms_pixel_buffer_tpu_torch.resilience.deadline import Deadline as PortDeadline
 from omero_ms_pixel_buffer_tpu_torch.tile_ctx import RegionDef, TileCtx
 
 SHAPE = (1, 3, 4, 200, 260)  # T, C, Z, Y, X
@@ -83,7 +84,7 @@ def _both_ctxs(lanes):
         if ln["hist"]:
             p.analysis, j.analysis = HistogramSpec.from_params({}), JaxHist.from_params({})
         if ln["expired"]:
-            p.deadline, j.deadline = time.monotonic() - 1.0, Deadline.after(0)
+            p.deadline, j.deadline = PortDeadline.after(0), Deadline.after(0)
         port.append(p)
         jax.append(j)
     return port, jax
@@ -369,19 +370,27 @@ def test_failed_fused_group_answers_500(image, monkeypatch):
 
 
 @pytest.mark.parametrize("enabled", [True, False])
-async def test_batcher_stamps_a_coalesced_pan(image, enabled):
+async def test_batcher_stamps_a_coalesced_pan(image, enabled, monkeypatch):
     """Sixteen concurrent /render lanes of a pan coalesce into one batch:
     with fusion on they are stamped and served fused (``/healthz``
-    ``supertile``), with it off they are not; the bytes are the same."""
+    ``supertile``), with it off they are not; the bytes are the same. All
+    sixteen are queued before the worker starts, and the batch closes at
+    sixteen lanes inside a window no thread schedule outlasts, so the one
+    batch does not depend on timing."""
+    monkeypatch.setattr(batcher_mod, "MAX_BATCH", 16)
+    monkeypatch.setattr(batcher_mod, "COALESCE_WINDOW_MS", 60_000.0)
     path, _ = image
     pp, plain = _port_pipeline(path), _port_pipeline(path)
     worker = BatchingTileWorker(pp, supertile=enabled)
     server = TileServer(worker)
-    await worker.start()
     try:
         lanes = _pan(PANS["composite"])[:16]
         port_ctxs, _ = _both_ctxs(lanes)
-        got = await asyncio.gather(*(worker.handle(c) for c in port_ctxs))
+        pending = asyncio.gather(*(worker.handle(c) for c in port_ctxs))
+        while worker.snapshot()["queued"] < 16:
+            await asyncio.sleep(0)
+        await worker.start()
+        got = await pending
         unfused, _ = _both_ctxs(lanes)
         assert [body for body, _ in got] == plain.handle_batch(unfused)
         view = server.health()["supertile"]

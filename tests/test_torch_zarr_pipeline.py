@@ -7,7 +7,9 @@ TIF, ``/render`` and ``/histogram``, on the bucket route and then the
 plane route; a corrupt chunk (404 for its batched read's lanes); and, on
 the two HTTP fronts, a stopped store (404 while its retries fail, then
 503 with ``Retry-After`` once its breaker opens, 200 after it heals) and
-``/healthz`` ``io``. Inputs are made from a seed with numpy. Tolerance:
+``/healthz`` ``io``; and the reference's own fault, a cold read past 32
+store requests a tile (JAX None, the port JAX's warm bytes). Inputs are
+made from a seed with numpy. Tolerance:
 zero — bodies byte for byte, statuses and ``Retry-After`` equal."""
 
 import asyncio
@@ -437,3 +439,29 @@ def test_open_breaker_answers_503_on_every_read_route(tree):
         jax.close()
         port.close()
         server.server_close()
+
+
+@pytest.mark.parametrize("kind", ["render", "hist"])
+def test_cold_read_past_32_requests_a_tile(tmp_path, kind):
+    """The reference's fault, pinned: JAX ``io/fetch.py`` gives its
+    requests-per-tile histogram buckets that end at 32.0, so a cold batched
+    read issuing more (a full 256² plane of 32² Zarr v3 chunks: 64 store
+    requests for one lane) raises inside JAX's ``read_tiles`` and the lane
+    answers None. The port answers bytes, equal to JAX's warm answer (its
+    chunks cached, no requests issued)."""
+    data = _field((1, 2, 1, 256, 256), np.uint16, 41)
+    path = str(tmp_path / "fine.zarr")
+    write_ngff(path, data, chunks=(32, 32), zarr_format=3, compressor="zlib")
+    jax, port = _pipelines({1: (path, {})})
+    query = {"c": "1|0:60000$FF0000,2$00FF00"} if kind == "render" else {"c": "1,2"}
+    lane = [(kind, 1, query, 0, 0, 0, (0, 0, 0, 0), None, "png" if kind == "render" else "json")]
+    try:
+        pc, jc = _ctxs(lane)
+        assert jax.handle_batch(jc) == [None]  # cold: JAX's histogram raises
+        got = port.handle_batch(pc)
+        assert isinstance(got[0], bytes)
+        pc, jc = _ctxs(lane)
+        assert got == jax.handle_batch(jc)  # warm: JAX's bytes
+    finally:
+        jax.close()
+        port.close()
