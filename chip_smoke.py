@@ -5,7 +5,8 @@
         [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
         [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
         [--wsi-size 16384] [--wsi-requests 512] [--zarr-size 8192] \
-        [--zarr-requests 256] [--zarr-s3-requests 128] [--filter-sweep] \
+        [--zarr-requests 256] [--zarr-s3-requests 128] [--config-requests 256] \
+        [--filter-sweep] \
         [--bitpack-sweep] [--bitpack-time | --dense-time | --paths-only [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -204,6 +205,33 @@ Phases, one JSON line each on stdout:
    ``degraded=1`` go straight through ``handle_batch``: each equals the
    replicated level-1 region (or its numpy composite), with their own
    kernel launches. Reports every count, p50 and p99.
+21. ``path_config`` — the port as an OMERO deployment starts it: the
+   port's RESP2 stub (``cache/plane/resp_stub.py``) on its own thread and
+   loop in this process holds 32 OMERO.web sessions (16 pickled, 16
+   signed JSON, each with its own OMERO key) and one without a connector;
+   a config file in YAML's JSON subset names them (``session-store:
+   redis``), image 1's registry, ``device-deflate-mode: dynamic``,
+   ``slo.queue-size: 128`` and the breaker's ``failure-threshold: 3``,
+   ``open-duration-ms: 2000``. ``python -m omero_ms_pixel_buffer_tpu_torch
+   debug-context --config FILE`` must exit 0 naming ``RedisSessionStore``,
+   ``cuda`` and the built kernels; ``python -m
+   omero_ms_pixel_buffer_tpu_torch --config FILE --port P`` runs as a
+   subprocess, timed from spawn to ``listening on``; two warm-up rounds of
+   32 (as ``path``), then ``--config-requests`` of ``path``'s timed 512²
+   PNG tiles at 32 clients, each client with its own cookie: every PNG
+   against the source, every body byte-equal to ``path``'s for the region
+   or (a lone lane's host route, either side) to the host encode, and at
+   least 8 equal. No cookie, an unknown cookie and the connector-less
+   session answer 403; the stub closing connections answers 503 with
+   ``Retry-After`` and opens the store's breaker; healed and 2.2 s later,
+   200. The subprocess's ``/healthz``: filter and SP-packer launches > 0
+   over the timed window and the dense packer's 0, ``slo.queue_size``
+   128, the breaker's open and close in its transitions, no failed encode
+   group. SIGTERM must exit 0. Then the same file with ``--dev`` (the echo
+   store), the same warm-up and timed tiles (``echo_store``), so the pair
+   differs in the session store alone. Reports tiles/s, p50/p99, the
+   stub's commands, the 403s and 503s, the start-up seconds and the
+   launches.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -225,7 +253,8 @@ per call, call time and kernels by name on the real pass-2 tokens
 tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
-``--paths-only`` only the ``path`` (``dynamic``) and ``path_render`` phases
+``--paths-only`` only the ``path`` (``dynamic``), ``path_render`` and
+``path_config`` phases
 (with ``--port-root``, to pair two versions in one call); the
 Zarr and viewer phases add no kernel row, their launches are on their phase
 lines. Any failure exits
@@ -242,6 +271,7 @@ import http.client
 import io
 import json
 import os
+import signal
 import struct
 import sys
 import threading
@@ -1057,6 +1087,9 @@ def drive_path(registry: str, data: np.ndarray, seed: int, n_requests: int,
     require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
     return {
         "phase": phase or ("path" if deflate_mode == "dynamic" else f"path_{deflate_mode}"),
+        # the timed requests and their bodies, for path_config; popped
+        # before the line is printed
+        "_timed": (main, [r[1] for r in main_out]),
         "deflate_mode": deflate_mode, "packer": packer,
         "tiles_verified": checked, "launches": launches,
         "requests": n_requests, "concurrency": LANES,
@@ -3039,6 +3072,307 @@ def drive_overload(client: Client, pipeline, levels, seed: int) -> dict:
 
 
 
+class SmokeConnector:
+    """Stands in for OMERO.web's ``omeroweb.connector.Connector`` in a
+    pickled session (the store's unpickler never resolves the class)."""
+
+    def __init__(self, key: str):
+        self.omero_session_key = key
+        self.server_id = 1
+
+
+def django_pickled(session: dict) -> bytes:
+    """A pre-3.1 Django session payload: base64(hash ":" pickle)."""
+    import base64
+    import pickle
+
+    return base64.b64encode(b"0123456789abcdef:" + pickle.dumps(session))
+
+
+def django_signed(session: dict) -> bytes:
+    """A Django >= 3.1 session payload (``signing.dumps`` with the JSON
+    serializer, compressed): "." urlsafe-b64(zlib(json)) ":" timestamp
+    ":" urlsafe-b64(hmac)."""
+    import base64
+    import hashlib
+    import hmac
+
+    data = zlib.compress(json.dumps(session, separators=(",", ":")).encode())
+    value = "." + base64.urlsafe_b64encode(data).rstrip(b"=").decode() + ":1tPqzV"
+    sig = base64.urlsafe_b64encode(
+        hmac.new(b"smoke-secret", value.encode(), hashlib.sha256).digest()).rstrip(b"=")
+    return value.encode() + b":" + sig
+
+
+class RespStubThread:
+    """The port's RESP2 stub (``cache/plane/resp_stub.py``) on 127.0.0.1
+    in this process, its event loop on a thread of its own."""
+
+    def __init__(self):
+        from omero_ms_pixel_buffer_tpu_torch.cache.plane.resp_stub import InMemoryRespServer
+
+        self.stub = InMemoryRespServer()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="smoke-resp",
+                                       daemon=True)
+
+    def start(self) -> int:
+        self.thread.start()
+        return asyncio.run_coroutine_threadsafe(
+            self.stub.start("127.0.0.1", 0), self.loop).result(30)
+
+    def close(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.stub.close(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+class SessionClient(Client):
+    """Keep-alive connections, one per worker thread, each thread with an
+    OMERO.web session cookie of its own."""
+
+    def __init__(self, port: int, session_ids):
+        super().__init__(port)
+        self._sids = list(session_ids)
+        self._assigned = 0
+
+    def request(self, method: str, path: str, headers=None):
+        sid = getattr(self._local, "sid", None)
+        if sid is None:
+            with self._lock:
+                sid = self._local.sid = self._sids[self._assigned % len(self._sids)]
+                self._assigned += 1
+        return super().request(method, path, {"Cookie": f"sessionid={sid}", **(headers or {})})
+
+
+def plain_request(port: int, path: str, headers=None):
+    """(status, headers, body) of one request on a fresh connection, with
+    only the headers given (no cookie unless one is given)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def port_env() -> dict:
+    """The environment of a port subprocess: the port package this
+    process imported (beside this script, or ``--port-root``) first on the
+    path."""
+    import omero_ms_pixel_buffer_tpu_torch as port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+
+
+class PortProcess:
+    """``python -m omero_ms_pixel_buffer_tpu_torch ARGS`` as a subprocess
+    (the real entry point), its stderr in a file under ``WORK``; a context
+    manager that kills it if it is still running on exit."""
+
+    def __init__(self, args, name: str):
+        import subprocess
+
+        self.port = free_port()
+        self.err_path = os.path.join(WORK, f"{name}.stderr")
+        with open(self.err_path, "w") as err:
+            t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", *args,
+                 "--port", str(self.port)], stdout=subprocess.PIPE, stderr=err, text=True,
+                env=port_env(), cwd=WORK)
+        line = self.proc.stdout.readline()
+        self.startup_s = time.perf_counter() - t0
+        require(line.startswith("listening on"),
+                f"the port did not start: {line!r} {self.log()}")
+
+    def log(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-3000:]
+
+    def stop(self) -> int:
+        """SIGTERM, then the exit code."""
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(60)
+        self.proc = None
+        return rc
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def timed_run(client: Client, data: np.ndarray, reqs, seed: int) -> tuple:
+    """Two warm-up rounds of 32 tiles (the plane is staged on its second
+    touch, as in ``path``), then ``reqs`` at concurrency 32 between two
+    ``/healthz`` views: (results, seconds, view before, view after)."""
+    warm = tile_requests(np.random.default_rng(seed + 7), data.shape[0], 2 * LANES)
+    for k in range(2):
+        verify(run_requests(client, warm[k * LANES:(k + 1) * LANES], LANES)[0],
+               warm[k * LANES:(k + 1) * LANES], data)
+    before = get_json(client, "/healthz")
+    out, secs = run_requests(client, reqs, LANES)
+    return out, secs, before, get_json(client, "/healthz")
+
+
+def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int,
+                 seed: int, device: str = "cuda") -> dict:
+    """``path_config``: the port started as an OMERO deployment starts it,
+    ``python -m omero_ms_pixel_buffer_tpu_torch --config FILE``, with
+    OMERO.web sessions in the RESP stub; then the same file with ``--dev``
+    (the echo store), the same warm-up and timed tiles, so that the pair
+    differs in the session store alone. See the module docstring."""
+    import subprocess
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import encode_png
+
+    stub = RespStubThread()
+    stub_port = stub.start()
+    try:
+        sessions = {}
+        for i in range(32):
+            sid, key = f"smoke-session-{i:02d}", f"omero-key-{i:02d}"
+            payload = ({"connector": SmokeConnector(key)} if i < 16 else
+                       {"connector": {"omero_session_key": key, "server_id": 1,
+                                      "is_secure": False}, "_auth_user_id": str(i)})
+            raw = django_pickled(payload) if i < 16 else django_signed(payload)
+            stub.stub.data[f":1:django.contrib.sessions.cache{sid}".encode()] = (raw, None)
+            sessions[sid] = key
+        stub.stub.data[b":1:django.contrib.sessions.cachesmoke-no-connector"] = (
+            django_signed({"_auth_user_id": "99"}), None)
+        config = {
+            "session-store": {"type": "redis", "uri": f"redis://127.0.0.1:{stub_port}/1"},
+            "image-registry": registry,
+            "backend": {"png": {"device-deflate-mode": "dynamic"}},
+            "slo": {"queue-size": 128},
+            "resilience": {"breaker": {"failure-threshold": 3, "open-duration-ms": 2000}},
+        }
+        cfg_path = os.path.join(WORK, "path_config.yaml")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f, indent=1)  # YAML's JSON subset
+        # the wiring, built without serving
+        t0 = time.perf_counter()
+        dbg = subprocess.run(
+            [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", "debug-context",
+             "--config", cfg_path, "--device", device], capture_output=True, text=True,
+            timeout=300, env=port_env(), cwd=WORK)
+        debug_s = time.perf_counter() - t0
+        require(dbg.returncode == 0, f"debug-context exit {dbg.returncode}: {dbg.stderr[-2000:]}")
+        words = ["RedisSessionStore", f"device={device}"]
+        if device == "cuda":
+            words += ["kernel filter:", "kernel bitpack:"]
+        for word in words:
+            require(word in dbg.stdout, f"debug-context does not name {word!r}: {dbg.stdout}")
+        reqs = list(timed[:n_requests])
+        with PortProcess(["--config", cfg_path, "--device", device], "path_config") as srv:
+            client = SessionClient(srv.port, sessions)
+            try:
+                commands0 = stub.stub.commands
+                out, secs, health0, health1 = timed_run(client, data, reqs, seed)
+                commands = stub.stub.commands - commands0
+                checked = verify(out, reqs, data)
+                # bodies against path's: equal, or one of the two took the
+                # lone-lane host route (a batch of one), whose bytes differ
+                # by design; at least 8 device bodies must be equal
+                equal, host_route = 0, 0
+                for (path, (x, y, w, h), _), (_, body, _), ref in zip(reqs, out, bodies):
+                    if body == ref:
+                        equal += 1
+                        continue
+                    host = encode_png(data[y:y + h, x:x + w])
+                    require(host in (body, ref), f"{path}: body differs from path's")
+                    host_route += 1
+                require(equal >= 8, f"only {equal} bodies byte-equal to path's")
+                # statuses a store or a session refuses
+                statuses = {
+                    "no_cookie": plain_request(srv.port, reqs[0][0])[0],
+                    "unknown_session": plain_request(
+                        srv.port, reqs[0][0], {"Cookie": "sessionid=smoke-unknown"})[0],
+                    "no_connector": plain_request(
+                        srv.port, reqs[0][0], {"Cookie": "sessionid=smoke-no-connector"})[0],
+                }
+                require(all(v == 403 for v in statuses.values()), f"refusals: {statuses}")
+                cookie = {"Cookie": "sessionid=smoke-session-00"}
+                stub.stub.fail_mode = "close"
+                down = [plain_request(srv.port, reqs[1][0], cookie) for _ in range(6)]
+                for status, hdrs, body in down:
+                    require(status == 503 and "Retry-After" in hdrs
+                            and body == b"Session store unavailable",
+                            f"a closing store answered {status} {hdrs}")
+                breaker_name = f"session-store:redis:127.0.0.1:{stub_port}"
+                opened = get_json(client, "/healthz")["breakers"][breaker_name]
+                require(opened["state"] == "open", f"the store's breaker did not open: {opened}")
+                stub.stub.fail_mode = None
+                time.sleep(2.2)
+                healed = plain_request(srv.port, reqs[1][0], cookie)
+                x, y, w, h = reqs[1][1]
+                require(healed[0] == 200 and np.array_equal(
+                    decode_png(healed[2]), data[y:y + h, x:x + w]), f"healed: {healed[0]}")
+                health = get_json(client, "/healthz")
+            finally:
+                client.close()
+            rc = srv.stop()
+            require(rc == 0, f"the port exited {rc} on SIGTERM: {srv.log()}")
+        breaker = health["breakers"][breaker_name]
+        require(breaker["state"] == "closed" and breaker["opened_total"] >= 1
+                and breaker["transitions_total"] >= 3, f"breaker: {breaker}")
+        launches = {k: health1["kernels"][k] - health0["kernels"][k] for k in health1["kernels"]}
+        require(device != "cuda" or (launches["filter"] > 0 and launches["bitpack"] > 0
+                                     and launches["bitpack_dense"] == 0),
+                f"launches: {launches}")
+        require(health["slo"]["queue_size"] == 128, f"slo: {health['slo']['queue_size']}")
+        require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
+        require(health["queue"]["deflate_mode"] == "dynamic", f"served with {health['queue']}")
+        require(health["config"]["session_store"] == "RedisSessionStore", "store")
+        lat_ms = np.array([r[2] for r in out]) * 1e3
+        # the same file and tiles with the echo store: the store's share
+        with PortProcess(["--config", cfg_path, "--device", device, "--dev"],
+                         "path_config_echo") as echo:
+            eclient = Client(echo.port)
+            try:
+                eout, esecs, e0, e1 = timed_run(eclient, data, reqs, seed)
+                verify(eout, reqs, data)
+            finally:
+                eclient.close()
+            require(echo.stop() == 0, f"the echo port's exit: {echo.log()}")
+        elat_ms = np.array([r[2] for r in eout]) * 1e3
+        return {
+            "phase": "path_config", "requests": len(reqs), "concurrency": LANES,
+            "sessions": len(sessions), "tiles_verified": checked,
+            "bodies_equal_to_path": equal, "bodies_host_route": host_route,
+            "tiles_per_s": len(reqs) / secs, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "stub_commands": commands, "refusals_403": statuses,
+            "store_down_503": len(down), "retry_after": [h["Retry-After"] for _, h, _ in down],
+            "breaker": breaker, "startup_s": srv.startup_s, "debug_context_s": debug_s,
+            "launches": launches, "timed_window": timed_window(health0, health1, secs),
+            "absent": health["config"]["absent"], "slo_queue_size": health["slo"]["queue_size"],
+            "exit_code": rc,
+            "echo_store": {"tiles_per_s": len(reqs) / esecs,
+                           "p50_ms": float(np.percentile(elat_ms, 50)),
+                           "p99_ms": float(np.percentile(elat_ms, 99)),
+                           "startup_s": echo.startup_s,
+                           "timed_window": timed_window(e0, e1, esecs)},
+        }
+    finally:
+        stub.close()
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -3076,9 +3410,11 @@ def main(argv=None) -> int:
                    help="timed level-0 tiles of path_zarr")
     p.add_argument("--zarr-s3-requests", type=int, default=128,
                    help="timed tiles of path_zarr_s3")
+    p.add_argument("--config-requests", type=int, default=256,
+                   help="timed requests of path_config (at most --requests)")
     p.add_argument("--paths-only", action="store_true",
-                   help="only build, then the path (dynamic) and path_render phases, e.g. "
-                        "to pair two versions with --port-root (no result line)")
+                   help="only build, then the path (dynamic), path_render and path_config "
+                        "phases, e.g. to pair two versions with --port-root (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -3130,9 +3466,12 @@ def main(argv=None) -> int:
         emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
               "seconds": time.perf_counter() - t0})
         if args.paths_only:
-            emit(drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
-                            launched=("filter", "bitpack"), idle=("bitpack_dense",)))
+            path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
+                              launched=("filter", "bitpack"), idle=("bitpack_dense",))
+            path_timed = path.pop("_timed")
+            emit(path)
             emit(drive_render(registry, stack, args.seed, args.render_requests))
+            emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
             print(smi_line(), flush=True)
             return 0
         t0 = time.perf_counter()
@@ -3187,10 +3526,12 @@ def main(argv=None) -> int:
         path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                           launched=("filter", "bitpack"), idle=("bitpack_dense",))
         require(path["plane_cache"]["hits"] > 0, "plane cache had no hits")
+        path_timed = path.pop("_timed")
         emit(path)
         rle = drive_path(registry, data, args.seed, args.rle_requests, "rle", "pallas_dense",
                          launched=("filter", "bitpack_dense"), idle=("bitpack",))
         require(rle["plane_cache"]["hits"] > 0, "plane cache had no hits (rle)")
+        rle.pop("_timed")
         rle["stream_bytes_mean_dynamic"] = path["stream_bytes_mean"]
         rle["stream_bytes_ratio_rle_to_dynamic"] = (
             rle["stream_bytes_mean"] / path["stream_bytes_mean"])
@@ -3201,10 +3542,12 @@ def main(argv=None) -> int:
                             launched=("filter", "bitpack"), idle=("bitpack_dense",),
                             phase="path_rle_sp")
         require(rle_sp["plane_cache"]["hits"] > 0, "plane cache had no hits (rle, pallas)")
+        rle_sp.pop("_timed")
         emit(rle_sp)
         stored = drive_path(registry, data, args.seed, args.stored_requests, "stored", "pallas",
                             launched=("filter",), idle=("bitpack", "bitpack_dense"),
                             warm_rounds=0, edges=False)
+        stored.pop("_timed")
         emit(stored)
         render = drive_render(registry, stack, args.seed, args.render_requests)
         emit(render)
@@ -3220,6 +3563,7 @@ def main(argv=None) -> int:
         emit(drive_zarr_s3(zarr_fx["registry"], img5, args.seed, args.zarr_s3_requests))
         for line in drive_viewer(zarr_fx["registry"], img4, args.seed):
             emit(line)
+        emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
         # each kernel's launches come from the phase that runs it
         launches = {"filter": path["launches"]["filter"],
                     "bitpack": path["launches"]["bitpack"],

@@ -1,48 +1,74 @@
-"""Serve /tile, /render and /histogram from the port:
+"""Serve /tile, /render and /histogram from the port, as an OMERO
+deployment runs the JAX package:
 
-    python -m omero_ms_pixel_buffer_tpu_torch --dev --registry registry.json \\
-        --port 8082 [--device cuda|cpu] [--buckets 256,512,1024] [--queue-depth 2] \\
-        [--deflate-mode dynamic|rle|stored] [--no-device-deflate] [--lut-dir DIR] \\
-        [--no-supertile]
+    python -m omero_ms_pixel_buffer_tpu_torch [--config conf/config.yaml] \\
+        [--port P] [--dev] [--registry registry.json] [--device cuda|cpu] \\
+        [--host 127.0.0.1] [--buckets 256,512,1024] [--queue-depth 2] \\
+        [--deflate-mode dynamic|rle|stored] [--no-device-deflate] \\
+        [--lut-dir DIR] [--no-supertile]
+    python -m omero_ms_pixel_buffer_tpu_torch debug-context [--config X] \\
+        [--registry R] [--device cuda|cpu]
 
-On ``cuda`` the kernels are built (or found built) before the port
-opens; without a GPU the command fails unless ``--device cpu`` is
-given. ``--deflate-mode`` is the YAML key ``backend.png.device-deflate-mode``
-of the JAX package; the bit packer comes from ``OMPB_BITPACK``
-(``scan|pallas|pallas_dense|gather``; default ``pallas`` on CUDA), as
-there. ``--no-device-deflate`` is the YAML key
-``backend.png.device-deflate: false``: PNG lanes are filtered on the
-device and deflated on the host, and render lanes take the host mirror.
-``--lut-dir`` is ``render.lut-dir``: ImageJ ``.lut`` files that ``/render``
-channels may name. ``--no-supertile`` is ``supertile.enabled: false``:
-adjacent ``/render`` lanes of a batch are no longer fused into one
-composite (fusion is on by default, as in the JAX package).
-``OMPB_JPEG_DEVICE_IDCT=1`` moves JPEG tiles' IDCT to the device and
-``OMPB_MEMO_DIR`` keeps parsed TIFF IFD chains, as in the JAX package.
-The line ``listening on HOST:PORT`` is printed once serving.
-SIGINT/SIGTERM drain and stop.
+The YAML config (``utils/config.py``, the JAX package's schema; the env
+overrides ``OMPB_PORT`` and ``OMPB_SESSION_STORE``) wires everything
+(``http.server.wire``): the session store (OMERO.web's Django sessions in
+Redis or Postgres), the Glacier2 validator with
+``omero.validate-sessions``, the OMERO metadata plane with
+``omero.db.uri``, and every knob of the batcher, PNG chain, caches,
+scheduler and resilience layer. ``--port`` and ``--registry`` override
+the config's ``port`` and ``image-registry``; ``--dev`` takes the echo
+session store (every ``sessionid`` cookie is its own key; never in
+production) and reads no session-store block when the file has none.
+The other flags, when given, override their YAML keys: ``--buckets``
+``backend.batching.buckets``, ``--queue-depth`` ``backend.png.queue-depth``,
+``--deflate-mode`` ``backend.png.device-deflate-mode``,
+``--no-device-deflate`` ``backend.png.device-deflate: false`` (PNG lanes
+filtered on the device, deflated on the host), ``--lut-dir``
+``render.lut-dir``, ``--no-supertile`` ``supertile.enabled: false``. The
+bit packer comes from ``OMPB_BITPACK`` (``scan|pallas|pallas_dense|gather``;
+default ``pallas`` on CUDA). ``OMPB_JPEG_DEVICE_IDCT=1`` moves JPEG
+tiles' IDCT to the device.
+
+On ``cuda`` the kernels are built (or found built) before the port opens;
+without a GPU the command fails unless ``--device cpu`` is given. A config
+the port cannot honour (an opt-in plane it lacks, an unsupported value)
+stops start-up with the ``ConfigError`` that names the key (exit code 2).
+``debug-context`` builds the same wiring without serving, prints it and
+exits (``debug.py``). The line ``listening on HOST:PORT`` is printed once
+serving. SIGINT/SIGTERM drain and stop (exit code 0).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
-import logging
 import signal
 import sys
 
 from .ops.device_deflate import DEFLATE_MODES
+from .utils.config import Config, ConfigError
+
+# flags that override a YAML key only when given
+_OVERRIDES = ("--buckets", "--queue-depth", "--deflate-mode", "--no-device-deflate",
+              "--lut-dir", "--no-supertile")
+
+
+def _parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description, allow_abbrev=False)
+    p.add_argument("--config", default="conf/config.yaml")
+    p.add_argument("--registry", default=None,
+                   help="image registry JSON (overrides image-registry)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return p
 
 
 def _parse(argv):
-    p = argparse.ArgumentParser(description="PyTorch/CUDA pixel-buffer tile service")
-    p.add_argument("--registry", required=True, help="image registry JSON")
-    p.add_argument("--port", type=int, default=8082)
+    p = _parser("PyTorch/CUDA pixel-buffer tile service")
+    p.add_argument("--port", type=int, default=None, help="overrides port")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--dev", action="store_true",
                    help="accept any sessionid cookie as its own session key "
                    "(never in production)")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--buckets", default="256,512,1024",
                    help="comma-separated square shape buckets")
     p.add_argument("--queue-depth", type=int, default=2,
@@ -54,23 +80,44 @@ def _parse(argv):
     p.add_argument("--lut-dir", default=None, help="directory of ImageJ .lut files")
     p.add_argument("--no-supertile", dest="supertile", action="store_false",
                    help="render adjacent /render lanes of a batch one by one, not fused")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = p.parse_args(argv)
     if args.deflate_mode not in DEFLATE_MODES:
         raise ValueError(f"Unknown device deflate mode: {args.deflate_mode}")
+    args.given = {flag for flag in _OVERRIDES
+                  if any(a == flag or a.startswith(flag + "=") for a in argv)}
     return args
 
 
-async def _serve(args) -> None:
-    from .http.server import create_server
+def load_config(args, dev: bool = False) -> Config:
+    """The config file under its env overrides, then the command line's."""
+    config = Config.load(args.config, default_memory_store=dev)
+    if getattr(args, "port", None) is not None:
+        config.port = args.port
+    if args.registry is not None:
+        config.image_registry = args.registry
+    given = getattr(args, "given", ())
+    be = config.backend
+    if "--buckets" in given:
+        be.batching.buckets = tuple(int(b) for b in args.buckets.split(","))
+    if "--queue-depth" in given:
+        be.png.queue_depth = Config._parse_queue_depth(args.queue_depth)
+    if "--deflate-mode" in given:
+        be.png.device_deflate_mode = args.deflate_mode
+    if "--no-device-deflate" in given:
+        be.png.device_deflate = False
+    if "--lut-dir" in given:
+        config.render.lut_dir = args.lut_dir
+    if "--no-supertile" in given:
+        config.supertile.enabled = False
+    return config
 
-    server = create_server(
-        args.registry, dev=args.dev, device=args.device,
-        buckets=[int(b) for b in args.buckets.split(",")],
-        queue_depth=args.queue_depth, deflate_mode=args.deflate_mode,
-        device_deflate=args.device_deflate, lut_dir=args.lut_dir,
-        supertile_enabled=args.supertile,
-    )
-    port = await server.start(args.host, args.port)
+
+async def _serve(args, config: Config) -> None:
+    from .http.server import wire
+
+    server = wire(config, device=args.device, dev=args.dev)
+    port = await server.start(args.host, config.port)
     print(f"listening on {args.host}:{port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -84,10 +131,21 @@ async def _serve(args) -> None:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "debug-context":
+        from .debug import main as debug_main
+
+        return debug_main(argv[1:])
     args = _parse(argv)
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
-                        format="%(asctime)s %(levelname)s %(name)s %(message)s")
-    asyncio.run(_serve(args))
+    from .utils.logging_setup import configure_logging
+
+    try:
+        config = load_config(args, dev=args.dev)
+        configure_logging(config.logging)
+        asyncio.run(_serve(args, config))
+    except ConfigError as e:
+        print(f"configuration error: {e}", file=sys.stderr)
+        return 2
     return 0
 
 

@@ -10,15 +10,15 @@ from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 # the JAX package's cache defaults (cache: memory-mb, protected-fraction,
-# max-entry-kb, max-age-s)
+# max-entry-kb); the front takes them, and max-age-s, from its config
 MEMORY_BYTES = 256 << 20
 PROTECTED_FRACTION = 0.8
 MAX_ENTRY_BYTES = 4096 << 10
-MAX_AGE_S = 60
 
 
 def make_etag(body: bytes) -> str:
@@ -45,12 +45,13 @@ def etag_matches(if_none_match: str, etag: str) -> bool:
 class CachedTile:
     """One memoized response: encoded bytes, validator, reply filename."""
 
-    __slots__ = ("body", "etag", "filename")
+    __slots__ = ("body", "etag", "filename", "stored_at")
 
     def __init__(self, body: bytes, filename: str = ""):
         self.body = body
         self.etag = make_etag(body)
         self.filename = filename
+        self.stored_at = time.monotonic()
 
     @property
     def nbytes(self) -> int:
@@ -121,10 +122,25 @@ class SegmentedLRU:
                     evicted.append((k, e))
         return evicted
 
-    def __contains__(self, key: str) -> bool:
-        """Presence, without promotion or hit counting."""
+    def peek(self, key: str) -> Optional[CachedTile]:
+        """The entry, without promotion or hit counting."""
         with self._lock:
-            return key in self._probation or key in self._protected
+            entry = self._protected.get(key)
+            return entry if entry is not None else self._probation.get(key)
+
+    def remove_prefix(self, prefix: str) -> int:
+        """Drop every entry whose key starts with ``prefix``; returns how
+        many."""
+        removed = 0
+        with self._lock:
+            for seg in (self._probation, self._protected):
+                for key in [k for k in seg if k.startswith(prefix)]:
+                    entry = seg.pop(key)
+                    self._bytes -= entry.nbytes
+                    if seg is self._protected:
+                        self._protected_bytes -= entry.nbytes
+                    removed += 1
+        return removed
 
     def __len__(self) -> int:
         with self._lock:
@@ -139,26 +155,52 @@ class SegmentedLRU:
 
 class TileResultCache:
     """The memory tier behind the front: ``get`` and ``put`` by content key,
-    entries above ``max_entry_bytes`` never admitted. As with the JAX
-    package's defaults, entries do not expire (``cache.ttl-s`` 0); the port
-    has no invalidation source yet (no metadata database), so no purge
-    exists."""
+    entries above ``max_entry_bytes`` never admitted, entries older than
+    ``ttl_s`` missed (0, the JAX default: no expiry, invalidation purges).
+    ``invalidate_image`` drops an image's entries and bumps the
+    generation, so a fill that began before it (``put(...,
+    generation=)``) is not admitted."""
 
     def __init__(self, memory_bytes: int = MEMORY_BYTES,
-                 max_entry_bytes: int = MAX_ENTRY_BYTES):
-        self.memory = SegmentedLRU(memory_bytes, PROTECTED_FRACTION)
+                 max_entry_bytes: int = MAX_ENTRY_BYTES,
+                 protected_fraction: float = PROTECTED_FRACTION, ttl_s: float = 0.0):
+        self.memory = SegmentedLRU(memory_bytes, protected_fraction)
         self.max_entry_bytes = max_entry_bytes
+        self.ttl_s = ttl_s
+        self._generation = 0
+        self._generation_lock = threading.Lock()
+
+    def _fresh(self, entry: Optional[CachedTile]) -> Optional[CachedTile]:
+        if entry is not None and self.ttl_s > 0 and (
+                time.monotonic() - entry.stored_at > self.ttl_s):
+            return None
+        return entry
 
     def get(self, key: str) -> Optional[CachedTile]:
-        return self.memory.get(key)
+        return self._fresh(self.memory.get(key))
 
     def contains(self, key: str) -> bool:
         """The door gate's probe: no promotion, no hit counted."""
-        return key in self.memory
+        return self._fresh(self.memory.peek(key)) is not None
 
-    def put(self, key: str, entry: CachedTile) -> None:
-        if entry.nbytes <= self.max_entry_bytes:
+    def generation(self) -> int:
+        with self._generation_lock:
+            return self._generation
+
+    def put(self, key: str, entry: CachedTile, generation: Optional[int] = None) -> None:
+        if entry.nbytes > self.max_entry_bytes:
+            return
+        with self._generation_lock:
+            if generation is not None and generation != self._generation:
+                return  # an invalidation ran while this entry was made
             self.memory.put(key, entry)
+
+    def invalidate_image(self, image_id: int) -> int:
+        """Drop every cached tile of one image (any thread); returns how
+        many."""
+        with self._generation_lock:
+            self._generation += 1
+            return self.memory.remove_prefix(f"img={int(image_id)}|")
 
     def snapshot(self) -> dict:
         return {"enabled": True, "memory": self.memory.snapshot()}

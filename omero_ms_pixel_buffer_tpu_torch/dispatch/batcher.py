@@ -30,6 +30,14 @@ counts the extensions. Each batch's executor work runs with the latest
 lane deadline ambient (``deadline_scope``), so store retries and the
 fetch planner stop once no lane can use their result.
 
+The knobs default to the JAX ``backend.batching`` and ``supertile``
+defaults (``MAX_BATCH``, ``COALESCE_WINDOW_MS``, ``BURST_WINDOW_MS``, 2 x
+CPUs batches: the JAX ``worker_pool_size``); the config wiring passes the
+YAML values. Given a ``SessionValidator`` (the config wiring always gives
+one: the Glacier2 join, or the allow-list that accepts every key the
+session store resolved), ``handle`` validates the lane's OMERO session
+before it queues, as the JAX batcher does: a refusal is 403.
+
 Failure codes: pipeline None -> 404 "Cannot find Image:<id>"; a typed
 ``TileError`` result (a failed encode group is a 500, a projection over
 budget a 413) passes through; an expired deadline -> 504 (counted by the
@@ -47,9 +55,16 @@ import logging
 import os
 from typing import List, Optional, Set, Tuple
 
-from ..errors import GatewayTimeoutError, InternalError, NotFoundError, TileError
+from ..auth.validator import SessionValidator
+from ..errors import (
+    GatewayTimeoutError,
+    InternalError,
+    NotFoundError,
+    PermissionDeniedError,
+    TileError,
+)
 from ..models.tile_pipeline import DeferredTile, TilePipeline
-from ..render.supertile import assign_supertiles
+from ..render.supertile import MAX_PIXELS, MIN_COVERAGE, MIN_LANES, assign_supertiles
 from ..resilience.deadline import deadline_scope, note_exceeded
 from ..resilience.scheduler import DeadlineQueue
 from ..tile_ctx import TileCtx
@@ -70,11 +85,28 @@ class BatchingTileWorker:
     """Coalesces concurrent get-tile requests into batched pipeline
     calls."""
 
-    def __init__(self, pipeline: TilePipeline, supertile: bool = True):
+    def __init__(self, pipeline: TilePipeline, supertile: bool = True,
+                 session_validator: Optional[SessionValidator] = None,
+                 max_batch: Optional[int] = None, coalesce_window_ms: Optional[float] = None,
+                 workers: Optional[int] = None, burst_continuation: bool = True,
+                 burst_window_ms: Optional[float] = None,
+                 supertile_limits: Tuple[int, int, float] = (MAX_PIXELS, MIN_LANES,
+                                                             MIN_COVERAGE)):
         self.pipeline = pipeline
+        # None: no check here (a front that resolved the session itself)
+        self.session_validator = session_validator
+        # None takes the module default as it stands now
+        self.max_batch = max(1, int(MAX_BATCH if max_batch is None else max_batch))
+        self.coalesce_window_s = (COALESCE_WINDOW_MS if coalesce_window_ms is None
+                                  else coalesce_window_ms) / 1000.0
+        self.workers = max(1, int(WORKERS if workers is None else workers))
+        self.burst_window_s = 0.0 if not burst_continuation else (
+            BURST_WINDOW_MS if burst_window_ms is None else burst_window_ms) / 1000.0
         # adjacency bucketing of render lanes; False keeps every lane on
-        # the independent path
+        # the independent path; the limits are (max pixels, min lanes,
+        # min coverage), the JAX supertile: keys
         self.supertile = supertile
+        self.supertile_limits = tuple(supertile_limits)
         # (burst key, loop time) of the last dispatched batch's dominant
         # burst: the carry across windows
         self._last_burst: Optional[Tuple[tuple, float]] = None
@@ -82,7 +114,7 @@ class BatchingTileWorker:
         self._runner: Optional[asyncio.Task] = None
         self._inflight: Set[asyncio.Task] = set()
         self._executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=WORKERS, thread_name_prefix="pixel-buffer-pool"
+            max_workers=self.workers, thread_name_prefix="pixel-buffer-pool"
         )
         self._closed = False
         self.batches = 0
@@ -122,6 +154,9 @@ class BatchingTileWorker:
         """Enqueue one request and await its lane's result: (body,
         {"filename", and "degraded" when the lane came from a coarser
         level})."""
+        if (self.session_validator is not None
+                and not await self.session_validator.validate(ctx.omero_session_key)):
+            raise PermissionDeniedError()
         if ctx.expired:
             note_exceeded("admission")
             raise GatewayTimeoutError()
@@ -152,7 +187,7 @@ class BatchingTileWorker:
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
-        sem = asyncio.Semaphore(WORKERS)
+        sem = asyncio.Semaphore(self.workers)
         while not self._closed:
             batch = [await self._queue.get()]
             try:
@@ -166,7 +201,7 @@ class BatchingTileWorker:
     async def _coalesce_and_dispatch(self, batch, loop, sem) -> None:
         """Grow ``batch`` in place until the window closes (extended once
         for a burst), then hand it to an executor task."""
-        await self._gather(batch, loop, COALESCE_WINDOW_MS / 1000.0)
+        await self._gather(batch, loop, self.coalesce_window_s)
         ext = self._burst_extension(batch, loop)
         if ext is not None:
             self.burst_continuations += 1
@@ -192,9 +227,9 @@ class BatchingTileWorker:
 
     async def _gather(self, batch, loop, seconds: float) -> None:
         """Append queued lanes to ``batch`` for up to ``seconds``, or until
-        it holds ``MAX_BATCH``."""
+        it holds ``max_batch``."""
         stop = loop.time() + seconds
-        while len(batch) < MAX_BATCH:
+        while len(batch) < self.max_batch:
             remaining = stop - loop.time()
             if remaining <= 0:
                 break
@@ -232,8 +267,8 @@ class BatchingTileWorker:
         dispatch within the window, or a deadline bound that leaves
         nothing. The extension is the window, capped at half the tightest
         lane's remaining budget."""
-        window = BURST_WINDOW_MS / 1000.0
-        if len(batch) >= MAX_BATCH:
+        window = self.burst_window_s
+        if window <= 0 or len(batch) >= self.max_batch:
             return None
         dominant = self._dominant_burst(batch)
         if dominant is None:
@@ -265,7 +300,10 @@ class BatchingTileWorker:
         self.lanes += len(ctxs)
         if len(ctxs) >= 2 and self.supertile:
             try:
-                self.stamped += assign_supertiles(ctxs)
+                max_pixels, min_lanes, min_coverage = self.supertile_limits
+                self.stamped += assign_supertiles(ctxs, max_pixels=max_pixels,
+                                                  min_lanes=min_lanes,
+                                                  min_coverage=min_coverage)
             except Exception:
                 log.exception("super-tile bucketing failed; lanes serve independently")
         if len(ctxs) == 1 and ctxs[0].render is None and ctxs[0].analysis is None:

@@ -7,8 +7,9 @@ RESTful dialect each translate their URLs into the same ``TileCtx`` and
 the front's one serving path, so an adapter tile is byte-identical to its
 native request, shares its ETag and cache entry, and is shed, degraded
 and timed out as any tile is. Grammar errors answer 400; dialect features
-the pipeline cannot serve byte-identically answer 501. Every adapter is
-on, on a 256-pixel tile grid (the JAX ``protocols:`` defaults).
+the pipeline cannot serve byte-identically answer 501. Which adapters
+are on and their tile grids come from the YAML ``protocols:`` block (all
+on, 256 pixels, by default), held by the server (``server.tile_sizes``).
 
 On the port's asyncio front a handler takes ``(server, groups, query,
 headers, session key)`` and returns ``(status, headers, body)``;
@@ -30,9 +31,6 @@ from ...tile_ctx import RegionDef, TileCtx
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.protocols")
 
-TILE_SIZE = 256  # the JAX protocols.*.tile-size default
-ENABLED = {"dzi": True, "iiif": True, "iris": True}
-
 # an open breaker answers 503 with Retry-After, never the 404 of an
 # unknown image
 _UNAVAILABLE = (StoreUnavailableError, ServiceUnavailableError)
@@ -52,14 +50,16 @@ def text(status: int, message: str, headers: Optional[dict] = None):
     return status, dict(headers or {}), message.encode()
 
 
-async def image_level_sizes(server, image_id: int) -> Optional[List[Tuple[int, int]]]:
-    """[(size_x, size_y)] per pyramid level, or None (-> 404). An open
-    breaker raises (-> 503)."""
+async def image_level_sizes(server, image_id: int, key: Optional[str] = None
+                            ) -> Optional[List[Tuple[int, int]]]:
+    """[(size_x, size_y)] per pyramid level, or None (-> 404), looked up
+    under the caller's session ``key`` where the metadata resolver applies
+    ACLs. An open breaker raises (-> 503)."""
     svc = server.pipeline.pixels_service
 
     def lookup():
         try:
-            buf = svc.get_pixel_buffer(image_id)
+            buf = svc.get_pixel_buffer(image_id, session_key=key)
             if buf is None:
                 return None
             return [buf.level_size(r) for r in range(buf.resolution_levels)]
@@ -72,11 +72,11 @@ async def image_level_sizes(server, image_id: int) -> Optional[List[Tuple[int, i
     return await asyncio.get_running_loop().run_in_executor(None, lookup)
 
 
-async def levels_or_response(server, image_id: int):
+async def levels_or_response(server, image_id: int, key: Optional[str] = None):
     """(level sizes, None) or (None, the error answer): an unknown image
     404, an open breaker 503 with ``Retry-After``."""
     try:
-        sizes = await image_level_sizes(server, image_id)
+        sizes = await image_level_sizes(server, image_id, key)
     except _UNAVAILABLE as e:
         retry = getattr(e, "retry_after_s", None) or 1.0
         return None, text(503, "Service unavailable",
@@ -113,8 +113,11 @@ async def serve_translated(server, query: dict, headers: dict, key: Optional[str
     return await server.serve(ctx, headers)
 
 
-def routes():
-    """[(compiled path pattern, handler)] of every adapter."""
+def routes(enabled: Dict[str, bool]):
+    """[(compiled path pattern, handler)] of every adapter ``enabled``
+    names (the YAML ``protocols.<name>.enabled``; a disabled one's paths
+    are unrouted: 405, as the JAX app registers no route for it)."""
     from . import dzi, iiif, iris
 
-    return dzi.ROUTES + iiif.ROUTES + iris.ROUTES
+    modules = {"dzi": dzi, "iiif": iiif, "iris": iris}
+    return [r for name, m in modules.items() if enabled.get(name, True) for r in m.ROUTES]

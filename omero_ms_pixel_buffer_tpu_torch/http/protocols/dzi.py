@@ -19,7 +19,7 @@ import re
 
 from ...errors import BadRequestError
 from ...render.supertile import BurstHint
-from . import TILE_SIZE, count, levels_or_response, serve_translated, text
+from . import count, levels_or_response, serve_translated, text
 
 _FORMATS = {"png": "png", "jpeg": "jpeg", "jpg": "jpeg"}
 
@@ -72,11 +72,11 @@ def resolve_tile(level_sizes, dzi_level: int, col: int, row: int, tile_size: int
 
 async def handle_descriptor(server, groups, query, headers, key):
     count("dzi", "descriptor")
-    sizes, err = await levels_or_response(server, int(groups[0]))
+    sizes, err = await levels_or_response(server, int(groups[0]), key)
     if err is not None:
         return err
     w, h = sizes[0]
-    return 200, {"Content-Type": "application/xml"}, descriptor_xml(w, h, TILE_SIZE)
+    return 200, {"Content-Type": "application/xml"}, descriptor_xml(w, h, server.tile_sizes["dzi"])
 
 
 async def handle_tile(server, groups, query, headers, key):
@@ -85,11 +85,12 @@ async def handle_tile(server, groups, query, headers, key):
     fmt = _FORMATS.get(groups[4])
     if fmt is None:
         return text(400, f"Unsupported DZI format: {groups[4]!r} (png|jpeg|jpg)")
-    sizes, err = await levels_or_response(server, image_id)
+    sizes, err = await levels_or_response(server, image_id, key)
     if err is not None:
         return err
+    tile_size = server.tile_sizes["dzi"]
     try:
-        placed = resolve_tile(sizes, int(groups[1]), int(groups[2]), int(groups[3]), TILE_SIZE)
+        placed = resolve_tile(sizes, int(groups[1]), int(groups[2]), int(groups[3]), tile_size)
     except BadRequestError as e:
         return text(400, e.message)
     if placed is None:
@@ -98,7 +99,7 @@ async def handle_tile(server, groups, query, headers, key):
     # a level row is a known rectangle on the TileSize grid
     return await serve_translated(server, query, headers, key, image_id, x, y, w, h, res,
                                   overrides={"format": fmt},
-                                  burst=BurstHint(TILE_SIZE, TILE_SIZE))
+                                  burst=BurstHint(tile_size, tile_size))
 
 
 ROUTES = [

@@ -23,7 +23,7 @@ from typing import List, Tuple
 
 from ...errors import BadRequestError, UnsupportedDialectError
 from ...render.supertile import BurstHint
-from . import TILE_SIZE, count, levels_or_response, serve_translated, text
+from . import count, levels_or_response, serve_translated, text
 
 
 class IiifNotSupported(UnsupportedDialectError):
@@ -159,12 +159,12 @@ def info_document(base_id: str, level_sizes: List[Tuple[int, int]], tile_size: i
 async def handle_info(server, groups, query, headers, key):
     count("iiif", "info")
     image_id = int(groups[0])
-    sizes, err = await levels_or_response(server, image_id)
+    sizes, err = await levels_or_response(server, image_id, key)
     if err is not None:
         return err
     version = 2 if query.get("version") == "2" else 3
-    doc = info_document(f"http://{headers.get('host', '')}/iiif/{image_id}", sizes, TILE_SIZE,
-                        version)
+    doc = info_document(f"http://{headers.get('host', '')}/iiif/{image_id}", sizes,
+                        server.tile_sizes["iiif"], version)
     return 200, {"Content-Type": "application/json"}, json.dumps(
         doc, separators=(",", ":")).encode()
 
@@ -172,7 +172,7 @@ async def handle_info(server, groups, query, headers, key):
 async def handle_tile(server, groups, query, headers, key):
     count("iiif", "tile")
     image_id = int(groups[0])
-    sizes, err = await levels_or_response(server, image_id)
+    sizes, err = await levels_or_response(server, image_id, key)
     if err is not None:
         return err
     w0, h0 = sizes[0]
@@ -189,8 +189,9 @@ async def handle_tile(server, groups, query, headers, key):
         return text(501, e.message)
     overrides["format"] = fmt
     lx, ly, lw, lh = dict(candidates)[res]
+    tile_size = server.tile_sizes["iiif"]
     return await serve_translated(server, query, headers, key, image_id, lx, ly, lw, lh, res,
-                                  overrides, burst=BurstHint(TILE_SIZE, TILE_SIZE))
+                                  overrides, burst=BurstHint(tile_size, tile_size))
 
 
 ROUTES = [

@@ -20,7 +20,7 @@ import re
 from typing import List, Tuple
 
 from ...render.supertile import BurstHint
-from . import TILE_SIZE, count, levels_or_response, serve_translated, text
+from . import count, levels_or_response, serve_translated, text
 
 _FORMATS = {"png": "png", "jpeg": "jpeg", "jpg": "jpeg"}
 
@@ -51,11 +51,11 @@ def metadata_document(level_sizes: List[Tuple[int, int]], tile_size: int) -> dic
 
 async def handle_metadata(server, groups, query, headers, key):
     count("iris", "metadata")
-    sizes, err = await levels_or_response(server, int(groups[0]))
+    sizes, err = await levels_or_response(server, int(groups[0]), key)
     if err is not None:
         return err
     return 200, {"Content-Type": "application/json"}, json.dumps(
-        metadata_document(sizes, TILE_SIZE), separators=(",", ":")).encode()
+        metadata_document(sizes, server.tile_sizes["iris"]), separators=(",", ":")).encode()
 
 
 async def handle_tile(server, groups, query, headers, key):
@@ -64,21 +64,22 @@ async def handle_tile(server, groups, query, headers, key):
     fmt = _FORMATS.get(query.get("format", "png"))
     if fmt is None:
         return text(400, "Unsupported Iris format (png|jpeg|jpg)")
-    sizes, err = await levels_or_response(server, image_id)
+    sizes, err = await levels_or_response(server, image_id, key)
     if err is not None:
         return err
-    grid = layer_grid(sizes, int(groups[1]), TILE_SIZE)
+    tile_size = server.tile_sizes["iris"]
+    grid = layer_grid(sizes, int(groups[1]), tile_size)
     if grid is None:
         return text(404, "No such layer")
     res, x_tiles, y_tiles, lw, lh = grid
     tile = int(groups[2])
     if tile >= x_tiles * y_tiles:
         return text(404, "No such tile")
-    x, y = (tile % x_tiles) * TILE_SIZE, (tile // x_tiles) * TILE_SIZE
+    x, y = (tile % x_tiles) * tile_size, (tile // x_tiles) * tile_size
     return await serve_translated(server, query, headers, key, image_id, x, y,
-                                  min(TILE_SIZE, lw - x), min(TILE_SIZE, lh - y), res,
+                                  min(tile_size, lw - x), min(tile_size, lh - y), res,
                                   overrides={"format": fmt},
-                                  burst=BurstHint(TILE_SIZE, TILE_SIZE))
+                                  burst=BurstHint(tile_size, tile_size))
 
 
 ROUTES = [

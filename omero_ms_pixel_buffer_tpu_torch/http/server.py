@@ -19,12 +19,17 @@ unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
 package's aiohttp app does with its catch-all OPTIONS route. HEAD answers
 the GET's status and headers without the body (and without
 ``Content-Length`` when that body is empty, as aiohttp answers). Connections are
-keep-alive. Sessions: a ``sessionid`` cookie maps to an OMERO session key
-through an in-memory map; with ``dev`` every cookie value is its own key
-(the echo store). Every path but ``/healthz`` and every method but
-OPTIONS needs a session: a missing or unknown cookie is 403 "Permission
-denied", a bad parameter 400 with the parse message, an unknown image
-404, as the JAX package answers. On ``/render`` a grammar error or an
+keep-alive. Sessions (``auth/stores.py``, the JAX ``session_middleware``):
+the ``sessionid`` cookie is looked up in the session store (OMERO.web's
+Django sessions in Redis or Postgres; an in-memory map; with ``dev`` the
+echo store, where every cookie value is its own key). Every path but
+``/healthz`` and every method but OPTIONS needs a session: a missing or
+unknown cookie is 403 "Permission denied", and a store that cannot answer
+(an open breaker, a refused or timed-out connection) 503 "Session store
+unavailable" with ``Retry-After``, never a 403. A bad parameter is 400
+with the parse message, an unknown image (or one the caller's OMERO ACL
+hides, under the database metadata resolver) 404, as the JAX package
+answers. On ``/render`` a grammar error or an
 unknown LUT is a 400 with the JAX message, a channel out of range a 404,
 a projection stack over the tile budget a 413; ``annotations=`` is
 ignored, as the JAX front does without an annotation store. On
@@ -54,10 +59,25 @@ loop_watchdog.py``) is armed at start.
 Tiles, renders and histograms go through the result cache's memory tier
 (``cache/``), keyed by ``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
 full plane's size. A 200 carries the content ``ETag``, ``Cache-Control:
-private, max-age=60`` and ``X-Cache: hit|miss``; an ``If-None-Match``
-that matches the ETag answers 304, on a hit or on a fresh render.
-Concurrent misses with one ``TileCtx.dedupe_key`` share one pipeline
-execution (single-flight), which fills the cache once.
+private, max-age=<cache.max-age-s>`` and ``X-Cache: hit|miss``; an
+``If-None-Match`` that matches the ETag answers 304, on a hit (before the
+authorization step with ``cache.etag-precheck``) or on a fresh render.
+A hit skips the pipeline, never the authorization: the session validator
+and the caller's ACL (``get_pixels`` under the session key) are asked
+again unless the pair (session, image) took the full path within the
+last 10 s, and a hit that does not authorize takes the full path, which
+answers 403, 404 or 503. Concurrent misses with one
+``TileCtx.dedupe_key`` share one pipeline execution (single-flight),
+which fills the cache once. A changed ``pixels`` row seen by the metadata
+resolver purges the image's cached tiles, authorization verdicts, open
+buffer, device planes and decoded blocks (``_invalidate_image``).
+
+``wire`` builds the whole service from a ``utils.config.Config`` (the
+JAX ``PixelBufferApp.__init__``): ``create_app`` and ``create_server``
+both go through it. Planes the port does not have are decided there:
+default-on ones start absent (one warning each, ``/healthz``
+``config.absent``), opt-in ones that are turned on stop start-up with a
+``ConfigError`` naming the key.
 """
 
 from __future__ import annotations
@@ -67,33 +87,33 @@ import http
 import json
 import logging
 import re
+import threading
+import time
 from http.cookies import CookieError, SimpleCookie
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qsl, unquote, urlsplit
 
 from .. import __version__
-from ..cache.result_cache import MAX_AGE_S, CachedTile, TileResultCache, etag_matches
+from ..auth.omero_session import AllowListValidator
+from ..auth.stores import EchoSessionStore, MemorySessionStore
+from ..cache.result_cache import CachedTile, TileResultCache, etag_matches
 from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
-from ..errors import TileError
+from ..errors import ServiceUnavailableError, TileError
 from ..io.fetch import io_snapshot
 from ..ops.kernels import launch_counts
 from ..render.analysis import HistogramSpec
 from ..render.model import RenderSpec
 from ..resilience import deadline as rdeadline
 from ..resilience import retry
-from ..resilience.admission import MAX_INFLIGHT, AdmissionController
+from ..resilience import timeouts
+from ..resilience.admission import AdmissionController
 from ..resilience.breaker import BOARD
 from ..resilience.deadline import Deadline
-from ..resilience.scheduler import (
-    QUEUE_SIZE,
-    SloScheduler,
-    SweepDetector,
-    classify,
-    header_priority,
-)
+from ..resilience.scheduler import SloScheduler, SweepDetector, classify, header_priority
 from ..runtime.native import host_engine
 from ..tile_ctx import TileCtx
+from ..utils.config import Config, ConfigError
 from ..utils.loop_watchdog import LoopWatchdog
 from . import protocols
 
@@ -121,15 +141,30 @@ _ROUTE_METHODS = "GET,HEAD,OPTIONS"
 DISCOVERY = {"provider": "PixelBufferMicroservice", "version": __version__, "features": []}
 _MAX_HEADERS = 100
 _MAX_BODY = 1 << 20
-# the request budget when ``request_budget_ms`` is None: the JAX
-# package's event-bus-send-timeout default
-EVENT_BUS_SEND_TIMEOUT_MS = 15000.0
-# JPEG quality without a q= parameter (the JAX package's render.jpeg-quality)
-JPEG_QUALITY = 90
+# a session and image pair that took the full path stays authorized for
+# result-cache hits this long (the JAX resolver's session-context TTL)
+AUTHZ_TTL_S = 10.0
+_AUTHZ_MAX = 65536
+# what a session store raises when it cannot answer: 503, never 403
+_STORE_DOWN = (ConnectionError, OSError, asyncio.TimeoutError)
+
+
+def default_config() -> Config:
+    """The JAX defaults with the in-memory session store: what a server
+    built without a config runs with."""
+    return Config.from_dict({"session-store": {"type": "memory"}})
 
 
 class TileServer:
-    """The asyncio HTTP front over a batching worker."""
+    """The asyncio HTTP front over a batching worker. Its knobs come from
+    ``config`` (default: the JAX defaults, in-memory sessions);
+    ``max_inflight``, ``queue_size`` and ``request_budget_ms`` override
+    the config's ``resilience.admission.max-inflight``, ``slo.queue-size``
+    and ``resilience.request-budget-ms``. ``session_store`` defaults to
+    the echo store with ``dev``, else to ``sessions`` in memory;
+    ``session_validator`` authorizes cache hits (default: the allow-list
+    of every key the store resolved). ``absent`` names the default-on
+    planes the port started without (``/healthz`` ``config.absent``)."""
 
     def __init__(
         self,
@@ -137,26 +172,68 @@ class TileServer:
         dev: bool = False,
         sessions: Optional[Dict[str, str]] = None,
         gpu: Optional[dict] = None,
-        max_inflight: int = MAX_INFLIGHT,
-        queue_size: int = QUEUE_SIZE,
+        max_inflight: Optional[int] = None,
+        queue_size: Optional[int] = None,
         request_budget_ms: Optional[float] = None,
+        config: Optional[Config] = None,
+        session_store=None,
+        session_validator=None,
+        absent: Tuple[str, ...] = (),
     ):
+        config = config or default_config()
+        self.config = config
         self.worker = worker
         self.pipeline = worker.pipeline
-        self.dev = dev
-        self.sessions = dict(sessions or {})
+        if session_store is None:
+            session_store = EchoSessionStore() if dev else MemorySessionStore(sessions)
+        self.session_store = session_store
+        self.session_validator = session_validator or AllowListValidator()
+        self.absent = tuple(absent)
         self.gpu = gpu
-        self.cache = TileResultCache()
+        cc = config.cache
+        self.cache = TileResultCache(memory_bytes=cc.memory_mb << 20,
+                                     max_entry_bytes=cc.max_entry_kb << 10,
+                                     protected_fraction=cc.protected_fraction, ttl_s=cc.ttl_s)
+        self.max_age_s = int(cc.max_age_s)
+        self.etag_precheck = cc.etag_precheck
         self._flight = SingleFlight()
-        # the JAX names: resilience.admission.max-inflight, slo.queue-size,
-        # resilience.request-budget-ms
-        self.admission = AdmissionController(max_inflight=max_inflight)
-        self.sweep_detector = SweepDetector()
-        self.scheduler = SloScheduler(self.admission, queue_size=queue_size)
-        self.request_budget_s = (request_budget_ms if request_budget_ms is not None
-                                 else EVENT_BUS_SEND_TIMEOUT_MS) / 1000.0
-        self.watchdog = LoopWatchdog()
-        self._routes = protocols.routes()
+        res, slo = config.resilience, config.slo
+        self.admission = AdmissionController(
+            max_inflight=(res.admission.max_inflight if max_inflight is None
+                          else max_inflight),
+            retry_after_s=res.admission.retry_after_s)
+        self.sweep_detector = SweepDetector(threshold=slo.sweep_window, ttl_s=slo.sweep_ttl_s)
+        self.scheduler = SloScheduler(
+            self.admission, queue_size=slo.queue_size if queue_size is None else queue_size,
+            class_weights=slo.class_weights, degrade=slo.degrade,
+            degrade_factor=slo.degrade_factor)
+        self.priority_header = slo.priority_header
+        if request_budget_ms is None:
+            request_budget_ms = (res.request_budget_ms if res.request_budget_ms is not None
+                                 else config.event_bus_send_timeout_ms)
+        self.request_budget_s = request_budget_ms / 1000.0
+        wd = res.watchdog
+        self.watchdog = (LoopWatchdog(interval_s=wd.interval_ms / 1000.0,
+                                      warn_after_s=wd.warn_ms / 1000.0)
+                         if wd.enabled else None)
+        self.render_enabled = config.render.enabled
+        self.jpeg_quality = config.render.jpeg_quality
+        self.analysis_enabled = config.analysis.enabled
+        self.max_bins = config.analysis.max_bins
+        pc = config.protocols
+        self.protocols_enabled = {"dzi": pc.dzi.enabled, "iiif": pc.iiif.enabled,
+                                  "iris": pc.iris.enabled}
+        self.tile_sizes = {"dzi": pc.dzi.tile_size, "iiif": pc.iiif.tile_size,
+                           "iris": pc.iris.tile_size}
+        self._routes = protocols.routes(self.protocols_enabled)
+        # (session, image) -> expiry of the full path's verdict; purged
+        # from the resolver's thread on invalidation
+        self._authz: Dict[tuple, float] = {}
+        self._authz_lock = threading.Lock()
+        resolver = getattr(self.pipeline.pixels_service, "metadata_resolver", None)
+        if resolver is not None and hasattr(resolver, "add_invalidation_listener"):
+            resolver.add_invalidation_listener(self._invalidate_image)
+        self.kernel_libraries: Dict[str, dict] = {}  # set by ``wire`` on CUDA
         self._server: Optional[asyncio.AbstractServer] = None
         self._writers: set = set()  # open connections, closed at shutdown
         self.port: Optional[int] = None
@@ -164,7 +241,8 @@ class TileServer:
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Start the worker and listen; returns the bound port."""
         await self.worker.start()
-        self.watchdog.start()  # on the serving loop's thread
+        if self.watchdog is not None:
+            self.watchdog.start()  # on the serving loop's thread
         self._server = await asyncio.start_server(self._client, host, port)
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
@@ -176,8 +254,12 @@ class TileServer:
                 writer.close()  # idle keep-alive connections end here
             await self._server.wait_closed()
             self._server = None
-        self.watchdog.stop()
+        if self.watchdog is not None:
+            self.watchdog.stop()
         await self.worker.close()
+        close = getattr(self.session_store, "close", None)
+        if close is not None:
+            await close()
 
     # -- connection loop ---------------------------------------------------
 
@@ -254,17 +336,17 @@ class TileServer:
         m = render = histogram = adapter = None
         if not healthz:
             m = _TILE_PATH.match(parts.path)
-            if m is None:
+            if m is None and self.render_enabled:
                 m = render = _RENDER_PATH.match(parts.path)
-            if m is None:
+            if m is None and self.analysis_enabled:
                 m = histogram = _HISTOGRAM_PATH.match(parts.path)
             if m is None:
                 adapter = self._adapter_route(parts.path)
         key = None
         if not healthz:
-            key = self._session_key(headers.get("cookie"))
-            if not key:
-                return 403, {}, b"Permission denied"
+            key, refusal = await self._session(headers.get("cookie"))
+            if refusal is not None:
+                return refusal
         routed = healthz or m is not None or adapter is not None
         if method not in ("GET", "HEAD") or not routed:
             return 405, {"Allow": _ROUTE_METHODS if routed else "OPTIONS"}, \
@@ -300,7 +382,7 @@ class TileServer:
         shed at ``acquire`` anyway while the wait queue is full (classified
         by its headers alone: no session exists yet). A ``/tile`` or
         ``/render`` request whose entry is cached passes."""
-        priority = classify(headers, None, None)
+        priority = classify(headers, None, None, self.priority_header)
         if not self.scheduler.would_overflow_shed(priority):
             return None
         if path.startswith(("/tile/", "/render/")):
@@ -366,7 +448,7 @@ class TileServer:
         error or an unknown LUT."""
         try:
             spec = RenderSpec.from_params(query, default_channel=default_channel,
-                                          default_quality=JPEG_QUALITY)
+                                          default_quality=self.jpeg_quality)
         except TileError as e:
             return None, e.message
         for ch in spec.channels:
@@ -377,12 +459,13 @@ class TileServer:
     def _histogram_ctx(self, path_params, query, key):
         """(ctx, None) for a /histogram request, or (None, the 400
         message): the path's ids, the HistogramSpec of the query (the
-        path's c is the default channel; ``bins`` at most ``MAX_BINS``,
-        the JAX ``analysis.max-bins`` default), then x/y/w/h/resolution, in
-        the JAX front's order."""
+        path's c is the default channel; ``bins`` at most
+        ``analysis.max-bins``), then x/y/w/h/resolution, in the JAX front's
+        order."""
         try:
             ctx = TileCtx.from_params(path_params, key)
-            spec = HistogramSpec.from_params(query, default_channel=ctx.c)
+            spec = HistogramSpec.from_params(query, default_channel=ctx.c,
+                                             max_bins=self.max_bins)
         except TileError as e:
             return None, e.message
         ctx.analysis = spec
@@ -393,8 +476,9 @@ class TileServer:
         """A parsed ``/tile``, ``/render``, ``/histogram`` or adapter
         request: classified, then through the result cache; a miss takes a
         scheduler slot under the request's deadline and one flight."""
-        ctx.priority = classify(headers, ctx.omero_session_key, self.sweep_detector)
-        if header_priority(headers) is None:
+        ctx.priority = classify(headers, ctx.omero_session_key, self.sweep_detector,
+                                self.priority_header)
+        if header_priority(headers, self.priority_header) is None:
             # only unlabelled traffic trains the sweep detector; a sweep
             # demotes the session's next request, not this one
             r = ctx.region
@@ -406,7 +490,13 @@ class TileServer:
         key = ctx.cache_key(quality)
         entry = self.cache.get(key)
         if entry is not None:
-            return self._tile_response(ctx, entry, inm, "hit")
+            if inm and self.etag_precheck and etag_matches(inm, entry.etag):
+                # the client already holds these exact bytes: revalidation
+                # discloses nothing, so it answers before the session join
+                return 304, self._cache_headers(entry.etag), b""
+            if await self._authorize_cached(ctx):
+                return self._tile_response(ctx, entry, inm, "hit")
+            # not confirmed: the full path answers 403, 404 or 503
         ctx.deadline = Deadline.after(self.request_budget_s)
         permit = None
         served = False
@@ -424,7 +514,7 @@ class TileServer:
                 ctx.degraded = 1
                 full_res_key, key = key, ctx.cache_key(quality)
                 entry = self.cache.get(key)
-                if entry is not None:
+                if entry is not None and await self._authorize_cached(ctx):
                     return self._tile_response(ctx, entry, inm, "hit", degraded=1)
             try:
                 entry, degraded = await self._flight.do(
@@ -436,20 +526,28 @@ class TileServer:
             if permit is not None:
                 # failures do not train the service-time estimate
                 self.scheduler.release(permit, train=served)
+        # the full path validated the session and resolved the image under
+        # its ACL: the verdict serves this pair's hits for a while
+        self._authz_record(ctx)
         return self._tile_response(ctx, entry, inm, "miss", degraded=degraded)
 
-    @staticmethod
-    def _tile_response(ctx: TileCtx, entry: CachedTile, inm: str, x_cache: str,
+    def _cache_headers(self, etag: str) -> dict:
+        """Validator and freshness headers of a tile the cache saw.
+        ``private``: tiles are authorized per session, so shared proxies
+        must not keep them."""
+        return {"ETag": etag, "Cache-Control": f"private, max-age={self.max_age_s}"}
+
+    def _tile_response(self, ctx: TileCtx, entry: CachedTile, inm: str, x_cache: str,
                        degraded: int = 0) -> Tuple[int, dict, bytes]:
         """200 with the body, or 304 when ``inm`` matches its ETag; a
         degraded body is tagged ``X-OMPB-Degraded`` (the levels down)."""
         tag = {"X-OMPB-Degraded": str(degraded)} if degraded else {}
         if inm and etag_matches(inm, entry.etag):
-            return 304, {**_cache_headers(entry.etag), **tag}, b""
+            return 304, {**self._cache_headers(entry.etag), **tag}, b""
         return 200, {
             "Content-Type": CONTENT_TYPES.get(ctx.format, "application/octet-stream"),
             "Content-Disposition": f'attachment; filename="{entry.filename}"',
-            **_cache_headers(entry.etag),
+            **self._cache_headers(entry.etag),
             "X-Cache": x_cache,
             **tag,
         }, entry.body
@@ -459,12 +557,61 @@ class TileServer:
         """One pipeline execution of a miss, memoized once per flight:
         (entry, levels degraded). A degraded flight that came back at full
         resolution (no coarser level) fills the full-resolution key."""
+        generation = self.cache.generation()
         body, meta = await self.worker.handle(ctx)
         entry = CachedTile(body, filename=meta["filename"])
         degraded = int(meta.get("degraded", 0))
         self.cache.put(full_res_key if full_res_key is not None and not degraded else key,
-                       entry)
+                       entry, generation=generation)
         return entry, degraded
+
+    # -- authorization of cache hits, invalidation ---------------------------
+
+    def _authz_fresh(self, ctx: TileCtx) -> bool:
+        with self._authz_lock:
+            expiry = self._authz.get((ctx.omero_session_key, ctx.image_id))
+        return expiry is not None and expiry > time.monotonic()
+
+    def _authz_record(self, ctx: TileCtx) -> None:
+        with self._authz_lock:
+            if len(self._authz) >= _AUTHZ_MAX:
+                self._authz.clear()  # coarse but bounded
+            self._authz[(ctx.omero_session_key, ctx.image_id)] = time.monotonic() + AUTHZ_TTL_S
+
+    def _authz_purge(self, image_id: int) -> None:
+        with self._authz_lock:
+            for k in [k for k in self._authz if k[1] == image_id]:
+                del self._authz[k]
+
+    async def _authorize_cached(self, ctx: TileCtx) -> bool:
+        """Whether a cache hit may be served to this caller: the session
+        validates and the image resolves under its ACL. Any failure is
+        False, and the request takes the full path, which maps it to its
+        status."""
+        if self._authz_fresh(ctx):
+            return True
+        try:
+            if not await self.session_validator.validate(ctx.omero_session_key):
+                return False
+            svc = self.pipeline.pixels_service
+            meta = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: svc.get_pixels(ctx.image_id, session_key=ctx.omero_session_key))
+        except Exception:
+            log.debug("cache-hit authorization failed; full path", exc_info=True)
+            return False
+        if meta is None:
+            return False
+        self._authz_record(ctx)
+        return True
+
+    def _invalidate_image(self, image_id: int) -> None:
+        """The metadata resolver's listener (its own thread): purge the
+        image's cached tiles, authorization verdicts, open buffer, device
+        planes and decoded blocks."""
+        image_id = int(image_id)
+        self.cache.invalidate_image(image_id)
+        self._authz_purge(image_id)
+        self.pipeline.invalidate_image(image_id)
 
     async def _normalize_region(self, ctx: TileCtx) -> None:
         """Rewrite w/h = 0 (the full plane) to the plane's size before any
@@ -491,17 +638,32 @@ class TileServer:
         except Exception:
             return None
 
-    def _session_key(self, cookie_header: Optional[str]) -> Optional[str]:
-        if not cookie_header:
-            return None
+    async def _session(self, cookie_header: Optional[str]):
+        """(OMERO session key, None), or (None, the refusal): 403 for no
+        cookie or an unknown session, 503 with ``Retry-After`` for a store
+        that cannot answer (auth unavailable must never read as auth
+        denied, or a store blip logs every user out)."""
+        denied = (403, {}, b"Permission denied")
+        session_id = None
+        if cookie_header:
+            try:
+                morsel = SimpleCookie(cookie_header).get("sessionid")
+            except CookieError:
+                morsel = None
+            session_id = morsel.value if morsel is not None else None
+        if not session_id:
+            return None, denied
         try:
-            jar = SimpleCookie(cookie_header)
-        except CookieError:
-            return None
-        morsel = jar.get("sessionid")
-        if morsel is None or not morsel.value:
-            return None
-        return morsel.value if self.dev else self.sessions.get(morsel.value)
+            key = await self.session_store.get_omero_session_key(session_id)
+        except ServiceUnavailableError as e:
+            return None, (503, {"Retry-After": _retry_after(e.retry_after_s)},
+                          b"Session store unavailable")
+        except _STORE_DOWN as e:
+            log.warning("session store lookup failed: %s", e)
+            return None, (503, {"Retry-After": "1"}, b"Session store unavailable")
+        if not key:
+            return None, denied
+        return key, None
 
     def health(self) -> dict:
         """/healthz body: the scheduler's (``slo``: per-class classified,
@@ -523,15 +685,18 @@ class TileServer:
         slot is taken or the event loop is blocked."""
         breakers = BOARD.snapshot()
         admission = self.admission.snapshot()
-        watchdog = self.watchdog.snapshot()
+        watchdog = (self.watchdog.snapshot() if self.watchdog is not None
+                    else {"enabled": False, "blocked": False})
         degraded = (any(b["state"] == "open" for b in breakers.values())
                     or admission["inflight"] >= admission["max_inflight"]
                     or watchdog["blocked"])
         return {
             "status": "degraded" if degraded else "ok",
+            "config": self.config_view(),
             "slo": {**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()},
             "admission": admission,
-            "protocols": {**protocols.ENABLED, "requests": dict(protocols.PROTOCOL_REQUESTS)},
+            "protocols": {**self.protocols_enabled,
+                          "requests": dict(protocols.PROTOCOL_REQUESTS)},
             "watchdog": watchdog,
             "deadline": rdeadline.snapshot(),
             "request_budget_ms": self.request_budget_s * 1000.0,
@@ -542,8 +707,8 @@ class TileServer:
             "host_png_lanes": self.pipeline.host_png_lanes,
             "device_deflate": self.pipeline.device_deflate,
             "host_deflate_lanes": self.pipeline.host_deflate_lanes,
-            "render": {"enabled": True, **self.pipeline.render_snapshot()},
-            "analysis": {"enabled": True, **self.pipeline.analysis_snapshot()},
+            "render": {"enabled": self.render_enabled, **self.pipeline.render_snapshot()},
+            "analysis": {"enabled": self.analysis_enabled, **self.pipeline.analysis_snapshot()},
             "supertile": {"enabled": self.worker.supertile,
                           "stamped_lanes": self.worker.stamped,
                           **self.pipeline.supertile_snapshot()},
@@ -559,53 +724,229 @@ class TileServer:
         }
 
 
+    def config_view(self) -> dict:
+        """``/healthz`` ``config``: the default-on planes the port started
+        without (``absent``), the session store and validator, and the
+        knobs the config set on this front, its batcher and the
+        process-wide layers."""
+        w, cfg = self.worker, self.config
+        return {
+            "absent": list(self.absent),
+            "session_store": type(self.session_store).__name__,
+            "session_validator": type(self.session_validator).__name__,
+            "engine": cfg.backend.engine,
+            "batching": {"buckets": list(self.pipeline.buckets), "max_batch": w.max_batch,
+                         "coalesce_window_ms": w.coalesce_window_s * 1000.0,
+                         "burst_window_ms": w.burst_window_s * 1000.0, "workers": w.workers},
+            "cache": {"memory_bytes": self.cache.memory.max_bytes,
+                      "protected_fraction": cfg.cache.protected_fraction,
+                      "ttl_s": self.cache.ttl_s, "max_entry_bytes": self.cache.max_entry_bytes,
+                      "max_age_s": self.max_age_s, "etag_precheck": self.etag_precheck},
+            "breaker": {"enabled": BOARD.enabled, **BOARD.defaults},
+            "io_timeout_ms": timeouts.io_timeout_s() * 1000.0,
+            "supertile": {"enabled": w.supertile, "limits": list(w.supertile_limits)},
+            "max_tile_bytes": self.pipeline.max_tile_bytes,
+            "jpeg_quality": self.jpeg_quality,
+            "analysis_max_bins": self.max_bins,
+            "tile_sizes": dict(self.tile_sizes),
+        }
+
+
+# default-on planes of the JAX package that the port starts without, by
+# the config key that enables them
+ABSENT_PLANES = (
+    ("obs", lambda c: c.obs.enabled),
+    ("jmx-metrics", lambda c: c.jmx_metrics_enabled),
+    ("session", lambda c: c.session.enabled),
+    ("cache.tinylfu", lambda c: c.cache.enabled and c.cache.tinylfu.enabled),
+    ("cache.prefetch", lambda c: c.cache.enabled and c.cache.prefetch.enabled),
+)
+
+
+def _refused(key: str, why: str) -> ConfigError:
+    return ConfigError(f"'{key}' is not supported by the PyTorch port: {why}")
+
+
+def check_planes(config: Config) -> List[str]:
+    """Decide once what the port does with the planes it does not have:
+    raise ``ConfigError`` (naming the key and its ``ROADMAP.md`` item) for
+    an opt-in plane or a value the port cannot honour, and return the
+    default-on planes that are enabled, which start absent with one
+    warning each."""
+    if config.cluster.members or config.cluster.l2.uri:
+        key = "cluster.members" if config.cluster.members else "cluster.l2.uri"
+        raise _refused(key, "the fleet plane is ROADMAP.md §1 item 8")
+    if config.ingest.enabled:
+        raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8")
+    if config.cache.disk_dir:
+        raise _refused("cache.disk-dir", "the disk tier is ROADMAP.md §1 item 6")
+    if config.http_tracing_enabled or config.zipkin_url:
+        key = "http-tracing.enabled" if config.http_tracing_enabled else "http-tracing.zipkin-url"
+        raise _refused(key, "tracing is ROADMAP.md §1 item 4")
+    if config.backend.engine == "host":
+        raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
+    if not config.backend.batching.device_encode:
+        raise _refused("backend.batching.device-encode",
+                       "the whole-host engine is ROADMAP.md §1 item 11")
+    if config.mesh.probe_interval_ms > 0:
+        raise _refused("mesh.probe-interval-ms", "the multi-device plane is ROADMAP.md §1 item 9")
+    if not config.cache.enabled:
+        raise _refused("cache.enabled", "the front always serves through the result cache")
+    if not config.slo.enabled:
+        raise _refused("slo.enabled", "the front always schedules with the SLO scheduler")
+    png = config.backend.png
+    for key, value, default in (("filter", png.filter, "up"), ("level", png.level, 6),
+                                ("strategy", png.strategy, "fast")):
+        if value != default:
+            raise _refused(f"backend.png.{key}",
+                           f"host PNG encoding is fixed at the default {default!r}")
+    if config.jax.compilation_cache_dir:
+        log.warning("the jax: block has no effect on the PyTorch port")
+    absent = [name for name, on in ABSENT_PLANES if on(config)]
+    for name in absent:
+        log.warning("'%s' is enabled, but the PyTorch port has no such plane yet: "
+                    "starting without it", name)
+    return absent
+
+
+def _pixels_service(config: Config, device):
+    """The pixels service of ``config``: the OMERO database's metadata
+    plane (ACL-scoped unless ``omero.db.enforce-permissions`` is false)
+    with ``omero.db.uri``; image paths from the database and
+    ``omero.data.dir`` when both are set and no ``image-registry`` is,
+    else the JSON registry."""
+    from ..io.pixels_service import ImageRegistry, PixelsService
+
+    server = config.omero_server
+    db_uri, data_dir = server.get("omero.db.uri"), server.get("omero.data.dir")
+    resolver = None
+    if db_uri:
+        from ..db.metadata import OmeroPostgresMetadataResolver
+
+        # Java-style properties may arrive as strings: "false" must disable
+        flag = server.get("omero.db.enforce-permissions", True)
+        resolver = OmeroPostgresMetadataResolver(
+            db_uri, enforce_permissions=str(flag).strip().lower() not in ("false", "0", "no",
+                                                                           "off"))
+    if db_uri and data_dir and not config.image_registry:
+        from ..db.resolver import OmeroImageSource
+
+        registry = OmeroImageSource(db_uri, data_dir, metadata=resolver)
+    else:
+        registry = ImageRegistry(config.image_registry)
+    return PixelsService(registry, device=device, metadata_resolver=resolver,
+                         memo_dir=server.get("omero.pixeldata.memoizer.dir"))
+
+
+def wire(config: Config, pixels_service=None, session_store=None, session_validator=None,
+         device: str = "cuda", dev: bool = False, packer: Optional[str] = None) -> TileServer:
+    """The service of ``config`` (the JAX ``PixelBufferApp.__init__``):
+    the planes decided (``check_planes``), the resilience and ``io:``
+    layers configured process-wide, then session store -> pixels service
+    -> pipeline -> batcher -> HTTP front, every key reaching the object it
+    reaches in JAX. ``dev`` takes the echo session store; ``packer`` is
+    the bit packer (default ``OMPB_BITPACK``, else ``pallas`` on CUDA).
+    On CUDA the kernels are built (or found built) here, so a build
+    failure stops start-up; the host engine and the LUT registry are
+    built (or found) here too."""
+    from ..auth.ice import IceSessionValidator
+    from ..auth.stores import make_session_store
+    from ..io.fetch import configure as configure_fetch
+    from ..models.tile_pipeline import TilePipeline
+    from ..resilience import configure as configure_resilience
+    from ..runtime.device import gpu_info
+
+    absent = check_planes(config)
+    configure_resilience(config.resilience)
+    configure_fetch(config.io)
+    if session_store is None:
+        session_store = (EchoSessionStore() if dev else
+                         make_session_store(config.session_store.type, config.session_store.uri))
+    if config.session_store.synchronicity == "sync":
+        log.warning("session-store.synchronicity: sync no longer serializes lookups; "
+                    "the key is accepted for compatibility only")
+    if pixels_service is None:
+        pixels_service = _pixels_service(config, device)
+    if session_validator is None:
+        if config.omero_validate_sessions:
+            session_validator = IceSessionValidator(
+                config.omero_host, config.omero_port, secure=config.omero_secure,
+                verify_tls=config.omero_verify_tls,
+                cache_ttl_s=config.omero_session_validation_ttl_s)
+        else:
+            session_validator = AllowListValidator()
+    be = config.backend
+    pipeline = TilePipeline(
+        pixels_service, buckets=tuple(be.batching.buckets), queue_depth=be.png.queue_depth,
+        device=device, device_deflate_mode=be.png.device_deflate_mode, packer=packer,
+        device_deflate=be.png.device_deflate, lut_dir=config.render.lut_dir,
+        max_tile_bytes=be.max_tile_mb << 20,
+    )
+    host_engine()
+    if config.render.enabled:
+        pipeline.lut_registry  # noqa: B018 - read the LUT directory before serving
+    gpu, kernels = None, {}
+    if pipeline.device.type == "cuda":
+        from ..ops.kernels import _build
+
+        built = _build.build()
+        kernels = {name: {"path": str(_build.target(name)), "built": name in built}
+                   for name in _build.SOURCES}
+        gpu = gpu_info(pipeline.device.index or 0)
+    st, bc = config.supertile, be.batching.burst_continuation
+    worker = BatchingTileWorker(
+        pipeline, supertile=st.enabled, session_validator=session_validator,
+        max_batch=be.batching.max_batch, coalesce_window_ms=be.batching.coalesce_window_ms,
+        workers=config.effective_worker_pool_size, burst_continuation=bc.enabled,
+        burst_window_ms=bc.window_ms, supertile_limits=(st.max_pixels, st.min_lanes, st.coverage),
+    )
+    server = TileServer(worker, dev=dev, gpu=gpu, config=config, session_store=session_store,
+                        session_validator=session_validator, absent=tuple(absent))
+    server.kernel_libraries = kernels  # name -> library path, compiled here or found
+    return server
+
+
+def create_app(config: Config, pixels_service=None, session_store=None,
+               session_validator=None, device: str = "cuda") -> TileServer:
+    """The service of a loaded config, as ``python -m
+    omero_ms_pixel_buffer_tpu_torch --config`` runs it (the JAX
+    ``create_app``)."""
+    return wire(config, pixels_service, session_store, session_validator, device=device)
+
+
 def create_server(
     registry_path: str, dev: bool = False, device: str = "cuda",
     buckets=(256, 512, 1024), queue_depth: int = 2,
     deflate_mode: str = "dynamic", packer: Optional[str] = None,
     device_deflate: bool = True, lut_dir: Optional[str] = None,
-    supertile_enabled: bool = True, max_inflight: int = MAX_INFLIGHT,
-    queue_size: int = QUEUE_SIZE, request_budget_ms: Optional[float] = None,
+    supertile_enabled: bool = True, max_inflight: Optional[int] = None,
+    queue_size: Optional[int] = None, request_budget_ms: Optional[float] = None,
 ) -> TileServer:
-    """The service as ``python -m omero_ms_pixel_buffer_tpu_torch`` runs
-    it: registry -> pixels service -> pipeline -> batcher -> HTTP front.
-    ``deflate_mode`` is the device deflate mode (``dynamic``, ``rle`` or
-    ``stored``), ``packer`` the bit packer (default
-    ``device_deflate.default_packer``: ``OMPB_BITPACK``, else ``pallas``
-    on CUDA); ``device_deflate=False`` filters PNG lanes on the device and
-    deflates them on the host; ``lut_dir`` holds ``.lut`` files for
-    ``/render``; ``supertile_enabled`` is the JAX ``supertile.enabled``
-    (fusion on by default, with the JAX package's default limits);
-    ``max_inflight``, ``queue_size`` and ``request_budget_ms`` are the JAX
+    """The service over a JSON registry with in-memory sessions (the echo
+    store with ``dev``), the other keys at the JAX defaults: ``wire`` of
+    the config these arguments spell. ``deflate_mode`` is
+    ``backend.png.device-deflate-mode``, ``device_deflate``
+    ``backend.png.device-deflate``, ``lut_dir`` ``render.lut-dir``,
+    ``supertile_enabled`` ``supertile.enabled``, ``max_inflight``,
+    ``queue_size`` and ``request_budget_ms`` the JAX
     ``resilience.admission.max-inflight``, ``slo.queue-size`` and
-    ``resilience.request-budget-ms`` (None: 15 s). JPEG
-    blocks' device IDCT (``OMPB_JPEG_DEVICE_IDCT=1``) runs on ``device``
-    too; ``OMPB_MEMO_DIR`` keeps parsed TIFF IFD chains. On
-    CUDA the kernels are built (or found built) here, so a build failure
-    stops start-up; the host engine and the LUT registry are built (or
-    found) here too, so their state shows on ``/healthz`` from the
-    start."""
-    from ..io.pixels_service import ImageRegistry, PixelsService
-    from ..models.tile_pipeline import TilePipeline
-    from ..runtime.device import gpu_info
-
-    pipeline = TilePipeline(
-        PixelsService(ImageRegistry(registry_path), device=device), buckets=tuple(buckets),
-        queue_depth=queue_depth, device=device,
-        device_deflate_mode=deflate_mode, packer=packer,
-        device_deflate=device_deflate, lut_dir=lut_dir,
-    )
-    host_engine()
-    pipeline.lut_registry  # noqa: B018 - read the LUT directory before serving
-    gpu = None
-    if pipeline.device.type == "cuda":
-        from ..ops.kernels import _build
-
-        _build.build()
-        gpu = gpu_info(pipeline.device.index or 0)
-    return TileServer(BatchingTileWorker(pipeline, supertile=supertile_enabled), dev=dev,
-                      gpu=gpu, max_inflight=max_inflight, queue_size=queue_size,
-                      request_budget_ms=request_budget_ms)
+    ``resilience.request-budget-ms`` (None: their defaults)."""
+    raw = {
+        "session-store": {"type": "memory"},
+        "image-registry": registry_path,
+        "backend": {"batching": {"buckets": list(buckets)},
+                    "png": {"device-deflate": device_deflate,
+                            "device-deflate-mode": deflate_mode,
+                            "queue-depth": queue_depth}},
+        "render": {"lut-dir": lut_dir},
+        "supertile": {"enabled": supertile_enabled},
+        "resilience": {"admission": {} if max_inflight is None
+                       else {"max-inflight": max_inflight}},
+        "slo": {} if queue_size is None else {"queue-size": queue_size},
+    }
+    if request_budget_ms is not None:
+        raw["resilience"]["request-budget-ms"] = request_budget_ms
+    return wire(Config.from_dict(raw), device=device, dev=dev, packer=packer)
 
 
 class _BadRequest(Exception):
@@ -655,12 +996,6 @@ def _retry_after(seconds: float) -> str:
     """``Retry-After`` in whole seconds, rounded up so a client never
     retries early."""
     return str(max(1, int(seconds + 0.999)))
-
-
-def _cache_headers(etag: str) -> dict:
-    """Validator and freshness headers of a tile the cache saw. ``private``:
-    tiles are authorized per session, so shared proxies must not keep them."""
-    return {"ETag": etag, "Cache-Control": f"private, max-age={MAX_AGE_S}"}
 
 
 def _write_response(writer, status: int, headers: dict, body: bytes,

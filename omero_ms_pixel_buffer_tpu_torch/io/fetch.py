@@ -15,11 +15,11 @@ reader (``io/zarr.py``) use.
   and degrade a failed planned request to one whole-key GET. An open
   breaker (``StoreUnavailableError``) never falls back.
 
-The knobs are module constants at the JAX package's ``io:`` defaults
-(parallel fetch on); its YAML block and ``configure()``, with the
-``io.parallel-fetch: false`` sequential escape, wait for the port's YAML
-config, and its chaos hooks and Prometheus histograms for
-``resilience/`` fault injection and ``obs/``. ``io_snapshot()`` is the
+The knobs are module values at the JAX package's ``io:`` defaults
+(parallel fetch on); ``configure`` applies the YAML ``io:`` block before
+the first read (``io.parallel-fetch: false``, ``PARALLEL``, restores the
+strictly sequential chunk walk of ``io/zarr.py``). The JAX chaos hooks and
+Prometheus histograms wait for ``obs/``. ``io_snapshot()`` is the
 ``/healthz`` ``io`` view: the JAX package's counters, plus the tiles read
 through the planner (store requests per tile) and the chunks decoded.
 """
@@ -66,6 +66,7 @@ class _TransientStatus(Exception):
         self.body = body
 
 
+PARALLEL = True                # plan, coalesce and prefetch a batch's chunks
 FETCH_WORKERS = 16             # threads fanning planned requests out
 MAX_CONNS_PER_HOST = 8         # the pool's per-host bound
 COALESCE_GAP_BYTES = 64 << 10  # ranges of one key closer than this merge
@@ -134,6 +135,29 @@ class FetchStats:
 IO_STATS = FetchStats()
 
 
+def configure(io_config) -> None:
+    """Apply a validated ``io:`` block (``utils.config.IoConfig``)
+    process-wide: the fetch and decode pools' sizes (before their first
+    use), the per-host connection bound, the coalescing gap, and the TTLs
+    of absent chunks and of memoized shard indexes."""
+    global PARALLEL, FETCH_WORKERS, MAX_CONNS_PER_HOST, COALESCE_GAP_BYTES, DECODE_WORKERS
+    from . import pixel_buffer, zarr
+
+    PARALLEL = bool(io_config.parallel_fetch)
+    FETCH_WORKERS = int(io_config.fetch_workers)
+    MAX_CONNS_PER_HOST = int(io_config.max_conns_per_host)
+    COALESCE_GAP_BYTES = int(io_config.coalesce_gap_kb * 1024)
+    DECODE_WORKERS = int(io_config.decode_workers)
+    pixel_buffer.set_negative_ttl(io_config.negative_ttl_s)
+    zarr.SHARD_INDEX_TTL_S = float(io_config.shard_index_ttl_s)
+    POOL.set_max_per_host(MAX_CONNS_PER_HOST)
+    _CONFIG_VIEW.update(parallel=PARALLEL, fetch_workers=FETCH_WORKERS,
+                        max_conns_per_host=MAX_CONNS_PER_HOST,
+                        coalesce_gap_kb=io_config.coalesce_gap_kb,
+                        decode_workers=DECODE_WORKERS,
+                        negative_ttl_s=pixel_buffer.NEGATIVE_TTL_S)
+
+
 def io_snapshot() -> dict:
     """The ``/healthz`` ``io`` view: read-plane counters, pool state and
     the knobs."""
@@ -156,6 +180,18 @@ class FetchPool:
         self._idle: Dict[Tuple[str, str], list] = {}
         self._sems: Dict[Tuple[str, str], threading.BoundedSemaphore] = {}
         self._in_use: Dict[Tuple[str, str], int] = {}
+
+    def set_max_per_host(self, n: int) -> None:
+        """A new per-host bound; a host's semaphore is rebuilt only while
+        none of its connections is checked out (start-up configuration:
+        the serving path never resizes)."""
+        with self._lock:
+            self._max_per_host = max(1, int(n))
+            for key in list(self._sems):
+                if not self._in_use.get(key):
+                    self._sems.pop(key)
+                    for conn in self._idle.pop(key, []):
+                        conn.close()
 
     def _sem(self, key) -> threading.BoundedSemaphore:
         with self._lock:

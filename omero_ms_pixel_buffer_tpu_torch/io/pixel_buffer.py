@@ -22,11 +22,17 @@ _MISSING = object()
 
 # An absent chunk (Zarr fill_value) is an answer worth remembering, but a
 # writer may backfill it: negatives expire after a process-wide TTL (the
-# JAX package's ``io.negative-ttl-s`` default; 0 would keep them for good;
-# its setter waits for the YAML ``io:`` block) and charge a nominal size,
+# JAX package's ``io.negative-ttl-s`` default; 0 keeps them for good;
+# ``set_negative_ttl`` applies the YAML key) and charge a nominal size,
 # so a sea of fill_value cannot grow the entry count without bound.
 NEGATIVE_TTL_S = 300.0
 _NEGATIVE_ENTRY_BYTES = 64
+
+
+def set_negative_ttl(seconds: float) -> None:
+    """The process-wide TTL of cached absent chunks (``io.negative-ttl-s``)."""
+    global NEGATIVE_TTL_S
+    NEGATIVE_TTL_S = float(seconds)
 
 
 class _Negative:
@@ -122,6 +128,10 @@ class PixelsMeta:
     size_t: int
     pixels_type: str  # OMERO PixelsType enum value, e.g. "uint16"
     image_name: str = ""
+    # the image's Format enum value and its ExternalInfo row, where the
+    # OMERO database has them (``db/metadata.py``)
+    image_format: Optional[str] = None
+    external_info: Optional[dict] = None
 
     @property
     def dtype(self) -> np.dtype:

@@ -717,7 +717,7 @@ class ZarrArray:
         exactly what the sequential path's first failing chunk read
         would do, so handle_batch's per-group 503/404 mapping sees
         the same exception either way."""
-        if chunk_cache is None:
+        if chunk_cache is None or not _fetch.PARALLEL:
             return
         store = self.store
         if not hasattr(store, "get_many"):

@@ -108,6 +108,18 @@ class DevicePlaneCache:
         cols = xs[:, None] + torch.arange(bw, device=dev)
         return plane[rows[:, :, None], cols[:, None, :]]
 
+    def invalidate_ns(self, cache_ns) -> int:
+        """Drop every resident plane and pending admission count of one
+        buffer namespace (a changed ``pixels`` row: the staged planes no
+        longer match the storage); returns how many planes went."""
+        with self._lock:
+            victims = [k for k in self._planes if k[0] == cache_ns]
+            for k in victims:
+                self._bytes -= self._planes.pop(k).nbytes
+            for k in [t for t in self._touches if t[0] == cache_ns]:
+                self._touches.pop(k, None)
+        return len(victims)
+
     def snapshot(self) -> dict:
         """/healthz view of the plane tier."""
         with self._lock:

@@ -251,9 +251,28 @@ class TilePipeline:
              "stage_reads"), 0)
         self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0, "stage_read": 0.0}
         self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
+        self._epoch = 0  # invalidations seen: the open buffers' epoch token
 
     def close(self) -> None:
         self.dispatcher.close()
+
+    def invalidate_image(self, image_id: int) -> None:
+        """The invalidation hook of a changed ``pixels`` row: drop the
+        image's ROI rasters; stamp a new epoch on its open buffer, so
+        reads still holding it miss their next shard-index lookup (the
+        JAX package's local epoch of a single node); drop the buffer (and
+        its memoized shard indexes), its planes on the device and its
+        decoded blocks, absent-chunk negatives included."""
+        self._mask_cache.invalidate_image(image_id)
+        with self._stats_lock:
+            self._epoch += 1
+            epoch = self._epoch
+        self.pixels_service.note_epoch(image_id, epoch)
+        ns = self.pixels_service.invalidate(image_id)
+        if ns is None:
+            return
+        self.plane_cache.invalidate_ns(ns)
+        self.pixels_service.block_cache.purge_ns(ns)
 
     def plane_cache_snapshot(self) -> dict:
         return self.plane_cache.snapshot()
@@ -406,10 +425,19 @@ class TilePipeline:
 
     def resolve(self, ctx: TileCtx) -> Optional[ResolvedTile]:
         """Metadata + buffer + region (+ the degraded lane's level). None
-        when the image is unknown; raises ValueError on invalid
+        when the image is unknown or the caller's session may not read it
+        (a scoped metadata resolver); raises ValueError on invalid
         coordinates (-> 404), ``DeadlineExceeded`` past the budget."""
         self._check_deadline(ctx, "resolve")
-        buffer = self.pixels_service.get_pixel_buffer(ctx.image_id)
+        svc = self.pixels_service
+        meta = svc.get_pixels(ctx.image_id, session_key=ctx.omero_session_key)
+        if meta is None:
+            log.debug("Cannot find Image:%s", ctx.image_id)
+            return None
+        # the key again at the buffer: the resolver's per-session cache
+        # answers, and the ACL holds at every buffer open
+        buffer = svc.get_pixel_buffer(
+            ctx.image_id, session_key=ctx.omero_session_key if svc._resolver_scoped else None)
         if buffer is None:
             log.debug("Cannot find Image:%s", ctx.image_id)
             return None

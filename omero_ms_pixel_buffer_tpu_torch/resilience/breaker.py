@@ -1,25 +1,28 @@
-"""Circuit breakers: per-dependency failure isolation (the part of
-``omero_ms_pixel_buffer_tpu/resilience/breaker.py`` the stores use).
+"""Circuit breakers: per-dependency failure isolation (counterpart of
+``omero_ms_pixel_buffer_tpu/resilience/breaker.py``).
 
 A breaker turns "slow failure, every time" into "fast failure until the
 dependency heals". Three states:
 
 - ``closed``: calls flow and outcomes are recorded. It opens on
-  ``FAILURE_THRESHOLD`` consecutive failures, or on a failure rate of at
-  least ``FAILURE_RATE_THRESHOLD`` over the last ``WINDOW`` calls (once
-  ``MIN_CALLS`` outcomes exist).
+  ``failure_threshold`` consecutive failures, on a failure rate of at
+  least ``failure_rate_threshold`` over the last ``window`` calls (once
+  ``min_calls`` outcomes exist), or, with ``slow_call_duration_s`` > 0,
+  on a share of slow successes of at least ``slow_call_rate_threshold``.
 - ``open``: calls are rejected at once with ``BreakerOpenError`` until
-  ``OPEN_DURATION_S`` has passed.
-- ``half_open``: up to ``HALF_OPEN_PROBES`` trial calls pass; a success
-  closes the breaker (history cleared), a failure opens it again.
+  ``open_duration_s`` has passed.
+- ``half_open``: up to ``half_open_probes`` trial calls pass; a success
+  closes the breaker (history cleared), a slow success or a failure
+  opens it again.
 
-The thresholds are the JAX package's defaults, as module constants: its
-per-dependency overrides and slow-call rule wait for the YAML
-``resilience:`` block and a caller that times its calls. Thread-safe; the
-clock is injectable. The JAX package exports states and transitions to
-Prometheus and takes fleet-gossip hints (``suspect``, ``heal``) from its
-cluster plane; the port has neither yet, so each breaker keeps its counts
-in ``snapshot()`` (``/healthz`` ``breakers``).
+The defaults are the JAX package's (the module constants below); the
+YAML ``resilience.breaker`` block sets them process-wide through
+``BOARD.configure`` (``resilience.configure``), and ``enabled: false``
+hands out ``NULL_BREAKER``. Thread-safe; the clock is injectable. The JAX
+package exports states and transitions to Prometheus and takes
+fleet-gossip hints (``suspect``, ``heal``) from its cluster plane; the
+port has neither yet, so each breaker keeps its counts in ``snapshot()``
+(``/healthz`` ``breakers``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
 
@@ -51,17 +54,38 @@ class BreakerOpenError(RuntimeError):
 
 
 class CircuitBreaker:
-    def __init__(self, name: str, clock=time.monotonic):
+    def __init__(
+        self,
+        name: str,
+        failure_threshold: int = FAILURE_THRESHOLD,
+        failure_rate_threshold: float = FAILURE_RATE_THRESHOLD,
+        window: int = WINDOW,
+        min_calls: int = MIN_CALLS,
+        open_duration_s: float = OPEN_DURATION_S,
+        half_open_probes: int = HALF_OPEN_PROBES,
+        slow_call_duration_s: float = 0.0,
+        slow_call_rate_threshold: float = 1.0,
+        clock=time.monotonic,
+    ):
         self.name = name
+        self.failure_threshold = failure_threshold
+        self.failure_rate_threshold = failure_rate_threshold
+        self.window = window
+        self.min_calls = min_calls
+        self.open_duration_s = open_duration_s
+        self.half_open_probes = half_open_probes
+        # 0 disables the slow-call rule
+        self.slow_call_duration_s = slow_call_duration_s
+        self.slow_call_rate_threshold = slow_call_rate_threshold
         self.clock = clock
         self._lock = threading.Lock()
         self._state = CLOSED
-        self._outcomes: deque = deque(maxlen=WINDOW)  # True for a failure
+        self._outcomes: deque = deque(maxlen=window)  # (failure, slow) per call
         self._consecutive_failures = 0
         self._opened_at = 0.0
         self._probes_in_flight = 0
         self._probe_admitted_at = 0.0
-        self._stats = {"rejected": 0, "opened": 0, "transitions": 0}
+        self._stats = {"rejected": 0, "opened": 0, "transitions": 0, "slow": 0}
 
     def _transition(self, state: str) -> None:
         # callers hold self._lock
@@ -84,15 +108,15 @@ class CircuitBreaker:
         with self._lock:
             if self._state == OPEN:
                 elapsed = self.clock() - self._opened_at
-                if elapsed < OPEN_DURATION_S:
+                if elapsed < self.open_duration_s:
                     self._stats["rejected"] += 1
-                    raise BreakerOpenError(self.name, OPEN_DURATION_S - elapsed)
+                    raise BreakerOpenError(self.name, self.open_duration_s - elapsed)
                 self._transition(HALF_OPEN)
             if self._state == HALF_OPEN:
-                if self._probes_in_flight >= HALF_OPEN_PROBES:
+                if self._probes_in_flight >= self.half_open_probes:
                     # a probe that never reported within a whole open
                     # period was lost (its caller gave up): admit another
-                    if self.clock() - self._probe_admitted_at >= OPEN_DURATION_S:
+                    if self.clock() - self._probe_admitted_at >= self.open_duration_s:
                         self._probes_in_flight = 0
                     else:
                         self._stats["rejected"] += 1
@@ -100,13 +124,27 @@ class CircuitBreaker:
                 self._probes_in_flight += 1
                 self._probe_admitted_at = self.clock()
 
-    def record_success(self) -> None:
+    def _is_slow(self, duration_s: Optional[float]) -> bool:
+        return (self.slow_call_duration_s > 0 and duration_s is not None
+                and duration_s >= self.slow_call_duration_s)
+
+    def record_success(self, duration_s: Optional[float] = None) -> None:
+        """Record a correct answer; ``duration_s``, where the caller timed
+        the call, feeds the slow-call rule."""
+        slow = self._is_slow(duration_s)
         with self._lock:
+            if slow:
+                self._stats["slow"] += 1
             if self._state == HALF_OPEN:
-                self._transition(CLOSED)
+                # a probe that answers at outage latency has not healed
+                self._transition(OPEN if slow else CLOSED)
                 return
             self._consecutive_failures = 0
-            self._outcomes.append(False)
+            self._outcomes.append((False, slow))
+            if slow and len(self._outcomes) >= self.min_calls:
+                rate = sum(1 for _f, s in self._outcomes if s) / len(self._outcomes)
+                if rate >= self.slow_call_rate_threshold:
+                    self._transition(OPEN)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -116,18 +154,19 @@ class CircuitBreaker:
             if self._state == OPEN:
                 return
             self._consecutive_failures += 1
-            self._outcomes.append(True)
-            if self._consecutive_failures >= FAILURE_THRESHOLD:
+            self._outcomes.append((True, False))
+            if self._consecutive_failures >= self.failure_threshold:
                 self._transition(OPEN)
                 return
-            if len(self._outcomes) >= MIN_CALLS:
-                if sum(self._outcomes) / len(self._outcomes) >= FAILURE_RATE_THRESHOLD:
+            if len(self._outcomes) >= self.min_calls:
+                rate = sum(1 for f, _s in self._outcomes if f) / len(self._outcomes)
+                if rate >= self.failure_rate_threshold:
                     self._transition(OPEN)
 
     def _visible_state(self) -> str:
         # callers hold self._lock; an open period that has passed reads
         # half-open (the next call would be admitted as a probe)
-        if self._state == OPEN and self.clock() - self._opened_at >= OPEN_DURATION_S:
+        if self._state == OPEN and self.clock() - self._opened_at >= self.open_duration_s:
             return HALF_OPEN
         return self._state
 
@@ -142,11 +181,13 @@ class CircuitBreaker:
             return {
                 "state": self._visible_state(),
                 "consecutive_failures": self._consecutive_failures,
-                "window_failures": sum(self._outcomes),
+                "window_failures": sum(1 for f, _s in self._outcomes if f),
+                "window_slow": sum(1 for _f, s in self._outcomes if s),
                 "window_size": len(self._outcomes),
                 "rejected_total": self._stats["rejected"],
                 "opened_total": self._stats["opened"],
                 "transitions_total": self._stats["transitions"],
+                "slow_total": self._stats["slow"],
             }
 
     def reset(self) -> None:
@@ -157,24 +198,35 @@ class CircuitBreaker:
 class BreakerBoard:
     """Process-wide breakers, one per dependency name, held strongly: the
     failure history belongs to the dependency, not to one client, so a
-    store re-made per request still trips its breaker. (The JAX board's
-    ``configure`` of defaults and of a disabled layer waits for the YAML
-    ``resilience:`` block.)"""
+    store re-made per request still trips its breaker. ``configure`` sets
+    the thresholds of breakers made after it; ``enabled=False`` hands
+    out ``NULL_BREAKER``."""
 
     _MAX_BREAKERS = 1024
 
     def __init__(self):
         self._breakers: Dict[str, CircuitBreaker] = {}
         self._lock = threading.Lock()
+        self.enabled = True
+        self.defaults: dict = {}
 
-    def create(self, name: str) -> CircuitBreaker:
-        """The breaker of dependency ``name``, made on first use."""
+    def configure(self, enabled: bool = True, **defaults) -> None:
         with self._lock:
+            self.enabled = enabled
+            self.defaults = dict(defaults)
+
+    def create(self, name: str, **overrides):
+        """The breaker of dependency ``name``, made on first use (a fresh
+        one when ``overrides`` are given)."""
+        with self._lock:
+            if not self.enabled:
+                return NULL_BREAKER
             breaker = self._breakers.get(name)
-            if breaker is None:
-                if len(self._breakers) >= self._MAX_BREAKERS:
+            if breaker is None or overrides:
+                if name not in self._breakers and len(self._breakers) >= self._MAX_BREAKERS:
                     self._breakers.clear()  # coarse but bounded
-                breaker = self._breakers[name] = CircuitBreaker(name)
+                breaker = self._breakers[name] = CircuitBreaker(
+                    name, **{**self.defaults, **overrides})
         return breaker
 
     def snapshot(self) -> Dict[str, dict]:
@@ -183,16 +235,42 @@ class BreakerBoard:
         return {name: b.snapshot() for name, b in items}
 
     def reset(self) -> None:
-        """Forget every breaker (tests)."""
+        """Forget every breaker and the configured defaults (tests)."""
         with self._lock:
             for b in self._breakers.values():
                 b.reset()
             self._breakers = {}
+            self.enabled = True
+            self.defaults = {}
 
 
+class NullBreaker:
+    """The stand-in of a disabled resilience layer: the same surface, no
+    state."""
+
+    name = "null"
+    state = CLOSED
+
+    def allow(self) -> None:
+        pass
+
+    def record_success(self, duration_s: Optional[float] = None) -> None:
+        pass
+
+    def record_failure(self) -> None:
+        pass
+
+    def snapshot(self) -> dict:
+        return {"state": CLOSED}
+
+    def reset(self) -> None:
+        pass
+
+
+NULL_BREAKER = NullBreaker()
 BOARD = BreakerBoard()
 
 
-def for_dependency(name: str) -> CircuitBreaker:
+def for_dependency(name: str, **overrides):
     """The breaker of one dependency on the process-wide board."""
-    return BOARD.create(name)
+    return BOARD.create(name, **overrides)

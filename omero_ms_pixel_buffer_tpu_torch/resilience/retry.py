@@ -43,6 +43,13 @@ class RetryPolicy:
 
 DEFAULT_POLICY = RetryPolicy()
 
+
+def set_default_policy(policy: RetryPolicy) -> None:
+    """The process-wide policy (the YAML ``resilience.retry`` block,
+    applied by ``resilience.configure``)."""
+    global DEFAULT_POLICY
+    DEFAULT_POLICY = policy
+
 _rng = random.Random()
 _lock = threading.Lock()
 _retries: Dict[str, int] = {}
@@ -70,8 +77,8 @@ def retry_call(
     sleep: Callable[[float], None] = time.sleep,
 ) -> object:
     """Call ``fn`` with bounded, deadline-aware retries under
-    ``DEFAULT_POLICY`` (the JAX defaults; its YAML ``resilience.retry``
-    block waits for the port's YAML config). ``deadline`` defaults to the
+    ``DEFAULT_POLICY`` (the JAX defaults unless ``resilience.retry`` set
+    another). ``deadline`` defaults to the
     ambient one; when it cannot cover the next backoff the sequence ends
     with ``DeadlineExceeded`` instead of sleeping past the caller."""
     policy = DEFAULT_POLICY

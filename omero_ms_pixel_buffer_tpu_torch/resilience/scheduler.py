@@ -200,8 +200,10 @@ class SloScheduler:
 
     def __init__(self, admission: AdmissionController, queue_size: int = QUEUE_SIZE,
                  class_weights: Tuple[int, int, int] = CLASS_WEIGHTS,
-                 degrade_factor: float = DEGRADE_FACTOR, clock=time.monotonic):
+                 degrade: bool = True, degrade_factor: float = DEGRADE_FACTOR,
+                 clock=time.monotonic):
         self.admission = admission
+        self.degrade_enabled = degrade
         self.queue_size = max(0, int(queue_size))
         self.class_weights = tuple(max(1, int(w)) for w in class_weights)
         self.degrade_factor = degrade_factor
@@ -224,7 +226,7 @@ class SloScheduler:
     def _degrade_flag(self, deadline: Optional[Deadline]) -> bool:
         """A grant that waited serves the fallback when its remaining
         budget is under ``degrade_factor`` x the service-time estimate."""
-        if deadline is None:
+        if deadline is None or not self.degrade_enabled:
             return False
         if self._service_ewma <= 0.0:
             return False

@@ -1,0 +1,315 @@
+"""The port's YAML config (``omero_ms_pixel_buffer_tpu_torch/utils/config.py``)
+against the JAX package's on the same inputs: the shipped
+``conf/config.yaml`` and every case of ``tests/test_config.py`` load to
+equal ``dataclasses.asdict``; every leaf key of the shipped file, set to
+each of a list of values, either loads to equal dicts in both or raises
+``ConfigError`` with the same message in both; the env overrides; the JSON
+reading without PyYAML. Then the port's wiring (``http/server.py``
+``check_planes``, ``wire``): the default-on planes it lacks start absent,
+each opt-in plane it lacks stops start-up with a ``ConfigError`` naming
+the key, and a server built from a config with non-default knobs reports
+them on ``/healthz``. Tolerance: zero (dicts and messages equal)."""
+
+import copy
+import dataclasses
+import json
+
+import pytest
+import yaml
+
+from omero_ms_pixel_buffer_tpu.utils import config as jconfig
+from omero_ms_pixel_buffer_tpu_torch.utils import config as pconfig
+
+SHIPPED = "conf/config.yaml"
+with open(SHIPPED) as _f:
+    SHIPPED_RAW = yaml.safe_load(_f)
+
+
+def _outcome(module, raw):
+    """("ok", asdict) or ("error", message) of ``Config.from_dict``."""
+    try:
+        return "ok", dataclasses.asdict(module.Config.from_dict(copy.deepcopy(raw)))
+    except module.ConfigError as e:
+        return "error", str(e)
+
+
+def _same(raw):
+    jax, port = _outcome(jconfig, raw), _outcome(pconfig, raw)
+    assert port == jax
+    return port
+
+
+def test_shipped_config_loads_equal():
+    port = dataclasses.asdict(pconfig.Config.load(SHIPPED))
+    assert port == dataclasses.asdict(jconfig.Config.load(SHIPPED))
+    assert port["session_store"]["type"] == "redis"
+
+
+# the cases of tests/test_config.py, valid and invalid
+CASES = {
+    "defaults": {"session-store": {"type": "memory"}},
+    "missing_store": {"port": 9000},
+    "bad_store_type": {"session-store": {"type": "dynamo"}},
+    "full_shape": {
+        "port": 9090, "event-bus-send-timeout": 5000, "worker_pool_size": 4,
+        "omero": {"host": "omero.example", "port": 4444},
+        "session-store": {"type": "redis", "synchronicity": "async", "uri": "redis://h:6379/1"},
+        "http-tracing": {"enabled": True, "zipkin-url": "http://z/api/v2"},
+        "backend": {"engine": "jax", "batching": {"buckets": [128, 256], "max-batch": 8}},
+    },
+    "bad_engine": {"session-store": {"type": "memory"}, "backend": {"engine": "hots"}},
+    "png_block": {"session-store": {"type": "memory"},
+                  "backend": {"png": {"filter": "sub", "level": 3, "strategy": "default"}}},
+    "png_queue_mode": {"session-store": {"type": "memory"},
+                       "backend": {"png": {"queue-depth": 4, "device-deflate-mode": "rle"}}},
+    "queue_depth_0": {"session-store": {"type": "memory"}, "backend": {"png": {"queue-depth": 0}}},
+    "queue_depth_word": {"session-store": {"type": "memory"},
+                         "backend": {"png": {"queue-depth": "deep"}}},
+    "bad_deflate_mode": {"session-store": {"type": "memory"},
+                         "backend": {"png": {"device-deflate-mode": "huffman"}}},
+    "logging": {"session-store": {"type": "memory"},
+                "logging": {"file": "/tmp/svc.log", "level": "debug", "retention-days": 3}},
+    "bad_synchronicity": {"session-store": {"type": "memory", "synchronicity": "later"}},
+    "ttl_zero": {"session-store": {"type": "memory"}, "omero": {"session-validation-ttl": 0}},
+    "ttl_word": {"session-store": {"type": "memory"}, "omero": {"session-validation-ttl": "30s"}},
+    "ttl_negative": {"session-store": {"type": "memory"}, "omero": {"session-validation-ttl": -1}},
+    "empty_store_block": {"session-store": None},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_config_cases_match_jax(name):
+    _same(CASES[name])
+
+
+def _leaves(d, prefix=()):
+    for k, v in d.items():
+        if isinstance(v, dict) and v and k != "omero.server":
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+# every leaf of the shipped file, and the keys it leaves commented out
+LEAVES = sorted(set(_leaves(SHIPPED_RAW)) | {
+    ("worker_pool_size",), ("image-registry",), ("http-tracing", "zipkin-url"),
+    ("logging", "file"), ("logging", "level"), ("logging", "retention-days"),
+    ("render", "lut-dir"), ("cache", "disk-dir"), ("jax", "compilation-cache-dir"),
+    ("resilience", "request-budget-ms"), ("cluster", "members"), ("cluster", "self-url"),
+    ("cluster", "virtual-nodes"), ("cluster", "peer-timeout-ms"), ("cluster", "l2", "uri"),
+    ("cluster", "l2", "ttl-s"), ("cluster", "hedge", "enabled"), ("cluster", "secret"),
+    ("cluster", "drain", "deadline-s"), ("cluster", "gossip", "fanout"),
+    ("omero.server", "omero.db.uri"), ("cache", "bogus-key"), ("slo", "bogus-key"),
+})
+VALUES = ("x", -1, 0, 1, 2.5, True, None, [1, 2], {"a": 1}, "", 300)
+
+
+def _set(raw, path, value):
+    node = raw
+    for k in path[:-1]:
+        if not isinstance(node.get(k), dict):
+            node[k] = {}
+        node = node[k]
+    node[path[-1]] = value
+
+
+@pytest.mark.parametrize("path", LEAVES, ids=[".".join(p) for p in LEAVES])
+def test_each_key_and_value_matches_jax(path):
+    """Each value either loads to equal dicts in both packages or raises
+    the same ``ConfigError`` message in both."""
+    outcomes = set()
+    for value in VALUES:
+        raw = copy.deepcopy(SHIPPED_RAW)
+        _set(raw, path, value)
+        try:
+            jax = _outcome(jconfig, raw)
+        except Exception as e:  # a crash in the JAX parser: the port must crash alike
+            with pytest.raises(type(e)):
+                pconfig.Config.from_dict(copy.deepcopy(raw))
+            outcomes.add("crash")
+            continue
+        assert _outcome(pconfig, raw) == jax, value
+        outcomes.add(jax[0])
+    assert outcomes
+
+
+@pytest.mark.parametrize("env", [
+    {"OMPB_PORT": "9123"},
+    {"OMPB_SESSION_STORE": "postgres"},
+    {"OMPB_SESSION_STORE": "memory", "OMPB_PORT": "1"},
+    {"OMPB_SESSION_STORE": "nosuch"},
+])
+def test_env_overrides_match_jax(monkeypatch, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    def load(module):
+        try:
+            return "ok", dataclasses.asdict(module.Config.load(SHIPPED))
+        except module.ConfigError as e:
+            return "error", str(e)
+
+    port = load(pconfig)
+    assert port == load(jconfig)
+    if "OMPB_PORT" in env and port[0] == "ok":
+        assert port[1]["port"] == int(env["OMPB_PORT"])
+
+
+def test_default_memory_store_and_missing_file_match_jax(tmp_path):
+    missing = str(tmp_path / "absent.yaml")
+    for kw in ({}, {"default_memory_store": True}):
+        def load(module):
+            try:
+                return "ok", dataclasses.asdict(module.Config.load(missing, **kw))
+            except module.ConfigError as e:
+                return "error", str(e)
+
+        assert load(pconfig) == load(jconfig)
+
+
+def test_json_subset_reads_without_pyyaml(monkeypatch, tmp_path):
+    """Without PyYAML the port reads a file in YAML's JSON subset with
+    ``json``; any other file fails with the JAX message."""
+    as_json = tmp_path / "config.json.yaml"
+    as_json.write_text(json.dumps(SHIPPED_RAW))
+    want = dataclasses.asdict(jconfig.Config.load(str(as_json)))
+    monkeypatch.setattr(pconfig, "yaml", None)
+    assert dataclasses.asdict(pconfig.Config.load(str(as_json))) == want
+    monkeypatch.setattr(jconfig, "yaml", None)
+    with pytest.raises(jconfig.ConfigError) as jerr:
+        jconfig.Config.load(SHIPPED)
+    with pytest.raises(pconfig.ConfigError) as perr:
+        pconfig.Config.load(SHIPPED)
+    assert str(perr.value) == str(jerr.value)
+
+
+def test_logging_setup_matches_jax(tmp_path):
+    import logging
+
+    from omero_ms_pixel_buffer_tpu_torch.utils.logging_setup import FORMAT, configure_logging
+    from omero_ms_pixel_buffer_tpu.utils.logging_setup import FORMAT as JFORMAT
+
+    assert FORMAT == JFORMAT
+    cfg = pconfig.Config.from_dict({
+        "session-store": {"type": "memory"},
+        "logging": {"file": str(tmp_path / "svc.log"), "level": "debug", "retention-days": 3}})
+    configure_logging(cfg.logging)
+    try:
+        logging.getLogger("t").info("hello rolling file")
+        handler = logging.getLogger().handlers[0]
+        handler.flush()
+        assert "hello rolling file" in (tmp_path / "svc.log").read_text()
+        assert handler.backupCount == 3
+    finally:
+        configure_logging(type(cfg.logging)())
+
+
+# -- the port's wiring ----------------------------------------------------------------
+
+def _config(**blocks):
+    raw = copy.deepcopy(SHIPPED_RAW)
+    for key, value in blocks.items():
+        _set(raw, tuple(key.split("__")), value)
+    return pconfig.Config.from_dict(raw)
+
+
+def test_shipped_config_starts_with_five_planes_absent():
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
+
+    assert check_planes(pconfig.Config.load(SHIPPED)) == [
+        "obs", "jmx-metrics", "session", "cache.tinylfu", "cache.prefetch"]
+    quiet = _config(obs__enabled=False, session__enabled=False, **{
+        "jmx-metrics__enabled": False, "cache__tinylfu__enabled": False,
+        "cache__prefetch__enabled": False})
+    assert check_planes(quiet) == []
+
+
+@pytest.mark.parametrize("key,value,named", [
+    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082"}, "cluster.members"),
+    ("cluster__l2__uri", "redis://x:6379/2", "cluster.l2.uri"),
+    ("ingest__enabled", True, "ingest.enabled"),
+    ("cache__disk-dir", "/tmp/ompb-disk", "cache.disk-dir"),
+    ("http-tracing__enabled", True, "http-tracing.enabled"),
+    ("http-tracing__zipkin-url", "http://z:9411/api/v2/spans", "http-tracing.zipkin-url"),
+    ("backend__engine", "host", "backend.engine"),
+    ("backend__batching__device-encode", False, "backend.batching.device-encode"),
+    ("mesh__probe-interval-ms", 500, "mesh.probe-interval-ms"),
+    ("cache__enabled", False, "cache.enabled"),
+    ("slo__enabled", False, "slo.enabled"),
+    ("backend__png__filter", "paeth", "backend.png.filter"),
+    ("backend__png__level", 9, "backend.png.level"),
+    ("backend__png__strategy", "default", "backend.png.strategy"),
+])
+def test_opt_in_planes_stop_startup(key, value, named):
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
+
+    config = _config(**{key: value})  # a valid config to both parsers
+    with pytest.raises(pconfig.ConfigError, match=named.replace(".", r"\.") + ".*ROADMAP|"
+                       + named.replace(".", r"\.") + ".*port"):
+        check_planes(config)
+
+
+@pytest.mark.parametrize("engine", ["jax", "auto", "device", "tpu"])
+def test_engine_names_mean_the_device_engine(engine):
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
+
+    check_planes(_config(backend__engine=engine))
+
+
+@pytest.fixture
+def restore_process_state():
+    """``wire`` configures the breaker board, the retry policy, the I/O
+    timeout and the read plane process-wide: put the defaults back."""
+    from omero_ms_pixel_buffer_tpu_torch.io import fetch
+    from omero_ms_pixel_buffer_tpu_torch.resilience import breaker, configure
+
+    yield
+    default = pconfig.Config.from_dict({"session-store": {"type": "memory"}})
+    configure(default.resilience)
+    fetch.configure(default.io)
+    breaker.BOARD.reset()
+
+
+def test_non_default_knobs_show_on_healthz(restore_process_state):
+    from omero_ms_pixel_buffer_tpu_torch.auth.stores import RedisSessionStore
+    from omero_ms_pixel_buffer_tpu_torch.http.server import wire
+
+    config = _config(**{
+        "slo__queue-size": 128, "resilience__admission__max-inflight": 7,
+        "resilience__breaker__failure-threshold": 3,
+        "resilience__breaker__open-duration-ms": 2000,
+        "resilience__io-timeout-ms": 1234, "resilience__request-budget-ms": 5000,
+        "cache__memory-mb": 64, "cache__max-age-s": 30, "cache__etag-precheck": False,
+        "backend__batching__max-batch": 8, "backend__batching__coalesce-window-ms": 5.0,
+        "backend__batching__buckets": [128, 512], "backend__max-tile-mb": 64,
+        "protocols__dzi__tile-size": 512, "protocols__iiif__enabled": False,
+        "analysis__max-bins": 1024, "render__jpeg-quality": 75, "io__fetch-workers": 3,
+        "supertile__min-lanes": 4, "worker_pool_size": 5,
+        "backend__batching__burst-continuation__window-ms": 10.0,
+    })
+    server = wire(config, device="cpu")
+    try:
+        h = server.health()
+        c = h["config"]
+        assert h["slo"]["queue_size"] == 128
+        assert h["admission"]["max_inflight"] == 7
+        assert h["request_budget_ms"] == 5000.0
+        assert c["absent"] == ["obs", "jmx-metrics", "session", "cache.tinylfu",
+                               "cache.prefetch"]
+        assert c["session_store"] == "RedisSessionStore"
+        assert isinstance(server.session_store, RedisSessionStore)
+        assert c["breaker"]["failure_threshold"] == 3
+        assert c["breaker"]["open_duration_s"] == 2.0
+        assert c["io_timeout_ms"] == pytest.approx(1234.0)
+        assert c["cache"]["memory_bytes"] == 64 << 20
+        assert c["cache"]["max_age_s"] == 30 and c["cache"]["etag_precheck"] is False
+        assert c["batching"] == {"buckets": [128, 512], "max_batch": 8,
+                                 "coalesce_window_ms": 5.0, "burst_window_ms": 10.0,
+                                 "workers": 5}
+        assert c["max_tile_bytes"] == 64 << 20
+        assert c["tile_sizes"]["dzi"] == 512 and not h["protocols"]["iiif"]
+        assert c["analysis_max_bins"] == 1024 and c["jpeg_quality"] == 75
+        assert c["supertile"]["limits"][1] == 4
+        assert h["io"]["config"]["fetch_workers"] == 3
+    finally:
+        server.pipeline.close()
