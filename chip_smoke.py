@@ -74,6 +74,32 @@ Phases, one JSON line each on stdout:
    with numpy and compared with the source pixels; the filter and the
    scalar-prefetch packer must have launched and the dense packer not,
    the plane cache must have hits and no encode group may have failed.
+5a. ``path_obs`` — two fresh servers, the flight recorder on (keeping a
+   tenth of healthy requests, ``head_sample_rate``) and off, over
+   ``path``'s timed tiles, each position once: a cold round at 32 clients
+   (on, then off: tiles/s, p50, p99 each) and a warm round of hits one at
+   a time, three passes per arm interleaved (off, on, on, off, off, on),
+   each arm's p50 the lowest of its passes. The warm-hit p50 penalty must
+   meet the JAX ``obs_ok_overhead`` rule (at most 3 %, or 0.3 ms). Between
+   ``/metrics`` and ``/healthz`` views just before and after the on arm's
+   cold window: ``tiles_served_total`` rises by the 200s and
+   ``device_stage_seconds_count{stage="hist"}`` by the encode groups; the
+   OpenMetrics body ends with ``# EOF``; an exemplar's trace id resolves
+   through ``/debug/requests/{traceId}`` to a kept record with a
+   ``device`` stage whose stages sum to no more than its total. Reports
+   ``device_idle_share``: the ``device_queue_idle_seconds`` sum over the
+   window's seconds.
+5b. ``path_prefetch`` — a fresh server with the prefetcher on
+   (``create_server(prefetch=True)``): one session pans 512² tiles along a
+   row, 12 steps of ``/tile`` PNG, then 12 of ``/render`` (image 1, one
+   channel), waiting after each step until the prefetcher has drained.
+   From the third step of each pan the tile asked for is a predicted one:
+   it must answer ``X-Cache: hit`` with the source's pixels (numpy tile or
+   composite). The filter and the SP packer must launch over the render
+   pan's hit steps, where every device lane is a prefetched one (a
+   prefetched ``/tile`` lane is a batch of one, encoded on the host, as in
+   the JAX package); ``/healthz`` ``prefetch`` warmed > 0, failed 0.
+   Reports issued, warmed, dropped, shed and the launches.
 6. ``path_rle`` — a second server in the same way, deflate mode ``rle``,
    packer ``pallas_dense``: warm-up, ``--rle-requests`` timed tiles,
    edge cases; the filter and the dense packer must have launched and
@@ -229,9 +255,12 @@ Phases, one JSON line each on stdout:
    128, the breaker's open and close in its transitions, no failed encode
    group. SIGTERM must exit 0. Then the same file with ``--dev`` (the echo
    store), the same warm-up and timed tiles (``echo_store``), so the pair
-   differs in the session store alone. Reports tiles/s, p50/p99, the
-   stub's commands, the 403s and 503s, the start-up seconds and the
-   launches.
+   differs in the session store alone. The config leaves the default-on
+   planes on: ``/healthz`` ``config.absent`` must be ``["session"]`` and
+   ``/metrics`` must carry the process collector's families. Reports
+   tiles/s, p50/p99, the stub's commands, the 403s and 503s, the start-up
+   seconds, the launches, the ``process_*`` families and the
+   prefetcher's counts over the timed window.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -242,8 +271,9 @@ batch of one, encoded on the host), host-encoded oversize lanes and
 counts (``supertile``: lanes stamped, groups, fused device and host
 lanes, fallback lanes, crops pulled to the host).
 
-Then the kernels' JSON line (seven rows; the WSI rows' launches from
-``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
+Then the kernels' JSON line (seven rows; the filter's and SP packer's
+launches from ``path``, ``path_obs`` and ``path_prefetch``, the WSI rows'
+from ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
@@ -253,8 +283,8 @@ per call, call time and kernels by name on the real pass-2 tokens
 tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
-``--paths-only`` only the ``path`` (``dynamic``), ``path_render`` and
-``path_config`` phases
+``--paths-only`` only the ``path`` (``dynamic``), ``path_obs``,
+``path_prefetch``, ``path_render`` and ``path_config`` phases
 (with ``--port-root``, to pair two versions in one call); the
 Zarr and viewer phases add no kernel row, their launches are on their phase
 lines. Any failure exits
@@ -1128,6 +1158,253 @@ class ServerThread:
         self.server.pipeline.close()
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(30)
+
+
+OBS_SAMPLE_RATE = 0.1  # the obs-on arm keeps a tenth of its healthy requests
+_SAMPLE = None
+_EXEMPLAR = None
+
+
+def metrics_text(client: Client, openmetrics: bool = False) -> str:
+    headers = {"Accept": "application/openmetrics-text"} if openmetrics else {}
+    status, hdrs, body, _ = client.request("GET", "/metrics", headers)
+    require(status == 200, f"/metrics answered {status}")
+    return body.decode()
+
+
+def metric_samples(text: str) -> dict:
+    """{(name, labels): value} of a classic exposition."""
+    import re
+
+    global _SAMPLE
+    _SAMPLE = _SAMPLE or re.compile(r"^(\w+)(\{[^}]*\})? (\S+)$", re.M)
+    return {(n, lab): float(v) for n, lab, v in _SAMPLE.findall(text)}
+
+
+def metric_delta(after: dict, before: dict, name: str, **labels) -> float:
+    """The summed delta of ``name``'s samples whose labels include ``labels``."""
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    return sum(v - before.get(key, 0.0) for key, v in after.items()
+               if key[0] == name and all(w in key[1] for w in want))
+
+
+def exemplar_ids(text: str, series: str = "") -> list:
+    """Trace ids of the exemplars on OpenMetrics bucket lines (those of
+    ``series`` first), newest family order kept."""
+    import re
+
+    global _EXEMPLAR
+    _EXEMPLAR = _EXEMPLAR or re.compile(r'^(\S+) \S+ # \{trace_id="([0-9a-f]+)"\}', re.M)
+    found = _EXEMPLAR.findall(text)
+    first = [t for line, t in found if series and series in line]
+    return list(dict.fromkeys(first + [t for _, t in found]))
+
+
+def drive_obs(registry: str, data: np.ndarray, timed, seed: int, device: str = "cuda") -> dict:
+    """``path_obs``: two fresh servers, the flight recorder on (keeping a
+    tenth of healthy requests) and off, over ``path``'s timed tiles (each
+    position once): a cold round at 32 clients (on, then off), then a warm
+    round of hits one at a time, three passes per arm interleaved, each
+    arm's p50 the lowest of its passes. The warm-hit p50 penalty
+    must meet the JAX ``obs_ok_overhead`` rule (at most 3 %, or at most
+    0.3 ms). Over the on arm's cold window, from ``/metrics`` and
+    ``/healthz`` views before and after it: ``tiles_served_total`` rises by
+    the 200s, ``device_stage_seconds_count`` of ``hist`` (dynamic mode) by
+    the encode groups, the OpenMetrics body ends with ``# EOF``, and an
+    exemplar's trace id resolves through ``/debug/requests/{traceId}`` to a
+    kept record with a ``device`` stage whose stages sum to no more than its
+    total (up to their rounding to 0.001 ms each). ``device_idle_share`` is
+    the ``device_queue_idle_seconds`` sum over the window's seconds."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    reqs = list({r[0]: r for r in timed}.values())  # each position once: all misses
+    arms, clients = {}, {}
+    try:
+        for name, kwargs in (("on", {"head_sample_rate": OBS_SAMPLE_RATE}),
+                             ("off", {"obs": False})):
+            arms[name] = ServerThread(registry, device=device, **kwargs)
+            clients[name] = arms[name].__enter__()
+        reset_launch_counts()
+        cold, warm, window = {}, {}, {}
+        for name in ("on", "off"):
+            client = clients[name]
+            if name == "on":
+                m0, h0 = metric_samples(metrics_text(client)), get_json(client, "/healthz")
+            out, secs = run_requests(client, reqs, LANES)
+            if name == "on":
+                h1, text1 = get_json(client, "/healthz"), metrics_text(client)
+                om = metrics_text(client, openmetrics=True)
+                window = {"seconds": secs, "before": m0, "after": metric_samples(text1),
+                          "h0": h0, "h1": h1, "om": om}
+            verify(out, reqs, data)
+            lat = np.array([r[2] for r in out]) * 1e3
+            cold[name] = {"tiles_per_s": len(reqs) / secs,
+                          "p50_ms": float(np.percentile(lat, 50)),
+                          "p99_ms": float(np.percentile(lat, 99))}
+        # the warm round: every request a hit, one at a time, in three
+        # passes per arm (off, on, on, off, off, on); an arm's p50 is its
+        # lowest (the JAX bench's min of rounds: host noise only adds)
+        for name in ("off", "on", "on", "off", "off", "on"):
+            out = [clients[name].get(r[0]) for r in reqs]
+            require(all(r[0] == 200 for r in out), f"warm round ({name}) failed")
+            lat = np.array([r[2] for r in out]) * 1e3
+            p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+            if name not in warm or p50 < warm[name]["p50_ms"]:
+                warm[name] = {"p50_ms": p50, "p99_ms": p99}
+        launches = launch_counts()
+        m0, m1, h0, h1 = window["before"], window["after"], window["h0"], window["h1"]
+        served = metric_delta(m1, m0, "tiles_served_total")
+        groups = h1["queue"]["groups"] - h0["queue"]["groups"]
+        hist_n = metric_delta(m1, m0, "device_stage_seconds_count", stage="hist")
+        require(served == len(reqs), f"tiles_served_total rose {served}, 200s {len(reqs)}")
+        require(hist_n == groups, f"device_stage_seconds_count{{hist}} rose {hist_n}, "
+                                  f"/healthz queue groups {groups}")
+        require(window["om"].endswith("# EOF\n"), "the OpenMetrics body does not end with # EOF")
+        resolved = None
+        for trace_id in exemplar_ids(window["om"], 'request_stage_seconds_bucket{stage="device"'):
+            status, _, body, _ = clients["on"].request("GET", f"/debug/requests/{trace_id}")
+            if status != 200:
+                continue  # an exemplar of an earlier phase's server
+            for event in json.loads(body)["events"]:
+                stages = event["stages_ms"]
+                if "device" in stages and sum(stages.values()) <= (
+                        event["total_ms"] + 0.0005 * len(stages)):
+                    resolved = event
+                    break
+            if resolved is not None:
+                break
+        require(resolved is not None, "no exemplar resolved to a kept record with a device stage")
+        penalty_ms = warm["on"]["p50_ms"] - warm["off"]["p50_ms"]
+        penalty = penalty_ms / max(warm["off"]["p50_ms"], 1e-9)
+        require(penalty <= 0.03 or penalty_ms <= 0.3,
+                f"warm-hit p50 penalty {penalty:.4f} ({penalty_ms:.3f} ms)")
+        if device == "cuda":
+            require(launches["filter"] > 0 and launches["bitpack"] > 0, f"launches: {launches}")
+        idle_s = metric_delta(m1, m0, "device_queue_idle_seconds_sum")
+        health = h1
+    finally:
+        for arm in arms.values():
+            if hasattr(arm, "client"):
+                arm.__exit__(None, None, None)
+    return {
+        "phase": "path_obs", "requests": len(reqs), "concurrency": LANES,
+        "head_sample_rate_on": OBS_SAMPLE_RATE,
+        "cold": cold, "warm_hits_sequential": warm,
+        "warm_p50_penalty": penalty, "warm_p50_penalty_ms": penalty_ms,
+        "tiles_served_delta": served, "hist_observations": hist_n, "queue_groups": groups,
+        "device_idle_s": idle_s, "window_s": window["seconds"],
+        "device_idle_share": idle_s / window["seconds"],
+        "idle_gaps": metric_delta(m1, m0, "device_queue_idle_seconds_count"),
+        "exemplar_record": {"trace_id": resolved["trace_id"], "kept_reason":
+                            resolved["kept_reason"], "total_ms": resolved["total_ms"],
+                            "stages_ms": resolved["stages_ms"]},
+        "obs": {k: health["obs"][k] for k in ("started", "kept", "dropped", "ring_occupancy")},
+        "burn_rates": health["obs"]["sli"]["burn_rates"],
+        "launches": launches,
+    }
+
+
+PREFETCH_STEPS = 12  # under the sweep detector's 16 constant steps
+PREFETCH_RENDER = "c=1|1000:60000$00FF00"
+
+
+class _Drained:
+    """Polls a ``ServerThread``'s prefetcher until its queue is empty and no
+    flight is left, three times in a row."""
+
+    def __init__(self, st: "ServerThread"):
+        self.st = st
+
+    async def _state(self):
+        srv = self.st.server
+        return srv.prefetcher._queue.qsize(), len(srv._flight._flights)
+
+    def wait(self, timeout_s: float = 60.0) -> None:
+        idle, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            state = asyncio.run_coroutine_threadsafe(self._state(), self.st.loop).result(10)
+            idle = idle + 1 if state == (0, 0) else 0
+            if idle >= 3:
+                return
+            time.sleep(0.01)
+        raise SmokeFailure("the prefetcher did not drain")
+
+
+def drive_prefetch(registry: str, data: np.ndarray, seed: int, device: str = "cuda") -> dict:
+    """``path_prefetch``: a fresh server with the prefetcher on; one session
+    pans 512x512 tiles along a row, ``PREFETCH_STEPS`` steps (fewer on a
+    small image) of ``/tile``
+    PNG and then as many of ``/render`` (one channel of image 1, green),
+    waiting after each step until the prefetcher has drained. From the third
+    step on, each requested tile is one the prefetcher predicted: it must
+    answer ``X-Cache: hit`` with the source's pixels (the numpy tile, or
+    the numpy composite). Kernel launches are counted over the render pan's
+    hit steps alone, where every device lane is a prefetched one: the
+    filter and the SP packer must have launched. A prefetched ``/tile``
+    lane is a batch of one, encoded on the host, as in the JAX package.
+    ``/healthz`` ``prefetch``: warmed > 0 and failed 0 (off-image
+    predictions are pruned, not failed)."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    size = data.shape[0]
+    n_steps = min(PREFETCH_STEPS, size // TILE - 2)
+    require(n_steps >= 4, f"a {size}^2 image is too small for the pan")
+    ref = RenderReference(data[None, None])
+    st = ServerThread(registry, device=device, prefetch=True)
+    drained = _Drained(st)
+    steps, launches, t0 = [], {}, time.perf_counter()
+    with st as client:
+        reset_launch_counts()
+        for kind, y in (("tile", size // 2), ("render", size // 4)):
+            for i in range(n_steps):
+                x = i * TILE
+                if kind == "tile":
+                    req = (f"/tile/1/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png",
+                           (x, y, TILE, TILE), 200)
+                else:
+                    req = (f"/render/1/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&{PREFETCH_RENDER}"
+                           "&format=png", (x, y, TILE, TILE), 200,
+                           {"c": PREFETCH_RENDER[2:]})
+                    if i == 2:
+                        before = launch_counts()
+                status, hdrs, body, secs = client.request("GET", req[0])
+                if kind == "tile":
+                    verify([(status, body, secs)], [req], data)
+                else:
+                    verify_render([(status, body, secs)], [req], ref)
+                x_cache = hdrs.get("X-Cache")
+                require(i < 2 or x_cache == "hit",
+                        f"{req[0]}: a predicted tile answered X-Cache {x_cache}")
+                steps.append({"kind": kind, "x": x, "y": y, "x_cache": x_cache,
+                              "ms": secs * 1e3})
+                drained.wait()
+            if kind == "render":
+                after = launch_counts()
+                launches = {k: after[k] - before[k] for k in after}
+        health = get_json(client, "/healthz")
+        phase_launches = launch_counts()
+    pf = health["prefetch"]
+    require(pf["warmed"] > 0 and pf["failed"] == 0, f"prefetch: {pf}")
+    if device == "cuda":
+        require(launches["filter"] > 0 and launches["bitpack"] > 0,
+                f"the prefetched render lanes launched {launches}")
+    hits = sum(1 for s in steps if s["x_cache"] == "hit")
+    return {
+        "phase": "path_prefetch", "steps": len(steps), "hits": hits,
+        "tile_pan_hit_ms_mean": float(np.mean([s["ms"] for s in steps
+                                               if s["kind"] == "tile" and s["x_cache"] == "hit"])),
+        "issued": pf["enqueued"], "warmed": pf["warmed"], "dropped": pf["dropped_queue_full"],
+        "shed": pf["shed"], "failed": pf["failed"], "already_cached": pf["already_cached"],
+        "pruned_off_image": pf["pruned_off_image"], "observed": pf["observed"],
+        "launches_prefetched_render_lanes": launches, "launches": phase_launches,
+        "seconds": time.perf_counter() - t0,
+    }
 
 
 def http_contract(registry: str, data: np.ndarray, device: str = "cuda") -> dict:
@@ -3324,6 +3601,10 @@ def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int
                 require(healed[0] == 200 and np.array_equal(
                     decode_png(healed[2]), data[y:y + h, x:x + w]), f"healed: {healed[0]}")
                 health = get_json(client, "/healthz")
+                families = sorted({ln.split()[2] for ln in metrics_text(client).splitlines()
+                                   if ln.startswith("# TYPE ")
+                                   and ln.split()[2].startswith(("process_", "python_gc_",
+                                                                 "build_info"))})
             finally:
                 client.close()
             rc = srv.stop()
@@ -3339,6 +3620,11 @@ def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int
         require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
         require(health["queue"]["deflate_mode"] == "dynamic", f"served with {health['queue']}")
         require(health["config"]["session_store"] == "RedisSessionStore", "store")
+        require(health["config"]["absent"] == ["session"], f"absent: {health['config']['absent']}")
+        require("process_cpu_seconds_total" in families and "build_info" in families,
+                f"/metrics process families: {families}")
+        prefetch = {k: v - health0["prefetch"][k] for k, v in health1["prefetch"].items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
         lat_ms = np.array([r[2] for r in out]) * 1e3
         # the same file and tiles with the echo store: the store's share
         with PortProcess(["--config", cfg_path, "--device", device, "--dev"],
@@ -3362,6 +3648,7 @@ def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int
             "breaker": breaker, "startup_s": srv.startup_s, "debug_context_s": debug_s,
             "launches": launches, "timed_window": timed_window(health0, health1, secs),
             "absent": health["config"]["absent"], "slo_queue_size": health["slo"]["queue_size"],
+            "process_families": families, "prefetch_timed_window": prefetch,
             "exit_code": rc,
             "echo_store": {"tiles_per_s": len(reqs) / esecs,
                            "p50_ms": float(np.percentile(elat_ms, 50)),
@@ -3413,7 +3700,8 @@ def main(argv=None) -> int:
     p.add_argument("--config-requests", type=int, default=256,
                    help="timed requests of path_config (at most --requests)")
     p.add_argument("--paths-only", action="store_true",
-                   help="only build, then the path (dynamic), path_render and path_config "
+                   help="only build, then the path (dynamic), path_obs, path_prefetch, path_render "
+                        "and path_config "
                         "phases, e.g. to pair two versions with --port-root (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
@@ -3470,6 +3758,8 @@ def main(argv=None) -> int:
                               launched=("filter", "bitpack"), idle=("bitpack_dense",))
             path_timed = path.pop("_timed")
             emit(path)
+            emit(drive_obs(registry, data, path_timed[0], args.seed))
+            emit(drive_prefetch(registry, data, args.seed))
             emit(drive_render(registry, stack, args.seed, args.render_requests))
             emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
             print(smi_line(), flush=True)
@@ -3528,6 +3818,10 @@ def main(argv=None) -> int:
         require(path["plane_cache"]["hits"] > 0, "plane cache had no hits")
         path_timed = path.pop("_timed")
         emit(path)
+        obs = drive_obs(registry, data, path_timed[0], args.seed)
+        emit(obs)
+        prefetch = drive_prefetch(registry, data, args.seed)
+        emit(prefetch)
         rle = drive_path(registry, data, args.seed, args.rle_requests, "rle", "pallas_dense",
                          launched=("filter", "bitpack_dense"), idle=("bitpack",))
         require(rle["plane_cache"]["hits"] > 0, "plane cache had no hits (rle)")
@@ -3565,8 +3859,8 @@ def main(argv=None) -> int:
             emit(line)
         emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
         # each kernel's launches come from the phase that runs it
-        launches = {"filter": path["launches"]["filter"],
-                    "bitpack": path["launches"]["bitpack"],
+        launches = {"filter": sum(ph["launches"]["filter"] for ph in (path, obs, prefetch)),
+                    "bitpack": sum(ph["launches"]["bitpack"] for ph in (path, obs, prefetch)),
                     "bitpack_dense": rle["launches"]["bitpack_dense"],
                     "filter_render_rgb8": render["launches"]["filter"],
                     "bitpack_render_rle": render["launches"]["bitpack"],

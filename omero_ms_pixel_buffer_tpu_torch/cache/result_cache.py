@@ -1,9 +1,12 @@
 """The tile result cache's memory tier (counterpart of
 ``omero_ms_pixel_buffer_tpu/cache/result_cache.py``): content ETags,
 ``If-None-Match`` matching, and a byte-budgeted segmented LRU of encoded
-tiles. The JAX package's disk tier, its TinyLFU admission gate and the
-cluster tiers are not ported; without the gate the memory tier is the
-plain SLRU the JAX package runs with ``cache.tinylfu.enabled: false``.
+tiles, with the optional TinyLFU admission gate (``cache/plane/
+tinylfu.py``: every get and put is recorded, and at eviction a candidate
+displaces the probation victim only when its estimated frequency is at
+least the victim's). Lookups, stores, evictions and invalidations go to
+``/metrics`` under the JAX names (``tile_cache_*``). The JAX package's
+disk tier and cluster tiers are not ported.
 """
 
 from __future__ import annotations
@@ -11,14 +14,50 @@ from __future__ import annotations
 import hashlib
 import threading
 import time
+import weakref
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+from ..utils.metrics import REGISTRY
 
 # the JAX package's cache defaults (cache: memory-mb, protected-fraction,
 # max-entry-kb); the front takes them, and max-age-s, from its config
 MEMORY_BYTES = 256 << 20
 PROTECTED_FRACTION = 0.8
 MAX_ENTRY_BYTES = 4096 << 10
+
+CACHE_REQUESTS = REGISTRY.counter(
+    "tile_cache_requests_total",
+    "Result-cache lookups by tier and outcome",
+)
+CACHE_STORES = REGISTRY.counter(
+    "tile_cache_stores_total", "Entries admitted, by tier"
+)
+CACHE_EVICTIONS = REGISTRY.counter(
+    "tile_cache_evictions_total", "Entries evicted, by tier"
+)
+CACHE_ERRORS = REGISTRY.counter(
+    "tile_cache_errors_total",
+    "Cache operations that degraded to pass-through, by tier",
+)
+CACHE_INVALIDATIONS = REGISTRY.counter(
+    "tile_cache_invalidations_total",
+    "Entries purged by image invalidation",
+)
+
+# one process-wide bytes gauge over every live cache: the registry never
+# unregisters, so a gauge per cache would pin a closed cache's contents
+_LIVE_CACHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _bytes_by_tier() -> Dict[tuple, float]:
+    return {(("tier", "memory"),): float(sum(c.memory.nbytes for c in list(_LIVE_CACHES)))}
+
+
+CACHE_BYTES = REGISTRY.gauge_fn(
+    "tile_cache_bytes", "Live bytes held per cache tier",
+    _bytes_by_tier,
+)
 
 
 def make_etag(body: bytes) -> str:
@@ -62,10 +101,11 @@ class SegmentedLRU:
     """Byte-budgeted SLRU of ``CachedTile`` entries: new entries enter
     probation, a second touch promotes them to the protected segment
     (``protected_fraction`` of the budget), whose overflow demotes back to
-    probation. Thread-safe."""
+    probation. ``admission`` (a ``TinyLFU``, or None for the plain SLRU)
+    records every get and put and speaks at eviction. Thread-safe."""
 
     def __init__(self, max_bytes: int = MEMORY_BYTES,
-                 protected_fraction: float = PROTECTED_FRACTION):
+                 protected_fraction: float = PROTECTED_FRACTION, admission=None):
         self.max_bytes = max_bytes
         self.protected_max = int(max_bytes * protected_fraction)
         self._probation: "OrderedDict[str, CachedTile]" = OrderedDict()
@@ -75,8 +115,11 @@ class SegmentedLRU:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.admission = admission
 
     def get(self, key: str) -> Optional[CachedTile]:
+        if self.admission is not None:
+            self.admission.record(key)
         with self._lock:
             entry = self._protected.get(key)
             if entry is not None:
@@ -97,10 +140,13 @@ class SegmentedLRU:
             return entry
 
     def put(self, key: str, entry: CachedTile) -> List[Tuple[str, CachedTile]]:
-        """Insert ``entry`` (replacing ``key``); returns what was evicted."""
+        """Insert ``entry`` (replacing ``key``); returns what was evicted,
+        the candidate itself when the admission gate turned it away."""
         evicted: List[Tuple[str, CachedTile]] = []
         if entry.nbytes > self.max_bytes:
             return evicted  # can never fit
+        if self.admission is not None:
+            self.admission.record(key)
         with self._lock:
             old = self._probation.pop(key, None)
             if old is None:
@@ -113,6 +159,16 @@ class SegmentedLRU:
             self._bytes += entry.nbytes
             while self._bytes > self.max_bytes:
                 if self._probation:
+                    # the TinyLFU gate: a candidate that does not beat the
+                    # probation victim's frequency leaves itself
+                    victim_key = next(iter(self._probation))
+                    if (self.admission is not None and victim_key != key
+                            and key in self._probation
+                            and not self.admission.admit(key, victim_key)):
+                        e = self._probation.pop(key)
+                        self._bytes -= e.nbytes
+                        evicted.append((key, e))
+                        break
                     k, e = self._probation.popitem(last=False)
                 else:
                     k, e = self._protected.popitem(last=False)
@@ -121,6 +177,11 @@ class SegmentedLRU:
                 if k != key:
                     evicted.append((k, e))
         return evicted
+
+    @property
+    def nbytes(self) -> int:
+        with self._lock:
+            return self._bytes
 
     def peek(self, key: str) -> Optional[CachedTile]:
         """The entry, without promotion or hit counting."""
@@ -159,16 +220,19 @@ class TileResultCache:
     ``ttl_s`` missed (0, the JAX default: no expiry, invalidation purges).
     ``invalidate_image`` drops an image's entries and bumps the
     generation, so a fill that began before it (``put(...,
-    generation=)``) is not admitted."""
+    generation=)``) is not admitted. ``admission`` is the memory tier's
+    TinyLFU gate (None: the plain SLRU)."""
 
     def __init__(self, memory_bytes: int = MEMORY_BYTES,
                  max_entry_bytes: int = MAX_ENTRY_BYTES,
-                 protected_fraction: float = PROTECTED_FRACTION, ttl_s: float = 0.0):
-        self.memory = SegmentedLRU(memory_bytes, protected_fraction)
+                 protected_fraction: float = PROTECTED_FRACTION, ttl_s: float = 0.0,
+                 admission=None):
+        self.memory = SegmentedLRU(memory_bytes, protected_fraction, admission=admission)
         self.max_entry_bytes = max_entry_bytes
         self.ttl_s = ttl_s
         self._generation = 0
         self._generation_lock = threading.Lock()
+        _LIVE_CACHES.add(self)
 
     def _fresh(self, entry: Optional[CachedTile]) -> Optional[CachedTile]:
         if entry is not None and self.ttl_s > 0 and (
@@ -177,7 +241,9 @@ class TileResultCache:
         return entry
 
     def get(self, key: str) -> Optional[CachedTile]:
-        return self._fresh(self.memory.get(key))
+        entry = self._fresh(self.memory.get(key))
+        CACHE_REQUESTS.inc(tier="memory", outcome="miss" if entry is None else "hit")
+        return entry
 
     def contains(self, key: str) -> bool:
         """The door gate's probe: no promotion, no hit counted."""
@@ -193,14 +259,23 @@ class TileResultCache:
         with self._generation_lock:
             if generation is not None and generation != self._generation:
                 return  # an invalidation ran while this entry was made
-            self.memory.put(key, entry)
+            evicted = self.memory.put(key, entry)
+        CACHE_STORES.inc(tier="memory")
+        if evicted:
+            CACHE_EVICTIONS.inc(len(evicted), tier="memory")
 
     def invalidate_image(self, image_id: int) -> int:
         """Drop every cached tile of one image (any thread); returns how
         many."""
         with self._generation_lock:
             self._generation += 1
-            return self.memory.remove_prefix(f"img={int(image_id)}|")
+            removed = self.memory.remove_prefix(f"img={int(image_id)}|")
+        if removed:
+            CACHE_INVALIDATIONS.inc(removed, tier="memory")
+        return removed
 
     def snapshot(self) -> dict:
-        return {"enabled": True, "memory": self.memory.snapshot()}
+        out = {"enabled": True, "memory": self.memory.snapshot()}
+        if self.memory.admission is not None:
+            out["admission"] = self.memory.admission.snapshot()
+        return out

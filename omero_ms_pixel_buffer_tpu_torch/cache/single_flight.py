@@ -9,6 +9,14 @@ from __future__ import annotations
 import asyncio
 from typing import Any, Awaitable, Callable, Dict
 
+from ..utils.metrics import REGISTRY
+
+FLIGHTS = REGISTRY.counter(
+    "tile_cache_flights_total",
+    "Single-flight participations by role (leader starts an execution;"
+    " a joiner shares one already in flight)",
+)
+
 
 class SingleFlight:
     """Per-key coalescer on one event loop."""
@@ -24,6 +32,9 @@ class SingleFlight:
             # consume the exception when every waiter has gone
             task.add_done_callback(lambda t: t.cancelled() or t.exception())
             self._flights[key] = task
+            FLIGHTS.inc(role="leader")
+        else:
+            FLIGHTS.inc(role="joiner")
         return await asyncio.shield(task)
 
     async def _lead(self, key: Any, factory) -> Any:

@@ -28,7 +28,12 @@ by up to ``BURST_WINDOW_MS`` (at most half the tightest lane's remaining
 budget) so a zoom's stragglers join this batch; ``burst_continuations``
 counts the extensions. Each batch's executor work runs with the latest
 lane deadline ambient (``deadline_scope``), so store retries and the
-fetch planner stop once no lane can use their result.
+fetch planner stop once no lane can use their result, and with its first
+lane's flight record ambient (``record_scope``), so exemplars deep in the
+pipeline and the encode queue name a trace. Each lane's record is stamped
+``batch_wait`` (enqueue to batch execution) and tagged ``batch_size``.
+Served tiles, batch sizes, deduplicated lanes, dispatched batches and
+burst continuations go to ``/metrics`` under the JAX names.
 
 The knobs default to the JAX ``backend.batching`` and ``supertile``
 defaults (``MAX_BATCH``, ``COALESCE_WINDOW_MS``, ``BURST_WINDOW_MS``, 2 x
@@ -53,6 +58,7 @@ import concurrent.futures
 import contextvars
 import logging
 import os
+import time
 from typing import List, Optional, Set, Tuple
 
 from ..auth.validator import SessionValidator
@@ -64,10 +70,12 @@ from ..errors import (
     TileError,
 )
 from ..models.tile_pipeline import DeferredTile, TilePipeline
+from ..obs.recorder import record_scope
 from ..render.supertile import MAX_PIXELS, MIN_COVERAGE, MIN_LANES, assign_supertiles
 from ..resilience.deadline import deadline_scope, note_exceeded
 from ..resilience.scheduler import DeadlineQueue
 from ..tile_ctx import TileCtx
+from ..utils.metrics import REGISTRY
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.batcher")
 
@@ -79,6 +87,24 @@ COALESCE_WINDOW_MS = 2.0
 BURST_WINDOW_MS = 25.0
 MAX_QUEUE = 4096
 WORKERS = 2 * (os.cpu_count() or 1)
+
+TILES_SERVED = REGISTRY.counter("tiles_served_total", "Tiles served by format")
+BATCH_SIZE = REGISTRY.histogram(
+    "tile_batch_size", "Lanes per coalesced batch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, float("inf")),
+)
+LANES_DEDUPED = REGISTRY.counter(
+    "tile_batch_deduped_lanes_total",
+    "Batch lanes that shared another identical lane's execution",
+)
+BATCHES_DISPATCHED = REGISTRY.counter(
+    "tile_batches_dispatched_total",
+    "Coalesced batches handed to the executor (device programs proxy)",
+)
+BURST_CONTINUATIONS = REGISTRY.counter(
+    "tile_batch_burst_continuations_total",
+    "Coalesce windows extended by burst-continuation affinity",
+)
 
 
 class BatchingTileWorker:
@@ -163,6 +189,9 @@ class BatchingTileWorker:
         if self._closed:
             raise InternalError("Service shutting down")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        rec = ctx.obs
+        if rec is not None:
+            rec.enqueued_at = time.perf_counter()  # batch_wait starts
         try:
             self._queue.put_nowait((ctx, fut))
         except asyncio.QueueFull:
@@ -178,6 +207,7 @@ class BatchingTileWorker:
                 note_exceeded("pipeline")
                 raise GatewayTimeoutError()
             raise NotFoundError(f"Cannot find Image:{ctx.image_id}")
+        TILES_SERVED.inc(format=ctx.format or "raw")
         meta = {"filename": ctx.filename()}
         if ctx.degraded:
             # the lane's final state: the pipeline clears the flag when no
@@ -205,6 +235,7 @@ class BatchingTileWorker:
         ext = self._burst_extension(batch, loop)
         if ext is not None:
             self.burst_continuations += 1
+            BURST_CONTINUATIONS.inc()
             await self._gather(batch, loop, ext)  # other lanes ride along
         live = []
         for c, f in batch:
@@ -221,6 +252,7 @@ class BatchingTileWorker:
         task = asyncio.create_task(self._execute(live, loop))
         self._inflight.add(task)
         task.add_done_callback(lambda t: (self._inflight.discard(t), sem.release()))
+        BATCHES_DISPATCHED.inc()
         dominant = self._dominant_burst(live)
         if dominant is not None:
             self._last_burst = (dominant[0], loop.time())
@@ -285,6 +317,13 @@ class BatchingTileWorker:
         return extra if extra > 0 else None
 
     async def _execute(self, batch: List[Tuple[TileCtx, asyncio.Future]], loop) -> None:
+        BATCH_SIZE.observe(len(batch))
+        t_exec = time.perf_counter()
+        for c, _ in batch:
+            rec = c.obs
+            if rec is not None and rec.enqueued_at is not None:
+                rec.stamp("batch_wait", t_exec - rec.enqueued_at)
+                rec.tag("batch_size", len(batch))
         canonical: List[Tuple[TileCtx, asyncio.Future]] = []
         followers: dict = {}
         seen: dict = {}
@@ -292,6 +331,7 @@ class BatchingTileWorker:
             k = c.lane_key()
             if k in seen:
                 followers.setdefault(seen[k], []).append((c, f))
+                LANES_DEDUPED.inc()
             else:
                 seen[k] = len(canonical)
                 canonical.append((c, f))
@@ -317,7 +357,8 @@ class BatchingTileWorker:
         deadlines = [c.deadline for c in ctxs]
         batch_deadline = (max(deadlines, key=lambda d: d.expires_at)
                           if all(d is not None for d in deadlines) else None)
-        with deadline_scope(batch_deadline):
+        lead_rec = next((c.obs for c in ctxs if c.obs is not None), None)
+        with deadline_scope(batch_deadline), record_scope(lead_rec):
             run_ctx = contextvars.copy_context()
         try:
             results = await loop.run_in_executor(self._executor, lambda: run_ctx.run(work))

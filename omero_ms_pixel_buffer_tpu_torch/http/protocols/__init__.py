@@ -13,21 +13,21 @@ on, 256 pixels, by default), held by the server (``server.tile_sizes``).
 
 On the port's asyncio front a handler takes ``(server, groups, query,
 headers, session key)`` and returns ``(status, headers, body)``;
-``ROUTES`` is the route table the front matches, in order. The JAX
-package counts adapter requests into Prometheus; here
-``PROTOCOL_REQUESTS`` holds plain counts per (dialect, kind).
+``ROUTES`` is the route table the front matches, in order. Adapter
+requests are counted per (dialect, kind) in ``protocol_requests_total``
+(``/metrics``; ``request_counts`` for ``/healthz``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-import threading
 from typing import Dict, List, Optional, Tuple
 
 from ...errors import ServiceUnavailableError, TileError
 from ...io.stores import StoreUnavailableError
 from ...tile_ctx import RegionDef, TileCtx
+from ...utils.metrics import REGISTRY
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.protocols")
 
@@ -35,14 +35,20 @@ log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.protocols")
 # unknown image
 _UNAVAILABLE = (StoreUnavailableError, ServiceUnavailableError)
 
-_lock = threading.Lock()
-PROTOCOL_REQUESTS: Dict[str, int] = {}
+PROTOCOL_REQUESTS = REGISTRY.counter(
+    "protocol_requests_total",
+    "Viewer-protocol adapter requests by dialect and kind",
+)
 
 
 def count(dialect: str, kind: str) -> None:
-    with _lock:
-        key = f"{dialect}.{kind}"
-        PROTOCOL_REQUESTS[key] = PROTOCOL_REQUESTS.get(key, 0) + 1
+    PROTOCOL_REQUESTS.inc(dialect=dialect, kind=kind)
+
+
+def request_counts() -> Dict[str, int]:
+    """Adapter requests by ``dialect.kind`` (``/healthz`` ``protocols``)."""
+    return {f'{dict(k)["dialect"]}.{dict(k)["kind"]}': int(v)
+            for k, v in PROTOCOL_REQUESTS.samples().items()}
 
 
 def text(status: int, message: str, headers: Optional[dict] = None):

@@ -13,8 +13,12 @@ the DZI, IIIF and Iris adapters (``http/protocols/``: ``/dzi/{id}.dzi``,
 ``/dzi/{id}_files/{level}/{col}_{row}.{fmt}``, ``/iiif/{id}/info.json``,
 ``/iiif/{id}/{region}/{size}/{rotation}/{quality}.{fmt}``,
 ``/iris/{id}/metadata``, ``/iris/{id}/layers/{layer}/tiles/{tile}``),
-``GET``/``HEAD /healthz`` and ``OPTIONS`` on any path (the service
-discovery JSON). Any other method on a route, and any
+``GET``/``HEAD /healthz``, ``GET``/``HEAD /metrics`` (Prometheus text, or
+OpenMetrics 1.0 when ``Accept`` names ``application/openmetrics-text``:
+``utils/metrics.py``), ``GET /debug/requests[?limit=N]`` and ``GET
+/debug/requests/{traceId}`` (the flight recorder's ring of kept wide
+events, when ``obs`` is on; an unknown trace id is 404), and ``OPTIONS``
+on any path (the service discovery JSON). Any other method on a route, and any
 unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
 package's aiohttp app does with its catch-all OPTIONS route. HEAD answers
 the GET's status and headers without the body (and without
@@ -23,7 +27,8 @@ keep-alive. Sessions (``auth/stores.py``, the JAX ``session_middleware``):
 the ``sessionid`` cookie is looked up in the session store (OMERO.web's
 Django sessions in Redis or Postgres; an in-memory map; with ``dev`` the
 echo store, where every cookie value is its own key). Every path but
-``/healthz`` and every method but OPTIONS needs a session: a missing or
+``/healthz``, ``/metrics`` and ``/debug/`` and every method but OPTIONS
+needs a session: a missing or
 unknown cookie is 403 "Permission denied", and a store that cannot answer
 (an open breaker, a refused or timed-out connection) 503 "Session store
 unavailable" with ``Retry-After``, never a 403. A bad parameter is 400
@@ -72,6 +77,25 @@ which fills the cache once. A changed ``pixels`` row seen by the metadata
 resolver purges the image's cached tiles, authorization verdicts, open
 buffer, device planes and decoded blocks (``_invalidate_image``).
 
+Observability (``obs/``, the JAX ``obs:`` block, on by default): every
+request to a serving route carries a ``FlightRecord`` from the door
+(stamped ``door``, ``auth``, ``cache_probe``, ``queue_wait`` and ``frame``
+here, the batcher's and pipeline's stages below), completed with its
+status by the tail sampler, which feeds ``request_stage_seconds``,
+``http_request_seconds`` and the SLI burn rates and keeps the ring of
+``/debug/requests``; ``/healthz`` ``obs`` holds its counts. With
+``http-tracing.zipkin-url`` set, kept records are exported as Zipkin spans
+(``utils/tracing.py``). ``jmx-metrics`` adds the process collector.
+
+The viewport prefetcher (``cache/prefetch.py``, the JAX
+``cache.prefetch`` block, on by default in a config and off in
+``create_server`` unless asked): a served hit or miss of a tile or render
+is observed (never a histogram), predicted pan tiles are queued at
+prefetch priority and rendered through the miss path a real request
+takes (``_prefetch_fetch``: single-flight, batcher, kernels, result
+cache); ``/healthz`` ``prefetch`` holds its counts. The memory tier's
+TinyLFU gate is ``cache.tinylfu``.
+
 ``wire`` builds the whole service from a ``utils.config.Config`` (the
 JAX ``PixelBufferApp.__init__``): ``create_app`` and ``create_server``
 both go through it. Planes the port does not have are decided there:
@@ -96,11 +120,15 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 from .. import __version__
 from ..auth.omero_session import AllowListValidator
 from ..auth.stores import EchoSessionStore, MemorySessionStore
+from ..cache.plane.tinylfu import TinyLFU
+from ..cache.prefetch import ViewportPrefetcher
 from ..cache.result_cache import CachedTile, TileResultCache, etag_matches
 from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
 from ..errors import ServiceUnavailableError, TileError
 from ..io.fetch import io_snapshot
+from ..obs import FlightRecorder, SliLayer
+from ..obs.recorder import ambient_stage, current_record, record_scope
 from ..ops.kernels import launch_counts
 from ..render.analysis import HistogramSpec
 from ..render.model import RenderSpec
@@ -110,11 +138,19 @@ from ..resilience import timeouts
 from ..resilience.admission import AdmissionController
 from ..resilience.breaker import BOARD
 from ..resilience.deadline import Deadline
-from ..resilience.scheduler import SloScheduler, SweepDetector, classify, header_priority
+from ..resilience.scheduler import (
+    PRIORITY_NAMES,
+    SloScheduler,
+    SweepDetector,
+    classify,
+    header_priority,
+)
 from ..runtime.native import host_engine
 from ..tile_ctx import TileCtx
 from ..utils.config import Config, ConfigError
 from ..utils.loop_watchdog import LoopWatchdog
+from ..utils.metrics import REGISTRY
+from ..utils.tracing import TRACER
 from . import protocols
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.http")
@@ -131,6 +167,9 @@ JSON_TYPE = "application/json; charset=utf-8"
 _TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _RENDER_PATH = re.compile(r"^/render/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _HISTOGRAM_PATH = re.compile(r"^/histogram/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
+_DEBUG_TRACE_PATH = re.compile(r"^/debug/requests/([^/]+)$")
+# routes that need no session (the JAX session middleware's exemptions)
+_SESSION_EXEMPT = ("/healthz", "/metrics")
 # the routes the door gate and the scheduler serve: the native endpoints
 # and every adapter
 SERVING_PREFIXES = ("/tile/", "/render/", "/histogram/", "/dzi/", "/iiif/", "/iris/")
@@ -164,7 +203,10 @@ class TileServer:
     the echo store with ``dev``, else to ``sessions`` in memory;
     ``session_validator`` authorizes cache hits (default: the allow-list
     of every key the store resolved). ``absent`` names the default-on
-    planes the port started without (``/healthz`` ``config.absent``)."""
+    planes the port started without (``/healthz`` ``config.absent``).
+    The flight recorder (``recorder``), the TinyLFU gate and the
+    prefetcher (``prefetcher``) follow the config's ``obs:`` and
+    ``cache:`` blocks."""
 
     def __init__(
         self,
@@ -190,10 +232,20 @@ class TileServer:
         self.session_validator = session_validator or AllowListValidator()
         self.absent = tuple(absent)
         self.gpu = gpu
+        oc = config.obs
+        self.recorder: Optional[FlightRecorder] = None
+        if oc.enabled:
+            self.recorder = FlightRecorder(
+                enabled=True, slow_threshold_s=oc.slow_threshold_ms / 1000.0,
+                head_sample_rate=oc.head_sample_rate, ring_size=oc.ring_size,
+                sli=SliLayer(budget_s=oc.slow_threshold_ms / 1000.0))
         cc = config.cache
+        admission = (TinyLFU(counters=cc.tinylfu.counters, sample_size=cc.tinylfu.sample_size)
+                     if cc.tinylfu.enabled else None)
         self.cache = TileResultCache(memory_bytes=cc.memory_mb << 20,
                                      max_entry_bytes=cc.max_entry_kb << 10,
-                                     protected_fraction=cc.protected_fraction, ttl_s=cc.ttl_s)
+                                     protected_fraction=cc.protected_fraction, ttl_s=cc.ttl_s,
+                                     admission=admission)
         self.max_age_s = int(cc.max_age_s)
         self.etag_precheck = cc.etag_precheck
         self._flight = SingleFlight()
@@ -212,6 +264,19 @@ class TileServer:
             request_budget_ms = (res.request_budget_ms if res.request_budget_ms is not None
                                  else config.event_bus_send_timeout_ms)
         self.request_budget_s = request_budget_ms / 1000.0
+        self.prefetcher: Optional[ViewportPrefetcher] = None
+        if cc.prefetch.enabled:
+            pf = cc.prefetch
+            self.prefetcher = ViewportPrefetcher(
+                self._prefetch_fetch, self.cache, self.admission,
+                quality=self.pipeline.encode_signature(), queue_size=pf.queue_size,
+                headroom_fraction=pf.headroom,
+                # 0: the full request budget (real requests join prefetch
+                # flights, so a shorter one would 504 them)
+                budget_s=pf.budget_ms / 1000.0 or self.request_budget_s,
+                lookahead=pf.lookahead, viewport_span=pf.viewport_span,
+                extent_fn=self.pipeline.pixels_service.peek_extent,
+                sweep_detector=self.sweep_detector)
         wd = res.watchdog
         self.watchdog = (LoopWatchdog(interval_s=wd.interval_ms / 1000.0,
                                       warn_after_s=wd.warn_ms / 1000.0)
@@ -243,6 +308,8 @@ class TileServer:
         await self.worker.start()
         if self.watchdog is not None:
             self.watchdog.start()  # on the serving loop's thread
+        if self.prefetcher is not None:
+            self.prefetcher.start()
         self._server = await asyncio.start_server(self._client, host, port)
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
@@ -256,7 +323,12 @@ class TileServer:
             self._server = None
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.prefetcher is not None:
+            await self.prefetcher.close()
         await self.worker.close()
+        if TRACER.reporter is not None:  # flush the spans, as the JAX app's cleanup
+            TRACER.reporter.close()
+            TRACER.reporter = None
         close = getattr(self.session_store, "close", None)
         if close is not None:
             await close()
@@ -322,6 +394,47 @@ class TileServer:
 
     async def _dispatch(self, method: str, target: str, headers: Dict[str, str]
                         ) -> Tuple[int, dict, bytes]:
+        """One request's answer; a request to a serving route rides a
+        flight record from here (the JAX ``obs_middleware``)."""
+        path = unquote(urlsplit(target).path)
+        rec = None
+        if (self.recorder is not None and method != "OPTIONS"
+                and path.startswith(SERVING_PREFIXES)):
+            rec = self.recorder.start(path, method)
+        if rec is None:
+            return await self._traced(method, target, headers, path, None)
+        status = 500
+        try:
+            with record_scope(rec):
+                response = await self._traced(method, target, headers, path, rec)
+            status, out_headers, _ = response
+            degraded = out_headers.get("X-OMPB-Degraded")
+            if degraded:
+                rec.tag("degraded", int(degraded))
+            x_cache = out_headers.get("X-Cache")
+            if x_cache:
+                rec.tag("cache", x_cache)
+            return response
+        finally:
+            self.recorder.complete(rec, status)
+
+    async def _traced(self, method, target, headers, path, rec):
+        """The request inside a live ``http:<path>`` span when
+        ``http-tracing.enabled`` (the JAX ``tracing_middleware``): it joins
+        the flight record's trace and carries the record's span id."""
+        if not TRACER.enabled:
+            return await self._route(method, target, headers)
+        if rec is not None:
+            span = TRACER.start_span_with_context(
+                f"http:{path}", {"traceId": rec.trace_id, "spanId": rec.parent_span_id})
+            span.span_id = rec.span_id
+        else:
+            span = TRACER.start_span(f"http:{path}")
+        with span:
+            return await self._route(method, target, headers)
+
+    async def _route(self, method: str, target: str, headers: Dict[str, str]
+                     ) -> Tuple[int, dict, bytes]:
         parts = urlsplit(target)
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
@@ -333,8 +446,14 @@ class TileServer:
             if shed is not None:
                 return shed
         healthz = parts.path == "/healthz"
+        metrics = parts.path == "/metrics"
+        debug = None
+        if self.recorder is not None and parts.path.startswith("/debug/requests"):
+            debug = (() if parts.path == "/debug/requests"
+                     else _DEBUG_TRACE_PATH.match(parts.path))
+        exempt = parts.path in _SESSION_EXEMPT or parts.path.startswith("/debug/")
         m = render = histogram = adapter = None
-        if not healthz:
+        if not exempt:
             m = _TILE_PATH.match(parts.path)
             if m is None and self.render_enabled:
                 m = render = _RENDER_PATH.match(parts.path)
@@ -343,16 +462,21 @@ class TileServer:
             if m is None:
                 adapter = self._adapter_route(parts.path)
         key = None
-        if not healthz:
+        if not exempt:
             key, refusal = await self._session(headers.get("cookie"))
             if refusal is not None:
                 return refusal
-        routed = healthz or m is not None or adapter is not None
+        routed = (healthz or metrics or debug is not None or m is not None
+                  or adapter is not None)
         if method not in ("GET", "HEAD") or not routed:
             return 405, {"Allow": _ROUTE_METHODS if routed else "OPTIONS"}, \
                 b"405: Method Not Allowed"
         if healthz:
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(self.health()).encode()
+        if metrics:
+            return _metrics_response(headers)
+        if debug is not None:
+            return self._debug_requests(debug, query)
         if adapter is not None:
             handler, groups = adapter
             return await handler(self, groups, query, headers, key)
@@ -382,16 +506,25 @@ class TileServer:
         shed at ``acquire`` anyway while the wait queue is full (classified
         by its headers alone: no session exists yet). A ``/tile`` or
         ``/render`` request whose entry is cached passes."""
-        priority = classify(headers, None, None, self.priority_header)
-        if not self.scheduler.would_overflow_shed(priority):
-            return None
-        if path.startswith(("/tile/", "/render/")):
-            probe = self._door_probe_key(path, query)
-            if probe is not None and self.cache.contains(probe):
+        rec = current_record()
+        t_door = time.perf_counter()
+        try:
+            priority = classify(headers, None, None, self.priority_header)
+            if not self.scheduler.would_overflow_shed(priority):
                 return None
-        self.scheduler.shed_at_door(priority)
-        return 503, {"Retry-After": _retry_after(self.admission.retry_after_s)}, \
-            b"Service overloaded"
+            if path.startswith(("/tile/", "/render/")):
+                probe = self._door_probe_key(path, query)
+                if probe is not None and self.cache.contains(probe):
+                    return None
+            self.scheduler.shed_at_door(priority)
+            if rec is not None:
+                rec.tag("priority", PRIORITY_NAMES[priority])
+                rec.tag("shed_at", "door")
+            return 503, {"Retry-After": _retry_after(self.admission.retry_after_s)}, \
+                b"Service overloaded"
+        finally:
+            if rec is not None:
+                rec.stamp("door", time.perf_counter() - t_door)
 
     def _door_probe_key(self, path: str, query: dict) -> Optional[str]:
         """The cache key the door gate probes, or None when the request
@@ -475,7 +608,9 @@ class TileServer:
     async def serve(self, ctx: TileCtx, headers: Dict[str, str]) -> Tuple[int, dict, bytes]:
         """A parsed ``/tile``, ``/render``, ``/histogram`` or adapter
         request: classified, then through the result cache; a miss takes a
-        scheduler slot under the request's deadline and one flight."""
+        scheduler slot under the request's deadline and one flight. A
+        served tile or render is observed by the prefetcher."""
+        rec = ctx.obs = current_record()
         ctx.priority = classify(headers, ctx.omero_session_key, self.sweep_detector,
                                 self.priority_header)
         if header_priority(headers, self.priority_header) is None:
@@ -484,17 +619,23 @@ class TileServer:
             r = ctx.region
             self.sweep_detector.observe(ctx.omero_session_key, ctx.image_id, ctx.z, ctx.c,
                                         ctx.t, ctx.resolution, r.x, r.y, r.width, r.height)
-        await self._normalize_region(ctx)
+        if rec is not None:
+            rec.tag("priority", PRIORITY_NAMES.get(ctx.priority, "interactive"))
+            rec.tag("engine", "device")
+        with ambient_stage("cache_probe"):
+            await self._normalize_region(ctx)
         inm = headers.get("if-none-match", "")
         quality = self.pipeline.encode_signature()
         key = ctx.cache_key(quality)
-        entry = self.cache.get(key)
+        with ambient_stage("cache_probe"):
+            entry = self.cache.get(key)
         if entry is not None:
             if inm and self.etag_precheck and etag_matches(inm, entry.etag):
                 # the client already holds these exact bytes: revalidation
                 # discloses nothing, so it answers before the session join
                 return 304, self._cache_headers(entry.etag), b""
             if await self._authorize_cached(ctx):
+                self._observe_prefetch(ctx)
                 return self._tile_response(ctx, entry, inm, "hit")
             # not confirmed: the full path answers 403, 404 or 503
         ctx.deadline = Deadline.after(self.request_budget_s)
@@ -505,7 +646,11 @@ class TileServer:
                 permit = await self.scheduler.acquire(ctx.priority, ctx.deadline,
                                                       degradable=_degradable(ctx))
             except TileError as e:
+                if rec is not None and isinstance(e, ServiceUnavailableError):
+                    rec.tag("shed_at", "queue")  # acquire's only 503 is a shed
                 return _failure(e)
+            if rec is not None and permit.queued_s > 0.0:
+                rec.stamp("queue_wait", permit.queued_s)
             full_res_key = None
             if permit.degraded:
                 # the next-lower level, upscaled, under its own key; the
@@ -529,7 +674,23 @@ class TileServer:
         # the full path validated the session and resolved the image under
         # its ACL: the verdict serves this pair's hits for a while
         self._authz_record(ctx)
+        self._observe_prefetch(ctx)
         return self._tile_response(ctx, entry, inm, "miss", degraded=degraded)
+
+    def _observe_prefetch(self, ctx: TileCtx) -> None:
+        """Feed a served tile or render to the prefetcher; histogram
+        streams never train it (its predictions would warm tiles)."""
+        if self.prefetcher is not None and ctx.analysis is None:
+            self.prefetcher.observe(ctx)
+
+    async def _prefetch_fetch(self, ctx: TileCtx, key: str) -> None:
+        """The prefetcher's fetch: the miss path of a real request (one
+        flight per dedupe key, the batcher, the kernels, the cache fill),
+        so a warmed tile lands with its ETag and a real request arriving
+        meanwhile joins the flight. A failure raises to the prefetcher,
+        which counts it."""
+        quality = self.pipeline.encode_signature()
+        await self._flight.do(ctx.dedupe_key(quality), lambda: self._render(ctx, key, None))
 
     def _cache_headers(self, etag: str) -> dict:
         """Validator and freshness headers of a tile the cache saw.
@@ -544,13 +705,17 @@ class TileServer:
         tag = {"X-OMPB-Degraded": str(degraded)} if degraded else {}
         if inm and etag_matches(inm, entry.etag):
             return 304, {**self._cache_headers(entry.etag), **tag}, b""
-        return 200, {
+        t_frame = time.perf_counter()
+        headers = {
             "Content-Type": CONTENT_TYPES.get(ctx.format, "application/octet-stream"),
             "Content-Disposition": f'attachment; filename="{entry.filename}"',
             **self._cache_headers(entry.etag),
             "X-Cache": x_cache,
             **tag,
-        }, entry.body
+        }
+        if ctx.obs is not None:
+            ctx.obs.stamp("frame", time.perf_counter() - t_frame)
+        return 200, headers, entry.body
 
     async def _render(self, ctx: TileCtx, key: str, full_res_key: Optional[str]
                       ) -> Tuple[CachedTile, int]:
@@ -590,6 +755,10 @@ class TileServer:
         status."""
         if self._authz_fresh(ctx):
             return True
+        with ambient_stage("cache_probe"):
+            return await self._authorize_cached_slow(ctx)
+
+    async def _authorize_cached_slow(self, ctx: TileCtx) -> bool:
         try:
             if not await self.session_validator.validate(ctx.omero_session_key):
                 return False
@@ -610,6 +779,8 @@ class TileServer:
         planes and decoded blocks."""
         image_id = int(image_id)
         self.cache.invalidate_image(image_id)
+        if self.prefetcher is not None:
+            self.prefetcher.invalidate_image(image_id)
         self._authz_purge(image_id)
         self.pipeline.invalidate_image(image_id)
 
@@ -654,7 +825,8 @@ class TileServer:
         if not session_id:
             return None, denied
         try:
-            key = await self.session_store.get_omero_session_key(session_id)
+            with ambient_stage("auth"):
+                key = await self.session_store.get_omero_session_key(session_id)
         except ServiceUnavailableError as e:
             return None, (503, {"Retry-After": _retry_after(e.retry_after_s)},
                           b"Session store unavailable")
@@ -680,7 +852,9 @@ class TileServer:
         device IDCT's (``jpeg``: its mode, calls and device ms), the read
         plane's (``io``: store requests, coalescing, bytes, chunk decodes,
         the connection pool) and the stores' circuit breakers
-        (``breakers``, with the retry counts under ``retries``). The status
+        (``breakers``, with the retry counts under ``retries``), the flight
+        recorder's (``obs``: started, kept, dropped, the ring, the SLI burn
+        rates) and the prefetcher's (``prefetch``). The status
         is "degraded" (still 200) while a breaker is open, every execution
         slot is taken or the event loop is blocked."""
         breakers = BOARD.snapshot()
@@ -693,10 +867,14 @@ class TileServer:
         return {
             "status": "degraded" if degraded else "ok",
             "config": self.config_view(),
+            "obs": (self.recorder.snapshot() if self.recorder is not None
+                    else {"enabled": False}),
+            "prefetch": (self.prefetcher.snapshot() if self.prefetcher is not None
+                         else {"enabled": False}),
             "slo": {**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()},
             "admission": admission,
             "protocols": {**self.protocols_enabled,
-                          "requests": dict(protocols.PROTOCOL_REQUESTS)},
+                          "requests": protocols.request_counts()},
             "watchdog": watchdog,
             "deadline": rdeadline.snapshot(),
             "request_budget_ms": self.request_budget_s * 1000.0,
@@ -723,6 +901,29 @@ class TileServer:
             "retries": retry.snapshot(),
         }
 
+
+    def _debug_requests(self, match, query) -> Tuple[int, dict, bytes]:
+        """``/debug/requests``: the ring's kept wide events, most recent
+        first (``?limit=N``); ``/debug/requests/{traceId}``: one trace's
+        events, 404 when none is kept."""
+        if match:
+            trace_id = unquote(match.group(1))
+            events = self.recorder.events(trace_id=trace_id)
+            if not events:
+                return 404, {}, b"unknown trace id"
+            return 200, {"Content-Type": JSON_TYPE}, json.dumps(
+                {"trace_id": trace_id, "events": events}).encode()
+        limit = None
+        raw = query.get("limit")
+        if raw is not None:
+            try:
+                limit = max(0, int(raw))
+            except (TypeError, ValueError):
+                return 400, {}, b"bad limit"
+        events = self.recorder.events(limit=limit)
+        return 200, {"Content-Type": JSON_TYPE}, json.dumps({
+            "kept": self.recorder.kept_count(), "ring_size": self.recorder.ring_size,
+            "count": len(events), "events": events}).encode()
 
     def config_view(self) -> dict:
         """``/healthz`` ``config``: the default-on planes the port started
@@ -755,11 +956,7 @@ class TileServer:
 # default-on planes of the JAX package that the port starts without, by
 # the config key that enables them
 ABSENT_PLANES = (
-    ("obs", lambda c: c.obs.enabled),
-    ("jmx-metrics", lambda c: c.jmx_metrics_enabled),
     ("session", lambda c: c.session.enabled),
-    ("cache.tinylfu", lambda c: c.cache.enabled and c.cache.tinylfu.enabled),
-    ("cache.prefetch", lambda c: c.cache.enabled and c.cache.prefetch.enabled),
 )
 
 
@@ -780,9 +977,6 @@ def check_planes(config: Config) -> List[str]:
         raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8")
     if config.cache.disk_dir:
         raise _refused("cache.disk-dir", "the disk tier is ROADMAP.md §1 item 6")
-    if config.http_tracing_enabled or config.zipkin_url:
-        key = "http-tracing.enabled" if config.http_tracing_enabled else "http-tracing.zipkin-url"
-        raise _refused(key, "tracing is ROADMAP.md §1 item 4")
     if config.backend.engine == "host":
         raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
     if not config.backend.batching.device_encode:
@@ -841,8 +1035,9 @@ def _pixels_service(config: Config, device):
 def wire(config: Config, pixels_service=None, session_store=None, session_validator=None,
          device: str = "cuda", dev: bool = False, packer: Optional[str] = None) -> TileServer:
     """The service of ``config`` (the JAX ``PixelBufferApp.__init__``):
-    the planes decided (``check_planes``), the resilience and ``io:``
-    layers configured process-wide, then session store -> pixels service
+    the planes decided (``check_planes``), the resilience, ``io:`` and
+    tracing layers configured process-wide (and, with ``jmx-metrics``, the
+    process collector registered), then session store -> pixels service
     -> pipeline -> batcher -> HTTP front, every key reaching the object it
     reaches in JAX. ``dev`` takes the echo session store; ``packer`` is
     the bit packer (default ``OMPB_BITPACK``, else ``pallas`` on CUDA).
@@ -855,10 +1050,22 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
     from ..models.tile_pipeline import TilePipeline
     from ..resilience import configure as configure_resilience
     from ..runtime.device import gpu_info
+    from ..utils.process_metrics import install as install_process_metrics
+    from ..utils.tracing import configure as configure_tracing
 
     absent = check_planes(config)
     configure_resilience(config.resilience)
     configure_fetch(config.io)
+    # the JAX reporter selection: zipkin-url -> the batched sender; with
+    # the recorder on, kept records become retro spans through it even
+    # with live tracing off
+    configure_tracing(
+        enabled=config.http_tracing_enabled, log_spans=config.http_tracing_enabled,
+        zipkin_url=(config.zipkin_url if (config.http_tracing_enabled or config.obs.enabled)
+                    else None),
+        tail=config.obs.enabled)
+    if config.jmx_metrics_enabled:
+        install_process_metrics()
     if session_store is None:
         session_store = (EchoSessionStore() if dev else
                          make_session_store(config.session_store.type, config.session_store.uri))
@@ -921,6 +1128,7 @@ def create_server(
     device_deflate: bool = True, lut_dir: Optional[str] = None,
     supertile_enabled: bool = True, max_inflight: Optional[int] = None,
     queue_size: Optional[int] = None, request_budget_ms: Optional[float] = None,
+    obs: bool = True, head_sample_rate: Optional[float] = None, prefetch: bool = False,
 ) -> TileServer:
     """The service over a JSON registry with in-memory sessions (the echo
     store with ``dev``), the other keys at the JAX defaults: ``wire`` of
@@ -930,7 +1138,10 @@ def create_server(
     ``supertile_enabled`` ``supertile.enabled``, ``max_inflight``,
     ``queue_size`` and ``request_budget_ms`` the JAX
     ``resilience.admission.max-inflight``, ``slo.queue-size`` and
-    ``resilience.request-budget-ms`` (None: their defaults)."""
+    ``resilience.request-budget-ms`` (None: their defaults), ``obs``
+    ``obs.enabled`` (on, the JAX default), ``head_sample_rate``
+    ``obs.head-sample-rate`` and ``prefetch`` ``cache.prefetch.enabled``
+    (off unless asked, as the JAX app of the HTTP contract tests runs)."""
     raw = {
         "session-store": {"type": "memory"},
         "image-registry": registry_path,
@@ -943,6 +1154,9 @@ def create_server(
         "resilience": {"admission": {} if max_inflight is None
                        else {"max-inflight": max_inflight}},
         "slo": {} if queue_size is None else {"queue-size": queue_size},
+        "obs": {"enabled": obs} if head_sample_rate is None
+        else {"enabled": obs, "head-sample-rate": head_sample_rate},
+        "cache": {"prefetch": {"enabled": prefetch}},
     }
     if request_budget_ms is not None:
         raw["resilience"]["request-budget-ms"] = request_budget_ms
@@ -967,6 +1181,15 @@ def _apply_region_params(ctx: TileCtx, query):
     except (TypeError, ValueError) as e:
         return None, str(e)
     return ctx, None
+
+
+def _metrics_response(headers: Dict[str, str]) -> Tuple[int, dict, bytes]:
+    """``GET /metrics``: OpenMetrics when ``Accept`` asks for it, else the
+    classic Prometheus text (the JAX ``handle_metrics``)."""
+    if "application/openmetrics-text" in headers.get("accept", ""):
+        return 200, {"Content-Type": "application/openmetrics-text; charset=utf-8"}, \
+            REGISTRY.exposition(openmetrics=True).encode()
+    return 200, {"Content-Type": "text/plain; charset=utf-8"}, REGISTRY.exposition().encode()
 
 
 def _degradable(ctx: TileCtx) -> bool:

@@ -18,8 +18,10 @@ reader (``io/zarr.py``) use.
 The knobs are module values at the JAX package's ``io:`` defaults
 (parallel fetch on); ``configure`` applies the YAML ``io:`` block before
 the first read (``io.parallel-fetch: false``, ``PARALLEL``, restores the
-strictly sequential chunk walk of ``io/zarr.py``). The JAX chaos hooks and
-Prometheus histograms wait for ``obs/``. ``io_snapshot()`` is the
+strictly sequential chunk walk of ``io/zarr.py``). ``io_fetch_seconds``
+(one planned batch, its exemplar deferred to the flight record),
+``io_requests_per_tile`` and ``io_coalesced_ratio`` go to ``/metrics``
+under the JAX names. ``io_snapshot()`` is the
 ``/healthz`` ``io`` view: the JAX package's counters, plus the tiles read
 through the planner (store requests per tile) and the chunks decoded.
 """
@@ -30,16 +32,31 @@ import concurrent.futures
 import dataclasses
 import http.client
 import threading
+import time
 import urllib.parse
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..obs.recorder import defer_exemplar
 from ..resilience.breaker import BreakerOpenError, CircuitBreaker
+from ..utils.metrics import REGISTRY
 from .pixel_buffer import NEGATIVE_TTL_S
 from ..resilience.deadline import DeadlineExceeded, current_deadline
 from ..resilience.faultinject import INJECTOR
 from ..resilience.retry import retry_call
 
 _RETRY_STATUSES = (500, 502, 503, 504)
+
+IO_FETCH_SECONDS = REGISTRY.histogram(
+    "io_fetch_seconds",
+    "Wall time of one planned batch fetch (get_many call)",
+)
+# the JAX buckets, which end at 32.0: the +Inf bucket that utils/metrics
+# appends counts a tile of more requests
+IO_REQUESTS_PER_TILE = REGISTRY.histogram(
+    "io_requests_per_tile",
+    "Store requests issued per tile in a batched read",
+    buckets=(0.1, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0),
+)
 
 
 class StoreError(IOError):
@@ -133,6 +150,12 @@ class FetchStats:
 
 
 IO_STATS = FetchStats()
+
+REGISTRY.gauge_fn(
+    "io_coalesced_ratio",
+    "Fraction of planned store requests avoided by range coalescing",
+    lambda: IO_STATS.snapshot()["coalesced_ratio"],
+)
 
 
 def configure(io_config) -> None:
@@ -434,6 +457,7 @@ def fetch_many(store, requests: Sequence[RangeReq],
     if n == 0:
         return []
     _deadline_remaining()  # a spent budget stops before any network
+    t0 = time.monotonic()
     gap = COALESCE_GAP_BYTES
     ranged_ok = hasattr(store, "get_range")
 
@@ -504,6 +528,9 @@ def fetch_many(store, requests: Sequence[RangeReq],
         s.add(planned=len(uniq), issued=len(plans), ranged=ranged,
               coalesced_saved=max(0, saved), bytes_fetched=nbytes,
               bytes_discarded=discarded, batches=1)
+    dt = time.monotonic() - t0
+    IO_FETCH_SECONDS.observe(dt)
+    defer_exemplar(IO_FETCH_SECONDS, dt)
     return [out[alias[i]] for i in range(n)]
 
 

@@ -42,7 +42,7 @@ from ..ops.convert import omero_type_for
 from ..ops.lz4 import Lz4Error, lz4_block_compress, lz4_block_decompress
 from ..runtime.native import get_engine
 from . import fetch as _fetch
-from .fetch import IO_STATS, FetchStats, RangeReq
+from .fetch import IO_REQUESTS_PER_TILE, IO_STATS, FetchStats, RangeReq
 from .pixel_buffer import BlockCache, PixelBuffer, PixelsMeta, check_bounds
 from .stores import FileStore, make_store
 
@@ -987,6 +987,7 @@ class ZarrPixelBuffer(PixelBuffer):
         ]
         if coords and stats.batches:
             IO_STATS.add(tiles=len(coords))
+            IO_REQUESTS_PER_TILE.observe(stats.issued / len(coords))
         return tiles
 
 

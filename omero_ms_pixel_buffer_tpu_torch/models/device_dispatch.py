@@ -29,6 +29,20 @@ device. The bit packer is chosen once per queue (``packer``, default
 Failure contract: any failure in a group resolves THAT group's future
 with the exception (its lanes answer 500) and is counted in
 ``snapshot()["failed"]``; there is no host re-encode.
+
+Telemetry for ``/metrics``, at the JAX package's boundaries:
+``device_stage_seconds`` by stage (``h2d``: the submit thread's host to
+device copy, enqueued; then from the launch of the group's last kernel on
+the submit thread: ``compute`` to the readback thread's event wait for a
+one-pass group, or for a dynamic group ``hist`` to the pass-1 counts on
+the host and ``emit`` over the host plan and pass 2; ``d2h``: the stream
+pull; ``frame``: the PNG framing), and ``device_queue_idle_seconds``, the
+gap between one group's compute finishing (its last event wait returned)
+and the next group's first kernel enqueue (0 when that launch came
+first). The submit and readback threads carry the submitting request's
+flight record (``record_scope``), so the stage observations' exemplars
+name its trace. ``snapshot()`` keeps the finer per-group host stage
+means of ``STAGES``.
 """
 
 from __future__ import annotations
@@ -51,9 +65,11 @@ from ..ops.device_deflate import (
     resolve_packer,
     tables_from_numpy,
 )
+from ..obs.recorder import current_record, defer_exemplar, record_scope
 from ..ops.png import frame_png
 from ..render.engine import fused_render_filter_deflate_batch, packed_rgb_tables
 from ..resilience.faultinject import INJECTOR
+from ..utils.metrics import REGISTRY
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 
@@ -63,6 +79,23 @@ log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 # and pass 2 launch + wait, for a one-pass group the wait for its chain
 # (compute); for every group the stream pull and the PNG framing
 STAGES = ("stage", "pass1_wait", "plan", "pass2", "compute", "pull", "frame")
+
+DEVICE_STAGE_SECONDS = REGISTRY.histogram(
+    "device_stage_seconds",
+    "Device encode pipeline stage durations "
+    "(stage=stage|h2d|compute|hist|emit|d2h|frame)",
+)
+DEVICE_QUEUE_IDLE_SECONDS = REGISTRY.histogram(
+    "device_queue_idle_seconds",
+    "Device idle gap between one encode group's compute finishing and "
+    "the next group's launch (0-bucketed when the launch overlapped)",
+)
+
+
+def _observe_stage(duration: float, stage: str) -> None:
+    """The stage histogram, its exemplar deferred to the ambient record."""
+    DEVICE_STAGE_SECONDS.observe(duration, stage=stage)
+    defer_exemplar(DEVICE_STAGE_SECONDS, duration, stage=stage)
 
 
 class DeviceEncodeDispatcher:
@@ -101,6 +134,7 @@ class DeviceEncodeDispatcher:
         self._render_groups = 0
         self._composite_ms = 0.0  # device ms of render groups' composites
         self._composite_n = 0
+        self._last_compute_done: Optional[float] = None
 
     # -- streams and events ----------------------------------------------
 
@@ -205,7 +239,8 @@ class DeviceEncodeDispatcher:
 
     def _enqueue(self, stage_fn, args, frame) -> "concurrent.futures.Future":
         """Queue ``stage_fn(*args)`` on the submit thread; ``frame`` is
-        (lanes, sizes, bit depth, colour type) for the readback."""
+        (lanes, sizes, bit depth, colour type) for the readback. The
+        caller's ambient flight record rides the group to both threads."""
         if self._closed:
             raise RuntimeError("device encode queue is closed")
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
@@ -215,7 +250,8 @@ class DeviceEncodeDispatcher:
         with self._stats_lock:
             self._groups += 1
         try:
-            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame)
+            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame,
+                                     current_record())
         except RuntimeError as e:  # close() raced the check
             self._fail(fut, e)
         return fut
@@ -260,7 +296,21 @@ class DeviceEncodeDispatcher:
             self._inflight -= 1
         self._slots.release()
 
-    def _run_stage(self, fut, stage_fn, args, frame) -> None:
+    # -- queue telemetry -------------------------------------------------------
+
+    def _note_launch(self, t_launch: float) -> None:
+        """A group's first kernel is being enqueued: the idle gap since the
+        last group's compute finished (0 when it had not yet)."""
+        with self._stats_lock:
+            last = self._last_compute_done
+        if last is not None:
+            DEVICE_QUEUE_IDLE_SECONDS.observe(max(0.0, t_launch - last))
+
+    def _note_compute_done(self, t_done: float) -> None:
+        with self._stats_lock:
+            self._last_compute_done = t_done
+
+    def _run_stage(self, fut, stage_fn, args, frame, rec=None) -> None:
         """Submit thread: take an in-flight slot, stage + launch the first
         device work, chain the readback. The ``device.encode-group``
         fault point (tests) fails the group before it takes a slot."""
@@ -273,10 +323,14 @@ class DeviceEncodeDispatcher:
         with self._stats_lock:
             self._inflight += 1
         try:
-            t0 = time.perf_counter()
-            launched = stage_fn(*args)
-            t_stage = time.perf_counter() - t0
-            rfut = self._readback.submit(self._readback_group, t_stage, launched, *frame)
+            with record_scope(rec):
+                t0 = time.perf_counter()
+                launched, t_h2d = stage_fn(*args)
+                t_dispatch = time.perf_counter()
+                _observe_stage(t_h2d - t0, "h2d")
+            self._note_launch(t_h2d)
+            rfut = self._readback.submit(self._readback_scoped, rec, t_dispatch - t0,
+                                         t_dispatch, launched, *frame)
         except Exception as e:
             self._release_slot()
             self._fail(fut, e)
@@ -299,9 +353,11 @@ class DeviceEncodeDispatcher:
     def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode, staged):
         """Submit thread: H2D (bucket route), then on the side stream pass 1
         of a dynamic group or the whole chain of a one-pass group. Returns
-        (mode, device tensors, the event that ends them, None)."""
+        ((mode, device tensors, the event that ends them, None), the time
+        the first kernel's enqueue began)."""
         with self._on_stream():
             batch = tiles if staged else tiles.to(self.device, non_blocking=True)
+            t_h2d = time.perf_counter()
             if deflate_mode == "dynamic":
                 out = fused_filter_histogram_batch(
                     batch, rows, row_bytes, bpp, filter_mode=filter_mode,
@@ -311,14 +367,14 @@ class DeviceEncodeDispatcher:
                     batch, rows, row_bytes, bpp, filter_mode=filter_mode,
                     mode=deflate_mode, packer=self.packer,
                 )
-            return deflate_mode, out, self._mark(), None
+            return (deflate_mode, out, self._mark(), None), t_h2d
 
     def _stage_render_group(self, planes, index_tables, color_luts, rows, row_bytes,
                             filter_mode, deflate_mode, mask, staged):
         """Submit thread: H2D of the planes and the mask (unless staged),
-        then on the side stream the whole render chain. Returns (mode,
+        then on the side stream the whole render chain. Returns ((mode,
         device tensors, the event that ends them, the composite's timing
-        events or None)."""
+        events or None), the time the first kernel's enqueue began)."""
         packed = packed_rgb_tables(index_tables, color_luts)
         with self._on_stream():
             if staged:
@@ -326,6 +382,7 @@ class DeviceEncodeDispatcher:
             else:
                 batch = planes.to(self.device, non_blocking=True)
                 mask_dev = None if mask is None else mask.to(self.device, non_blocking=True)
+            t_h2d = time.perf_counter()
             timing = None
             if self._stream is not None:
                 timing = (torch.cuda.Event(enable_timing=True),
@@ -335,9 +392,14 @@ class DeviceEncodeDispatcher:
                 filter_mode=filter_mode, mode=deflate_mode, packer=self.packer,
                 mask=mask_dev, packed=packed, composite_events=timing,
             )
-            return deflate_mode, out, self._mark(), timing
+            return (deflate_mode, out, self._mark(), timing), t_h2d
 
-    def _readback_group(self, t_stage, launched, lanes, sizes, bit_depth, color_type):
+    def _readback_scoped(self, rec, *args):
+        with record_scope(rec):
+            return self._readback_group(*args)
+
+    def _readback_group(self, t_stage, t_dispatch, launched, lanes, sizes, bit_depth,
+                        color_type):
         """Readback thread: wait for the group's device work (for a dynamic
         group: pull the counts, plan the tables and run pass 2), then pull
         and frame."""
@@ -355,6 +417,7 @@ class DeviceEncodeDispatcher:
             counts_np = counts.cpu().numpy()
             extras_np = extras.cpu().numpy()
             timing["pass1_wait"] = lap()
+            _observe_stage(t[-1] - t_dispatch, "hist")
             tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
             with self._on_stream():
                 tables = tables_from_numpy(tables, flat.device)
@@ -362,12 +425,16 @@ class DeviceEncodeDispatcher:
                 streams, lengths = dynamic_emit(flat, tables, packer=self.packer)
                 self._wait(self._mark())
             timing["pass2"] = lap()
+            _observe_stage(timing["plan"] + timing["pass2"], "emit")
             streams, lengths = streams[:real_b], lengths[:real_b]
         else:
             streams, lengths = tensors
             timing["compute"] = lap()
+            _observe_stage(t[-1] - t_dispatch, "compute")
+        self._note_compute_done(t[-1])
         streams_np, lengths_np = self._pull(streams, lengths, sizes[0])
         timing["pull"] = lap()
+        _observe_stage(timing["pull"], "d2h")
         out = {
             lane: frame_png(
                 np.ascontiguousarray(streams_np[j, : int(lengths_np[j])]).tobytes(),
@@ -376,6 +443,7 @@ class DeviceEncodeDispatcher:
             for j, lane in enumerate(lanes)
         }
         timing["frame"] = lap()
+        _observe_stage(timing["frame"], "frame")
         composite_ms = composite[0].elapsed_time(composite[1]) if composite else None
         with self._stats_lock:
             for k, v in timing.items():

@@ -98,6 +98,12 @@ Fault-injection points (``resilience/faultinject.py``, for tests):
 before a fused super-tile's device work, ``analysis.engine`` before each
 device histogram group; a fault fails what it precedes (500), as the
 failure of that work does.
+
+Flight-record stages (``obs/recorder.py``, where the JAX pipeline stamps
+them): ``resolve``, ``read`` (a lane's read, or a batched read on every
+lane it serves), ``render`` (render and histogram lanes' staging),
+``encode`` (host encodes) and ``device`` (an encode group, from its
+submission to its future's resolution, on every lane of the group).
 """
 
 from __future__ import annotations
@@ -128,6 +134,7 @@ from ..ops.png import (
     assemble_png,
     encode_png,
 )
+from ..obs.recorder import stage_all, stage_of
 from ..ops.tiff import TiffEncodeError, encode_tiff
 from ..render import analysis as ranalysis
 from ..render import engine as rengine
@@ -429,6 +436,10 @@ class TilePipeline:
         (a scoped metadata resolver); raises ValueError on invalid
         coordinates (-> 404), ``DeadlineExceeded`` past the budget."""
         self._check_deadline(ctx, "resolve")
+        with stage_of(ctx, "resolve"):
+            return self._resolve_inner(ctx)
+
+    def _resolve_inner(self, ctx: TileCtx) -> Optional[ResolvedTile]:
         svc = self.pixels_service
         meta = svc.get_pixels(ctx.image_id, session_key=ctx.omero_session_key)
         if meta is None:
@@ -468,10 +479,11 @@ class TilePipeline:
     def read(self, rt: ResolvedTile) -> np.ndarray:
         """One lane's host read (its coarse level upscaled when degraded)."""
         self._check_deadline(rt.ctx, "read")
-        if rt.degrade_level is not None:
-            return self._read_degraded(rt)
-        return rt.buffer.get_tile_at(rt.level, rt.ctx.z, rt.ctx.c, rt.ctx.t,
-                                     rt.x, rt.y, rt.w, rt.h)
+        with stage_of(rt.ctx, "read"):
+            if rt.degrade_level is not None:
+                return self._read_degraded(rt)
+            return rt.buffer.get_tile_at(rt.level, rt.ctx.z, rt.ctx.c, rt.ctx.t,
+                                         rt.x, rt.y, rt.w, rt.h)
 
     # -- hybrid-resolution degradation --------------------------------------
 
@@ -546,6 +558,10 @@ class TilePipeline:
     def encode(self, ctx: TileCtx, tile: np.ndarray) -> Optional[bytes]:
         """Host encode of one read tile: raw big-endian bytes, PNG
         (``encode_png``) or TIFF; None for an unknown format or pixel type."""
+        with stage_of(ctx, "encode"):
+            return self._encode_inner(ctx, tile)
+
+    def _encode_inner(self, ctx: TileCtx, tile: np.ndarray) -> Optional[bytes]:
         fmt = ctx.format
         if fmt is None:
             return to_big_endian_bytes_np(tile).tobytes()
@@ -623,7 +639,9 @@ class TilePipeline:
                        resolved[i].x, resolved[i].y, resolved[i].w, resolved[i].h)
                       for i in lanes]
             try:
-                for i, tile in zip(lanes, self._read(buf, coords, level)):
+                with stage_all([ctxs[i] for i in lanes], "read"):
+                    read = self._read(buf, coords, level)
+                for i, tile in zip(lanes, read):
                     tiles[i] = tile
             except DeviceIdctError:
                 _idct_failed(lanes, results)
@@ -671,18 +689,28 @@ class TilePipeline:
                     plane_handles[key], lanes, resolved, results, bh, bw,
                     np.dtype(dtype_str)), lanes, results)
         if render_idx:
-            pending.extend(self._render_batch_lanes(render_idx, resolved, ctxs, results))
+            with stage_all([ctxs[i] for i in render_idx], "render"):
+                render_pending = self._render_batch_lanes(render_idx, resolved, ctxs, results)
+            for _, fut in render_pending:
+                fut.add_done_callback(_count_render_group)
+            pending.extend(render_pending)
         if analysis_idx:
-            self._analysis_batch_lanes(analysis_idx, resolved, ctxs, results)
+            with stage_all([ctxs[i] for i in analysis_idx], "render"):
+                self._analysis_batch_lanes(analysis_idx, resolved, ctxs, results)
 
         if defer:
+            t_submit = time.perf_counter()
             for idxs, fut in pending:
+                # stamped before the lanes resolve, so before any record
+                # completes
+                fut.add_done_callback(_stamp_device([ctxs[i] for i in idxs], t_submit))
                 for i in idxs:
                     results[i] = DeferredTile(_lane_future(fut, i))
             return results
         for idxs, fut in pending:
             try:
-                group = fut.result()
+                with stage_all([ctxs[i] for i in idxs], "device"):
+                    group = fut.result()
             except Exception:
                 log.exception("device encode group failed; lanes -> 500")
                 for i in idxs:
@@ -716,9 +744,10 @@ class TilePipeline:
         engine = get_engine()
         encoded = None
         if engine is not None:
-            encoded = engine.png_encode_batch(
-                [tiles[i] for i in lanes], filter_mode=PNG_FILTER, level=PNG_LEVEL,
-                strategy=PNG_STRATEGY)
+            with stage_all([ctxs[i] for i in lanes], "encode"):
+                encoded = engine.png_encode_batch(
+                    [tiles[i] for i in lanes], filter_mode=PNG_FILTER, level=PNG_LEVEL,
+                    strategy=PNG_STRATEGY)
         if encoded is None:
             encoded = [None] * len(lanes)
         for i, png in zip(lanes, encoded):
@@ -1150,6 +1179,8 @@ class TilePipeline:
         for j, i in enumerate(live):
             size_groups.setdefault((resolved[i].w, resolved[i].h), []).append(j)
         self._count(st_groups=1, st_device_lanes=len(live))
+        stile.SUPERTILE_SIZE.observe(len(live))
+        stile.SUPERTILE_LANES.inc(len(live), path="device")
         try:
             INJECTOR.fire("render.supertile")
             tables, luts = self._render_tables_for(tspec, tdtype)
@@ -1197,6 +1228,7 @@ class TilePipeline:
     def _st_decline(self, live) -> set:
         """Return a group's lanes to the independent path, counted."""
         self._count(st_fallback_lanes=len(live))
+        stile.SUPERTILE_FALLBACK.inc(len(live))
         return set()
 
     def _mark_timing(self):
@@ -1232,6 +1264,9 @@ class TilePipeline:
             return self._st_decline(live)
         self._count(st_groups=1, st_host_lanes=len(live))
         self.render_host_lanes += len(live)
+        stile.SUPERTILE_SIZE.observe(len(live))
+        stile.SUPERTILE_LANES.inc(len(live), path="host")
+        rengine.RENDER_TILES.inc(len(live), path="host", format=spec.format)
         for (rx, ry), i in zip(rel, live):
             rt = resolved[i]
             try:
@@ -1261,6 +1296,7 @@ class TilePipeline:
             else:
                 rgb = rengine.render_host(stack, tables, luts, lane.mask)
                 results[i] = rengine.encode_jpeg(rgb, spec.quality)
+            rengine.RENDER_TILES.inc(path="host", format=spec.format)
         except Exception:
             log.exception("host render failed for lane %d", i)
             results[i] = None
@@ -1433,6 +1469,7 @@ class TilePipeline:
                 failed.update(jobs[j][0] for j, _ in members)
                 continue
             self._count(hist_groups=1, hist_lanes=len(members))
+            ranalysis.HIST_TILES.inc(len(members), path="device")
             if events is not None:
                 ms = events[0].elapsed_time(events[1])
                 with self._stats_lock:
@@ -1526,6 +1563,23 @@ def _memo(store: dict, key, build):
             store.clear()
         store[key] = hit
     return hit
+
+
+def _stamp_device(ctxs, t_submit: float):
+    """A group future's callback stamping ``device`` (submission to
+    resolution) on its lanes' flight records."""
+    def stamp(_group_fut):
+        dt = time.perf_counter() - t_submit
+        for ctx in ctxs:
+            if ctx.obs is not None:
+                ctx.obs.stamp("device", dt)
+    return stamp
+
+
+def _count_render_group(group_fut) -> None:
+    """``render_tiles_total`` of a render encode group that came back."""
+    if group_fut.exception() is None:
+        rengine.RENDER_TILES.inc(len(group_fut.result()), path="device", format="png")
 
 
 def _lane_future(group_fut, lane) -> "concurrent.futures.Future":

@@ -34,6 +34,16 @@ from ..errors import BadRequestError
 from ..ops.convert import bits_tensor, bits_view
 from .engine import QUANT_BINS, default_window
 from .model import ChannelSpec, _channel_from_token, _parse_maps
+from ..utils.metrics import REGISTRY
+
+HIST_TILES = REGISTRY.counter(
+    "analysis_histograms_total",
+    "Histogram requests served by engine path",
+)
+HIST_SECONDS = REGISTRY.histogram(
+    "analysis_histogram_seconds",
+    "Histogram reduction wall time (stage=tables|device|host)",
+)
 
 MAX_BINS = 65536
 DEFAULT_BINS = 256
@@ -239,7 +249,8 @@ def histogram_batch(planes: np.ndarray, bin_tables: np.ndarray, bins: int,
     around the reduction."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    with contextlib.nullcontext() if stream is None else torch.cuda.stream(stream):
+    with HIST_SECONDS.time(stage="device"), (
+            contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)):
         planes_dev = bits_tensor(planes).to(device)
         tables_dev = torch.from_numpy(np.ascontiguousarray(bin_tables, dtype=np.int32)).to(device)
         if events is not None:
@@ -254,10 +265,11 @@ def histogram_host(planes, bin_tables, bins: int) -> np.ndarray:
     """Numpy mirror: integer-identical counts."""
     planes = np.asarray(planes)
     bin_tables = np.asarray(bin_tables)
-    out = np.empty((planes.shape[0], bins), dtype=np.int32)
-    for i in range(planes.shape[0]):
-        idx = bin_tables[i][planes[i].reshape(-1).astype(np.int64)]
-        out[i] = np.bincount(idx, minlength=bins)[:bins]
+    with HIST_SECONDS.time(stage="host"):
+        out = np.empty((planes.shape[0], bins), dtype=np.int32)
+        for i in range(planes.shape[0]):
+            idx = bin_tables[i][planes[i].reshape(-1).astype(np.int64)]
+            out[i] = np.bincount(idx, minlength=bins)[:bins]
     return out
 
 

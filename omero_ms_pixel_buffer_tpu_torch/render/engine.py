@@ -42,6 +42,18 @@ from ..ops.kernels.filter import filter_tiles
 from ..ops.png import filter_rows_np, frame_png
 from .luts import LUT_SIZE, LutRegistry
 from .model import ChannelSpec, RenderSpec
+from ..utils.metrics import REGISTRY
+
+RENDER_TILES = REGISTRY.counter(
+    "render_tiles_total", "Rendered tiles by engine path and format"
+)
+RENDER_FALLBACK = REGISTRY.counter(
+    "render_fallback_total",
+    "Render lanes that fell back from the device engine to the host",
+)
+RENDER_SECONDS = REGISTRY.histogram(
+    "render_seconds", "Render stage wall time (stage=tables|host|jpeg)"
+)
 
 # position-default channel colors when a spec names none (the OMERO
 # viewer's conventional rotation); a single active channel defaults to
@@ -138,23 +150,24 @@ def build_tables(spec: RenderSpec, dtype: np.dtype, registry: Optional[LutRegist
         )
     k = 1 << (8 * dtype.itemsize)
     greyscale = spec.model == "g"
-    tables, luts = [], []
-    u = np.arange(k, dtype=np.int64)
-    values = u if dtype.kind == "u" else ((u + k // 2) % k) - k // 2
-    for pos, ch in enumerate(channels):
-        wmin, wmax = ch.window if ch.window is not None else default_window(dtype)
-        if not wmin < wmax:
-            raise RenderError(f"Degenerate window [{wmin}:{wmax}]")
-        x = np.clip((values.astype(np.float64) - wmin) / (wmax - wmin), 0.0, 1.0)
-        if ch.reverse:
-            x = 1.0 - x
-        if ch.family in ("exponential", "polynomial"):
-            x = np.power(x, ch.coefficient)  # the gamma curve, two spellings
-        elif ch.family == "logarithmic":
-            x = np.log1p(ch.coefficient * x) / np.log1p(ch.coefficient)
-        tables.append(np.clip(np.floor(x * 255.0 + 0.5), 0, 255).astype(np.uint8))
-        luts.append(_channel_lut(ch, pos, len(channels), greyscale, registry))
-    return np.stack(tables), np.stack(luts)
+    with RENDER_SECONDS.time(stage="tables"):
+        tables, luts = [], []
+        u = np.arange(k, dtype=np.int64)
+        values = u if dtype.kind == "u" else ((u + k // 2) % k) - k // 2
+        for pos, ch in enumerate(channels):
+            wmin, wmax = ch.window if ch.window is not None else default_window(dtype)
+            if not wmin < wmax:
+                raise RenderError(f"Degenerate window [{wmin}:{wmax}]")
+            x = np.clip((values.astype(np.float64) - wmin) / (wmax - wmin), 0.0, 1.0)
+            if ch.reverse:
+                x = 1.0 - x
+            if ch.family in ("exponential", "polynomial"):
+                x = np.power(x, ch.coefficient)  # the gamma curve, two spellings
+            elif ch.family == "logarithmic":
+                x = np.log1p(ch.coefficient * x) / np.log1p(ch.coefficient)
+            tables.append(np.clip(np.floor(x * 255.0 + 0.5), 0, 255).astype(np.uint8))
+            luts.append(_channel_lut(ch, pos, len(channels), greyscale, registry))
+        return np.stack(tables), np.stack(luts)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +281,8 @@ def render_png_host(planes: np.ndarray, index_tables: np.ndarray, color_luts: np
                     filter_mode: str = "up", mask: Optional[np.ndarray] = None) -> bytes:
     """One lane rendered and PNG-encoded on the host, byte-identical to
     the fused device chain."""
-    return png_from_rgb_host(render_host(planes, index_tables, color_luts, mask), filter_mode)
+    with RENDER_SECONDS.time(stage="host"):
+        return png_from_rgb_host(render_host(planes, index_tables, color_luts, mask), filter_mode)
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int) -> Optional[bytes]:
@@ -279,6 +293,7 @@ def encode_jpeg(rgb: np.ndarray, quality: int) -> Optional[bytes]:
         return None
     import io
 
-    buf = io.BytesIO()
-    Image.fromarray(rgb, mode="RGB").save(buf, format="JPEG", quality=int(quality))
-    return buf.getvalue()
+    with RENDER_SECONDS.time(stage="jpeg"):
+        buf = io.BytesIO()
+        Image.fromarray(rgb, mode="RGB").save(buf, format="JPEG", quality=int(quality))
+        return buf.getvalue()

@@ -47,7 +47,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import REGISTRY
 from .engine import render_torch
+
+SUPERTILE_LANES = REGISTRY.counter(
+    "supertile_lanes_total",
+    "Render lanes served through a fused super-tile, by path",
+)
+SUPERTILE_FALLBACK = REGISTRY.counter(
+    "supertile_fallback_total",
+    "Lanes returned from a super-tile to the independent path",
+)
+SUPERTILE_SIZE = REGISTRY.histogram(
+    "supertile_lanes_per_group", "Lanes fused per super-tile",
+    buckets=(2, 4, 8, 16, 32, 64, float("inf")),
+)
 
 
 MAX_PIXELS = 4 << 20  # 4 Mpx, a 2048x2048 viewport

@@ -2,12 +2,23 @@
 resilience/admission.py``): at most ``max_inflight`` requests execute at
 once. Under the SLO scheduler a full counter means "wait in the queue",
 not a shed; the scheduler counts its own sheds through ``count_shed`` so
-that ``shed_total`` stays the one number (the JAX package's Prometheus
-counter and gauge are plain counts here, in ``snapshot``)."""
+that ``shed_total`` (and ``resilience_shed_total``) stays the one number.
+``has_headroom`` gates the prefetcher's speculative work."""
 
 from __future__ import annotations
 
 import threading
+
+from ..utils.metrics import REGISTRY
+
+SHED = REGISTRY.counter(
+    "resilience_shed_total",
+    "Requests shed (503) by admission control",
+)
+INFLIGHT = REGISTRY.gauge(
+    "resilience_inflight_requests",
+    "Tile requests currently admitted and in flight",
+)
 
 # the JAX package's resilience.admission defaults
 MAX_INFLIGHT = 256
@@ -31,15 +42,25 @@ class AdmissionController:
             if self._inflight >= self.max_inflight:
                 return False
             self._inflight += 1
+            INFLIGHT.set(self._inflight)
             return True
 
     def count_shed(self) -> None:
         with self._lock:
             self._shed += 1
+            SHED.inc()
 
     def release(self) -> None:
         with self._lock:
             self._inflight = max(0, self._inflight - 1)
+            INFLIGHT.set(self._inflight)
+
+    def has_headroom(self, fraction: float = 0.5) -> bool:
+        """Whether real traffic uses less than ``fraction`` of the in-flight
+        bound: the gate of the prefetcher, whose speculative work sheds
+        long before a real request would."""
+        with self._lock:
+            return self._inflight < max(1, int(self.max_inflight * fraction))
 
     @property
     def inflight(self) -> int:

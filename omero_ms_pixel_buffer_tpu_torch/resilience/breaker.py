@@ -18,11 +18,11 @@ dependency heals". Three states:
 The defaults are the JAX package's (the module constants below); the
 YAML ``resilience.breaker`` block sets them process-wide through
 ``BOARD.configure`` (``resilience.configure``), and ``enabled: false``
-hands out ``NULL_BREAKER``. Thread-safe; the clock is injectable. The JAX
-package exports states and transitions to Prometheus and takes
-fleet-gossip hints (``suspect``, ``heal``) from its cluster plane; the
-port has neither yet, so each breaker keeps its counts in ``snapshot()``
-(``/healthz`` ``breakers``).
+hands out ``NULL_BREAKER``. Thread-safe; the clock is injectable. States,
+transitions, rejections and slow calls go to ``/metrics`` under the JAX
+names; each breaker also keeps its counts in ``snapshot()`` (``/healthz``
+``breakers``). The JAX package's fleet-gossip hints (``suspect``,
+``heal``) belong to its cluster plane, which the port does not have.
 """
 
 from __future__ import annotations
@@ -32,7 +32,27 @@ import time
 from collections import deque
 from typing import Dict, Optional
 
+from ..utils.metrics import REGISTRY
+
+BREAKER_STATE = REGISTRY.gauge(
+    "resilience_breaker_state",
+    "Circuit-breaker state per dependency (0=closed 1=half_open 2=open)",
+)
+BREAKER_TRANSITIONS = REGISTRY.counter(
+    "resilience_breaker_transitions_total",
+    "Circuit-breaker state transitions by dependency and new state",
+)
+BREAKER_REJECTED = REGISTRY.counter(
+    "resilience_breaker_rejected_total",
+    "Calls rejected by an open circuit breaker",
+)
+BREAKER_SLOW = REGISTRY.counter(
+    "resilience_breaker_slow_calls_total",
+    "Successful calls that exceeded the slow-call duration threshold",
+)
+
 CLOSED, HALF_OPEN, OPEN = "closed", "half_open", "open"
+_STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
 FAILURE_THRESHOLD = 5         # consecutive failures that open
 FAILURE_RATE_THRESHOLD = 0.5  # failure share of the window that opens
@@ -86,6 +106,7 @@ class CircuitBreaker:
         self._probes_in_flight = 0
         self._probe_admitted_at = 0.0
         self._stats = {"rejected": 0, "opened": 0, "transitions": 0, "slow": 0}
+        BREAKER_STATE.set(0, dependency=name)
 
     def _transition(self, state: str) -> None:
         # callers hold self._lock
@@ -101,6 +122,8 @@ class CircuitBreaker:
         if state == CLOSED:
             self._outcomes.clear()
             self._consecutive_failures = 0
+        BREAKER_STATE.set(_STATE_CODE[state], dependency=self.name)
+        BREAKER_TRANSITIONS.inc(dependency=self.name, state=state)
 
     def allow(self) -> None:
         """Gate a call: nothing when closed, a bounded number of probes
@@ -110,6 +133,7 @@ class CircuitBreaker:
                 elapsed = self.clock() - self._opened_at
                 if elapsed < self.open_duration_s:
                     self._stats["rejected"] += 1
+                    BREAKER_REJECTED.inc(dependency=self.name)
                     raise BreakerOpenError(self.name, self.open_duration_s - elapsed)
                 self._transition(HALF_OPEN)
             if self._state == HALF_OPEN:
@@ -120,6 +144,7 @@ class CircuitBreaker:
                         self._probes_in_flight = 0
                     else:
                         self._stats["rejected"] += 1
+                        BREAKER_REJECTED.inc(dependency=self.name)
                         raise BreakerOpenError(self.name, 0.0)
                 self._probes_in_flight += 1
                 self._probe_admitted_at = self.clock()
@@ -135,6 +160,7 @@ class CircuitBreaker:
         with self._lock:
             if slow:
                 self._stats["slow"] += 1
+                BREAKER_SLOW.inc(dependency=self.name)
             if self._state == HALF_OPEN:
                 # a probe that answers at outage latency has not healed
                 self._transition(OPEN if slow else CLOSED)

@@ -10,8 +10,8 @@ cross processes). The ambient deadline is a context variable the batcher
 sets around each batch's executor work (``deadline_scope``); synchronous
 depths read it with ``current_deadline``.
 
-The JAX package counts expiries into Prometheus by the stage that noticed
-them; here they are plain counts (``note_exceeded``, ``snapshot``), read by
+Expiries are counted by the stage that noticed them (``note_exceeded``):
+``resilience_deadline_exceeded_total`` on ``/metrics`` and ``snapshot`` on
 ``/healthz``.
 """
 
@@ -19,26 +19,26 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import threading
 import time
 from typing import Dict, Optional
 
 from ..errors import GatewayTimeoutError
+from ..utils.metrics import REGISTRY
 
-_lock = threading.Lock()
-_exceeded: Dict[str, int] = {}
+DEADLINE_EXCEEDED = REGISTRY.counter(
+    "resilience_deadline_exceeded_total",
+    "Requests that ran out of budget, by the stage that noticed",
+)
 
 
 def note_exceeded(stage: str) -> None:
     """Count one request that ran out of budget at ``stage``."""
-    with _lock:
-        _exceeded[stage] = _exceeded.get(stage, 0) + 1
+    DEADLINE_EXCEEDED.inc(stage=stage)
 
 
 def snapshot() -> Dict[str, int]:
     """Expired requests by the stage that noticed (``/healthz``)."""
-    with _lock:
-        return dict(_exceeded)
+    return {dict(k)["stage"]: int(v) for k, v in DEADLINE_EXCEEDED.samples().items()}
 
 
 class DeadlineExceeded(GatewayTimeoutError):

@@ -1,5 +1,6 @@
 """Deterministic fault injection (copy of ``omero_ms_pixel_buffer_tpu/
-resilience/faultinject.py``, without the flight-record tagging).
+resilience/faultinject.py``). A point that fires is noted on the ambient
+flight record (``obs/recorder.py`` ``note_fault``).
 
 Named injection points sit at the port's counterparts of the JAX sites:
 ``store.http``, ``store.s3`` and ``io.range-get`` (a store GET attempt),
@@ -21,6 +22,8 @@ import random
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+from ..obs.recorder import note_fault
 
 
 class Fail:
@@ -115,6 +118,7 @@ class FaultInjector:
         outcome = self._outcome(point)
         if outcome is None:
             return
+        note_fault(point)
         if isinstance(outcome, Latency):
             # latency models a slow dependency: sleeping on the event-loop
             # thread would stall every lane instead, so that misuse raises
@@ -136,6 +140,7 @@ class FaultInjector:
         outcome = self._outcome(point)
         if outcome is None:
             return
+        note_fault(point)
         if isinstance(outcome, Latency):
             await asyncio.sleep(outcome.seconds)
             return

@@ -4,20 +4,29 @@ deadline (copy of ``omero_ms_pixel_buffer_tpu/resilience/retry.py``).
 Attempts back off exponentially with multiplicative jitter, the total
 sleep of one call's sequence is capped by the policy's budget, and no
 attempt or backoff starts past the ambient request deadline. The jitter
-comes from a ``random.Random``: the caller's, or the module's. The JAX
-package counts retries into Prometheus; here they are plain counts per
-dependency (``snapshot``), read by ``/healthz``.
+comes from a ``random.Random``: the caller's, or the module's. Retries and
+abandoned sequences are counted per dependency: ``resilience_retries_total``
+and ``resilience_retry_budget_exhausted_total`` on ``/metrics``,
+``snapshot`` on ``/healthz``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-import threading
 import time
 from typing import Callable, Dict, Optional, Tuple, Type
 
+from ..utils.metrics import REGISTRY
 from .deadline import Deadline, DeadlineExceeded, current_deadline
+
+RETRIES = REGISTRY.counter(
+    "resilience_retries_total", "Retry attempts by dependency"
+)
+RETRY_BUDGET_EXHAUSTED = REGISTRY.counter(
+    "resilience_retry_budget_exhausted_total",
+    "Retry sequences abandoned because the sleep budget ran out",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,20 +60,16 @@ def set_default_policy(policy: RetryPolicy) -> None:
     DEFAULT_POLICY = policy
 
 _rng = random.Random()
-_lock = threading.Lock()
-_retries: Dict[str, int] = {}
-_budget_exhausted: Dict[str, int] = {}
 
 
-def _bump(counts: Dict[str, int], name: str) -> None:
-    with _lock:
-        counts[name] = counts.get(name, 0) + 1
+def _by_dependency(counter) -> Dict[str, int]:
+    return {dict(k)["dependency"]: int(v) for k, v in counter.samples().items()}
 
 
 def snapshot() -> dict:
     """Retries and abandoned sequences per dependency (``/healthz``)."""
-    with _lock:
-        return {"retries": dict(_retries), "budget_exhausted": dict(_budget_exhausted)}
+    return {"retries": _by_dependency(RETRIES),
+            "budget_exhausted": _by_dependency(RETRY_BUDGET_EXHAUSTED)}
 
 
 def retry_call(
@@ -99,11 +104,11 @@ def retry_call(
                 raise
             delay = policy.delay(attempt, rng)
             if slept + delay > policy.budget_s:
-                _bump(_budget_exhausted, dependency)
+                RETRY_BUDGET_EXHAUSTED.inc(dependency=dependency)
                 raise
             if deadline is not None and deadline.remaining() < delay:
                 # sleeping would outlive the caller
                 raise DeadlineExceeded(name or "retry backoff") from e
-            _bump(_retries, dependency)
+            RETRIES.inc(dependency=dependency)
             sleep(delay)
             slept += delay

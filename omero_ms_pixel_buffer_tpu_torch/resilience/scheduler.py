@@ -21,8 +21,11 @@ and ``note_draining``, which wait for the fleet plane).
 - ``DeadlineQueue``: the batcher's intake, popped in (deadline, class)
   order.
 
-The JAX package's Prometheus counters are the plain per-class counts of
-``SloScheduler.snapshot`` (``/healthz`` ``slo``).
+Per-class sheds, degraded grants and queue expiries go to ``/metrics``
+under the JAX names (``slo_*``), with the queue wait's histogram
+(``slo_queue_wait_seconds``, its exemplar deferred to the request's flight
+record); ``SloScheduler.snapshot`` holds the same counts (``/healthz``
+``slo``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from collections import OrderedDict, deque
 from typing import List, Optional, Tuple
 
 from ..errors import GatewayTimeoutError, ServiceUnavailableError
+from ..obs.recorder import defer_exemplar
+from ..utils.metrics import REGISTRY
 from .admission import AdmissionController
 from .deadline import Deadline
 
@@ -49,6 +54,25 @@ PRIORITY_NAMES = {
     PRIORITY_BULK: "bulk",
 }
 PRIORITY_BY_NAME = {v: k for k, v in PRIORITY_NAMES.items()}
+
+SLO_SHED = REGISTRY.counter(
+    "slo_shed_total",
+    "Requests shed (503) by the SLO scheduler, by class",
+)
+SLO_DEGRADED = REGISTRY.counter(
+    "slo_degraded_total",
+    "Permits granted with the hybrid-resolution degradation flag, "
+    "by class",
+)
+SLO_EXPIRED = REGISTRY.counter(
+    "slo_queue_expired_total",
+    "Requests whose deadline expired while waiting in the SLO queue, "
+    "by class",
+)
+SLO_QUEUE_WAIT = REGISTRY.histogram(
+    "slo_queue_wait_seconds",
+    "Time spent waiting in the SLO queue before a grant",
+)
 
 # the JAX package's slo: defaults
 QUEUE_SIZE = 512
@@ -238,6 +262,7 @@ class SloScheduler:
 
     def _count_shed(self, priority: int) -> None:
         self.sheds[priority] += 1
+        SLO_SHED.inc(priority=PRIORITY_NAMES[priority])
         self.admission.count_shed()
 
     def _worst_waiter(self) -> Optional[_Waiter]:
@@ -303,7 +328,7 @@ class SloScheduler:
         heapq.heappush(self._heaps[priority], (entry.expires_at, entry.seq, entry))
         self._waiting[priority] += 1
         try:
-            return await entry.fut
+            permit = await entry.fut
         except asyncio.CancelledError:
             # the caller gave up: lazy delete; a grant that raced the
             # cancellation returns its slot untrained
@@ -314,6 +339,9 @@ class SloScheduler:
                 if entry.fut.exception() is None:
                     self.release(entry.fut.result(), train=False)
             raise
+        SLO_QUEUE_WAIT.observe(permit.queued_s)
+        defer_exemplar(SLO_QUEUE_WAIT, permit.queued_s)
+        return permit
 
     def release(self, permit: Permit, train: bool = True) -> None:
         """Hand the slot back, train the full-resolution service-time
@@ -359,6 +387,7 @@ class SloScheduler:
             if entry.deadline is not None and entry.deadline.expired:
                 # a grant would burn the slot on a certain 504
                 self.expired_in_queue[entry.priority] += 1
+                SLO_EXPIRED.inc(priority=PRIORITY_NAMES[entry.priority])
                 self.admission.release()
                 entry.fut.set_exception(GatewayTimeoutError(
                     "Request deadline expired in the scheduler queue"))
@@ -367,6 +396,7 @@ class SloScheduler:
             flag = entry.degradable and self._degrade_flag(entry.deadline)
             if flag:
                 self.degraded[entry.priority] += 1
+                SLO_DEGRADED.inc(priority=PRIORITY_NAMES[entry.priority])
             entry.fut.set_result(Permit(entry.priority, degraded=flag,
                                         queued_s=time.monotonic() - entry.enqueued_at))
 

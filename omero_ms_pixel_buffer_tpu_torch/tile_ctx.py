@@ -79,6 +79,10 @@ class TileCtx:
     # level d below the requested one, upscaled, and joins every key
     priority: int = 0
     degraded: int = 0
+    # the flight record (obs/recorder.py): attached at the HTTP door,
+    # stamped by every layer the request touches. Transient: never part of
+    # a key, never serialized
+    obs: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
     # an adapter's burst geometry (render/supertile.py ``BurstHint``).
     # Transient like ``supertile``: never part of a key, never changes bytes
     burst: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)

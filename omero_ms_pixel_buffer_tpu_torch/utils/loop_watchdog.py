@@ -1,6 +1,6 @@
 """Event-loop lag watchdog (copy of ``omero_ms_pixel_buffer_tpu/utils/
-loop_watchdog.py``; the JAX package's Prometheus histograms of the lag
-are the plain numbers of ``snapshot`` here, ``/healthz`` ``watchdog``).
+loop_watchdog.py``): the lag goes to ``/metrics`` (``event_loop_*``) and to
+``snapshot`` (``/healthz`` ``watchdog``).
 
 A heartbeat coroutine on the watched loop sleeps ``interval_s`` and
 measures how much later than scheduled it ran: that overshoot is the loop
@@ -19,11 +19,26 @@ import time
 import traceback
 from typing import Optional
 
+from .metrics import REGISTRY
+
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.loop_watchdog")
 
 # the JAX package's resilience.watchdog defaults
 INTERVAL_S = 0.1
 WARN_AFTER_S = 1.0
+
+LOOP_LAG = REGISTRY.histogram(
+    "event_loop_lag_seconds",
+    "How much later than scheduled the event-loop heartbeat ran",
+)
+LOOP_BLOCKED = REGISTRY.counter(
+    "event_loop_blocked_total",
+    "Stalls where the event loop missed the blocked threshold",
+)
+LOOP_MAX_LAG = REGISTRY.gauge(
+    "event_loop_max_lag_seconds",
+    "Largest heartbeat lag observed since start",
+)
 
 
 class LoopWatchdog:
@@ -61,7 +76,10 @@ class LoopWatchdog:
             t0 = time.monotonic()
             await asyncio.sleep(self.interval_s)
             lag = max(0.0, time.monotonic() - t0 - self.interval_s)
-            self._max_lag_s = max(self._max_lag_s, lag)
+            LOOP_LAG.observe(lag)
+            if lag > self._max_lag_s:
+                self._max_lag_s = lag
+                LOOP_MAX_LAG.set(lag)
             self._beat = (time.monotonic(), lag)
 
     def _check(self) -> None:
@@ -74,6 +92,7 @@ class LoopWatchdog:
                 if self._blocked_since is None:
                     self._blocked_since = last_beat
                     self._blocked_events += 1
+                    LOOP_BLOCKED.inc()
                     log.warning("event loop blocked for >= %.0f ms; loop-thread stack:\n%s",
                                 stalled_s * 1000, self._loop_stack())
             elif self._blocked_since is not None:

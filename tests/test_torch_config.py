@@ -216,8 +216,9 @@ def _config(**blocks):
 def test_shipped_config_starts_with_five_planes_absent():
     from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
 
-    assert check_planes(pconfig.Config.load(SHIPPED)) == [
-        "obs", "jmx-metrics", "session", "cache.tinylfu", "cache.prefetch"]
+    # obs, jmx-metrics, cache.tinylfu and cache.prefetch are ported: the
+    # session plane is the one default-on plane left absent
+    assert check_planes(pconfig.Config.load(SHIPPED)) == ["session"]
     quiet = _config(obs__enabled=False, session__enabled=False, **{
         "jmx-metrics__enabled": False, "cache__tinylfu__enabled": False,
         "cache__prefetch__enabled": False})
@@ -229,8 +230,6 @@ def test_shipped_config_starts_with_five_planes_absent():
     ("cluster__l2__uri", "redis://x:6379/2", "cluster.l2.uri"),
     ("ingest__enabled", True, "ingest.enabled"),
     ("cache__disk-dir", "/tmp/ompb-disk", "cache.disk-dir"),
-    ("http-tracing__enabled", True, "http-tracing.enabled"),
-    ("http-tracing__zipkin-url", "http://z:9411/api/v2/spans", "http-tracing.zipkin-url"),
     ("backend__engine", "host", "backend.engine"),
     ("backend__batching__device-encode", False, "backend.batching.device-encode"),
     ("mesh__probe-interval-ms", 500, "mesh.probe-interval-ms"),
@@ -247,6 +246,33 @@ def test_opt_in_planes_stop_startup(key, value, named):
     with pytest.raises(pconfig.ConfigError, match=named.replace(".", r"\.") + ".*ROADMAP|"
                        + named.replace(".", r"\.") + ".*port"):
         check_planes(config)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("http-tracing__enabled", True),
+    ("http-tracing__zipkin-url", "http://127.0.0.1:9/api/v2/spans"),
+])
+def test_tracing_keys_start_and_configure_the_tracer(key, value, restore_process_state):
+    """The two tracing keys once refused: ``http-tracing.enabled`` turns
+    live spans on (logged without a URL); ``zipkin-url`` with the recorder
+    on builds the Zipkin reporter for the kept records' retro spans."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
+    from omero_ms_pixel_buffer_tpu_torch.utils import tracing
+
+    config = _config(**{key: value})
+    assert check_planes(config) == ["session"]
+    server = wire(config, device="cpu")
+    try:
+        if key == "http-tracing__enabled":
+            assert tracing.TRACER.enabled and tracing.TRACER.log_spans
+            assert tracing.TRACER.reporter is None
+        else:
+            assert not tracing.TRACER.enabled
+            assert tracing.TRACER.reporter.url == value
+            assert server.recorder is not None
+    finally:
+        server.pipeline.close()
+        tracing.configure(enabled=False, log_spans=False)
 
 
 @pytest.mark.parametrize("engine", ["jax", "auto", "device", "tpu"])
@@ -294,8 +320,7 @@ def test_non_default_knobs_show_on_healthz(restore_process_state):
         assert h["slo"]["queue_size"] == 128
         assert h["admission"]["max_inflight"] == 7
         assert h["request_budget_ms"] == 5000.0
-        assert c["absent"] == ["obs", "jmx-metrics", "session", "cache.tinylfu",
-                               "cache.prefetch"]
+        assert c["absent"] == ["session"]
         assert c["session_store"] == "RedisSessionStore"
         assert isinstance(server.session_store, RedisSessionStore)
         assert c["breaker"]["failure_threshold"] == 3

@@ -76,6 +76,21 @@ def test_viewer_plane_modules_are_in_the_port(name):
     assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
 
 
+OBSERVABILITY_PLANE_MODULES = ["utils.metrics", "obs", "obs.recorder", "obs.sli",
+                               "utils.process_metrics", "utils.tracing",
+                               "cache.plane.tinylfu", "cache.prefetch"]
+
+
+@pytest.mark.parametrize("name", OBSERVABILITY_PLANE_MODULES)
+def test_observability_and_cache_plane_modules_are_in_the_port(name):
+    """The default-on planes' modules (metrics, flight recorder, SLI,
+    process collector, tracing, TinyLFU, prefetcher) exist under their JAX
+    paths and sit in the walk the no-jax probe imports."""
+    path = PORT.joinpath(*name.split("."))
+    assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
+    assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
+
+
 def test_pipeline_defaults_to_cuda_and_never_falls_back(tmp_path):
     assert inspect.signature(TilePipeline).parameters["device"].default == "cuda"
     service = PixelsService(ImageRegistry())
