@@ -100,6 +100,26 @@ Phases, one JSON line each on stdout:
    prefetched ``/tile`` lane is a batch of one, encoded on the host, as in
    the JAX package); ``/healthz`` ``prefetch`` warmed > 0, failed 0.
    Reports issued, warmed, dropped, shed and the launches.
+5c. ``path_session`` — a fresh server with the session plane (``ping-
+   interval-s`` 1, two channels an image) and the prefetcher on; one
+   WebSocket and one SSE client (stdlib sockets) subscribe to image 1.
+   The WebSocket client reports a 1024x512 viewport at each of 10 steps of
+   a pan of one-channel 512² ``/render`` tiles along a row and asks for
+   the tile at its left, waiting after each step until the prefetcher has
+   drained. From the third step the tile, and both tiles of the
+   rectangle's next position (asked by sessions without a stream), answer
+   ``X-Cache: hit`` with the numpy composite's pixels; the filter and
+   SP-packer launches over those steps (all prefetched lanes) must be > 0
+   and equal ``/healthz`` ``kernels``, and ``prefetch.viewport_true`` must
+   rise. An annotation is then created, updated and deleted: after each
+   write both channels receive ``invalidate`` then ``annotations`` with
+   the sub-epoch, and ``/render?annotations=1`` equals the explicit
+   ``roi=`` request (body and ETag) and the numpy masked composite. A third
+   channel answers 503; removing the channels' session from the store
+   closes both with ``revoked`` within two ping intervals. Reports hits,
+   ``viewport_true``, launches, each write's frames and the frame latency
+   from the write's answer (p50, max; negative when the frame arrives
+   first).
 6. ``path_rle`` — a second server in the same way, deflate mode ``rle``,
    packer ``pallas_dense``: warm-up, ``--rle-requests`` timed tiles,
    edge cases; the filter and the dense packer must have launched and
@@ -256,11 +276,25 @@ Phases, one JSON line each on stdout:
    group. SIGTERM must exit 0. Then the same file with ``--dev`` (the echo
    store), the same warm-up and timed tiles (``echo_store``), so the pair
    differs in the session store alone. The config leaves the default-on
-   planes on: ``/healthz`` ``config.absent`` must be ``["session"]`` and
+   planes on: ``/healthz`` ``config.absent`` must be empty and
    ``/metrics`` must carry the process collector's families. Reports
    tiles/s, p50/p99, the stub's commands, the 403s and 503s, the start-up
    seconds, the launches, the ``process_*`` families and the
    prefetcher's counts over the timed window.
+22. ``path_disk`` — the port as a subprocess (``--config``, ``--dev``)
+   with ``cache.disk-dir`` in a temporary directory and ``cache.memory-mb``
+   16, so at most a quarter of the 256 level-0 512² PNG tiles of image 1
+   fit in memory: a cold pass of the 256 tiles at 32 clients (filter and
+   SP-packer launches > 0); once every evicted tile has spilled, a second
+   pass whose memory and disk hits (``/metrics``
+   ``tile_cache_requests_total`` by tier) sum to 256, every body equal to
+   the first pass's; SIGTERM (exit 0), then a new process on the same
+   directory, whose ``/healthz`` ``result_cache.disk.manifest`` must show
+   every spilled entry replayed (and the replay's seconds), and a third
+   pass over the spilled tiles (the compacted journal's keys): each
+   ``X-Cache: hit`` from disk with the first pass's bytes and no kernel
+   launch. Reports cold, warm and after-restart tiles/s, the hits by tier,
+   the journal's bytes and the files on disk.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -272,8 +306,8 @@ counts (``supertile``: lanes stamped, groups, fused device and host
 lanes, fallback lanes, crops pulled to the host).
 
 Then the kernels' JSON line (seven rows; the filter's and SP packer's
-launches from ``path``, ``path_obs`` and ``path_prefetch``, the WSI rows'
-from ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
+launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``
+and ``path_disk``'s cold pass, the WSI rows' from ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
@@ -284,7 +318,8 @@ tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
 ``--paths-only`` only the ``path`` (``dynamic``), ``path_obs``,
-``path_prefetch``, ``path_render`` and ``path_config`` phases
+``path_prefetch``, ``path_session``, ``path_render``, ``path_config`` and
+``path_disk`` phases
 (with ``--port-root``, to pair two versions in one call); the
 Zarr and viewer phases add no kernel row, their launches are on their phase
 lines. Any failure exits
@@ -3620,7 +3655,7 @@ def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int
         require(health["queue"]["failed"] == 0, f"encode groups failed: {health['queue']}")
         require(health["queue"]["deflate_mode"] == "dynamic", f"served with {health['queue']}")
         require(health["config"]["session_store"] == "RedisSessionStore", "store")
-        require(health["config"]["absent"] == ["session"], f"absent: {health['config']['absent']}")
+        require(health["config"]["absent"] == [], f"absent: {health['config']['absent']}")
         require("process_cpu_seconds_total" in families and "build_info" in families,
                 f"/metrics process families: {families}")
         prefetch = {k: v - health0["prefetch"][k] for k, v in health1["prefetch"].items()
@@ -3658,6 +3693,455 @@ def drive_config(registry: str, data: np.ndarray, timed, bodies, n_requests: int
         }
     finally:
         stub.close()
+
+
+# ---------------------------------------------------------------------------
+# the session plane and the disk tier
+# ---------------------------------------------------------------------------
+
+SESSION_STEPS = 10  # under the sweep detector's 16 constant steps
+SESSION_RECT = (1024, 512)  # the viewer's reported viewport: two tiles by one
+SESSION_PING_S = 1.0
+SESSION_SHAPE = {"type": "rect", "x": 40, "y": 60, "w": 300, "h": 200}
+
+
+class LiveClient:
+    """``GET /session/{image}/live`` on a stdlib socket: a WebSocket (the
+    client's frames masked, RFC 6455) or server-sent events (chunked). A
+    reader thread puts (arrival time, frame) on ``frames``; (t, None) at the
+    close or EOF."""
+
+    def __init__(self, port: int, image: int, cookie: str, transport: str):
+        import base64
+        import hashlib
+        import queue
+        import socket
+
+        self.transport = transport
+        self.frames = queue.Queue()
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        head = (f"GET /session/{image}/live HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                f"Cookie: sessionid={cookie}\r\n")
+        key = base64.b64encode(os.urandom(16)).decode()
+        if transport == "ws":
+            head += ("Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                     f"Sec-WebSocket-Version: 13\r\nSec-WebSocket-Key: {key}\r\n")
+        self.sock.sendall((head + "\r\n").encode())
+        self.rfile = self.sock.makefile("rb")
+        status = int(self.rfile.readline().split()[1])
+        headers = {}
+        while True:
+            line = self.rfile.readline()
+            if line in (b"\r\n", b""):
+                break
+            name, _, value = line.decode("latin-1").partition(":")
+            headers[name.strip().lower()] = value.strip()
+        if transport == "ws":
+            accept = base64.b64encode(hashlib.sha1(
+                key.encode() + b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11").digest()).decode()
+            require(status == 101 and headers.get("sec-websocket-accept") == accept,
+                    f"WebSocket handshake: {status} {headers}")
+        else:
+            require(status == 200 and headers.get("content-type") == "text/event-stream"
+                    and headers.get("transfer-encoding") == "chunked", f"SSE: {status} {headers}")
+        self.thread = threading.Thread(target=self._read, name=f"live-{transport}", daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        read = self.rfile.read
+        try:
+            while True:
+                if self.transport == "ws":
+                    b0, b1 = read(2)
+                    n = b1 & 0x7F
+                    if n == 126:
+                        (n,) = struct.unpack(">H", read(2))
+                    elif n == 127:
+                        (n,) = struct.unpack(">Q", read(8))
+                    payload = read(n)
+                    if b0 & 0x0F == 0x8:
+                        break
+                    self.frames.put((time.perf_counter(), json.loads(payload)))
+                else:
+                    n = int(self.rfile.readline().strip(), 16)
+                    if n == 0:
+                        break
+                    chunk = read(n)
+                    read(2)
+                    for line in chunk.split(b"\n"):
+                        if line.startswith(b"data: "):
+                            self.frames.put((time.perf_counter(), json.loads(line[6:])))
+        except (OSError, ValueError):
+            pass
+        self.frames.put((time.perf_counter(), None))
+
+    def send_json(self, obj) -> None:
+        """One masked text frame (WebSocket only)."""
+        payload = json.dumps(obj).encode()
+        mask = os.urandom(4)
+        head = struct.pack(">BB", 0x81, 0x80 | 126) + struct.pack(">H", len(payload)) \
+            if len(payload) >= 126 else struct.pack(">BB", 0x81, 0x80 | len(payload))
+        self.sock.sendall(head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def next(self, timeout: float = 30.0):
+        """(arrival time, frame) of the next frame but the pings; frame None
+        at the end."""
+        end = time.perf_counter() + timeout
+        while True:
+            t, frame = self.frames.get(timeout=max(0.01, end - time.perf_counter()))
+            if frame is None or frame.get("type") != "ping":
+                return t, frame
+
+    def close(self) -> None:
+        try:
+            if self.transport == "ws":
+                self.sock.sendall(struct.pack(">BB", 0x88, 0x82) + b"\0\0\0\0"
+                                  + struct.pack(">H", 1000))
+        except OSError:
+            pass
+        self.sock.close()
+        self.thread.join(10)
+
+
+def _poll_health(client: Client, cond, what: str, timeout_s: float = 60.0) -> dict:
+    """``/healthz`` once ``cond`` holds for it, polled for ``timeout_s``."""
+    end = time.perf_counter() + timeout_s
+    while True:
+        health = get_json(client, "/healthz")
+        if cond(health):
+            return health
+        require(time.perf_counter() < end, f"{what}: {health['result_cache']}")
+        time.sleep(0.05)
+
+
+def json_request(port: int, method: str, path: str, cookie: str, obj=None):
+    """(status, headers, body, seconds at the answer) of one request with a
+    JSON body, on a fresh connection."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        body = None if obj is None else json.dumps(obj).encode()
+        headers = {"Cookie": f"sessionid={cookie}"}
+        if body is not None:
+            headers["Content-Type"] = "application/json"
+        conn.request(method, path, body=body, headers=headers)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, time.perf_counter()
+    finally:
+        conn.close()
+
+
+def drive_session(registry: str, data: np.ndarray, seed: int, device: str = "cuda") -> dict:
+    """``path_session``: a fresh server with the session plane and the
+    prefetcher on (``ping-interval-s`` 1, two channels an image). One
+    WebSocket and one SSE client subscribe to image 1. The WebSocket client
+    reports a 1024x512 viewport at each step of a pan of 512² one-channel
+    ``/render`` tiles along a row, then asks for the tile at its left;
+    after each step the prefetcher drains. From the third step on, the tile
+    asked for and every tile of the rectangle's next position (asked by
+    other sessions, which predict nothing) answer ``X-Cache: hit`` with the
+    numpy composite's pixels; the filter and SP-packer launches over those
+    steps (every device lane a prefetched one) equal ``/healthz``
+    ``kernels``, and ``prefetch.viewport_true`` rises. Then an annotation
+    is created, updated and deleted: after each write both channels get
+    ``invalidate`` then ``annotations`` with the sub-epoch, and
+    ``/render?annotations=1`` equals the explicit ``roi=`` request (body,
+    ETag) and the numpy masked composite. A third channel answers 503;
+    removing the channels' session from the store closes both with
+    ``revoked`` within two ping intervals."""
+    from urllib.parse import quote
+
+    from omero_ms_pixel_buffer_tpu_torch.auth.stores import MemorySessionStore
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    size = data.shape[0]
+    n_steps = min(SESSION_STEPS, size // TILE - 4)
+    require(n_steps >= 4, f"a {size}^2 image is too small for the pan")
+    ref = RenderReference(data[None, None])
+    query = {"c": PREFETCH_RENDER[2:]}
+    y = (size // 4) // TILE * TILE
+    pan_key = "pan-key"
+    sessions = {"chip-smoke": "smoke-key", "smoke-pan": pan_key, "smoke-live": pan_key,
+                **{f"smoke-check-{i}": f"check-key-{i}" for i in range(2 * SESSION_STEPS)}}
+    st = ServerThread(registry, device=device, prefetch=True,
+                      session={"ping-interval-s": SESSION_PING_S, "max-per-image": 2})
+    st.server.session_store = MemorySessionStore(sessions)
+    drained, checks = _Drained(st), iter(range(2 * SESSION_STEPS))
+    pf = st.server.prefetcher
+
+    def render_path(x: int, yy: int, extra: str = "") -> str:
+        return f"/render/1/0/0/0?x={x}&y={yy}&w={TILE}&h={TILE}&{PREFETCH_RENDER}{extra}&format=png"
+
+    def noted(x: int) -> bool:
+        with pf._extents_lock:
+            return pf._viewports.get((pan_key, 1), {}).get("x") == x
+
+    steps, t0 = [], time.perf_counter()
+    with st as client:
+        reset_launch_counts()
+        live = [LiveClient(st.client.port, 1, "smoke-live", t) for t in ("ws", "sse")]
+        try:
+            for ch in live:
+                _, hello = ch.next()
+                require(hello == {"type": "hello", "image": 1, "transport": ch.transport,
+                                  "epoch": None, "annotations": 0}, f"hello: {hello}")
+            pan = {"Cookie": "sessionid=smoke-pan"}
+            before = health_before = None
+            checked = 0
+            for k in range(n_steps):
+                x = k * TILE
+                live[0].send_json({"type": "viewport", "x": x, "y": y, "w": SESSION_RECT[0],
+                                   "h": SESSION_RECT[1]})
+                end = time.perf_counter() + 10
+                while not noted(x):
+                    require(time.perf_counter() < end, "the viewport frame was not noted")
+                    time.sleep(0.002)
+                if k == 2:
+                    before, health_before = launch_counts(), get_json(client, "/healthz")
+                status, hdrs, body, secs = client.request("GET", render_path(x, y), pan)
+                verify_render([(status, body, secs)], [(render_path(x, y), (x, y, TILE, TILE),
+                                                        200, query)], ref)
+                require(k < 2 or hdrs.get("X-Cache") == "hit",
+                        f"step {k}: a predicted tile answered X-Cache {hdrs.get('X-Cache')}")
+                steps.append({"x": x, "x_cache": hdrs.get("X-Cache"), "ms": secs * 1e3})
+                drained.wait()
+                if k >= 2:
+                    # the rectangle's next position, asked by sessions that
+                    # have no stream (they predict nothing)
+                    for cx in range(x + TILE, x + TILE + SESSION_RECT[0], TILE):
+                        cookie = {"Cookie": f"sessionid=smoke-check-{next(checks) % 20}"}
+                        status, hdrs, body, secs = client.request("GET", render_path(cx, y),
+                                                                  cookie)
+                        verify_render([(status, body, secs)],
+                                      [(render_path(cx, y), (cx, y, TILE, TILE), 200, query)],
+                                      ref)
+                        require(hdrs.get("X-Cache") == "hit",
+                                f"the rectangle's next tile x={cx} was not prefetched")
+                        checked += 1
+            after, health_after = launch_counts(), get_json(client, "/healthz")
+            launches = {k: after[k] - before[k] for k in after}
+            healthz_launches = {k: health_after["kernels"][k] - health_before["kernels"][k]
+                                for k in after}
+            require(healthz_launches == launches,
+                    f"/healthz kernels {healthz_launches} against the counters {launches}")
+            if device == "cuda":
+                require(launches["filter"] > 0 and launches["bitpack"] > 0,
+                        f"the prefetched lanes launched {launches}")
+            viewport_true = (health_after["prefetch"]["viewport_true"]
+                             - health_before["prefetch"]["viewport_true"])
+            require(viewport_true > 0, "prefetch.viewport_true did not rise")
+            # annotations: three writes, each seen by both channels
+            ax, ay = 2 * TILE, size // 2
+            shape = {**SESSION_SHAPE, "x": ax + SESSION_SHAPE["x"], "y": ay + SESSION_SHAPE["y"]}
+            writes, latencies, overlays = [], [], 0
+            for method, path, obj in (("POST", "/annotations/1", {"shape": shape, "label": "a"}),
+                                      ("PUT", "/annotations/1/a1",
+                                       {"shape": {**shape, "w": 180}}),
+                                      ("DELETE", "/annotations/1/a1", None)):
+                status, _, body, t_answer = json_request(st.client.port, method, path,
+                                                         "smoke-pan", obj)
+                require(status == (201 if method == "POST" else 200),
+                        f"{method} {path}: {status} {body!r}")
+                epoch = json.loads(body)["epoch"]
+                seen = []
+                for ch in live:
+                    for want in ("invalidate", "annotations"):
+                        t_frame, frame = ch.next()
+                        require(frame is not None and frame["type"] == want
+                                and frame["image"] == 1,
+                                f"{ch.transport} after {method}: {frame}, expected {want}")
+                        if want == "annotations":
+                            require(frame["annotations"] == epoch, f"sub-epoch {frame}")
+                        latencies.append((t_frame - t_answer) * 1e3)
+                        seen.append(f"{ch.transport}:{want}")
+                writes.append({"op": method, "epoch": epoch, "frames": seen})
+                if method == "DELETE":
+                    continue
+                stored = json.loads(json_request(st.client.port, "GET", "/annotations/1",
+                                                 "smoke-pan")[2])["annotations"]
+                roi = json.dumps([r["shape"] for r in stored], separators=(",", ":"))
+                s1, h1, b1, _ = client.request("GET", render_path(ax, ay, "&annotations=1"), pan)
+                s2, h2, b2, _ = client.request("GET", render_path(ax, ay, "&roi=" + quote(roi)),
+                                               pan)
+                require(s1 == s2 == 200 and b1 == b2 and h1["ETag"] == h2["ETag"],
+                        f"annotations=1 differs from roi= ({s1}, {s2})")
+                verify_render([(s1, b1, 0.0)], [(render_path(ax, ay), (ax, ay, TILE, TILE), 200,
+                                                 {**query, "roi": roi})], ref)
+                overlays += 1
+            # capacity, then revocation
+            cap = plain_request(st.client.port, "/session/1/live",
+                                {"Cookie": "sessionid=smoke-pan"})
+            require(cap[0] == 503 and cap[1].get("Retry-After") == "1"
+                    and cap[2] == b"Session plane at capacity", f"a third channel: {cap}")
+            st.server.session_store.sessions.pop("smoke-live")
+            t_revoke, revoked = time.perf_counter(), {}
+            for ch in live:
+                t_frame, frame = ch.next(timeout=4 * SESSION_PING_S)
+                require(frame == {"type": "close", "reason": "revoked"}, f"revocation: {frame}")
+                t_end, end_frame = ch.next(timeout=4 * SESSION_PING_S)
+                require(end_frame is None, f"after the close: {end_frame}")
+                revoked[ch.transport] = t_frame - t_revoke
+                require(revoked[ch.transport] <= 2 * SESSION_PING_S,
+                        f"{ch.transport} closed after {revoked[ch.transport]:.3f} s")
+        finally:
+            for ch in live:
+                ch.close()
+        health = _poll_health(client, lambda h: h["session"]["live"] == 0,
+                              "a closed channel is still registered", timeout_s=30.0)
+        phase_launches = launch_counts()
+    hits = sum(1 for s in steps if s["x_cache"] == "hit")
+    lat = np.array(latencies)
+    return {
+        "phase": "path_session", "steps": len(steps), "hits": hits,
+        "rect_tiles_checked": checked, "viewport_true": viewport_true,
+        "launches_prefetched_lanes": launches, "healthz_launches": healthz_launches,
+        "writes": writes, "overlays_checked": overlays,
+        "frame_latency_ms": {"p50": float(np.percentile(lat, 50)), "max": float(lat.max()),
+                             "n": len(latencies)},
+        "capacity_status": cap[0], "revoked_after_s": revoked,
+        "session": {k: v for k, v in health["session"].items() if k != "annotations"},
+        "prefetch": {k: health["prefetch"][k] for k in ("enqueued", "warmed", "failed",
+                                                        "viewport_true")},
+        "launches": phase_launches, "seconds": time.perf_counter() - t0,
+    }
+
+
+DISK_TILES = 256
+DISK_MEMORY_MB = 16  # a 512² tile of image 1 is > 300 kB: at most ~50 of 256 in memory
+
+
+def drive_disk(registry: str, data: np.ndarray, device: str = "cuda") -> dict:
+    """``path_disk``: ``python -m omero_ms_pixel_buffer_tpu_torch --config``
+    with ``cache.disk-dir`` in a temporary directory, ``cache.memory-mb``
+    16 (a quarter of the 256 tiles at most) and the prefetcher off (the
+    passes ask for every tile themselves). A cold pass of the 256 512²
+    PNG tiles of image 1's level-0 grid (32 clients) through the kernels;
+    once the spills have landed, a second pass whose memory and disk hits
+    (``tile_cache_requests_total`` by tier) sum to 256, with the first
+    pass's bytes. SIGTERM, a new process on the same directory
+    (``/healthz`` ``result_cache.disk.manifest``: replayed entries, replay
+    seconds), and a third pass over every spilled tile (the replayed
+    journal's keys): each a disk hit with the first pass's bytes, and zero
+    kernel launches."""
+    import shutil
+    import tempfile
+
+    size = data.shape[0]
+    grid = [(x, y) for y in range(0, size - TILE + 1, TILE) for x in range(0, size - TILE + 1, TILE)]
+    require(len(grid) >= DISK_TILES, f"a {size}^2 image has {len(grid)} tiles")
+    reqs = [(f"/tile/1/0/0/0?x={x}&y={y}&w={TILE}&h={TILE}&format=png", (x, y, TILE, TILE), 200)
+            for x, y in grid[:DISK_TILES]]
+    tmp = tempfile.mkdtemp(prefix="ompb-disk-")
+    spill = os.path.join(tmp, "spill")
+    cfg_path = os.path.join(WORK, "path_disk.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump({"session-store": {"type": "memory"}, "image-registry": registry,
+                   "cache": {"memory-mb": DISK_MEMORY_MB, "disk-dir": spill,
+                             "prefetch": {"enabled": False}}}, f, indent=1)
+    args = ["--config", cfg_path, "--device", device, "--dev"]
+
+    def by_tier(after: dict, before: dict) -> dict:
+        return {f"{tier}_{outcome}": metric_delta(after, before, "tile_cache_requests_total",
+                                                  tier=tier, outcome=outcome)
+                for tier in ("memory", "disk") for outcome in ("hit", "miss")}
+
+    t0 = time.perf_counter()
+    try:
+        with PortProcess(args, "path_disk") as srv:
+            client = Client(srv.port)
+            try:
+                h0 = get_json(client, "/healthz")
+                cold, cold_s = run_requests(client, reqs, LANES)
+                verify(cold, reqs, data)
+                h1 = get_json(client, "/healthz")
+                cold_launches = {k: h1["kernels"][k] - h0["kernels"][k] for k in h1["kernels"]}
+                require(device != "cuda" or (cold_launches["filter"] > 0
+                                             and cold_launches["bitpack"] > 0),
+                        f"the cold pass launched {cold_launches}")
+
+                def settled(h):
+                    rc = h["result_cache"]
+                    return rc["memory"]["entries"] + rc["disk"]["entries"] == DISK_TILES
+
+                h2 = _poll_health(client, settled, "the spills did not land")
+                memory_entries = h2["result_cache"]["memory"]["entries"]
+                require(memory_entries <= DISK_TILES // 4,
+                        f"{memory_entries} tiles fit in memory (at most a quarter)")
+                m1 = metric_samples(metrics_text(client))
+                warm, warm_s = run_requests(client, reqs, LANES)
+                m2 = metric_samples(metrics_text(client))
+                require(all(w[1] == c[1] for w, c in zip(warm, cold)),
+                        "a second-pass body differs from the first")
+                warm_tiers = by_tier(m2, m1)
+                require(warm_tiers["memory_hit"] + warm_tiers["disk_hit"] == DISK_TILES,
+                        f"second pass: {warm_tiers}")
+                # a disk hit keeps its file, so the tiers now overlap: wait
+                # until the re-admissions' spills have stopped
+                last = [None]
+
+                def still(h):
+                    disk = h["result_cache"]["disk"]
+                    now = (disk["entries"], disk["bytes"], disk["manifest"]["journal_bytes"])
+                    done, last[0] = now == last[0], now
+                    time.sleep(0.2)
+                    return done
+
+                h3 = _poll_health(client, still, "the re-admissions did not settle")
+                spilled = h3["result_cache"]["disk"]["entries"]
+                journal_before = h3["result_cache"]["disk"]["manifest"]["journal_bytes"]
+            finally:
+                client.close()
+            rc = srv.stop()
+            require(rc == 0, f"the port exited {rc} on SIGTERM: {srv.log()}")
+        files = sorted(n for n in os.listdir(spill) if n.endswith(".tile"))
+        with PortProcess(args, "path_disk_restart") as srv:
+            client = Client(srv.port)
+            try:
+                h4 = get_json(client, "/healthz")
+                manifest = h4["result_cache"]["disk"]["manifest"]
+                require(manifest["replayed"] == spilled and not manifest["torn_tail"],
+                        f"manifest after the restart: {manifest}")
+                # the replay compacted the journal to one admit a live entry
+                spilled_xy = set()
+                with open(os.path.join(spill, "manifest.journal"), "rb") as f:
+                    for line in f:
+                        rec = json.loads(line[9:])
+                        fields = dict(kv.split("=", 1) for kv in rec["key"].split("|"))
+                        spilled_xy.add((int(fields["x"]), int(fields["y"])))
+                require(len(files) == len(spilled_xy) == spilled,
+                        f"{len(files)} files, {len(spilled_xy)} journaled, {spilled} entries")
+                third_reqs = [r for r in reqs if r[1][:2] in spilled_xy]
+                m3 = metric_samples(metrics_text(client))
+                third, third_s = request_all(client, third_reqs, LANES)
+                m4 = metric_samples(metrics_text(client))
+                h5 = get_json(client, "/healthz")
+                bodies = {r[0]: c[1] for r, c in zip(reqs, cold)}
+                for (path, _, _), (status, hdrs, body, _) in zip(third_reqs, third):
+                    require(status == 200 and hdrs.get("X-Cache") == "hit"
+                            and body == bodies[path], f"{path}: {status} {hdrs.get('X-Cache')}")
+                third_tiers = by_tier(m4, m3)
+                require(third_tiers["disk_hit"] == len(third_reqs), f"third pass: {third_tiers}")
+                third_launches = {k: h5["kernels"][k] - h4["kernels"][k] for k in h5["kernels"]}
+                require(all(v == 0 for v in third_launches.values()),
+                        f"the disk hits launched {third_launches}")
+            finally:
+                client.close()
+            require(srv.stop() == 0, f"the restarted port's exit: {srv.log()}")
+            restart_s = srv.startup_s
+        return {
+            "phase": "path_disk", "tiles": DISK_TILES, "memory_mb": DISK_MEMORY_MB,
+            "memory_entries": memory_entries, "spilled": spilled,
+            "cold_tiles_per_s": DISK_TILES / cold_s, "warm_tiles_per_s": DISK_TILES / warm_s,
+            "disk_tiles_per_s_after_restart": len(third_reqs) / third_s,
+            "warm_by_tier": warm_tiers, "after_restart_by_tier": third_tiers,
+            "journal_bytes": journal_before, "files": len(files),
+            "file_bytes": sum(os.path.getsize(os.path.join(spill, n)) for n in files),
+            "manifest_after_restart": manifest, "restart_startup_s": restart_s,
+            "launches": cold_launches, "launches_after_restart": third_launches,
+            "seconds": time.perf_counter() - t0,
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def smi_line() -> str:
@@ -3700,8 +4184,8 @@ def main(argv=None) -> int:
     p.add_argument("--config-requests", type=int, default=256,
                    help="timed requests of path_config (at most --requests)")
     p.add_argument("--paths-only", action="store_true",
-                   help="only build, then the path (dynamic), path_obs, path_prefetch, path_render "
-                        "and path_config "
+                   help="only build, then the path (dynamic), path_obs, path_prefetch, "
+                        "path_session, path_render, path_config and path_disk "
                         "phases, e.g. to pair two versions with --port-root (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
@@ -3760,8 +4244,10 @@ def main(argv=None) -> int:
             emit(path)
             emit(drive_obs(registry, data, path_timed[0], args.seed))
             emit(drive_prefetch(registry, data, args.seed))
+            emit(drive_session(registry, data, args.seed))
             emit(drive_render(registry, stack, args.seed, args.render_requests))
             emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
+            emit(drive_disk(registry, data))
             print(smi_line(), flush=True)
             return 0
         t0 = time.perf_counter()
@@ -3822,6 +4308,8 @@ def main(argv=None) -> int:
         emit(obs)
         prefetch = drive_prefetch(registry, data, args.seed)
         emit(prefetch)
+        session = drive_session(registry, data, args.seed)
+        emit(session)
         rle = drive_path(registry, data, args.seed, args.rle_requests, "rle", "pallas_dense",
                          launched=("filter", "bitpack_dense"), idle=("bitpack",))
         require(rle["plane_cache"]["hits"] > 0, "plane cache had no hits (rle)")
@@ -3858,9 +4346,12 @@ def main(argv=None) -> int:
         for line in drive_viewer(zarr_fx["registry"], img4, args.seed):
             emit(line)
         emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
-        # each kernel's launches come from the phase that runs it
-        launches = {"filter": sum(ph["launches"]["filter"] for ph in (path, obs, prefetch)),
-                    "bitpack": sum(ph["launches"]["bitpack"] for ph in (path, obs, prefetch)),
+        disk = drive_disk(registry, data)
+        emit(disk)
+        # each kernel's launches come from the phases that run it
+        main_phases = (path, obs, prefetch, session, disk)
+        launches = {"filter": sum(ph["launches"]["filter"] for ph in main_phases),
+                    "bitpack": sum(ph["launches"]["bitpack"] for ph in main_phases),
                     "bitpack_dense": rle["launches"]["bitpack_dense"],
                     "filter_render_rgb8": render["launches"]["filter"],
                     "bitpack_render_rle": render["launches"]["bitpack"],

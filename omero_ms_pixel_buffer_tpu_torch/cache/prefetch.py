@@ -101,6 +101,13 @@ class ViewportPrefetcher:
         )
         self._streams: "OrderedDict[tuple, _Stream]" = OrderedDict()
         self._max_streams = max_streams
+        # viewport-true speculation: the session plane reports the real
+        # viewport rectangle of (session, image) over the live channel;
+        # when present it supersedes the fixed-width span band. Written
+        # on the serving loop, dropped from the resolver's refresh thread
+        # on invalidation, so it shares _extents_lock; bounded by
+        # max_streams
+        self._viewports: "OrderedDict[tuple, dict]" = OrderedDict()
         self._worker: Optional[asyncio.Task] = None
         # close-in-progress latch, checked by _run between items: the
         # fetch path bounds its wait with wait_for(shield(...)), and a
@@ -128,8 +135,6 @@ class ViewportPrefetcher:
             "observed": 0, "enqueued": 0, "warmed": 0, "shed": 0,
             "already_cached": 0, "dropped_queue_full": 0, "failed": 0,
             "pruned_off_image": 0, "suppressed_sweep": 0,
-            # the session plane's viewport rectangles (JAX note_viewport)
-            # are not ported: the count stays for /healthz's JAX shape
             "viewport_true": 0,
         }
 
@@ -188,6 +193,49 @@ class ViewportPrefetcher:
         for region, resolution in self._predict(ctx, dx, dy):
             self._enqueue(ctx, region, resolution)
 
+    # -- viewport-true geometry ----------------------------------------
+
+    def note_viewport(self, session_key: str, image_id: int, rect: dict) -> bool:
+        """Record a session's reported viewport rectangle (``{"x", "y",
+        "w", "h"}`` in level pixels, optional ``"zoom"`` = resolution
+        level). Later predictions for that (session, image) cover the
+        rectangle's trajectory instead of the span band. False on a
+        nonsense rectangle (the session plane answers it 400)."""
+        try:
+            x, y = int(rect["x"]), int(rect["y"])
+            w, h = int(rect["w"]), int(rect["h"])
+        except (KeyError, TypeError, ValueError):
+            return False
+        if w <= 0 or h <= 0 or x < 0 or y < 0:
+            return False
+        zoom = rect.get("zoom")
+        if zoom is not None:
+            try:
+                zoom = int(zoom)
+            except (TypeError, ValueError):
+                return False
+        entry = {"x": x, "y": y, "w": w, "h": h, "zoom": zoom}
+        key = (session_key, image_id)
+        with self._extents_lock:
+            self._viewports[key] = entry
+            self._viewports.move_to_end(key)
+            while len(self._viewports) > self._max_streams:
+                self._viewports.popitem(last=False)
+        return True
+
+    def _viewport_for(self, ctx: TileCtx) -> Optional[dict]:
+        with self._extents_lock:
+            rect = self._viewports.get((ctx.omero_session_key, ctx.image_id))
+        if rect is None:
+            return None
+        # a rectangle reported at another level is another pixel space:
+        # it supersedes the band only when the levels agree (or the
+        # client did not say)
+        if rect["zoom"] is not None and ctx.resolution is not None \
+                and rect["zoom"] != ctx.resolution:
+            return None
+        return rect
+
     def _extent(self, image_id: int, resolution) -> Optional[tuple]:
         """Memoized plane extent per (image, level); None = unknown
         (no pruning — the pipeline stays the backstop)."""
@@ -213,7 +261,9 @@ class ViewportPrefetcher:
         (the rectangle the viewport is about to expose — spatially
         adjacent by construction, so the batcher fuses the band into
         one super-tile), plus the next-zoom tile under the new
-        center. ``viewport_span=0`` degrades to the linear
+        center. A viewport the session plane reported
+        (``note_viewport``) replaces the band with the tiles its rectangle
+        exposes. ``viewport_span=0`` degrades to the linear
         continuation + nearest perpendicular neighbors. Off-image
         predictions are pruned HERE with bounds math (the extent
         resolves from the open-buffer cache the stream's first tile
@@ -235,29 +285,53 @@ class ViewportPrefetcher:
             out.append((RegionDef(x, y, w, h), res))
 
         if dx or dy:
-            span = self.viewport_span
-            for i in range(1, self.lookahead + 1):
-                nx, ny = r.x + dx * i, r.y + dy * i
-                add(nx, ny, r.width, r.height, ctx.resolution)
-                # the perpendicular band at this step: the
-                # viewport is taller/wider than one tile, so the
-                # pan exposes a whole row/column, not a line of
-                # single tiles
-                offs = (
-                    range(1, span + 1) if span
-                    else ((1,) if i == 1 else ())
-                )
-                for k in offs:
-                    if dx == 0:
-                        add(nx - k * r.width, ny, r.width, r.height,
-                            ctx.resolution)
-                        add(nx + k * r.width, ny, r.width, r.height,
-                            ctx.resolution)
-                    else:
-                        add(nx, ny - k * r.height, r.width, r.height,
-                            ctx.resolution)
-                        add(nx, ny + k * r.height, r.width, r.height,
-                            ctx.resolution)
+            rect = self._viewport_for(ctx)
+            if rect is not None:
+                # viewport-true: the tiles the reported rectangle exposes
+                # as it slides along the motion vector, on the tile grid,
+                # at every lookahead step, at most 64 a step (a
+                # pathological rectangle cannot flood the queue)
+                self._stats["viewport_true"] += 1
+                for i in range(1, self.lookahead + 1):
+                    vx, vy = rect["x"] + dx * i, rect["y"] + dy * i
+                    col0 = max(0, vx) // r.width
+                    col1 = max(0, vx + rect["w"] - 1) // r.width
+                    row0 = max(0, vy) // r.height
+                    row1 = max(0, vy + rect["h"] - 1) // r.height
+                    budget = 64
+                    for row in range(row0, row1 + 1):
+                        for col in range(col0, col1 + 1):
+                            if budget <= 0:
+                                break
+                            budget -= 1
+                            add(col * r.width, row * r.height, r.width, r.height,
+                                ctx.resolution)
+                        if budget <= 0:
+                            break
+            else:
+                span = self.viewport_span
+                for i in range(1, self.lookahead + 1):
+                    nx, ny = r.x + dx * i, r.y + dy * i
+                    add(nx, ny, r.width, r.height, ctx.resolution)
+                    # the perpendicular band at this step: the
+                    # viewport is taller/wider than one tile, so the
+                    # pan exposes a whole row/column, not a line of
+                    # single tiles
+                    offs = (
+                        range(1, span + 1) if span
+                        else ((1,) if i == 1 else ())
+                    )
+                    for k in offs:
+                        if dx == 0:
+                            add(nx - k * r.width, ny, r.width, r.height,
+                                ctx.resolution)
+                            add(nx + k * r.width, ny, r.width, r.height,
+                                ctx.resolution)
+                        else:
+                            add(nx, ny - k * r.height, r.width, r.height,
+                                ctx.resolution)
+                            add(nx, ny + k * r.height, r.width, r.height,
+                                ctx.resolution)
         if ctx.resolution is not None and ctx.resolution > 0:
             # zoom-in prediction: the finer level's tile under this
             # tile's center (OMERO levels halve per step), aligned to
@@ -312,11 +386,14 @@ class ViewportPrefetcher:
 
     def invalidate_image(self, image_id: int) -> None:
         """Metadata-change hook: drop memoized extents (a re-imported
-        image can change size; a stale extent would mis-prune).
-        Called from the resolver's refresh thread."""
+        image can change size; a stale extent would mis-prune) and the
+        image's reported viewports. Called from the resolver's refresh
+        thread."""
         with self._extents_lock:
             for key in [k for k in self._extents if k[0] == image_id]:
                 del self._extents[key]
+            for key in [k for k in self._viewports if k[1] == image_id]:
+                del self._viewports[key]
 
     # -- the low-priority worker ---------------------------------------
 

@@ -1,30 +1,54 @@
-"""The tile result cache's memory tier (counterpart of
+"""The tile result cache (counterpart of
 ``omero_ms_pixel_buffer_tpu/cache/result_cache.py``): content ETags,
-``If-None-Match`` matching, and a byte-budgeted segmented LRU of encoded
-tiles, with the optional TinyLFU admission gate (``cache/plane/
+``If-None-Match`` matching, a byte-budgeted segmented-LRU memory tier of
+encoded tiles with the optional TinyLFU admission gate (``cache/plane/
 tinylfu.py``: every get and put is recorded, and at eviction a candidate
 displaces the probation victim only when its estimated frequency is at
-least the victim's). Lookups, stores, evictions and invalidations go to
-``/metrics`` under the JAX names (``tile_cache_*``). The JAX package's
-disk tier and cluster tiers are not ported.
+least the victim's), and the optional disk tier.
+
+Disk tier (``disk_dir``): entries evicted from memory are written
+``<sha1>.tile`` (tmp + rename) on a one-thread I/O executor; a disk hit
+re-admits to memory. With ``manifest`` (default) admissions and
+evictions are journaled (``cache/plane/manifest.py``) and replayed at
+start-up, so a restart begins warm; without it leftover files are swept.
+The tier sits behind its own breaker (``cache:disk``) and fault point
+(``cache.disk``): repeated I/O errors open the breaker and the tier drops
+out. A broken cache never fails a request: every ``get`` and ``put``
+catches, counts, and degrades to pass-through.
+
+Lookups, stores, evictions and invalidations go to ``/metrics`` under the
+JAX names (``tile_cache_*``). The cluster coordinator's enumerations
+(``hot_entries``, ``warm_keys``) belong to the fleet plane and are not
+ported.
 """
 
 from __future__ import annotations
 
+import asyncio
+import concurrent.futures
 import hashlib
+import logging
+import os
 import threading
 import time
 import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
+from ..resilience.breaker import BreakerOpenError, for_dependency
+from ..resilience.faultinject import INJECTOR
+from ..resilience.timeouts import io_timeout_s
 from ..utils.metrics import REGISTRY
 
+log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.cache")
+
 # the JAX package's cache defaults (cache: memory-mb, protected-fraction,
-# max-entry-kb); the front takes them, and max-age-s, from its config
+# max-entry-kb, disk-mb); the front takes them, and max-age-s, from its
+# config
 MEMORY_BYTES = 256 << 20
 PROTECTED_FRACTION = 0.8
 MAX_ENTRY_BYTES = 4096 << 10
+DISK_BYTES = 1 << 30
 
 CACHE_REQUESTS = REGISTRY.counter(
     "tile_cache_requests_total",
@@ -51,7 +75,12 @@ _LIVE_CACHES: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _bytes_by_tier() -> Dict[tuple, float]:
-    return {(("tier", "memory"),): float(sum(c.memory.nbytes for c in list(_LIVE_CACHES)))}
+    caches = list(_LIVE_CACHES)
+    out = {(("tier", "memory"),): float(sum(c.memory.nbytes for c in caches))}
+    disk = [c.disk.nbytes for c in caches if c.disk is not None]
+    if disk:
+        out[(("tier", "disk"),)] = float(sum(disk))
+    return out
 
 
 CACHE_BYTES = REGISTRY.gauge_fn(
@@ -82,15 +111,17 @@ def etag_matches(if_none_match: str, etag: str) -> bool:
 
 
 class CachedTile:
-    """One memoized response: encoded bytes, validator, reply filename."""
+    """One memoized response: encoded bytes, validator (default: the
+    content ETag), reply filename and the monotonic time it was stored."""
 
     __slots__ = ("body", "etag", "filename", "stored_at")
 
-    def __init__(self, body: bytes, filename: str = ""):
+    def __init__(self, body: bytes, etag: Optional[str] = None, filename: str = "",
+                 stored_at: Optional[float] = None):
         self.body = body
-        self.etag = make_etag(body)
+        self.etag = etag if etag is not None else make_etag(body)
         self.filename = filename
-        self.stored_at = time.monotonic()
+        self.stored_at = time.monotonic() if stored_at is None else stored_at
 
     @property
     def nbytes(self) -> int:
@@ -214,24 +245,207 @@ class SegmentedLRU:
                     "max_bytes": self.max_bytes, "hits": self.hits, "misses": self.misses}
 
 
+class DiskTier:
+    """Spill directory with an in-memory LRU index. Every method but
+    ``peek_stored_at`` runs on the cache's I/O thread: blocking file I/O
+    is the point. With a ``manifest`` (``cache/plane/manifest.py``) the
+    tier is restartable: admissions and evictions are journaled and
+    replayed at construction. Without one, leftover files are swept at
+    construction, then the directory is fsynced."""
+
+    def __init__(self, directory: str, max_bytes: int, manifest=None):
+        self.directory = directory
+        self.max_bytes = max_bytes
+        self.manifest = manifest
+        # key -> (path, nbytes, etag, filename, stored_at)
+        self._index: "OrderedDict[str, tuple]" = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        os.makedirs(directory, exist_ok=True)
+        if manifest is not None:
+            self._restore(manifest)
+            return
+        swept = False
+        for stale in os.listdir(directory):
+            if stale.endswith((".tile", ".tmp")):
+                try:
+                    os.unlink(os.path.join(directory, stale))
+                    swept = True
+                except OSError:
+                    pass
+        if swept:
+            # without this a crash after the sweep can bring the files back,
+            # and a manifest enabled on the next start would replay ghosts
+            from .plane.manifest import fsync_dir
+
+            fsync_dir(directory)
+
+    def _restore(self, manifest) -> None:
+        """Warm start: the journal replayed and reconciled, the index
+        rebuilt in admission order; a smaller ``max_bytes`` than before
+        evicts from the LRU end."""
+        with self._lock:
+            for key, nbytes, etag, filename, stored_at in manifest.restore(self._fname):
+                path = os.path.join(self.directory, self._fname(key))
+                self._index[key] = (path, nbytes, etag, filename, stored_at)
+                self._bytes += nbytes
+            while self._bytes > self.max_bytes and len(self._index) > 1:
+                key, meta = self._index.popitem(last=False)
+                self._bytes -= meta[1]
+                manifest.record_evict(key)
+                try:
+                    os.unlink(meta[0])
+                except OSError:
+                    pass
+
+    @staticmethod
+    def _fname(key: str) -> str:
+        return hashlib.sha1(key.encode()).hexdigest() + ".tile"
+
+    def get(self, key: str) -> Optional[CachedTile]:
+        with self._lock:
+            meta = self._index.get(key)
+            if meta is not None:
+                self._index.move_to_end(key)
+            else:
+                self.misses += 1
+        if meta is None:
+            return None
+        path, _nbytes, etag, filename, stored_at = meta
+        with open(path, "rb") as fh:
+            body = fh.read()
+        with self._lock:
+            self.hits += 1
+        return CachedTile(body, etag, filename, stored_at)
+
+    def peek_stored_at(self, key: str) -> Optional[float]:
+        """The entry's ``stored_at``, or None: index only (no file I/O, no
+        promotion, no hit counted), so safe on the serving loop."""
+        with self._lock:
+            meta = self._index.get(key)
+            return None if meta is None else meta[4]
+
+    def put(self, key: str, entry: CachedTile) -> None:
+        if entry.nbytes > self.max_bytes:
+            return
+        path = os.path.join(self.directory, self._fname(key))
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(entry.body)
+        os.replace(tmp, path)
+        victims: List[Tuple[str, str]] = []  # (key, path)
+        with self._lock:
+            old = self._index.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._index[key] = (path, entry.nbytes, entry.etag, entry.filename,
+                                entry.stored_at)
+            self._bytes += entry.nbytes
+            while self._bytes > self.max_bytes and len(self._index) > 1:
+                k, meta = self._index.popitem(last=False)
+                self._bytes -= meta[1]
+                victims.append((k, meta[0]))
+        for _k, victim_path in victims:
+            CACHE_EVICTIONS.inc(tier="disk")
+            try:
+                os.unlink(victim_path)
+            except OSError:
+                pass
+        if self.manifest is not None:
+            # journaled after the data: a crash between the rename and
+            # this append leaves an orphan file (reconciled away at the
+            # next start), never an admit record without data
+            self.manifest.record_admit(key, entry.nbytes, entry.etag, entry.filename,
+                                       entry.stored_at)
+            for k, _p in victims:
+                self.manifest.record_evict(k)
+            self._maybe_compact()
+
+    def remove_prefix(self, prefix: str) -> int:
+        with self._lock:
+            victims = [(k, meta) for k, meta in self._index.items() if k.startswith(prefix)]
+            for k, meta in victims:
+                del self._index[k]
+                self._bytes -= meta[1]
+        for _, meta in victims:
+            try:
+                os.unlink(meta[0])
+            except OSError:
+                pass
+        if self.manifest is not None and victims:
+            for k, _meta in victims:
+                self.manifest.record_evict(k)
+            self._maybe_compact()
+        return len(victims)
+
+    def _maybe_compact(self) -> None:
+        """Rewrite a grown journal down to the live index."""
+        if not self.manifest.needs_compaction:
+            return
+        with self._lock:
+            live = [(k, meta[1], meta[2], meta[3], meta[4]) for k, meta in self._index.items()]
+        self.manifest.compact(live)
+
+    @property
+    def nbytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._index)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._index), "bytes": self._bytes,
+                    "max_bytes": self.max_bytes, "hits": self.hits, "misses": self.misses}
+
+
 class TileResultCache:
-    """The memory tier behind the front: ``get`` and ``put`` by content key,
-    entries above ``max_entry_bytes`` never admitted, entries older than
-    ``ttl_s`` missed (0, the JAX default: no expiry, invalidation purges).
-    ``invalidate_image`` drops an image's entries and bumps the
-    generation, so a fill that began before it (``put(...,
-    generation=)``) is not admitted. ``admission`` is the memory tier's
-    TinyLFU gate (None: the plain SLRU)."""
+    """The tiers behind the front: ``get`` (async: memory, then disk) and
+    ``put`` by content key, entries above ``max_entry_bytes`` never
+    admitted, entries older than ``ttl_s`` missed (0, the JAX default: no
+    expiry, invalidation purges). ``invalidate_image`` drops an image's
+    entries from both tiers and bumps the generation, so a fill that began
+    before it (``put(..., generation=)``, or a disk read in flight) is not
+    admitted. ``admission`` is the memory tier's TinyLFU gate (None: the
+    plain SLRU). ``disk_dir`` turns the disk tier on (``disk_bytes``
+    budget; ``manifest`` journals it); a directory that cannot be used
+    leaves the cache memory-only."""
 
     def __init__(self, memory_bytes: int = MEMORY_BYTES,
                  max_entry_bytes: int = MAX_ENTRY_BYTES,
                  protected_fraction: float = PROTECTED_FRACTION, ttl_s: float = 0.0,
-                 admission=None):
+                 admission=None, disk_dir: Optional[str] = None,
+                 disk_bytes: int = DISK_BYTES, manifest: bool = True):
         self.memory = SegmentedLRU(memory_bytes, protected_fraction, admission=admission)
         self.max_entry_bytes = max_entry_bytes
         self.ttl_s = ttl_s
+        # bumped on every purge: a fill (or a disk read) that began under
+        # an older generation is not admitted
         self._generation = 0
         self._generation_lock = threading.Lock()
+        self.disk: Optional[DiskTier] = None
+        self._io: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._disk_breaker = None
+        self._disk_error_logged = False
+        if disk_dir:
+            try:
+                disk_manifest = None
+                if manifest:
+                    from .plane.manifest import DiskManifest
+
+                    disk_manifest = DiskManifest(disk_dir)
+                self.disk = DiskTier(disk_dir, disk_bytes, manifest=disk_manifest)
+                self._io = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="tile-cache-io")
+                self._disk_breaker = for_dependency("cache:disk")
+            except Exception:
+                # a bad spill directory must not take the service down
+                log.exception("disk cache tier unavailable at %s; memory-only", disk_dir)
+                self.disk = None
         _LIVE_CACHES.add(self)
 
     def _fresh(self, entry: Optional[CachedTile]) -> Optional[CachedTile]:
@@ -240,42 +454,206 @@ class TileResultCache:
             return None
         return entry
 
-    def get(self, key: str) -> Optional[CachedTile]:
-        entry = self._fresh(self.memory.get(key))
-        CACHE_REQUESTS.inc(tier="memory", outcome="miss" if entry is None else "hit")
-        return entry
+    async def get(self, key: str) -> Optional[CachedTile]:
+        """Memory, then disk (re-admitting to memory); None on a miss or on
+        any cache failure (pass-through)."""
+        try:
+            await INJECTOR.fire_async("cache.memory")
+            entry = self._fresh(self.memory.get(key))
+            if entry is not None:
+                CACHE_REQUESTS.inc(tier="memory", outcome="hit")
+                return entry
+            CACHE_REQUESTS.inc(tier="memory", outcome="miss")
+            if not self._disk_usable():
+                return None
+            # the generation before the executor hop: a purge racing the
+            # read blocks the re-admission below
+            generation = self.generation()
+            fut = asyncio.get_running_loop().run_in_executor(self._io, self._disk_get, key)
+            timeout = io_timeout_s()
+            try:
+                entry = await (asyncio.wait_for(fut, timeout) if timeout > 0 else fut)
+            except asyncio.TimeoutError:
+                # a hung disk reads as a miss; the breaker stops new work
+                # queueing behind the stuck thread
+                self._disk_failure()
+                CACHE_REQUESTS.inc(tier="disk", outcome="miss")
+                return None
+            entry = self._fresh(entry)
+            if entry is not None:
+                evicted = self._put_guarded(key, entry, generation)
+                if evicted is None:
+                    # a purge raced the read: the bytes may predate it
+                    CACHE_REQUESTS.inc(tier="disk", outcome="miss")
+                    return None
+                # the displaced spill to disk; the key just read is already
+                # there (a disk hit does not remove it)
+                self._spill_evicted([(k, e) for k, e in evicted if k != key])
+                CACHE_REQUESTS.inc(tier="disk", outcome="hit")
+                return entry
+            CACHE_REQUESTS.inc(tier="disk", outcome="miss")
+            return None
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            CACHE_ERRORS.inc(tier="get")
+            log.exception("cache get failed; passing through")
+            return None
 
     def contains(self, key: str) -> bool:
-        """The door gate's probe: no promotion, no hit counted."""
-        return self._fresh(self.memory.peek(key)) is not None
+        """Memory-only presence probe (no promotion, no hit counted): the
+        prefetcher's dedupe check."""
+        try:
+            return self._fresh(self.memory.peek(key)) is not None
+        except Exception:
+            return False
+
+    def contains_any_tier(self, key: str) -> bool:
+        """Presence probe over memory and the disk tier's index (no file
+        I/O, no promotion), under the TTL ``get`` applies: the door gate's
+        hit exemption, since a disk-resident entry serves without a
+        scheduler slot like a memory hit."""
+        if self.contains(key):
+            return True
+        if self.disk is None:
+            return False
+        try:
+            stored_at = self.disk.peek_stored_at(key)
+        except Exception:
+            return False
+        if stored_at is None:
+            return False
+        return not (self.ttl_s > 0 and time.monotonic() - stored_at > self.ttl_s)
 
     def generation(self) -> int:
         with self._generation_lock:
             return self._generation
 
-    def put(self, key: str, entry: CachedTile, generation: Optional[int] = None) -> None:
-        if entry.nbytes > self.max_entry_bytes:
-            return
+    def _put_guarded(self, key: str, entry: CachedTile, generation: Optional[int]
+                     ) -> Optional[List[Tuple[str, CachedTile]]]:
+        """Insert into memory under the generation lock: None when a purge
+        ran since ``generation``, else what was evicted."""
         with self._generation_lock:
             if generation is not None and generation != self._generation:
+                return None
+            return self.memory.put(key, entry)
+
+    def put(self, key: str, entry: CachedTile, generation: Optional[int] = None) -> None:
+        try:
+            if entry.nbytes > self.max_entry_bytes:
+                return
+            evicted = self._put_guarded(key, entry, generation)
+            if evicted is None:
                 return  # an invalidation ran while this entry was made
-            evicted = self.memory.put(key, entry)
-        CACHE_STORES.inc(tier="memory")
-        if evicted:
-            CACHE_EVICTIONS.inc(len(evicted), tier="memory")
+            CACHE_STORES.inc(tier="memory")
+            self._spill_evicted(evicted)
+        except Exception:
+            CACHE_ERRORS.inc(tier="put")
+            log.exception("cache put failed; passing through")
+
+    def _disk_usable(self) -> bool:
+        """No disk work is queued while the tier's breaker is open: a hung
+        disk wedges the one I/O thread."""
+        return (self.disk is not None and self._io is not None
+                and self._disk_breaker.state != "open")
+
+    def _spill_evicted(self, evicted: List[Tuple[str, CachedTile]]) -> None:
+        """Count the displaced entries and spill them to disk, never
+        awaited: a slow disk costs the eviction, not the reply."""
+        if not evicted:
+            return
+        CACHE_EVICTIONS.inc(len(evicted), tier="memory")
+        if self._disk_usable():
+            self._io.submit(self._disk_spill, evicted)
+
+    # -- the disk tier's work (I/O thread) -----------------------------
+
+    def _disk_get(self, key: str) -> Optional[CachedTile]:
+        """A breaker-gated read: an open breaker or an I/O error is a miss."""
+        try:
+            self._disk_breaker.allow()
+        except BreakerOpenError:
+            return None
+        try:
+            INJECTOR.fire("cache.disk")
+            entry = self.disk.get(key)
+        except Exception:
+            self._disk_failure()
+            return None
+        self._disk_breaker.record_success()
+        return entry
+
+    def _disk_spill(self, evicted: List[Tuple[str, CachedTile]]) -> None:
+        try:
+            self._disk_breaker.allow()
+        except BreakerOpenError:
+            return
+        try:
+            INJECTOR.fire("cache.disk")
+            for key, entry in evicted:
+                self.disk.put(key, entry)
+                CACHE_STORES.inc(tier="disk")
+        except Exception:
+            self._disk_failure()
+            return
+        self._disk_breaker.record_success()
+
+    def _disk_failure(self) -> None:
+        self._disk_breaker.record_failure()
+        if not self._disk_error_logged:
+            self._disk_error_logged = True
+            log.warning("disk cache tier failing; memory-only until its breaker heals",
+                        exc_info=True)
+
+    # -- invalidation --------------------------------------------------
 
     def invalidate_image(self, image_id: int) -> int:
-        """Drop every cached tile of one image (any thread); returns how
-        many."""
-        with self._generation_lock:
-            self._generation += 1
-            removed = self.memory.remove_prefix(f"img={int(image_id)}|")
-        if removed:
-            CACHE_INVALIDATIONS.inc(removed, tier="memory")
+        """Drop every cached tile of one image from both tiers (any
+        thread; the disk's share is queued on the I/O thread); returns how
+        many left memory."""
+        prefix = f"img={int(image_id)}|"
+        removed = 0
+        try:
+            with self._generation_lock:
+                self._generation += 1
+                removed = self.memory.remove_prefix(prefix)
+            if removed:
+                CACHE_INVALIDATIONS.inc(removed, tier="memory")
+            if self.disk is not None and self._io is not None:
+                self._io.submit(self._disk_invalidate, prefix)
+        except Exception:
+            CACHE_ERRORS.inc(tier="invalidate")
+            log.exception("cache invalidation failed for image %s", image_id)
         return removed
+
+    def _disk_invalidate(self, prefix: str) -> None:
+        try:
+            removed = self.disk.remove_prefix(prefix)
+            if removed:
+                CACHE_INVALIDATIONS.inc(removed, tier="disk")
+        except Exception:
+            self._disk_failure()
+
+    # -- lifecycle, observability --------------------------------------
 
     def snapshot(self) -> dict:
         out = {"enabled": True, "memory": self.memory.snapshot()}
         if self.memory.admission is not None:
             out["admission"] = self.memory.admission.snapshot()
+        if self.disk is not None:
+            disk = self.disk.snapshot()
+            disk["breaker"] = self._disk_breaker.state
+            if self.disk.manifest is not None:
+                disk["manifest"] = self.disk.manifest.snapshot()
+            out["disk"] = disk
         return out
+
+    def close(self) -> None:
+        """Stop the I/O thread without waiting (a hung disk must not wedge
+        shutdown) and close the journal; a spill racing this reads as a
+        disk failure and its file reconciles as an orphan."""
+        _LIVE_CACHES.discard(self)
+        if self._io is not None:
+            self._io.shutdown(wait=False)
+        if self.disk is not None and self.disk.manifest is not None:
+            self.disk.manifest.close()

@@ -1,10 +1,11 @@
 """Iris RESTful adapter, the WSI dialect of OpenSeadragon's
 IrisTileSource (copy of ``omero_ms_pixel_buffer_tpu/http/protocols/
-iris.py``, without the session-plane capabilities, which wait for the
-port's session plane).
+iris.py``).
 
 - ``GET /iris/{image}/metadata``: the extent and one entry per layer,
-  coarsest first (Iris order), with its tile grid and scale;
+  coarsest first (Iris order), with its tile grid and scale, and, with
+  the session plane on, its ``capabilities`` (the live channel and the
+  annotations of the image);
 - ``GET /iris/{image}/layers/{layer}/tiles/{tile}``: tiles by flat
   row-major index over the layer's 256 grid (``?format=png|jpeg|jpg``).
 
@@ -35,27 +36,36 @@ def layer_grid(level_sizes: List[Tuple[int, int]], layer: int, tile_size: int):
     return (res, (lw + tile_size - 1) // tile_size, (lh + tile_size - 1) // tile_size, lw, lh)
 
 
-def metadata_document(level_sizes: List[Tuple[int, int]], tile_size: int) -> dict:
+def metadata_document(level_sizes: List[Tuple[int, int]], tile_size: int,
+                      image_id: int = 0, session_plane: bool = False) -> dict:
     w0, h0 = level_sizes[0]
     layers = []
     for layer in range(len(level_sizes)):
         _res, x_tiles, y_tiles, lw, _lh = layer_grid(level_sizes, layer, tile_size)
         layers.append({"x_tiles": x_tiles, "y_tiles": y_tiles, "scale": max(1, round(w0 / lw))})
-    return {
+    doc = {
         "type": "iris_slide_metadata",
         "format": "png",
         "encoding": "image",
         "extent": {"width": w0, "height": h0, "tile_size": tile_size, "layers": layers},
     }
+    if session_plane:
+        # the session plane's push and annotation surfaces of this image
+        doc["capabilities"] = {"push": f"/session/{image_id}/live",
+                               "annotations": f"/annotations/{image_id}"}
+    return doc
 
 
 async def handle_metadata(server, groups, query, headers, key):
     count("iris", "metadata")
-    sizes, err = await levels_or_response(server, int(groups[0]), key)
+    image_id = int(groups[0])
+    sizes, err = await levels_or_response(server, image_id, key)
     if err is not None:
         return err
+    doc = metadata_document(sizes, server.tile_sizes["iris"], image_id=image_id,
+                            session_plane=server.session_channels is not None)
     return 200, {"Content-Type": "application/json"}, json.dumps(
-        metadata_document(sizes, server.tile_sizes["iris"]), separators=(",", ":")).encode()
+        doc, separators=(",", ":")).encode()
 
 
 async def handle_tile(server, groups, query, headers, key):

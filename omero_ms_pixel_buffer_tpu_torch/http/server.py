@@ -17,7 +17,8 @@ the DZI, IIIF and Iris adapters (``http/protocols/``: ``/dzi/{id}.dzi``,
 OpenMetrics 1.0 when ``Accept`` names ``application/openmetrics-text``:
 ``utils/metrics.py``), ``GET /debug/requests[?limit=N]`` and ``GET
 /debug/requests/{traceId}`` (the flight recorder's ring of kept wide
-events, when ``obs`` is on; an unknown trace id is 404), and ``OPTIONS``
+events, when ``obs`` is on; an unknown trace id is 404), the session
+plane's routes (below), and ``OPTIONS``
 on any path (the service discovery JSON). Any other method on a route, and any
 unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
 package's aiohttp app does with its catch-all OPTIONS route. HEAD answers
@@ -36,8 +37,10 @@ with the parse message, an unknown image (or one the caller's OMERO ACL
 hides, under the database metadata resolver) 404, as the JAX package
 answers. On ``/render`` a grammar error or an
 unknown LUT is a 400 with the JAX message, a channel out of range a 404,
-a projection stack over the tile budget a 413; ``annotations=`` is
-ignored, as the JAX front does without an annotation store. On
+a projection stack over the tile budget a 413; ``annotations=1`` appends
+the image's stored annotations to the ``roi=`` shapes (at most 64 in
+all), so the answer, its cache key and its ETag are those of the explicit
+``roi=`` request. On
 ``/histogram`` a bad ``bins`` or ``c`` is a 400 with the JAX message, a
 channel out of range a 404, a region whose channels exceed the tile
 budget a 413. A request whose image store's circuit breaker is open
@@ -96,17 +99,41 @@ takes (``_prefetch_fetch``: single-flight, batcher, kernels, result
 cache); ``/healthz`` ``prefetch`` holds its counts. The memory tier's
 TinyLFU gate is ``cache.tinylfu``.
 
+The session plane (``session/``, the JAX ``session:`` block, on by
+default): ``GET /session/{imageId}/live`` is a live channel, a WebSocket
+(``http/websocket.py``; ``permessage-deflate`` declined) when the client
+asks to upgrade, else server-sent events; it sends a hello, every delta
+the image's purges and annotation writes push (an annotation write sends
+``invalidate`` then ``annotations``), and pings each quiet
+``ping-interval-s``, which also revalidates the session (a revoked one
+gets ``{"type":"close","reason":"revoked"}`` and the close). Past either
+channel cap it answers 503 ``Session plane at capacity``. ``POST
+/session/{imageId}/viewport`` (and a WebSocket ``viewport`` frame)
+reports the viewer's rectangle to the prefetcher (viewport-true
+speculation). ``/annotations/{imageId}`` (POST, GET) and
+``/annotations/{imageId}/{annId}`` (GET, PUT, DELETE) are the annotation
+CRUD (``session/annotations.py``). These routes need a session but skip
+the door gate, the scheduler and the flight record, as in JAX; a request
+body reaches them when it is at most 1 MiB (a larger one reads as no
+body, so its handler answers 400, as JAX's handlers answer aiohttp's
+413). ``/healthz`` ``session`` holds the registry's and the store's
+counts.
+
+The result cache's disk tier (``cache.disk-dir``, off by default): memory
+evictions spill to files, a disk hit is re-admitted to memory, the
+manifest journal makes a restart warm, and the door gate's hit exemption
+asks both tiers (``contains_any_tier``).
+
 ``wire`` builds the whole service from a ``utils.config.Config`` (the
 JAX ``PixelBufferApp.__init__``): ``create_app`` and ``create_server``
-both go through it. Planes the port does not have are decided there:
-default-on ones start absent (one warning each, ``/healthz``
-``config.absent``), opt-in ones that are turned on stop start-up with a
-``ConfigError`` naming the key.
+both go through it. Opt-in planes the port does not have stop start-up
+with a ``ConfigError`` naming the key when they are turned on.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import http
 import json
 import logging
@@ -131,6 +158,7 @@ from ..obs import FlightRecorder, SliLayer
 from ..obs.recorder import ambient_stage, current_record, record_scope
 from ..ops.kernels import launch_counts
 from ..render.analysis import HistogramSpec
+from ..render.masks import MAX_SHAPES
 from ..render.model import RenderSpec
 from ..resilience import deadline as rdeadline
 from ..resilience import retry
@@ -146,12 +174,13 @@ from ..resilience.scheduler import (
     header_priority,
 )
 from ..runtime.native import host_engine
+from ..session import AnnotationStore, ChannelRegistry
 from ..tile_ctx import TileCtx
 from ..utils.config import Config, ConfigError
 from ..utils.loop_watchdog import LoopWatchdog
 from ..utils.metrics import REGISTRY
 from ..utils.tracing import TRACER
-from . import protocols
+from . import protocols, websocket
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.http")
 
@@ -168,6 +197,20 @@ _TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _RENDER_PATH = re.compile(r"^/render/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _HISTOGRAM_PATH = re.compile(r"^/histogram/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
 _DEBUG_TRACE_PATH = re.compile(r"^/debug/requests/([^/]+)$")
+# the session plane's routes (the JAX app registers them when
+# ``session.enabled``): path pattern -> handler name by method
+_SESSION_ROUTES = (
+    (re.compile(r"^/session/([^/]+)/live$"),
+     {"GET": "_session_live", "HEAD": "_session_live"}),
+    (re.compile(r"^/session/([^/]+)/viewport$"), {"POST": "_session_viewport"}),
+    (re.compile(r"^/annotations/([^/]+)$"),
+     {"POST": "_annotations_create", "GET": "_annotations_list", "HEAD": "_annotations_list"}),
+    (re.compile(r"^/annotations/([^/]+)/([^/]+)$"),
+     {"GET": "_annotation_get", "HEAD": "_annotation_get", "PUT": "_annotation_update",
+      "DELETE": "_annotation_delete"}),
+)
+_SSE_HEADERS = {"Content-Type": "text/event-stream", "Cache-Control": "no-cache",
+                "X-Accel-Buffering": "no"}
 # routes that need no session (the JAX session middleware's exemptions)
 _SESSION_EXEMPT = ("/healthz", "/metrics")
 # the routes the door gate and the scheduler serve: the native endpoints
@@ -179,7 +222,15 @@ _ROUTE_METHODS = "GET,HEAD,OPTIONS"
 # the discovery document (getMicroserviceDetails)
 DISCOVERY = {"provider": "PixelBufferMicroservice", "version": __version__, "features": []}
 _MAX_HEADERS = 100
+# request bodies: up to aiohttp's client_max_size reach the handler; a
+# larger one (up to _MAX_DRAIN) is read and dropped, and the handler sees
+# None, as a JAX handler sees aiohttp's 413 inside its body parse
 _MAX_BODY = 1 << 20
+_MAX_DRAIN = 64 << 20
+# how long a closing WebSocket waits for the client's close frame, and
+# how long shutdown waits for the live channels to end
+_WS_CLOSE_TIMEOUT_S = 10.0
+_LIVE_SHUTDOWN_S = 2.0
 # a session and image pair that took the full path stays authorized for
 # result-cache hits this long (the JAX resolver's session-context TTL)
 AUTHZ_TTL_S = 10.0
@@ -245,7 +296,8 @@ class TileServer:
         self.cache = TileResultCache(memory_bytes=cc.memory_mb << 20,
                                      max_entry_bytes=cc.max_entry_kb << 10,
                                      protected_fraction=cc.protected_fraction, ttl_s=cc.ttl_s,
-                                     admission=admission)
+                                     admission=admission, disk_dir=cc.disk_dir,
+                                     disk_bytes=cc.disk_mb << 20, manifest=cc.manifest)
         self.max_age_s = int(cc.max_age_s)
         self.etag_precheck = cc.etag_precheck
         self._flight = SingleFlight()
@@ -277,6 +329,17 @@ class TileServer:
                 lookahead=pf.lookahead, viewport_span=pf.viewport_span,
                 extent_fn=self.pipeline.pixels_service.peek_extent,
                 sweep_detector=self.sweep_detector)
+        # the session plane: live channels and annotations
+        self.session_channels: Optional[ChannelRegistry] = None
+        self.annotations: Optional[AnnotationStore] = None
+        sp = config.session
+        if sp.enabled:
+            self.session_channels = ChannelRegistry(
+                max_channels=sp.max_channels, max_per_image=sp.max_per_image,
+                queue_size=sp.queue_size, recorder=self.recorder)
+            self.annotations = AnnotationStore(max_images=sp.max_annotation_images,
+                                               max_per_image=sp.max_annotations_per_image)
+        self.ping_interval_s = sp.ping_interval_s
         wd = res.watchdog
         self.watchdog = (LoopWatchdog(interval_s=wd.interval_ms / 1000.0,
                                       warn_after_s=wd.warn_ms / 1000.0)
@@ -301,6 +364,7 @@ class TileServer:
         self.kernel_libraries: Dict[str, dict] = {}  # set by ``wire`` on CUDA
         self._server: Optional[asyncio.AbstractServer] = None
         self._writers: set = set()  # open connections, closed at shutdown
+        self._live: set = set()  # connections a live channel owns
         self.port: Optional[int] = None
 
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
@@ -310,11 +374,20 @@ class TileServer:
             self.watchdog.start()  # on the serving loop's thread
         if self.prefetcher is not None:
             self.prefetcher.start()
+        if self.session_channels is not None:
+            # delta pushes come from resolver threads: they land on this loop
+            self.session_channels.start(asyncio.get_running_loop())
         self._server = await asyncio.start_server(self._client, host, port)
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
 
     async def close(self) -> None:
+        if self.session_channels is not None:
+            # the close sentinel to every live channel; their connections
+            # end (an SSE EOF, a WebSocket close) before the rest is cut
+            await self.session_channels.close()
+            if self._live:
+                await asyncio.wait(list(self._live), timeout=_LIVE_SHUTDOWN_S)
         if self._server is not None:
             self._server.close()
             for writer in list(self._writers):
@@ -326,6 +399,7 @@ class TileServer:
         if self.prefetcher is not None:
             await self.prefetcher.close()
         await self.worker.close()
+        self.cache.close()
         if TRACER.reporter is not None:  # flush the spans, as the JAX app's cleanup
             TRACER.reporter.close()
             TRACER.reporter = None
@@ -343,9 +417,19 @@ class TileServer:
                 request = await self._read_request(reader)
                 if request is None:
                     break
-                method, target, version, headers = request
+                method, target, version, headers, body = request
                 keep_alive = _keep_alive(version, headers)
-                status, out_headers, body = await self._dispatch(method, target, headers)
+                answer = await self._dispatch(method, target, headers, body)
+                if isinstance(answer, _Takeover):
+                    # a live channel owns the connection until its pump ends
+                    task = asyncio.current_task()
+                    self._live.add(task)
+                    try:
+                        await answer.run(reader, writer)
+                    finally:
+                        self._live.discard(task)
+                    break
+                status, out_headers, body = answer
                 _write_response(writer, status, out_headers, body, keep_alive,
                                 head=method == "HEAD")
                 await writer.drain()
@@ -385,28 +469,37 @@ class TileServer:
             raise _BadRequest("Too many headers")
         if "transfer-encoding" in headers:
             raise _BadRequest("Request bodies are not accepted")
-        length = int(headers.get("content-length", "0") or 0)
-        if length < 0 or length > _MAX_BODY:
+        try:
+            length = int(headers.get("content-length", "0") or 0)
+        except ValueError:
+            raise _BadRequest("Bad Content-Length") from None
+        if length < 0 or length > _MAX_DRAIN:
             raise _BadRequest("Bad Content-Length")
-        if length:
-            await reader.readexactly(length)  # discarded: GET only
-        return method, target, version, headers
+        body: Optional[bytes] = b""
+        if length > _MAX_BODY:
+            while length:  # over the limit: read and dropped
+                length -= len(await reader.readexactly(min(length, 1 << 16)))
+            body = None
+        elif length:
+            body = await reader.readexactly(length)
+        return method, target, version, headers, body
 
-    async def _dispatch(self, method: str, target: str, headers: Dict[str, str]
-                        ) -> Tuple[int, dict, bytes]:
-        """One request's answer; a request to a serving route rides a
-        flight record from here (the JAX ``obs_middleware``)."""
+    async def _dispatch(self, method: str, target: str, headers: Dict[str, str],
+                        body: Optional[bytes] = b""):
+        """One request's answer, a (status, headers, body) triple or a
+        ``_Takeover`` of the connection; a request to a serving route rides
+        a flight record from here (the JAX ``obs_middleware``)."""
         path = unquote(urlsplit(target).path)
         rec = None
         if (self.recorder is not None and method != "OPTIONS"
                 and path.startswith(SERVING_PREFIXES)):
             rec = self.recorder.start(path, method)
         if rec is None:
-            return await self._traced(method, target, headers, path, None)
+            return await self._traced(method, target, headers, path, None, body)
         status = 500
         try:
             with record_scope(rec):
-                response = await self._traced(method, target, headers, path, rec)
+                response = await self._traced(method, target, headers, path, rec, body)
             status, out_headers, _ = response
             degraded = out_headers.get("X-OMPB-Degraded")
             if degraded:
@@ -418,12 +511,12 @@ class TileServer:
         finally:
             self.recorder.complete(rec, status)
 
-    async def _traced(self, method, target, headers, path, rec):
+    async def _traced(self, method, target, headers, path, rec, body=b""):
         """The request inside a live ``http:<path>`` span when
         ``http-tracing.enabled`` (the JAX ``tracing_middleware``): it joins
         the flight record's trace and carries the record's span id."""
         if not TRACER.enabled:
-            return await self._route(method, target, headers)
+            return await self._route(method, target, headers, body)
         if rec is not None:
             span = TRACER.start_span_with_context(
                 f"http:{path}", {"traceId": rec.trace_id, "spanId": rec.parent_span_id})
@@ -431,10 +524,10 @@ class TileServer:
         else:
             span = TRACER.start_span(f"http:{path}")
         with span:
-            return await self._route(method, target, headers)
+            return await self._route(method, target, headers, body)
 
-    async def _route(self, method: str, target: str, headers: Dict[str, str]
-                     ) -> Tuple[int, dict, bytes]:
+    async def _route(self, method: str, target: str, headers: Dict[str, str],
+                     body: Optional[bytes] = b""):
         parts = urlsplit(target)
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
@@ -461,11 +554,23 @@ class TileServer:
                 m = histogram = _HISTOGRAM_PATH.match(parts.path)
             if m is None:
                 adapter = self._adapter_route(parts.path)
+        session_route = None
+        if m is None and adapter is None and not exempt and self.session_channels is not None:
+            session_route = _session_route(unquote(parts.path))
         key = None
         if not exempt:
             key, refusal = await self._session(headers.get("cookie"))
             if refusal is not None:
                 return refusal
+        if session_route is not None:
+            # behind the session check, outside the door gate, admission
+            # and the flight record, as in JAX
+            methods, groups = session_route
+            name = methods.get(method)
+            if name is None:
+                return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
+                    b"405: Method Not Allowed"
+            return await getattr(self, name)(groups, headers, key or "", body, method)
         routed = (healthz or metrics or debug is not None or m is not None
                   or adapter is not None)
         if method not in ("GET", "HEAD") or not routed:
@@ -483,6 +588,8 @@ class TileServer:
         path_params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
         if render is not None:
             ctx, error = self._render_ctx(path_params, query, key)
+            if error is None:
+                self._join_annotations(ctx, query)
         elif histogram is not None:
             ctx, error = self._histogram_ctx(path_params, query, key)
         else:
@@ -514,7 +621,7 @@ class TileServer:
                 return None
             if path.startswith(("/tile/", "/render/")):
                 probe = self._door_probe_key(path, query)
-                if probe is not None and self.cache.contains(probe):
+                if probe is not None and self.cache.contains_any_tier(probe):
                     return None
             self.scheduler.shed_at_door(priority)
             if rec is not None:
@@ -628,7 +735,7 @@ class TileServer:
         quality = self.pipeline.encode_signature()
         key = ctx.cache_key(quality)
         with ambient_stage("cache_probe"):
-            entry = self.cache.get(key)
+            entry = await self.cache.get(key)
         if entry is not None:
             if inm and self.etag_precheck and etag_matches(inm, entry.etag):
                 # the client already holds these exact bytes: revalidation
@@ -658,7 +765,7 @@ class TileServer:
                 # undegraded (no coarser level)
                 ctx.degraded = 1
                 full_res_key, key = key, ctx.cache_key(quality)
-                entry = self.cache.get(key)
+                entry = await self.cache.get(key)
                 if entry is not None and await self._authorize_cached(ctx):
                     return self._tile_response(ctx, entry, inm, "hit", degraded=1)
             try:
@@ -774,15 +881,261 @@ class TileServer:
         return True
 
     def _invalidate_image(self, image_id: int) -> None:
-        """The metadata resolver's listener (its own thread): purge the
-        image's cached tiles, authorization verdicts, open buffer, device
-        planes and decoded blocks."""
+        """The metadata resolver's listener (its own thread), and every
+        annotation write: purge the image's cached tiles (both tiers),
+        authorization verdicts, open buffer, device planes and decoded
+        blocks, then push an ``invalidate`` delta to its live channels."""
         image_id = int(image_id)
         self.cache.invalidate_image(image_id)
         if self.prefetcher is not None:
             self.prefetcher.invalidate_image(image_id)
         self._authz_purge(image_id)
         self.pipeline.invalidate_image(image_id)
+        if self.session_channels is not None:
+            # the epoch is the cluster plane's; without it None, as in JAX
+            self.session_channels.push_delta(image_id, epoch=None)
+
+    # -- the session plane ---------------------------------------------------
+
+    def _session_snapshot(self) -> dict:
+        if self.session_channels is None:
+            return {"enabled": False}
+        out = self.session_channels.snapshot()
+        out["annotations"] = self.annotations.snapshot()
+        return out
+
+    def _join_annotations(self, ctx: TileCtx, query) -> None:
+        """``/render?annotations=1``: the image's stored shapes appended to
+        the spec's masks, the joined set cut at ``MAX_SHAPES`` (explicit
+        ``roi=`` shapes first), so the key and ETag are those of the
+        explicit ``roi=`` request with the same shapes."""
+        if self.annotations is None or query.get("annotations", "").strip().lower() not in (
+                "1", "true", "yes"):
+            return
+        stored = self.annotations.shapes(ctx.image_id)
+        if stored:
+            ctx.render = dataclasses.replace(
+                ctx.render, masks=(ctx.render.masks + stored)[:MAX_SHAPES])
+
+    def _note_viewport(self, session_key: str, image_id: int, rect) -> bool:
+        if self.prefetcher is None or not isinstance(rect, dict):
+            return False
+        return self.prefetcher.note_viewport(session_key, image_id, rect)
+
+    async def _session_still_valid(self, session_id: str) -> bool:
+        """The ping interval's revalidation: a session revoked in the store
+        loses its channel within one interval; a store that cannot answer
+        reads as still valid (never as denied)."""
+        try:
+            key = await self.session_store.get_omero_session_key(session_id)
+        except Exception:
+            return True
+        return bool(key)
+
+    def _session_hello(self, channel) -> dict:
+        return {"type": "hello", "image": channel.image_id, "transport": channel.transport,
+                "epoch": None, "annotations": self.annotations.sub_epoch(channel.image_id)}
+
+    def _session_inbound(self, channel, frame) -> None:
+        """One client frame off a WebSocket: a viewport report feeds the
+        prefetcher; anything else is ignored."""
+        if isinstance(frame, dict) and frame.get("type") == "viewport":
+            self._note_viewport(channel.omero_session_key, channel.image_id, frame)
+
+    async def _session_pump(self, channel, send) -> None:
+        """Drain the channel's queue into ``send`` until the close sentinel.
+        A quiet ``session.ping-interval-s`` revalidates the session (a
+        revoked one gets the close frames next) and else sends a ping."""
+        while True:
+            try:
+                frame = await asyncio.wait_for(channel.queue.get(), self.ping_interval_s)
+            except asyncio.TimeoutError:
+                if not await self._session_still_valid(channel.session_id):
+                    self.session_channels.revoke(channel)
+                    continue
+                await send({"type": "ping", "epoch": None})
+                continue
+            if frame is None:
+                return
+            await send(frame)
+
+    async def _session_live(self, groups, headers, key, body, method):
+        """``GET /session/{imageId}/live``: a WebSocket when the client asks
+        to upgrade, else server-sent events. 503 with ``Retry-After`` past
+        either channel cap."""
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        if method == "HEAD":
+            return 200, dict(_SSE_HEADERS), b""
+        want_ws = headers.get("upgrade", "").strip().lower() == "websocket"
+        channel = self.session_channels.register(
+            image_id, _cookie_session_id(headers.get("cookie")) or "", key,
+            "ws" if want_ws else "sse")
+        if channel is None:
+            return 503, {"Retry-After": "1"}, b"Session plane at capacity"
+        if not want_ws:
+            return _Takeover(self._session_sse, channel)
+        answer, error = websocket.handshake(headers)
+        if error is not None:
+            self.session_channels.unregister(channel)
+            return 400, {}, error.encode()
+        return _Takeover(self._session_ws, channel, answer)
+
+    async def _session_sse(self, reader, writer, channel) -> None:
+        """The SSE transport: one ``data:`` event a frame (compact JSON),
+        chunked, ended by the last chunk. The pump runs beside a reader
+        that sees the client leave, so a dropped socket ends it."""
+        head = ["HTTP/1.1 200 OK", *(f"{k}: {v}" for k, v in _SSE_HEADERS.items()),
+                "Transfer-Encoding: chunked", "Connection: close"]
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1"))
+
+        async def send(frame: dict) -> None:
+            data = b"data: " + json.dumps(frame, separators=(",", ":")).encode() + b"\n\n"
+            writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+            await writer.drain()
+
+        async def pump() -> None:
+            await send(self._session_hello(channel))
+            await self._session_pump(channel, send)
+            writer.write(b"0\r\n\r\n")
+            await writer.drain()
+
+        async def gone() -> None:
+            while await reader.read(1 << 16):
+                pass  # SSE is one-way: whatever the client sends is dropped
+
+        try:
+            await _first_of(pump(), gone())
+        finally:
+            self.session_channels.unregister(channel)
+
+    async def _session_ws(self, reader, writer, channel, answer) -> None:
+        """The WebSocket transport: the 101 answer, the hello, then the pump
+        as a tracked task while this reads the client's frames (viewport
+        reports). The pump's end (revocation, shutdown) sends the close
+        frame; the client's close, an EOF or a protocol error ends the
+        reader, which cancels and awaits the pump."""
+        head = ["HTTP/1.1 101 Switching Protocols", *(f"{k}: {v}" for k, v in answer.items())]
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1"))
+        ws = websocket.WebSocket(reader, writer)
+
+        async def pump_then_close() -> None:
+            try:
+                await ws.send_json(self._session_hello(channel))
+                await self._session_pump(channel, ws.send_json)
+            finally:
+                if not ws.closed:
+                    await ws.close()
+            # the client answers our close; a silent one is cut
+            await asyncio.sleep(_WS_CLOSE_TIMEOUT_S)
+            writer.close()
+
+        pump = asyncio.get_running_loop().create_task(pump_then_close())
+        try:
+            while True:
+                text = await ws.receive()
+                if text is None:
+                    break
+                try:
+                    frame = json.loads(text)
+                except ValueError:
+                    continue  # a garbled frame is a no-op
+                self._session_inbound(channel, frame)
+        finally:
+            pump.cancel()
+            try:
+                await pump
+            except asyncio.CancelledError:
+                if not pump.cancelled():
+                    raise  # this handler was cancelled: propagate
+            except (ConnectionError, OSError):
+                pass  # a send racing a gone socket is the close
+            self.session_channels.unregister(channel)
+
+    async def _session_viewport(self, groups, headers, key, body, method):
+        """``POST /session/{imageId}/viewport``: an SSE client's viewport
+        report (WebSocket clients send it inline)."""
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        rect = _json_body(body)
+        if not isinstance(rect, dict):
+            return 400, {}, b"bad viewport body"
+        noted = self._note_viewport(key, image_id, rect)
+        if not noted and self.prefetcher is not None:
+            return 400, {}, b"bad viewport rect"
+        return _json(200, {"noted": noted})
+
+    def _annotation_changed(self, image_id: int, sub_epoch: int) -> None:
+        """Every annotation write: the image's purge (an ``invalidate``
+        delta), then the ``annotations`` delta with the sub-epoch."""
+        self._invalidate_image(image_id)
+        self.session_channels.push_delta(image_id, epoch=None, kind="annotations",
+                                         annotation_epoch=sub_epoch)
+
+    async def _annotations_create(self, groups, headers, key, body, method):
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        doc = _json_body(body)
+        if not isinstance(doc, dict):
+            return 400, {}, b"bad annotation body"
+        try:
+            record, sub_epoch = self.annotations.create(image_id, doc)
+        except TileError as e:
+            return e.code, {}, e.message.encode()
+        self._annotation_changed(image_id, sub_epoch)
+        return _json(201, {"annotation": record, "epoch": sub_epoch})
+
+    async def _annotations_list(self, groups, headers, key, body, method):
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        return _json(200, self.annotations.list(image_id))
+
+    async def _annotation_get(self, groups, headers, key, body, method):
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        record = self.annotations.get(image_id, groups[1])
+        if record is None:
+            return 404, {}, b"no such annotation"
+        return _json(200, {"annotation": record})
+
+    async def _annotation_update(self, groups, headers, key, body, method):
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        doc = _json_body(body)
+        if not isinstance(doc, dict):
+            return 400, {}, b"bad annotation body"
+        try:
+            result = self.annotations.update(image_id, groups[1], doc)
+        except TileError as e:
+            return e.code, {}, e.message.encode()
+        if result is None:
+            return 404, {}, b"no such annotation"
+        record, sub_epoch = result
+        self._annotation_changed(image_id, sub_epoch)
+        return _json(200, {"annotation": record, "epoch": sub_epoch})
+
+    async def _annotation_delete(self, groups, headers, key, body, method):
+        try:
+            image_id = int(groups[0])
+        except ValueError:
+            return 400, {}, b"bad image id"
+        sub_epoch = self.annotations.delete(image_id, groups[1])
+        if sub_epoch is None:
+            return 404, {}, b"no such annotation"
+        self._annotation_changed(image_id, sub_epoch)
+        return _json(200, {"deleted": True, "epoch": sub_epoch})
 
     async def _normalize_region(self, ctx: TileCtx) -> None:
         """Rewrite w/h = 0 (the full plane) to the plane's size before any
@@ -815,13 +1168,7 @@ class TileServer:
         that cannot answer (auth unavailable must never read as auth
         denied, or a store blip logs every user out)."""
         denied = (403, {}, b"Permission denied")
-        session_id = None
-        if cookie_header:
-            try:
-                morsel = SimpleCookie(cookie_header).get("sessionid")
-            except CookieError:
-                morsel = None
-            session_id = morsel.value if morsel is not None else None
+        session_id = _cookie_session_id(cookie_header)
         if not session_id:
             return None, denied
         try:
@@ -871,6 +1218,7 @@ class TileServer:
                     else {"enabled": False}),
             "prefetch": (self.prefetcher.snapshot() if self.prefetcher is not None
                          else {"enabled": False}),
+            "session": self._session_snapshot(),
             "slo": {**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()},
             "admission": admission,
             "protocols": {**self.protocols_enabled,
@@ -954,10 +1302,8 @@ class TileServer:
 
 
 # default-on planes of the JAX package that the port starts without, by
-# the config key that enables them
-ABSENT_PLANES = (
-    ("session", lambda c: c.session.enabled),
-)
+# the config key that enables them (none is left)
+ABSENT_PLANES: Tuple[Tuple[str, object], ...] = ()
 
 
 def _refused(key: str, why: str) -> ConfigError:
@@ -975,8 +1321,6 @@ def check_planes(config: Config) -> List[str]:
         raise _refused(key, "the fleet plane is ROADMAP.md §1 item 8")
     if config.ingest.enabled:
         raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8")
-    if config.cache.disk_dir:
-        raise _refused("cache.disk-dir", "the disk tier is ROADMAP.md §1 item 6")
     if config.backend.engine == "host":
         raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
     if not config.backend.batching.device_encode:
@@ -1129,6 +1473,7 @@ def create_server(
     supertile_enabled: bool = True, max_inflight: Optional[int] = None,
     queue_size: Optional[int] = None, request_budget_ms: Optional[float] = None,
     obs: bool = True, head_sample_rate: Optional[float] = None, prefetch: bool = False,
+    session: Optional[dict] = None,
 ) -> TileServer:
     """The service over a JSON registry with in-memory sessions (the echo
     store with ``dev``), the other keys at the JAX defaults: ``wire`` of
@@ -1141,7 +1486,8 @@ def create_server(
     ``resilience.request-budget-ms`` (None: their defaults), ``obs``
     ``obs.enabled`` (on, the JAX default), ``head_sample_rate``
     ``obs.head-sample-rate`` and ``prefetch`` ``cache.prefetch.enabled``
-    (off unless asked, as the JAX app of the HTTP contract tests runs)."""
+    (off unless asked, as the JAX app of the HTTP contract tests runs);
+    ``session`` is the ``session:`` block (default: the JAX defaults)."""
     raw = {
         "session-store": {"type": "memory"},
         "image-registry": registry_path,
@@ -1157,6 +1503,7 @@ def create_server(
         "obs": {"enabled": obs} if head_sample_rate is None
         else {"enabled": obs, "head-sample-rate": head_sample_rate},
         "cache": {"prefetch": {"enabled": prefetch}},
+        "session": session or {},
     }
     if request_budget_ms is not None:
         raw["resilience"]["request-budget-ms"] = request_budget_ms
@@ -1165,6 +1512,72 @@ def create_server(
 
 class _BadRequest(Exception):
     pass
+
+
+class _Takeover:
+    """A route's answer that owns the connection: ``run(reader, writer)``
+    calls ``fn(reader, writer, *args)``; the connection closes after it."""
+
+    def __init__(self, fn, *args):
+        self.fn = fn
+        self.args = args
+
+    async def run(self, reader, writer) -> None:
+        await self.fn(reader, writer, *self.args)
+
+
+def _session_route(path: str):
+    """(handler names by method, percent-decoded groups) of the session
+    route that matches ``path``, or None."""
+    for pattern, methods in _SESSION_ROUTES:
+        match = pattern.match(path)
+        if match is not None:
+            return methods, match.groups()
+    return None
+
+
+def _cookie_session_id(cookie_header: Optional[str]) -> Optional[str]:
+    """The ``sessionid`` cookie's value, or None."""
+    if not cookie_header:
+        return None
+    try:
+        morsel = SimpleCookie(cookie_header).get("sessionid")
+    except CookieError:
+        return None
+    return morsel.value if morsel is not None else None
+
+
+def _json_body(body: Optional[bytes]):
+    """The request body as JSON, or None (no body, one past the limit, or
+    not JSON)."""
+    if body is None:
+        return None
+    try:
+        return json.loads(body)
+    except Exception:  # as the JAX handlers: any parse failure is a 400
+        return None
+
+
+def _json(status: int, obj) -> Tuple[int, dict, bytes]:
+    """aiohttp's ``json_response``: ``json.dumps`` with its default
+    separators."""
+    return status, {"Content-Type": JSON_TYPE}, json.dumps(obj).encode()
+
+
+async def _first_of(*coros) -> None:
+    """Run the coroutines as tasks until the first ends, then cancel and
+    await the rest; connection errors end a task quietly."""
+    tasks = [asyncio.ensure_future(c) for c in coros]
+    try:
+        await asyncio.wait(tasks, return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        for task in tasks:
+            task.cancel()
+        for task in tasks:
+            try:
+                await task
+            except (asyncio.CancelledError, ConnectionError, OSError):
+                pass
 
 
 def _apply_region_params(ctx: TileCtx, query):

@@ -216,9 +216,9 @@ def _config(**blocks):
 def test_shipped_config_starts_with_five_planes_absent():
     from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
 
-    # obs, jmx-metrics, cache.tinylfu and cache.prefetch are ported: the
-    # session plane is the one default-on plane left absent
-    assert check_planes(pconfig.Config.load(SHIPPED)) == ["session"]
+    # every default-on plane is ported (the session plane last): none is
+    # left absent
+    assert check_planes(pconfig.Config.load(SHIPPED)) == []
     quiet = _config(obs__enabled=False, session__enabled=False, **{
         "jmx-metrics__enabled": False, "cache__tinylfu__enabled": False,
         "cache__prefetch__enabled": False})
@@ -229,7 +229,6 @@ def test_shipped_config_starts_with_five_planes_absent():
     ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082"}, "cluster.members"),
     ("cluster__l2__uri", "redis://x:6379/2", "cluster.l2.uri"),
     ("ingest__enabled", True, "ingest.enabled"),
-    ("cache__disk-dir", "/tmp/ompb-disk", "cache.disk-dir"),
     ("backend__engine", "host", "backend.engine"),
     ("backend__batching__device-encode", False, "backend.batching.device-encode"),
     ("mesh__probe-interval-ms", 500, "mesh.probe-interval-ms"),
@@ -260,7 +259,7 @@ def test_tracing_keys_start_and_configure_the_tracer(key, value, restore_process
     from omero_ms_pixel_buffer_tpu_torch.utils import tracing
 
     config = _config(**{key: value})
-    assert check_planes(config) == ["session"]
+    assert check_planes(config) == []
     server = wire(config, device="cpu")
     try:
         if key == "http-tracing__enabled":
@@ -296,6 +295,55 @@ def restore_process_state():
     breaker.BOARD.reset()
 
 
+@pytest.mark.parametrize("manifest", [True, False], ids=["manifest", "no-manifest"])
+def test_disk_tier_starts_with_the_cache(tmp_path, manifest, restore_process_state):
+    """``cache.disk-dir`` (once refused) starts the disk tier: the
+    directory, ``disk-mb`` and ``manifest`` reach the tiered cache."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
+
+    spill = str(tmp_path / "spill")
+    config = _config(**{"cache__disk-dir": spill, "cache__disk-mb": 7,
+                        "cache__manifest": manifest})
+    assert check_planes(config) == []
+    server = wire(config, device="cpu")
+    try:
+        disk = server.cache.disk
+        assert (disk.directory, disk.max_bytes) == (spill, 7 << 20)
+        assert (disk.manifest is not None) == manifest
+        view = server.health()["result_cache"]["disk"]
+        assert view["breaker"] == "closed" and ("manifest" in view) == manifest
+    finally:
+        server.cache.close()
+        server.pipeline.close()
+
+
+@pytest.mark.parametrize("enabled", [True, False], ids=["on", "off"])
+def test_session_keys_reach_the_plane(enabled, restore_process_state):
+    """Every ``session:`` key reaches the registry, the annotation store or
+    the pump (the JAX ``PixelBufferApp`` wiring); ``enabled: false``
+    builds neither."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import wire
+
+    config = _config(**{"session__enabled": enabled, "session__max-channels": 9,
+                        "session__max-per-image": 4, "session__queue-size": 5,
+                        "session__ping-interval-s": 2.5,
+                        "session__max-annotations-per-image": 7,
+                        "session__max-annotation-images": 11})
+    server = wire(config, device="cpu")
+    try:
+        reg, store = server.session_channels, server.annotations
+        if not enabled:
+            assert reg is None and store is None
+            assert server.health()["session"] == {"enabled": False}
+            return
+        assert (reg.max_channels, reg.max_per_image, reg.queue_size) == (9, 4, 5)
+        assert reg.recorder is server.recorder and server.ping_interval_s == 2.5
+        assert (store.max_per_image, store.max_images) == (7, 11)
+        assert server.health()["session"]["max_channels"] == 9
+    finally:
+        server.pipeline.close()
+
+
 def test_non_default_knobs_show_on_healthz(restore_process_state):
     from omero_ms_pixel_buffer_tpu_torch.auth.stores import RedisSessionStore
     from omero_ms_pixel_buffer_tpu_torch.http.server import wire
@@ -320,7 +368,7 @@ def test_non_default_knobs_show_on_healthz(restore_process_state):
         assert h["slo"]["queue_size"] == 128
         assert h["admission"]["max_inflight"] == 7
         assert h["request_budget_ms"] == 5000.0
-        assert c["absent"] == ["session"]
+        assert c["absent"] == []
         assert c["session_store"] == "RedisSessionStore"
         assert isinstance(server.session_store, RedisSessionStore)
         assert c["breaker"]["failure_threshold"] == 3

@@ -126,7 +126,7 @@ def test_debug_context_prints_the_wiring(tmp_path, registry):
                    "pipeline: device=cpu", "kernels:", "native engine:", "absent planes:"):
         assert any(ln.startswith(prefix) for ln in lines), (prefix, out.stdout)
     assert "images registered: 1" in out.stdout
-    assert "absent planes: session" in lines
+    assert "absent planes: none" in lines
 
 
 def test_dev_registry_without_a_config_file_serves(tmp_path, registry):
@@ -185,7 +185,7 @@ def test_shipped_config_starts_and_a_dead_redis_answers_503(tmp_path, registry):
         conn.request("GET", "/healthz")
         health = json.loads(conn.getresponse().read())
         conn.close()
-        assert health["config"]["absent"] == ["session"]
+        assert health["config"]["absent"] == []
         assert health["config"]["session_store"] == "RedisSessionStore"
         assert _get(port, TILE)[0] == 403
     finally:

@@ -361,9 +361,9 @@ def test_segmented_lru_matches_jax():
     assert snap_p == snap_j and snap_p["hits"] > 0 and snap_p["misses"] > 0
 
 
-def test_result_cache_admission_bounds():
+async def test_result_cache_admission_bounds():
     cache = prc.TileResultCache(memory_bytes=1 << 20, max_entry_bytes=1000)
     cache.put("small", prc.CachedTile(b"x" * 1000))
     cache.put("large", prc.CachedTile(b"x" * 1001))
-    assert cache.get("small") is not None and cache.get("large") is None
+    assert await cache.get("small") is not None and await cache.get("large") is None
     assert cache.snapshot()["memory"]["entries"] == 1

@@ -47,8 +47,7 @@ from omero_ms_pixel_buffer_tpu_torch.utils.config import Config
 
 # families of the JAX planes the port does not have: the cluster plane
 # (membership, gossip, brains, replication, repair, integrity, hedging,
-# drain, epochs), the cache plane's L2 and peer tiers and the session
-# plane's channels and annotations
+# drain, epochs) and the cache plane's L2 and peer tiers
 ABSENT_PLANE_FAMILIES = {
     "cluster_brain_rounds_total", "cluster_demotions_total", "cluster_drain_events_total",
     "cluster_epoch_events_total", "cluster_fleet_pressure", "cluster_gossip_rounds_total",
@@ -56,9 +55,11 @@ ABSENT_PLANE_FAMILIES = {
     "cluster_repair_pulled_total", "cluster_repair_rounds_total", "cluster_replication_total",
     "cluster_ring_version", "cluster_unsigned_payloads_total", "slo_burn_rate_fleet",
     "tile_cache_l2_requests_total", "tile_cache_peer_requests_total",
-    "tile_cache_plane_purges_total", "session_annotation_ops_total",
-    "session_channel_events_total", "session_pushes_total", "session_channels_live",
+    "tile_cache_plane_purges_total",
 }
+# the session plane's families, on /metrics in both packages
+SESSION_PLANE_FAMILIES = {"session_annotation_ops_total", "session_channel_events_total",
+                          "session_pushes_total", "session_channels_live"}
 
 
 class _Clock:
@@ -231,6 +232,7 @@ async def test_metrics_families_and_counters_match_jax(tmp_path, _process_defaul
         assert ph["Content-Type"] == jh["Content-Type"] == "text/plain; charset=utf-8"
         jax_fams, port_fams = _families(jbody.decode()), _families(pbody.decode())
         assert {k: v for k, v in jax_fams.items() if k not in ABSENT_PLANE_FAMILIES} == port_fams
+        assert SESSION_PLANE_FAMILIES <= set(port_fams)
         after = [_samples(jbody.decode()), _samples(pbody.decode())]
         for name in ("tiles_served_total", "tile_cache_requests_total",
                      "tile_batches_dispatched_total"):

@@ -203,7 +203,7 @@ async def test_http_tracing_enabled_exports_spans(tmp_path, sink):
         "session-store": {"type": "memory"}, "image-registry": str(reg),
         "http-tracing": {"enabled": True, "zipkin-url": sink.url},
         "obs": {"head-sample-rate": 1.0}})
-    assert check_planes(config) == ["session"]
+    assert check_planes(config) == []
     server = wire(config, session_store=MemorySessionStore({"ck": "k"}), device="cpu")
     port = await server.start("127.0.0.1", 0)
     try:

@@ -16,8 +16,9 @@ JAX package's, on the CPU.
   ETag, and the native request after it is a cache hit (and the other way
   round).
 
-The JAX app runs with ``cache.prefetch.enabled: false`` and the session
-plane off (the port has neither). Tolerance: zero."""
+The JAX app runs with ``cache.prefetch.enabled: false`` and both fronts
+with the session plane off (Iris ``capabilities`` with the plane on are
+pinned by ``tests/test_torch_session_plane.py``). Tolerance: zero."""
 
 import asyncio
 
@@ -47,6 +48,7 @@ from omero_ms_pixel_buffer_tpu_torch.http.server import TileServer
 from omero_ms_pixel_buffer_tpu_torch.io.pixels_service import ImageRegistry, PixelsService
 from omero_ms_pixel_buffer_tpu_torch.io.stores import StoreUnavailableError
 from omero_ms_pixel_buffer_tpu_torch.models.tile_pipeline import TilePipeline
+from omero_ms_pixel_buffer_tpu_torch.utils.config import Config as PortConfig
 
 # T, C, Z, Y, X: 600x520 with levels 300x260 and 150x130 -> DZI max level
 # 10, levels 10-8 backed
@@ -109,6 +111,8 @@ class Fronts:
         _open_breaker(service, StoreUnavailableError)
         self.pipeline = TilePipeline(service, buckets=self.buckets, device="cpu")
         self.port = TileServer(BatchingTileWorker(self.pipeline), sessions={"ck": "key1"},
+                               config=PortConfig.from_dict({"session-store": {"type": "memory"},
+                                                            "session": {"enabled": False}}),
                                **self.port_kwargs)
         self.port_no = await self.port.start("127.0.0.1", 0)
         return self

@@ -262,7 +262,7 @@ async def test_shipped_config_with_redis_down_answers_503(tmp_path):
         assert raw.startswith(b"HTTP/1.1 503") and b"Retry-After: 1" in raw
         assert raw.endswith(b"Session store unavailable")
         assert (await get(None)).startswith(b"HTTP/1.1 403")
-        assert server.health()["config"]["absent"] == ["session"]
+        assert server.health()["config"]["absent"] == []
     finally:
         await server.close()
         server.pipeline.close()

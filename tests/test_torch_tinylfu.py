@@ -86,7 +86,7 @@ def test_cache_with_admission_evicts_like_jax(seed, gate):
         for key in _stream(seed, 1500):
             body = bytes(int(rng.integers(600, 1400)))
             jhit = loop.run_until_complete(jc.get(key))
-            phit = pc.get(key)
+            phit = loop.run_until_complete(pc.get(key))
             assert (phit is None) == (jhit is None), key
             if phit is None:
                 loop.run_until_complete(jc.put(key, jrc.CachedTile(body)))
