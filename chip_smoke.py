@@ -295,6 +295,26 @@ Phases, one JSON line each on stdout:
    ``X-Cache: hit`` from disk with the first pass's bytes and no kernel
    launch. Reports cold, warm and after-restart tiles/s, the hits by tier,
    the journal's bytes and the files on disk.
+23. ``path_fleet`` — two replicas A and B of the port as subprocesses
+   (``--config``, ``--dev``) on the one card, started together after the
+   build: a static ring of both (``cluster.members``, ``cluster.self``),
+   the RESP stub in this process as the shared L2 (``cluster.l2.uri``), a
+   ``cluster.secret``, ``replication-factor`` 2, ``peer-timeout-ms`` 5000
+   and the prefetcher off (speculative renders would blur the counts).
+   ``path``'s 256 timed tiles (image 1, ``dynamic``, 32 clients): cold,
+   alternating A and B, every PNG against the source, and the lanes the
+   two batchers ran equal to the distinct keys (render-once); warm, each
+   request to the other replica: no launch on either, step 1's ETag and
+   body; invalidate: an annotation write on A (its purge of image 1 bumps
+   the L2 epoch, DELs the image's L2 entries and fans a signed purge out
+   to B), a signed ``POST /internal/purge/1`` to A (200), the same purge
+   unsigned, forged and replayed (403 each), then every key once,
+   alternating: the lanes equal the keys, launches > 0, step 1's bytes;
+   drain: a signed ``POST /internal/drain?wait=1`` to B (``pushed`` > 0,
+   ``drained``), then A serves every key with no launch. SIGTERM exits 0
+   on both. Reports each step's tiles/s, p50/p99, ``X-Cache`` counts (peer
+   fetches, L2 hits), launches and lanes per replica, the drain's stats
+   and the phase's seconds.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -306,8 +326,9 @@ counts (``supertile``: lanes stamped, groups, fused device and host
 lanes, fallback lanes, crops pulled to the host).
 
 Then the kernels' JSON line (seven rows; the filter's and SP packer's
-launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``
-and ``path_disk``'s cold pass, the WSI rows' from ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
+launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``,
+``path_disk``'s cold pass and ``path_fleet``, the WSI rows' from
+``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
@@ -318,8 +339,8 @@ tokens (``dense_time``), with ``--port-root`` taking the port package from
 another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
 ``--paths-only`` only the ``path`` (``dynamic``), ``path_obs``,
-``path_prefetch``, ``path_session``, ``path_render``, ``path_config`` and
-``path_disk`` phases
+``path_prefetch``, ``path_session``, ``path_render``, ``path_config``,
+``path_disk`` and ``path_fleet`` phases
 (with ``--port-root``, to pair two versions in one call); the
 Zarr and viewer phases add no kernel row, their launches are on their phase
 lines. Any failure exits
@@ -3491,21 +3512,27 @@ def port_env() -> dict:
 class PortProcess:
     """``python -m omero_ms_pixel_buffer_tpu_torch ARGS`` as a subprocess
     (the real entry point), its stderr in a file under ``WORK``; a context
-    manager that kills it if it is still running on exit."""
+    manager that kills it if it is still running on exit. ``port`` (default:
+    a free one) is the port it listens on; with ``wait=False`` the caller
+    calls ``wait_listening`` (to start several at once)."""
 
-    def __init__(self, args, name: str):
+    def __init__(self, args, name: str, port: int = 0, wait: bool = True):
         import subprocess
 
-        self.port = free_port()
+        self.port = port or free_port()
         self.err_path = os.path.join(WORK, f"{name}.stderr")
         with open(self.err_path, "w") as err:
-            t0 = time.perf_counter()
+            self._t0 = time.perf_counter()
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", *args,
                  "--port", str(self.port)], stdout=subprocess.PIPE, stderr=err, text=True,
                 env=port_env(), cwd=WORK)
+        if wait:
+            self.wait_listening()
+
+    def wait_listening(self) -> None:
         line = self.proc.stdout.readline()
-        self.startup_s = time.perf_counter() - t0
+        self.startup_s = time.perf_counter() - self._t0
         require(line.startswith("listening on"),
                 f"the port did not start: {line!r} {self.log()}")
 
@@ -4144,6 +4171,228 @@ def drive_disk(registry: str, data: np.ndarray, device: str = "cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the fleet plane
+# ---------------------------------------------------------------------------
+
+FLEET_SECRET = "chip-smoke-fleet"
+FLEET_PEER_TIMEOUT_MS = 5000  # past the path's p99: a slow owner is still asked
+
+
+def fleet_request(port: int, method: str, path: str, headers=None, body: bytes = b""):
+    """(status, headers, body) of one request on a fresh connection, with
+    only the headers given."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body or None, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def run_fleet(clients, reqs, replica_of, concurrency: int):
+    """``reqs`` at ``concurrency``, request i to ``clients[replica_of(i)]``:
+    ([(status, headers, body, seconds)], wall seconds)."""
+    with concurrent.futures.ThreadPoolExecutor(concurrency) as pool:
+        t0 = time.perf_counter()
+        out = list(pool.map(lambda ir: clients[replica_of(ir[0])].request("GET", ir[1][0]),
+                            enumerate(reqs)))
+        return out, time.perf_counter() - t0
+
+
+def fleet_delta(before, after) -> dict:
+    """Per replica: launches of each kernel and lanes the batcher ran,
+    between two ``/healthz`` views."""
+    return [{"launches": {k: h1["kernels"][k] - h0["kernels"][k] for k in h1["kernels"]},
+             "lanes": h1["batcher"]["lanes"] - h0["batcher"]["lanes"]}
+            for h0, h1 in zip(before, after)]
+
+
+def drive_fleet(registry: str, data: np.ndarray, timed, seed: int, device: str = "cuda") -> dict:
+    """``path_fleet``: two replicas of ``python -m omero_ms_pixel_buffer_tpu_torch
+    --config`` on the one card, a static ring of both (``cluster.members``,
+    ``cluster.self``), the RESP stub as the shared L2 (``cluster.l2.uri``),
+    a ``cluster.secret``, ``replication-factor`` 2, prefetch off. Four
+    steps over ``path``'s timed tiles (image 1, ``dynamic``, 32 clients):
+    cold (alternating the replicas: render-once, every PNG against the
+    source), warm (each to the other replica: no launch, step 1's ETags
+    and bodies), invalidate (an annotation write on A bumps the L2 epoch
+    and fans a signed purge out to B; a signed purge to A; the re-reads
+    render on their owners with step 1's bytes, each key once; unsigned,
+    forged and replayed purges answer 403) and drain (a signed ``/internal/drain?
+    wait=1`` to B hands its memory tier to A, which then serves every key
+    with no launch). See the module docstring."""
+    from omero_ms_pixel_buffer_tpu_torch.cluster.security import sign
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import encode_png
+
+    t_phase = time.perf_counter()
+    stub = RespStubThread()
+    stub_port = stub.start()
+    procs = []
+    try:
+        ports = [free_port(), free_port()]
+        members = [f"http://127.0.0.1:{p}" for p in ports]
+        for i, name in enumerate(("a", "b")):
+            cfg_path = os.path.join(WORK, f"path_fleet_{name}.yaml")
+            with open(cfg_path, "w") as f:
+                json.dump({
+                    "session-store": {"type": "memory"}, "image-registry": registry,
+                    "backend": {"png": {"device-deflate-mode": "dynamic"}},
+                    "slo": {"queue-size": 128}, "cache": {"prefetch": {"enabled": False}},
+                    "cluster": {"members": members, "self": members[i],
+                                "l2": {"uri": f"redis://127.0.0.1:{stub_port}/0"},
+                                "secret": FLEET_SECRET, "replication-factor": 2,
+                                "peer-timeout-ms": FLEET_PEER_TIMEOUT_MS},
+                }, f, indent=1)  # YAML's JSON subset
+            procs.append(PortProcess(["--config", cfg_path, "--device", device, "--dev"],
+                                     f"path_fleet_{name}", port=ports[i], wait=False))
+        for proc in procs:  # both start at once; the kernels are built already
+            proc.wait_listening()
+        a, b = procs
+        clients = [Client(a.port), Client(b.port)]
+        reqs = list(timed)
+        keys = sorted({r[0] for r in reqs})
+        try:
+            health = lambda: [get_json(c, "/healthz") for c in clients]  # noqa: E731
+            h_start = h0 = health()
+            # 1. cold: alternating, render-once across the fleet
+            cold, cold_s = run_fleet(clients, reqs, lambda i: i % 2, LANES)
+            h1 = health()
+            verify([(s, body, t) for s, _, body, t in cold], reqs, data)
+            cold_delta = fleet_delta(h0, h1)
+            require(sum(d["lanes"] for d in cold_delta) == len(keys),
+                    f"cold: {cold_delta} lanes for {len(keys)} keys (render-once)")
+            require(device != "cuda" or all(
+                sum(d["launches"][k] for d in cold_delta) > 0 for k in ("filter", "bitpack")),
+                f"cold launches: {cold_delta}")
+            xc = [hd.get("X-Cache") for _, hd, _, _ in cold]
+            first = {}
+            for r, (_, hd, body, _) in zip(reqs, cold):
+                first.setdefault(r[0], (hd["ETag"], body))
+            # 2. warm: each request to the other replica
+            warm, warm_s = run_fleet(clients, reqs, lambda i: (i + 1) % 2, LANES)
+            h2 = health()
+            warm_delta = fleet_delta(h1, h2)
+            require(all(v == 0 for d in warm_delta for v in d["launches"].values()),
+                    f"warm launches: {warm_delta}")
+            for r, (status, hd, body, _) in zip(reqs, warm):
+                require(status == 200 and (hd["ETag"], body) == first[r[0]],
+                        f"warm {r[0]}: {status} {hd.get('X-Cache')} differs from step 1")
+            wxc = [hd.get("X-Cache") for _, hd, _, _ in warm]
+            # 3. invalidate: an annotation write on A is a purge of image 1
+            # (epoch bump, L2 DELs, a signed purge fanned out to B)
+            epoch_key = b"ompb:cluster:epoch:1"
+            epoch0 = int(stub.stub.data.get(epoch_key, (b"0", None))[0])
+            status, _, _, _ = json_request(a.port, "POST", "/annotations/1", "chip-smoke",
+                                           {"type": "rect", "x": 1, "y": 1, "w": 8, "h": 8})
+            require(status == 201, f"annotation write: {status}")
+            deadline = time.time() + 30
+            while int(stub.stub.data.get(epoch_key, (b"0", None))[0]) != epoch0 + 1:
+                require(time.time() < deadline, "the L2 epoch did not rise")
+                time.sleep(0.05)
+            b_epochs = get_json(clients[1], "/healthz")["cluster"]["epochs"]
+            purge = "/internal/purge/1"
+            signed = {"X-OMPB-Peer": members[1], "X-OMPB-Epoch": str(epoch0 + 1),
+                      "X-OMPB-Sig": sign(FLEET_SECRET, "POST", purge, b"", peer=members[1])}
+            purged = fleet_request(a.port, "POST", purge, signed)
+            require(purged[0] == 200 and json.loads(purged[2]) == {"purged": 1},
+                    f"signed purge: {purged[0]} {purged[2]!r}")
+            refusals = {
+                "unsigned": fleet_request(a.port, "POST", purge,
+                                          {"X-OMPB-Peer": members[1]})[0],
+                "forged": fleet_request(a.port, "POST", purge, {
+                    "X-OMPB-Peer": members[1],
+                    "X-OMPB-Sig": sign("not-the-secret", "POST", purge, b"",
+                                       peer=members[1])})[0],
+                "replayed": fleet_request(a.port, "POST", purge, signed)[0],
+            }
+            require(all(v == 403 for v in refusals.values()), f"refusals: {refusals}")
+            reread = list({r[0]: r for r in reqs}.values())  # each key once
+            h3 = health()
+            again, again_s = run_fleet(clients, reread, lambda i: i % 2, LANES)
+            h4 = health()
+            again_delta = fleet_delta(h3, h4)
+            require(sum(d["lanes"] for d in again_delta) == len(reread),
+                    f"re-reads: {again_delta} lanes for {len(reread)} keys")
+            require(device != "cuda" or sum(d["launches"]["filter"] for d in again_delta) > 0,
+                    f"re-read launches: {again_delta}")
+            # a re-rendered body equals step 1's, or one of the two took the
+            # lone-lane host route (a batch of one), whose bytes differ by
+            # design; every one is checked against the source
+            verify([(st, body, t) for st, _, body, t in again], reread, data)
+            equal, host_route, latest = 0, 0, {}
+            for r, (status, hd, body, _) in zip(reread, again):
+                require(hd.get("X-Cache") in ("miss", "peer-hit"),
+                        f"re-read {r[0]}: {hd.get('X-Cache')}")
+                latest[r[0]] = (hd["ETag"], body)
+                if (hd["ETag"], body) == first[r[0]]:
+                    equal += 1
+                    continue
+                x, y, w, h = r[1]
+                require(encode_png(data[y:y + h, x:x + w]) in (body, first[r[0]][1]),
+                        f"re-read {r[0]}: body differs from step 1's")
+                host_route += 1
+            require(equal >= 8, f"only {equal} re-read bodies byte-equal to step 1's")
+            # 4. drain B; A then serves every key without a launch
+            drain = "/internal/drain?wait=1"
+            status, _, body = fleet_request(b.port, "POST", drain, {
+                "X-OMPB-Peer": members[0],
+                "X-OMPB-Sig": sign(FLEET_SECRET, "POST", drain, b"", peer=members[0])})
+            drained = json.loads(body)
+            require(status == 200 and drained["state"] == "drained"
+                    and drained["stats"]["handoff"]["pushed"] > 0, f"drain: {status} {body!r}")
+            h5 = health()
+            after, after_s = run_fleet([clients[0]], [(k, None, 200) for k in keys],
+                                       lambda i: 0, LANES)
+            h6 = health()
+            drain_delta = fleet_delta(h5, h6)
+            require(all(v == 0 for v in drain_delta[0]["launches"].values()),
+                    f"A launched after the drain: {drain_delta}")
+            for k, (status, hd, body, _) in zip(keys, after):
+                require(status == 200 and (hd["ETag"], body) == latest[k],
+                        f"after the drain {k}: {status} {hd.get('X-Cache')}")
+            h_end = health()
+        finally:
+            for c in clients:
+                c.close()
+        rcs = [p.stop() for p in procs]
+        require(rcs == [0, 0], f"exit codes on SIGTERM: {rcs} {a.log()} {b.log()}")
+        phase_delta = fleet_delta(h_start, h_end)
+        lat = np.array([t for _, _, _, t in cold]) * 1e3
+        wlat = np.array([t for _, _, _, t in warm]) * 1e3
+        counts = lambda tags: {t: tags.count(t) for t in sorted(set(tags))}  # noqa: E731
+        return {
+            "phase": "path_fleet", "replicas": 2, "requests": len(reqs), "keys": len(keys),
+            "concurrency": LANES, "startup_s": [p.startup_s for p in procs],
+            "cold": {"tiles_per_s": len(reqs) / cold_s, "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99)), "x_cache": counts(xc),
+                     "peer_fetches": xc.count("peer-hit"), "l2_hits": xc.count("l2-hit"),
+                     "per_replica": cold_delta},
+            "warm": {"tiles_per_s": len(reqs) / warm_s,
+                     "p50_ms": float(np.percentile(wlat, 50)),
+                     "p99_ms": float(np.percentile(wlat, 99)), "x_cache": counts(wxc),
+                     "per_replica": warm_delta},
+            "invalidate": {"epoch": [epoch0, epoch0 + 1], "b_epochs": b_epochs,
+                           "refusals_403": refusals, "rereads": len(reread),
+                           "bodies_equal_to_cold": equal, "bodies_host_route": host_route,
+                           "reread_tiles_per_s": len(reread) / again_s,
+                           "per_replica": again_delta},
+            "drain": {"stats": drained["stats"], "a_tiles_per_s": len(keys) / after_s,
+                      "a_after": drain_delta[0]},
+            "cluster": [{k: h["cluster"].get(k) for k in ("replication", "epochs", "integrity")}
+                        for h in h_end],
+            "l2_entries": sum(1 for k in stub.stub.data if k.startswith(b"ompb:tile:")),
+            "launches": {k: sum(d["launches"][k] for d in phase_delta)
+                         for k in phase_delta[0]["launches"]},
+            "exit_codes": rcs, "seconds": time.perf_counter() - t_phase,
+        }
+    finally:
+        for p in procs:
+            p.__exit__(None, None, None)
+        stub.close()
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -4185,7 +4434,7 @@ def main(argv=None) -> int:
                    help="timed requests of path_config (at most --requests)")
     p.add_argument("--paths-only", action="store_true",
                    help="only build, then the path (dynamic), path_obs, path_prefetch, "
-                        "path_session, path_render, path_config and path_disk "
+                        "path_session, path_render, path_config, path_disk and path_fleet "
                         "phases, e.g. to pair two versions with --port-root (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
@@ -4248,6 +4497,7 @@ def main(argv=None) -> int:
             emit(drive_render(registry, stack, args.seed, args.render_requests))
             emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
             emit(drive_disk(registry, data))
+            emit(drive_fleet(registry, data, path_timed[0], args.seed))
             print(smi_line(), flush=True)
             return 0
         t0 = time.perf_counter()
@@ -4348,8 +4598,10 @@ def main(argv=None) -> int:
         emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
         disk = drive_disk(registry, data)
         emit(disk)
+        fleet = drive_fleet(registry, data, path_timed[0], args.seed)
+        emit(fleet)
         # each kernel's launches come from the phases that run it
-        main_phases = (path, obs, prefetch, session, disk)
+        main_phases = (path, obs, prefetch, session, disk, fleet)
         launches = {"filter": sum(ph["launches"]["filter"] for ph in main_phases),
                     "bitpack": sum(ph["launches"]["bitpack"] for ph in main_phases),
                     "bitpack_dense": rle["launches"]["bitpack_dense"],

@@ -35,7 +35,14 @@ the port cannot honour (an opt-in plane it lacks, an unsupported value)
 stops start-up with the ``ConfigError`` that names the key (exit code 2).
 ``debug-context`` builds the same wiring without serving, prints it and
 exits (``debug.py``). The line ``listening on HOST:PORT`` is printed once
-serving. SIGINT/SIGTERM drain and stop (exit code 0).
+serving. SIGINT stops (exit code 0); SIGTERM too, after the graceful drain
+when a ``cluster:`` block builds the fleet plane (``cluster.drain.signal``).
+A fleet replica's config names the members, itself, the shared Redis and
+the secret:
+
+    cluster: {members: [http://a:8082, http://b:8082], self: http://a:8082,
+              l2: {uri: redis://redis:6379/0}, secret: s3cret,
+              replication-factor: 2}
 """
 
 from __future__ import annotations
@@ -121,8 +128,11 @@ async def _serve(args, config: Config) -> None:
     print(f"listening on {args.host}:{port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
+    loop.add_signal_handler(signal.SIGINT, stop.set)
+    # SIGTERM is a planned leave: with the cluster plane (and
+    # cluster.drain.signal) the drain runs first, then the stop
+    loop.add_signal_handler(signal.SIGTERM,
+                            lambda: server.drain_on_signal(stop.set) or stop.set())
     try:
         await stop.wait()
     finally:

@@ -220,6 +220,14 @@ class SegmentedLRU:
             entry = self._protected.get(key)
             return entry if entry is not None else self._probation.get(key)
 
+    def items_snapshot(self) -> List[Tuple[str, CachedTile]]:
+        """A point-in-time (key, entry) list, protected tier first, each
+        in MRU order: the hot-set enumeration the cluster transfers serve
+        from (entries are immutable once stored)."""
+        with self._lock:
+            return (list(reversed(self._protected.items()))
+                    + list(reversed(self._probation.items())))
+
     def remove_prefix(self, prefix: str) -> int:
         """Drop every entry whose key starts with ``prefix``; returns how
         many."""
@@ -319,6 +327,15 @@ class DiskTier:
         with self._lock:
             self.hits += 1
         return CachedTile(body, etag, filename, stored_at)
+
+    def keys_snapshot(self, limit: int = 0) -> List[str]:
+        """Up to ``limit`` keys from the MRU end of the index (all when
+        0): the disk half of the anti-entropy digest. Index only, like
+        ``peek_stored_at``."""
+        with self._lock:
+            keys = list(self._index)
+        keys.reverse()  # MRU first: the warmest slice wins the bound
+        return keys[:limit] if limit else keys
 
     def peek_stored_at(self, key: str) -> Optional[float]:
         """The entry's ``stored_at``, or None: index only (no file I/O, no
@@ -524,6 +541,53 @@ class TileResultCache:
         if stored_at is None:
             return False
         return not (self.ttl_s > 0 and time.monotonic() - stored_at > self.ttl_s)
+
+    def hot_entries(self, limit: int = 128, max_bytes: int = 32 << 20
+                    ) -> List[Tuple[str, CachedTile]]:
+        """The top ``limit`` memory entries by admission-sketch frequency
+        (protected-MRU order without a sketch, and as the tie-break),
+        bounded in count and bytes; never touches disk. Empty on any
+        failure (the hot-set transfer's payload)."""
+        try:
+            items = self.memory.items_snapshot()
+            admission = self.memory.admission
+            if admission is not None:
+                # stable sort: equal estimates keep protected-MRU order
+                items.sort(key=lambda kv: admission.estimate(kv[0]), reverse=True)
+            out: List[Tuple[str, CachedTile]] = []
+            total = 0
+            for key, entry in items:
+                if len(out) >= limit or total + entry.nbytes > max_bytes:
+                    break
+                out.append((key, entry))
+                total += entry.nbytes
+            return out
+        except Exception:
+            log.exception("hot-set enumeration failed; empty transfer")
+            return []
+
+    def warm_keys(self, limit: int = 128) -> List[str]:
+        """Up to ``limit`` keys of the whole warm set: the hottest memory
+        entries first (the ``hot_entries`` ranking), then the disk tier's
+        index keys, deduplicated (the anti-entropy digest's keys). Empty
+        on any failure."""
+        try:
+            out: List[str] = []
+            seen = set()
+            for key, _entry in self.hot_entries(limit):
+                out.append(key)
+                seen.add(key)
+            if self.disk is not None and len(out) < limit:
+                for key in self.disk.keys_snapshot(limit):
+                    if key in seen:
+                        continue
+                    out.append(key)
+                    if len(out) >= limit:
+                        break
+            return out
+        except Exception:
+            log.exception("warm-set enumeration failed; empty digest")
+            return []
 
     def generation(self) -> int:
         with self._generation_lock:

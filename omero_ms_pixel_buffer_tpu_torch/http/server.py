@@ -124,6 +124,22 @@ evictions spill to files, a disk hit is re-admitted to memory, the
 manifest journal makes a restart warm, and the door gate's hit exemption
 asks both tiers (``contains_any_tier``).
 
+The fleet plane (``cache/plane/``, ``cluster/``, the JAX ``cluster:``
+block over a static ``cluster.members``): between the local miss and the
+render, the shared L2 tier and then one bounded GET to the key's owner
+on the consistent-hash ring (a request carrying ``X-OMPB-Peer`` is a hop,
+served here and never forwarded); a fill is published to L2 stamped with
+the image epoch seen before the render; an invalidation bumps the epoch,
+DELs the image's L2 entries and POSTs ``/internal/purge`` to the other
+members. The cluster guard (with ``cluster.secret``, every ``/internal/*``
+request and every hop carries a valid ``X-OMPB-Sig``, one verdict a
+request) sits inside the flight record and before the door gate; the
+quality tracker sits outermost. ``/internal/`` serves purge, replica,
+transfer, handoff, digest, pull, drain and gossip (503) without a
+session; ``/healthz`` adds ``cluster`` and ``result_cache.plane``, and
+``?probe=1`` pings the session store, L2 and the database. SIGTERM runs
+the drain first (``drain_on_signal``).
+
 ``wire`` builds the whole service from a ``utils.config.Config`` (the
 JAX ``PixelBufferApp.__init__``): ``create_app`` and ``create_server``
 both go through it. Opt-in planes the port does not have stop start-up
@@ -133,6 +149,7 @@ with a ``ConfigError`` naming the key when they are turned on.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import dataclasses
 import http
 import json
@@ -147,6 +164,15 @@ from urllib.parse import parse_qsl, unquote, urlsplit
 from .. import __version__
 from ..auth.omero_session import AllowListValidator
 from ..auth.stores import EchoSessionStore, MemorySessionStore
+from ..cache.plane.coordinator import CachePlane
+from ..cache.plane.l2 import decode_entry_epoch
+from ..cache.plane.peer import (
+    EPOCH_HEADER,
+    KEY_HEADER,
+    PEER_HEADER,
+    TRACE_HEADER,
+    TRACE_PARENT_HEADER,
+)
 from ..cache.plane.tinylfu import TinyLFU
 from ..cache.prefetch import ViewportPrefetcher
 from ..cache.result_cache import CachedTile, TileResultCache, etag_matches
@@ -174,6 +200,10 @@ from ..resilience.scheduler import (
     header_priority,
 )
 from ..runtime.native import host_engine
+from ..cluster import DrainCoordinator, HedgePolicy, QualityTracker
+from ..cluster.replicate import MAX_TRANSFER_BYTES
+from ..cluster.security import SIG_HEADER, NonceCache
+from ..cluster.security import verify as verify_cluster_sig
 from ..session import AnnotationStore, ChannelRegistry
 from ..tile_ctx import TileCtx
 from ..utils.config import Config, ConfigError
@@ -222,11 +252,33 @@ _ROUTE_METHODS = "GET,HEAD,OPTIONS"
 # the discovery document (getMicroserviceDetails)
 DISCOVERY = {"provider": "PixelBufferMicroservice", "version": __version__, "features": []}
 _MAX_HEADERS = 100
-# request bodies: up to aiohttp's client_max_size reach the handler; a
-# larger one (up to _MAX_DRAIN) is read and dropped, and the handler sees
-# None, as a JAX handler sees aiohttp's 413 inside its body parse
+# request bodies: up to aiohttp's client_max_size reach the handler (1 MiB,
+# or with the cluster plane the JAX app's bound: an L2-framed entry or a
+# transfer-framed batch, plus 64 KiB); a larger one (up to _MAX_DRAIN) is
+# read and dropped, and the handler sees None, as a JAX handler sees
+# aiohttp's 413 inside its body parse
 _MAX_BODY = 1 << 20
 _MAX_DRAIN = 64 << 20
+# the cluster plane's surface, lower-cased as the front keys its headers
+_PEER = PEER_HEADER.lower()
+# (path pattern, handler name by method) of the plane's /internal/* routes
+_INTERNAL_ROUTES = (
+    (re.compile(r"^/internal/purge/([^/]+)$"), {"POST": "_internal_purge"}),
+    (re.compile(r"^/internal/replica$"), {"POST": "_internal_replica"}),
+    (re.compile(r"^/internal/transfer$"), {"GET": "_internal_transfer",
+                                           "HEAD": "_internal_transfer"}),
+    (re.compile(r"^/internal/handoff$"), {"POST": "_internal_handoff"}),
+    (re.compile(r"^/internal/digest$"), {"GET": "_internal_digest", "HEAD": "_internal_digest"}),
+    (re.compile(r"^/internal/pull$"), {"POST": "_internal_pull"}),
+    (re.compile(r"^/internal/drain$"), {"POST": "_internal_drain"}),
+    (re.compile(r"^/internal/gossip$"), {"POST": "_internal_gossip"}),
+)
+# the request target as aiohttp's ``request.path_qs`` spells it, for the
+# serving path's owner hop (set per request by ``_route``)
+_PATH_QS: contextvars.ContextVar = contextvars.ContextVar("ompb_path_qs", default="")
+# opt-in dependency pings of /healthz?probe=1: at most one round per
+# interval (the JAX app's throttle)
+_PROBE_MIN_INTERVAL_S = 5.0
 # how long a closing WebSocket waits for the client's close frame, and
 # how long shutdown waits for the live channels to end
 _WS_CLOSE_TIMEOUT_S = 10.0
@@ -340,6 +392,20 @@ class TileServer:
             self.annotations = AnnotationStore(max_images=sp.max_annotation_images,
                                                max_per_image=sp.max_annotations_per_image)
         self.ping_interval_s = sp.ping_interval_s
+        # the fleet plane (cache/plane/, cluster/): the shared L2 tier
+        # and/or the consistent-hash ring, its quality tracker and drain
+        self.cache_plane: Optional[CachePlane] = None
+        self.quality: Optional[QualityTracker] = None
+        self.drainer: Optional[DrainCoordinator] = None
+        self.cluster_nonces = NonceCache()
+        self.max_body = _MAX_BODY
+        cl = config.cluster
+        if cl.plane_enabled:
+            self._build_plane(cl)
+            self.max_body = max((cc.max_entry_kb << 10) + 65536, MAX_TRANSFER_BYTES + 65536)
+        self._drain_task: Optional[asyncio.Task] = None
+        self._probe_task: Optional[asyncio.Task] = None
+        self._probe_cache: Optional[Tuple[float, dict]] = None
         wd = res.watchdog
         self.watchdog = (LoopWatchdog(interval_s=wd.interval_ms / 1000.0,
                                       warn_after_s=wd.warn_ms / 1000.0)
@@ -367,6 +433,33 @@ class TileServer:
         self._live: set = set()  # connections a live channel owns
         self.port: Optional[int] = None
 
+    def _build_plane(self, cl) -> None:
+        """The cluster plane of the ``cluster:`` block, as the JAX app
+        builds it: the hedge policy, the quality tracker, the ``CachePlane``
+        and the drain coordinator. (The JAX app's suspicion policy only
+        acts through the fleet brains, ``ROADMAP.md`` §1 item 8b.)"""
+        hedge = None
+        if cl.hedge.enabled:
+            peer_timeout_s = cl.peer_timeout_ms / 1000.0
+            hedge = HedgePolicy(
+                enabled=True, quantile=cl.hedge.quantile, min_s=cl.hedge.min_ms / 1000.0,
+                max_s=cl.hedge.max_ms / 1000.0,
+                fallback_s=cl.hedge.fallback_ms / 1000.0 or peer_timeout_s / 2.0)
+        self.quality = QualityTracker()
+        self.cache_plane = CachePlane(
+            members=cl.members, self_url=cl.self_url, virtual_nodes=cl.virtual_nodes,
+            peer_timeout_s=cl.peer_timeout_ms / 1000.0, l2_uri=cl.l2.uri, l2_ttl_s=cl.l2.ttl_s,
+            replication_factor=cl.replication_factor,
+            transfer_max_entries=cl.transfer_max_entries, hedge=hedge, secret=cl.secret,
+            result_cache=self.cache, repair_interval_s=cl.repair.interval_s,
+            repair_max_keys=cl.repair.max_keys, quality=self.quality,
+            integrity_verify=cl.integrity.verify_bodies)
+        # SIGTERM (``drain_on_signal``) or POST /internal/drain runs it;
+        # live channels ride the drain (reconnect frames, the summary)
+        self.drainer = DrainCoordinator(
+            self.cache_plane, deadline_s=cl.drain.deadline_s, admission=self.admission,
+            scheduler=self.scheduler, session_registry=self.session_channels)
+
     async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Start the worker and listen; returns the bound port."""
         await self.worker.start()
@@ -377,6 +470,10 @@ class TileServer:
         if self.session_channels is not None:
             # delta pushes come from resolver threads: they land on this loop
             self.session_channels.start(asyncio.get_running_loop())
+        if self.cache_plane is not None:
+            # invalidation listeners fire on resolver threads: the fan-out
+            # is scheduled on this loop
+            self.cache_plane.start(asyncio.get_running_loop())
         self._server = await asyncio.start_server(self._client, host, port)
         self.port = self._server.sockets[0].getsockname()[1]
         return self.port
@@ -398,6 +495,8 @@ class TileServer:
             self.watchdog.stop()
         if self.prefetcher is not None:
             await self.prefetcher.close()
+        if self.cache_plane is not None:
+            await self.cache_plane.close()
         await self.worker.close()
         self.cache.close()
         if TRACER.reporter is not None:  # flush the spans, as the JAX app's cleanup
@@ -447,8 +546,7 @@ class TileServer:
             except ConnectionError:
                 pass
 
-    @staticmethod
-    async def _read_request(reader):
+    async def _read_request(self, reader):
         line = await reader.readline()
         if not line:
             return None
@@ -476,7 +574,7 @@ class TileServer:
         if length < 0 or length > _MAX_DRAIN:
             raise _BadRequest("Bad Content-Length")
         body: Optional[bytes] = b""
-        if length > _MAX_BODY:
+        if length > self.max_body:
             while length:  # over the limit: read and dropped
                 length -= len(await reader.readexactly(min(length, 1 << 16)))
             body = None
@@ -487,19 +585,49 @@ class TileServer:
     async def _dispatch(self, method: str, target: str, headers: Dict[str, str],
                         body: Optional[bytes] = b""):
         """One request's answer, a (status, headers, body) triple or a
-        ``_Takeover`` of the connection; a request to a serving route rides
-        a flight record from here (the JAX ``obs_middleware``)."""
+        ``_Takeover`` of the connection. With the cluster plane, a request
+        to a serving route notes its status and wall time in the quality
+        tracker first (the JAX ``quality_middleware``, outermost); a
+        client that hangs up notes nothing."""
         path = unquote(urlsplit(target).path)
+        serving = method != "OPTIONS" and path.startswith(SERVING_PREFIXES)
+        sig = _SigVerdict(self, method, target, headers)
+        if self.quality is None or not serving:
+            return await self._observed(method, target, headers, path, body, serving, sig)
+        t0 = time.perf_counter()
+        status = 500
+        try:
+            answer = await self._observed(method, target, headers, path, body, serving, sig)
+            if not isinstance(answer, _Takeover):
+                status = answer[0]
+            return answer
+        except asyncio.CancelledError:
+            status = None
+            raise
+        finally:
+            if status is not None:
+                self.quality.note(status, time.perf_counter() - t0)
+
+    async def _observed(self, method, target, headers, path, body, serving, sig):
+        """The request under the cluster guard; one to a serving route
+        rides a flight record from here (the JAX ``obs_middleware``). A
+        peer hop whose cluster identity checks out joins the requester's
+        trace (``X-OMPB-Trace-Id``, ``X-OMPB-Trace-Span``)."""
         rec = None
-        if (self.recorder is not None and method != "OPTIONS"
-                and path.startswith(SERVING_PREFIXES)):
-            rec = self.recorder.start(path, method)
+        if self.recorder is not None and serving:
+            trace_id = parent = None
+            if _PEER in headers and self._peer_claim_verified(sig):
+                trace_id = _valid_trace_id(headers.get(TRACE_HEADER.lower()))
+                parent = _valid_trace_id(headers.get(TRACE_PARENT_HEADER.lower()), 16)
+            rec = self.recorder.start(path, method, trace_id=trace_id, parent_span_id=parent)
+            if rec is not None and trace_id is not None:
+                rec.peer_origin = headers.get(_PEER)
         if rec is None:
-            return await self._traced(method, target, headers, path, None, body)
+            return await self._guarded(method, target, headers, path, None, body, sig)
         status = 500
         try:
             with record_scope(rec):
-                response = await self._traced(method, target, headers, path, rec, body)
+                response = await self._guarded(method, target, headers, path, rec, body, sig)
             status, out_headers, _ = response
             degraded = out_headers.get("X-OMPB-Degraded")
             if degraded:
@@ -510,6 +638,33 @@ class TileServer:
             return response
         finally:
             self.recorder.complete(rec, status)
+
+    async def _guarded(self, method, target, headers, path, rec, body, sig):
+        """The cluster guard (the JAX ``cluster_guard_middleware``), inside
+        the flight record and before the door gate: with the plane, an
+        ``/internal/*`` request or one that carries ``X-OMPB-Peer`` must
+        hold a valid ``X-OMPB-Sig`` when ``cluster.secret`` is set, and
+        without a secret an ``/internal/*`` request must carry the peer
+        marker; else 403."""
+        if self.cache_plane is not None:
+            is_internal = path.startswith("/internal/")
+            claims_peer = _PEER in headers
+            if is_internal or claims_peer:
+                if self.config.cluster.secret:
+                    if not sig.ok(body or b""):
+                        return 403, {}, b"invalid cluster signature"
+                elif is_internal and not claims_peer:
+                    return 403, {}, b"peer requests only"
+        return await self._traced(method, target, headers, path, rec, body)
+
+    def _peer_claim_verified(self, sig: "_SigVerdict") -> bool:
+        """Whether a peer-marked request's cluster identity holds for the
+        trace adoption outside the guard: its signature over an empty
+        body (serving hops are bodiless GETs), or, without a secret,
+        the network's word."""
+        if not self.config.cluster.secret:
+            return True
+        return sig.ok(b"")
 
     async def _traced(self, method, target, headers, path, rec, body=b""):
         """The request inside a live ``http:<path>`` span when
@@ -529,6 +684,7 @@ class TileServer:
     async def _route(self, method: str, target: str, headers: Dict[str, str],
                      body: Optional[bytes] = b""):
         parts = urlsplit(target)
+        _PATH_QS.set(aiohttp_path_qs(target))
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
         query: Dict[str, str] = {}
@@ -544,7 +700,7 @@ class TileServer:
         if self.recorder is not None and parts.path.startswith("/debug/requests"):
             debug = (() if parts.path == "/debug/requests"
                      else _DEBUG_TRACE_PATH.match(parts.path))
-        exempt = parts.path in _SESSION_EXEMPT or parts.path.startswith("/debug/")
+        exempt = parts.path in _SESSION_EXEMPT or parts.path.startswith(("/internal/", "/debug/"))
         m = render = histogram = adapter = None
         if not exempt:
             m = _TILE_PATH.match(parts.path)
@@ -571,17 +727,31 @@ class TileServer:
                 return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
                     b"405: Method Not Allowed"
             return await getattr(self, name)(groups, headers, key or "", body, method)
+        if self.cache_plane is not None and parts.path.startswith("/internal/"):
+            internal = _match_route(_INTERNAL_ROUTES, unquote(parts.path))
+            if internal is not None:
+                methods, groups = internal
+                name = methods.get(method)
+                if name is None:
+                    return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
+                        b"405: Method Not Allowed"
+                return await getattr(self, name)(groups, query, headers, body)
         routed = (healthz or metrics or debug is not None or m is not None
                   or adapter is not None)
         if method not in ("GET", "HEAD") or not routed:
             return 405, {"Allow": _ROUTE_METHODS if routed else "OPTIONS"}, \
                 b"405: Method Not Allowed"
         if healthz:
-            return 200, {"Content-Type": JSON_TYPE}, json.dumps(self.health()).encode()
+            view = self.health()
+            if query.get("probe", "").strip().lower() in ("1", "true", "yes"):
+                # opt-in dependency pings; probes mint breakers
+                view["probes"] = await self._probe_dependencies_throttled()
+                view["breakers"] = BOARD.snapshot()
+            return 200, {"Content-Type": JSON_TYPE}, json.dumps(view).encode()
         if metrics:
             return _metrics_response(headers)
         if debug is not None:
-            return self._debug_requests(debug, query)
+            return await self._debug_requests(debug, query, headers)
         if adapter is not None:
             handler, groups = adapter
             return await handler(self, groups, query, headers, key)
@@ -736,6 +906,33 @@ class TileServer:
         key = ctx.cache_key(quality)
         with ambient_stage("cache_probe"):
             entry = await self.cache.get(key)
+        plane = self.cache_plane
+        plane_epoch = plane_pending = plane_generation = None
+        if plane is not None and entry is not None:
+            # replication qualifies on frequency, and most keys cross the
+            # bar on a hit (O(1) when it declines)
+            plane.note_hit(key, entry)
+        if plane is not None and entry is None:
+            # the cluster consult, between the local miss and the render:
+            # the shared L2, then one bounded GET to the key's owner. The
+            # generation is taken before the hop, so an invalidation racing
+            # it blocks the re-admission
+            peer_originated = _PEER in headers
+            plane_generation = self.cache.generation()
+            plane_entry, source, plane_epoch, plane_pending = await plane.fetch(
+                key, _PATH_QS.get(), _cookie_session_id(headers.get("cookie")),
+                peer_originated=peer_originated)
+            if peer_originated and plane_epoch is None:
+                # the owner's side of a hop: the fill stamps the epoch the
+                # requester observed before it
+                plane_epoch = _parse_epoch(headers.get(EPOCH_HEADER.lower()))
+            if plane_entry is not None:
+                if await self._authorize_cached(ctx):
+                    self.cache.put(key, plane_entry, generation=plane_generation)
+                    self._observe_prefetch(ctx)
+                    return self._tile_response(ctx, plane_entry, inm, source)
+                # not confirmed: the full path answers 403, 404 or 503 (and
+                # never admits the fetched bytes under an unverified session)
         if entry is not None:
             if inm and self.etag_precheck and etag_matches(inm, entry.etag):
                 # the client already holds these exact bytes: revalidation
@@ -769,12 +966,24 @@ class TileServer:
                 if entry is not None and await self._authorize_cached(ctx):
                     return self._tile_response(ctx, entry, inm, "hit", degraded=1)
             try:
-                entry, degraded = await self._flight.do(
-                    ctx.dedupe_key(quality), lambda: self._render(ctx, key, full_res_key))
+                if plane_pending is not None:
+                    # the hedge fired: the local render races the peer fetch
+                    reply, early = await self._hedged_fetch(
+                        ctx, key, full_res_key, plane_epoch, plane_pending, plane_generation,
+                        inm)
+                    if early is not None:
+                        return early
+                    entry, degraded = reply
+                else:
+                    entry, degraded = await self._flight.do(
+                        ctx.dedupe_key(quality),
+                        lambda: self._render(ctx, key, full_res_key, plane_epoch))
             except TileError as e:
                 return _failure(e)
             served = True
         finally:
+            if plane_pending is not None and not plane_pending.done():
+                plane_pending.cancel()  # every exit cancels an unconsumed hedge
             if permit is not None:
                 # failures do not train the service-time estimate
                 self.scheduler.release(permit, train=served)
@@ -824,18 +1033,66 @@ class TileServer:
             ctx.obs.stamp("frame", time.perf_counter() - t_frame)
         return 200, headers, entry.body
 
-    async def _render(self, ctx: TileCtx, key: str, full_res_key: Optional[str]
-                      ) -> Tuple[CachedTile, int]:
+    async def _render(self, ctx: TileCtx, key: str, full_res_key: Optional[str],
+                      epoch: Optional[int] = None) -> Tuple[CachedTile, int]:
         """One pipeline execution of a miss, memoized once per flight:
         (entry, levels degraded). A degraded flight that came back at full
-        resolution (no coarser level) fills the full-resolution key."""
+        resolution (no coarser level) fills the full-resolution key. With
+        the cluster plane the fill is published to the shared tier, stamped
+        with ``epoch``, the image epoch observed before the render."""
         generation = self.cache.generation()
         body, meta = await self.worker.handle(ctx)
         entry = CachedTile(body, filename=meta["filename"])
         degraded = int(meta.get("degraded", 0))
-        self.cache.put(full_res_key if full_res_key is not None and not degraded else key,
-                       entry, generation=generation)
+        target = full_res_key if full_res_key is not None and not degraded else key
+        self.cache.put(target, entry, generation=generation)
+        if self.cache_plane is not None:
+            self.cache_plane.publish(target, entry, epoch=epoch)
         return entry, degraded
+
+    async def _hedged_fetch(self, ctx: TileCtx, key: str, full_res_key: Optional[str],
+                            epoch: Optional[int], pending: asyncio.Task,
+                            generation: Optional[int], inm: str):
+        """The hedge race (``cluster/hedge.py``): the peer fetch ran past
+        the observed p99, so the local render starts now and the first to
+        finish serves. ``((entry, degraded), None)`` when the local render
+        wins, ``(None, answer)`` when the peer's bytes come first: those
+        are full-resolution bytes, admitted under the full-resolution key
+        with the generation taken before the hop, and only our wait on the
+        flight is cancelled (the flight and its fill go on)."""
+        plane = self.cache_plane
+        hedge = plane.hedge
+        rec = ctx.obs
+        quality = self.pipeline.encode_signature()
+        fetch_task = asyncio.ensure_future(self._flight.do(
+            ctx.dedupe_key(quality), lambda: self._render(ctx, key, full_res_key, epoch)))
+        try:
+            done, _ = await asyncio.wait({fetch_task, pending},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if pending in done and fetch_task not in done:
+                result = pending.result()
+                if result is not None and result[1].get("x-ompb-degraded"):
+                    # the owner served its own hybrid-resolution fallback:
+                    # those bytes belong under a degraded key
+                    result = None
+                entry = plane.entry_from_peer(result, getattr(pending, "ompb_owner", None))
+                if entry is not None and await self._authorize_cached(ctx):
+                    hedge.note("peer_win")
+                    if rec is not None:
+                        rec.tag("hedge", "peer_win")
+                    fetch_task.cancel()
+                    self.cache.put(full_res_key if full_res_key is not None else key, entry,
+                                   generation=generation)
+                    return None, self._tile_response(ctx, entry, inm, "peer-hit")
+                hedge.note("peer_failed")
+            reply = await fetch_task
+            hedge.note("local_win")
+            if rec is not None:
+                rec.tag("hedge", "local_win")
+            return reply, None
+        finally:
+            if not pending.done():
+                pending.cancel()
 
     # -- authorization of cache hits, invalidation ---------------------------
 
@@ -882,18 +1139,241 @@ class TileServer:
 
     def _invalidate_image(self, image_id: int) -> None:
         """The metadata resolver's listener (its own thread), and every
-        annotation write: purge the image's cached tiles (both tiers),
-        authorization verdicts, open buffer, device planes and decoded
-        blocks, then push an ``invalidate`` delta to its live channels."""
+        annotation write: the local purge first, synchronous, then the
+        cluster plane's fan-out (epoch bump, L2 DELs, peer purges),
+        scheduled on the serving loop, which can never block or fail it."""
+        self._invalidate_local(image_id)
+        if self.cache_plane is not None:
+            self.cache_plane.invalidate_image(int(image_id))
+
+    def _invalidate_local(self, image_id: int) -> None:
+        """Purge every process-local artifact of one image: its cached
+        tiles (both tiers), authorization verdicts, open buffer, device
+        planes and decoded blocks, then push an ``invalidate`` delta with
+        the plane's epoch to its live channels. Any thread; also the
+        target of a peer's purge, which must not fan out again."""
         image_id = int(image_id)
+        epoch = self._session_epoch(image_id)
+        if epoch is not None:
+            # stamped on the open buffer before the pipeline drops it
+            self.pipeline.pixels_service.note_epoch(image_id, epoch)
         self.cache.invalidate_image(image_id)
         if self.prefetcher is not None:
             self.prefetcher.invalidate_image(image_id)
         self._authz_purge(image_id)
         self.pipeline.invalidate_image(image_id)
         if self.session_channels is not None:
-            # the epoch is the cluster plane's; without it None, as in JAX
-            self.session_channels.push_delta(image_id, epoch=None)
+            self.session_channels.push_delta(image_id, epoch=epoch)
+
+    def _session_epoch(self, image_id: int) -> Optional[int]:
+        """The image's epoch as this replica knows it (None without the
+        plane's epoch registry)."""
+        plane = self.cache_plane
+        if plane is not None and plane.epochs is not None:
+            return plane.epochs.known(image_id)
+        return None
+
+    # -- the cluster plane's peer surface (/internal/*) ------------------------
+
+    def verify_cluster_request(self, method: str, target: str, headers: Dict[str, str],
+                               body: bytes) -> bool:
+        """``X-OMPB-Sig`` over the request as aiohttp's ``path_qs`` spells
+        it, with this replica's nonce cache (see ``_SigVerdict``)."""
+        return verify_cluster_sig(
+            self.config.cluster.secret, headers.get(SIG_HEADER.lower()), method,
+            aiohttp_path_qs(target), body, nonce_cache=self.cluster_nonces,
+            peer=headers.get(_PEER, "-"))
+
+    async def _internal_purge(self, groups, query, headers, body):
+        """Inbound half of the purge fan-out: the forwarded epoch advances
+        this replica's high-water mark (so an in-flight replica push for
+        the image loses), then the local purge, which fans out no further."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        try:
+            image_id = int(groups[0])
+        except (TypeError, ValueError):
+            return 400, {}, b"bad image id"
+        epoch = _parse_epoch(headers.get(EPOCH_HEADER.lower()))
+        if epoch is not None:
+            self.cache_plane.note_epoch(image_id, epoch)
+        self._invalidate_local(image_id)
+        return _json(200, {"purged": image_id})
+
+    async def _internal_replica(self, groups, query, headers, body):
+        """Inbound next-owner replication: one hot entry framed as an L2
+        value (epoch stamp included), admitted to the local cache unless
+        its bytes fail their hash (400) or it predates a purge seen here."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        key = headers.get(KEY_HEADER.lower())
+        if not key:
+            return 400, {}, b"missing key header"
+        entry, epoch = decode_entry_epoch(body or b"")
+        if entry is None:
+            return 400, {}, b"malformed frame"
+        plane = self.cache_plane
+        if not plane.verify_entry_bytes(entry, "replica", member=headers.get(_PEER)):
+            return 400, {}, b"integrity check failed"
+        if plane.replica_push_stale(key, epoch):
+            if plane.replicator is not None:
+                plane.replicator.rejected_stale += 1
+            return _json(200, {"stored": False, "stale": True})
+        self.cache.put(key, entry, generation=self.cache.generation())
+        if plane.replicator is not None:
+            plane.replicator.received += 1
+        return _json(200, {"stored": True})
+
+    @staticmethod
+    def _internal_limit(query, limit: int):
+        """(limit, None) under the ``?limit=`` bound, or (None, the 400)."""
+        raw = query.get("limit")
+        if raw is not None:
+            try:
+                limit = min(limit, max(0, int(raw)))
+            except (TypeError, ValueError):
+                return None, (400, {}, b"bad limit")
+        return limit, None
+
+    async def _internal_transfer(self, groups, query, headers, body):
+        """This replica's hottest memory entries as one bounded transfer
+        payload (a joiner's warm-up)."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        limit, error = self._internal_limit(query, self.config.cluster.transfer_max_entries)
+        if error is not None:
+            return error
+        return 200, {"Content-Type": "application/octet-stream"}, \
+            self.cache_plane.hot_transfer_payload(limit)
+
+    async def _internal_handoff(self, groups, query, headers, body):
+        """Inbound half of a drain handoff: transfer-framed entries,
+        absorbed through the epoch- and hash-checked path, or (JSON) a
+        draining peer's live-channel summary for the session plane."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        ctype = headers.get("content-type", "").split(";", 1)[0].strip().lower()
+        if ctype == "application/json":
+            if self.session_channels is None:
+                return 503, {}, b"session plane disabled"
+            payload = _json_body(body)
+            if payload is None:
+                return 400, {}, b"bad handoff body"
+            if not isinstance(payload, dict) or payload.get("kind") != "session_handoff":
+                return 400, {}, b"bad handoff kind"
+            return _json(200, {"absorbed": self.session_channels.absorb_handoff(payload)})
+        stored = await self.cache_plane.absorb_handoff(body or b"", member=headers.get(_PEER))
+        return _json(200, {"stored": stored})
+
+    async def _internal_digest(self, groups, query, headers, body):
+        """The anti-entropy digest: (key, epoch) pairs of the warm set,
+        checksummed."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        limit, error = self._internal_limit(query, self.cache_plane.digest_limit())
+        if error is not None:
+            return error
+        return 200, {"Content-Type": "application/json"}, \
+            self.cache_plane.digest_payload(limit)
+
+    async def _internal_pull(self, groups, query, headers, body):
+        """The anti-entropy pull: the named entries held here, transfer-
+        framed, bounded in count and bytes."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        parsed = _json_body(body)
+        keys = parsed.get("keys") if isinstance(parsed, dict) else None
+        if not isinstance(keys, list):
+            return 400, {}, b"bad key list"
+        return 200, {"Content-Type": "application/octet-stream"}, \
+            await self.cache_plane.pull_payload(keys)
+
+    async def _internal_drain(self, groups, query, headers, body):
+        """Run (or join) the drain: ``?wait=1`` answers when it is done,
+        else the current state at once while it runs."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        if query.get("wait", "").strip().lower() in ("1", "true", "yes"):
+            stats = await self.drainer.drain()
+            return _json(200, {"state": self.drainer.state, "stats": stats})
+        task = asyncio.ensure_future(self.drainer.drain())
+        task.add_done_callback(lambda t: t.cancelled() or t.exception())
+        return _json(200, self.drainer.snapshot())
+
+    async def _internal_gossip(self, groups, query, headers, body):
+        """The gossip exchange's endpoint. Gossip membership is ROADMAP.md
+        §1 item 8b: a well-formed digest answers 503, as the JAX app does
+        without a gossip manager."""
+        if _PEER not in headers:
+            return 403, {}, b"peer requests only"
+        if not isinstance(_json_body(body), dict):
+            return 400, {}, b"bad digest"
+        return 503, {}, b"gossip disabled"
+
+    def drain_on_signal(self, done) -> bool:
+        """SIGTERM with ``cluster.drain.signal``: run the drain, then call
+        ``done`` (the caller's stop); False (nothing started) without the
+        plane or the key. A repeat signal while it runs joins it."""
+        if self.drainer is None or not self.config.cluster.drain.signal:
+            return False
+        if self._drain_task is None or self._drain_task.done():
+            async def drain_then_stop() -> None:
+                try:
+                    await self.drainer.drain()
+                except Exception:
+                    log.exception("drain on SIGTERM failed; stopping anyway")
+                finally:
+                    done()
+
+            self._drain_task = asyncio.ensure_future(drain_then_stop())
+            self._drain_task.add_done_callback(lambda t: t.cancelled() or t.exception())
+        return True
+
+    async def _probe_dependencies_throttled(self) -> dict:
+        """``/healthz?probe=1``: at most one round a ``_PROBE_MIN_INTERVAL_S``
+        (concurrent callers share the round in flight, later ones get its
+        result), so the unauthenticated endpoint cannot pump traffic or
+        failures into the stores' breakers."""
+        now = time.monotonic()
+        if self._probe_cache is not None and now - self._probe_cache[0] < _PROBE_MIN_INTERVAL_S:
+            return self._probe_cache[1]
+        if self._probe_task is None or self._probe_task.done():
+            async def round_() -> dict:
+                probes = await self._probe_dependencies()
+                self._probe_cache = (time.monotonic(), probes)
+                return probes
+
+            self._probe_task = asyncio.get_running_loop().create_task(round_())
+        return await asyncio.shield(self._probe_task)
+
+    async def _probe_dependencies(self) -> dict:
+        """One bounded exchange with each configured remote dependency,
+        concurrently, through its client (so through its breaker): the
+        session store, the L2 tier and the OMERO database. "ok", or the
+        error's name and text."""
+        bound = timeouts.io_timeout_s()
+        bound = min(bound, 2.0) if bound > 0 else 2.0
+        probes: dict = {}
+
+        async def run(name: str, factory) -> None:
+            try:
+                await asyncio.wait_for(factory(), bound)
+                probes[name] = "ok"
+            except Exception as e:
+                probes[name] = f"{type(e).__name__}: {e}"
+
+        tasks = [run("session-store", lambda: self.session_store.get_omero_session_key(
+            "__ompb_healthz_probe__"))]
+        plane = self.cache_plane
+        if plane is not None and plane.l2 is not None:
+            tasks.append(run("cache-l2", lambda: plane.l2.get("__ompb_healthz_probe__")))
+        resolver = getattr(self.pipeline.pixels_service, "metadata_resolver", None)
+        if resolver is not None and hasattr(resolver, "query"):
+            loop = asyncio.get_running_loop()
+            tasks.append(run("postgres", lambda: loop.run_in_executor(
+                None, lambda: resolver.query("SELECT 1", []))))
+        await asyncio.gather(*tasks)
+        return probes
 
     # -- the session plane ---------------------------------------------------
 
@@ -934,7 +1414,8 @@ class TileServer:
 
     def _session_hello(self, channel) -> dict:
         return {"type": "hello", "image": channel.image_id, "transport": channel.transport,
-                "epoch": None, "annotations": self.annotations.sub_epoch(channel.image_id)}
+                "epoch": self._session_epoch(channel.image_id),
+                "annotations": self.annotations.sub_epoch(channel.image_id)}
 
     def _session_inbound(self, channel, frame) -> None:
         """One client frame off a WebSocket: a viewport report feeds the
@@ -953,7 +1434,7 @@ class TileServer:
                 if not await self._session_still_valid(channel.session_id):
                     self.session_channels.revoke(channel)
                     continue
-                await send({"type": "ping", "epoch": None})
+                await send({"type": "ping", "epoch": self._session_epoch(channel.image_id)})
                 continue
             if frame is None:
                 return
@@ -1073,7 +1554,8 @@ class TileServer:
         """Every annotation write: the image's purge (an ``invalidate``
         delta), then the ``annotations`` delta with the sub-epoch."""
         self._invalidate_image(image_id)
-        self.session_channels.push_delta(image_id, epoch=None, kind="annotations",
+        self.session_channels.push_delta(image_id, epoch=self._session_epoch(image_id),
+                                         kind="annotations",
                                          annotation_epoch=sub_epoch)
 
     async def _annotations_create(self, groups, headers, key, body, method):
@@ -1241,7 +1723,8 @@ class TileServer:
             "queue": self.pipeline.device_queue_snapshot(),
             "plane_cache": self.pipeline.plane_cache_snapshot(),
             "batcher": self.worker.snapshot(),
-            "result_cache": self.cache.snapshot(),
+            "result_cache": self._result_cache_snapshot(),
+            "cluster": self._cluster_snapshot(),
             "reads": self.pipeline.read_snapshot(),
             "jpeg": self.pipeline.pixels_service.idct.snapshot(),
             "io": io_snapshot(),
@@ -1250,9 +1733,28 @@ class TileServer:
         }
 
 
-    def _debug_requests(self, match, query) -> Tuple[int, dict, bytes]:
+    def _result_cache_snapshot(self) -> dict:
+        out = self.cache.snapshot()
+        if self.cache_plane is not None:
+            out["plane"] = self.cache_plane.snapshot()
+        return out
+
+    def _cluster_snapshot(self) -> dict:
+        """``/healthz`` ``cluster``: the plane's coordination view, its
+        drain and (with a secret) the nonce cache; ``{"enabled": false}``
+        without the plane."""
+        if self.cache_plane is None:
+            return {"enabled": False}
+        out = self.cache_plane.cluster_snapshot()
+        out["drain"] = self.drainer.snapshot()
+        if self.config.cluster.secret:
+            out["nonces"] = self.cluster_nonces.snapshot()
+        return out
+
+    async def _debug_requests(self, match, query, headers) -> Tuple[int, dict, bytes]:
         """``/debug/requests``: the ring's kept wide events, most recent
-        first (``?limit=N``); ``/debug/requests/{traceId}``: one trace's
+        first (``?limit=N``; ``?fleet=1`` with the cluster plane gathers
+        every member's); ``/debug/requests/{traceId}``: one trace's
         events, 404 when none is kept."""
         if match:
             trace_id = unquote(match.group(1))
@@ -1269,9 +1771,19 @@ class TileServer:
             except (TypeError, ValueError):
                 return 400, {}, b"bad limit"
         events = self.recorder.events(limit=limit)
-        return 200, {"Content-Type": JSON_TYPE}, json.dumps({
-            "kept": self.recorder.kept_count(), "ring_size": self.recorder.ring_size,
-            "count": len(events), "events": events}).encode()
+        local = {"kept": self.recorder.kept_count(), "ring_size": self.recorder.ring_size,
+                 "count": len(events), "events": events}
+        plane = self.cache_plane
+        if (query.get("fleet", "").strip().lower() in ("1", "true", "yes")
+                and plane is not None and plane.self_url and _PEER not in headers):
+            # the fleet view: every member's ring (null when unreachable);
+            # a peer-originated scatter is terminal, never re-fanned out
+            others = [m for m in plane.members_view() if m != plane.self_url]
+            path = "/debug/requests" + (f"?limit={limit}" if limit is not None else "")
+            replies = await asyncio.gather(*(plane.peers.get_json(m, path) for m in others))
+            members = {plane.self_url: local, **dict(zip(others, replies))}
+            return _json(200, {"fleet": True, "members": members})
+        return _json(200, local)
 
     def config_view(self) -> dict:
         """``/healthz`` ``config``: the default-on planes the port started
@@ -1316,11 +1828,14 @@ def check_planes(config: Config) -> List[str]:
     an opt-in plane or a value the port cannot honour, and return the
     default-on planes that are enabled, which start absent with one
     warning each."""
-    if config.cluster.members or config.cluster.l2.uri:
-        key = "cluster.members" if config.cluster.members else "cluster.l2.uri"
-        raise _refused(key, "the fleet plane is ROADMAP.md §1 item 8")
+    if config.cluster.lease_ttl_s > 0:
+        raise _refused("cluster.lease-ttl-s",
+                       "dynamic membership is ROADMAP.md §1 item 8b")
+    if config.cluster.gossip.enabled:
+        raise _refused("cluster.gossip.enabled",
+                       "gossip membership is ROADMAP.md §1 item 8b")
     if config.ingest.enabled:
-        raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8")
+        raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8b")
     if config.backend.engine == "host":
         raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
     if not config.backend.batching.device_encode:
@@ -1529,10 +2044,61 @@ class _Takeover:
 def _session_route(path: str):
     """(handler names by method, percent-decoded groups) of the session
     route that matches ``path``, or None."""
-    for pattern, methods in _SESSION_ROUTES:
+    return _match_route(_SESSION_ROUTES, path)
+
+
+def _match_route(routes, path: str):
+    """(handler names by method, groups) of the first of ``routes`` whose
+    pattern matches ``path``, or None."""
+    for pattern, methods in routes:
         match = pattern.match(path)
         if match is not None:
             return methods, match.groups()
+    return None
+
+
+def aiohttp_path_qs(target: str) -> str:
+    """The request target as aiohttp's ``request.path_qs`` spells it, the
+    string the cluster's HMAC covers and the owner hop forwards: the raw
+    target (percent-escapes, dot segments and fragments kept as sent),
+    less the ``?`` of an empty query."""
+    path, sep, query = target.partition("?")
+    return path if sep and not query else target
+
+
+class _SigVerdict:
+    """One cluster-signature verdict per request, memoized: the trace
+    adoption and the guard both ask, and the nonce cache takes a nonce on
+    its first acceptance, so a second verification would read as a replay
+    and 403 every signed hop."""
+
+    __slots__ = ("server", "method", "target", "headers", "verdict")
+
+    def __init__(self, server, method: str, target: str, headers: Dict[str, str]):
+        self.server, self.method, self.target, self.headers = server, method, target, headers
+        self.verdict: Optional[bool] = None
+
+    def ok(self, body: bytes) -> bool:
+        if self.verdict is None:
+            self.verdict = self.server.verify_cluster_request(
+                self.method, self.target, self.headers, body)
+        return self.verdict
+
+
+def _parse_epoch(value) -> Optional[int]:
+    """A forwarded image epoch, or None when absent or malformed."""
+    try:
+        return int(value) if value is not None else None
+    except (TypeError, ValueError):
+        return None
+
+
+def _valid_trace_id(value, length: int = 32) -> Optional[str]:
+    """A forwarded trace or span id, or None when absent or malformed (the
+    ids the recorder mints are fixed-width lowercase hex)."""
+    if isinstance(value, str) and len(value) == length and all(
+            c in "0123456789abcdef" for c in value):
+        return value
     return None
 
 

@@ -1,6 +1,6 @@
 """SLO-aware request scheduling (copy of ``omero_ms_pixel_buffer_tpu/
-resilience/scheduler.py``, without the fleet hooks ``note_fleet_pressure``
-and ``note_draining``, which wait for the fleet plane).
+resilience/scheduler.py``, without the fleet-brain hook
+``note_fleet_pressure``, ``ROADMAP.md`` §1 item 8b).
 
 - **Priority classes**: ``INTERACTIVE`` > ``PREFETCH`` > ``BULK``. An
   ``x-ompb-priority`` header wins, the prefetch purpose headers
@@ -242,6 +242,11 @@ class SloScheduler:
         self.degraded = [0, 0, 0]
         self.expired_in_queue = [0, 0, 0]
         self.granted = [0, 0, 0]
+        # graceful drain (cluster/lifecycle.py): a draining replica
+        # finishes real work at full resolution; it stops minting
+        # degraded permits (their entries would be handed off to nobody)
+        # but never sheds or queues differently
+        self.draining = False
 
     @property
     def _waiting_total(self) -> int:
@@ -250,7 +255,7 @@ class SloScheduler:
     def _degrade_flag(self, deadline: Optional[Deadline]) -> bool:
         """A grant that waited serves the fallback when its remaining
         budget is under ``degrade_factor`` x the service-time estimate."""
-        if deadline is None or not self.degrade_enabled:
+        if deadline is None or not self.degrade_enabled or self.draining:
             return False
         if self._service_ewma <= 0.0:
             return False
@@ -290,6 +295,10 @@ class SloScheduler:
             if self._waiting[lower] > 0:
                 return False
         return True
+
+    def note_draining(self, draining: bool) -> None:
+        """The drain protocol's hook: one scalar write."""
+        self.draining = bool(draining)
 
     def shed_at_door(self, priority: int) -> None:
         """Count a door shed in the counters ``acquire``'s sheds use."""
@@ -413,6 +422,7 @@ class SloScheduler:
             "expired_in_queue": dict(zip(names, self.expired_in_queue)),
             "service_ewma_ms": round(self._service_ewma * 1000.0, 3),
             "class_weights": list(self.class_weights),
+            "draining": self.draining,
         }
 
 

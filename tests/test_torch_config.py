@@ -226,8 +226,10 @@ def test_shipped_config_starts_with_five_planes_absent():
 
 
 @pytest.mark.parametrize("key,value,named", [
-    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082"}, "cluster.members"),
-    ("cluster__l2__uri", "redis://x:6379/2", "cluster.l2.uri"),
+    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082", "lease-ttl-s": 5,
+                 "l2": {"uri": "redis://x:6379/2"}}, "cluster.lease-ttl-s"),
+    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082",
+                 "gossip": {"enabled": True}}, "cluster.gossip.enabled"),
     ("ingest__enabled", True, "ingest.enabled"),
     ("backend__engine", "host", "backend.engine"),
     ("backend__batching__device-encode", False, "backend.batching.device-encode"),
@@ -245,6 +247,36 @@ def test_opt_in_planes_stop_startup(key, value, named):
     with pytest.raises(pconfig.ConfigError, match=named.replace(".", r"\.") + ".*ROADMAP|"
                        + named.replace(".", r"\.") + ".*port"):
         check_planes(config)
+
+
+@pytest.mark.parametrize("cluster", [
+    {"members": ["http://127.0.0.1:8082", "http://127.0.0.1:8083"],
+     "self": "http://127.0.0.1:8083", "secret": "s", "replication-factor": 2,
+     "repair": {"interval-s": 5}, "hedge": {"enabled": True}},
+    {"l2": {"uri": "redis://127.0.0.1:6379/2"}},
+], ids=["static-ring", "l2-only"])
+def test_static_fleet_config_starts(cluster, restore_process_state):
+    """``cluster.members`` and ``cluster.l2.uri`` (once refused) start the
+    fleet plane: the ring, the L2 tier, the drain and the knobs reach it."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
+
+    config = _config(cluster=cluster)
+    assert check_planes(config) == []
+    server = wire(config, device="cpu")
+    try:
+        plane = server.cache_plane
+        assert plane is not None and server.drainer is not None
+        assert (plane.ring is None) == ("members" not in cluster)
+        assert (plane.l2 is None) == ("l2" not in cluster)
+        view = server.health()["cluster"]
+        assert view["authenticated"] == ("secret" in cluster)
+        assert view["drain"]["state"] == "serving"
+        if "members" in cluster:
+            assert plane.ring.members == cluster["members"]
+            assert plane.replicator.replication_factor == 2
+            assert plane.repairer.interval_s == 5 and plane.hedge is not None
+    finally:
+        server.pipeline.close()
 
 
 @pytest.mark.parametrize("key,value", [

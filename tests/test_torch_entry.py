@@ -148,7 +148,8 @@ def test_dev_registry_without_a_config_file_serves(tmp_path, registry):
 
 
 @pytest.mark.parametrize("block,named", [
-    ("cluster:\n  members: [http://a:8082]\n  self: http://a:8082\n", "cluster.members"),
+    ("cluster:\n  members: [http://a:8082]\n  self: http://a:8082\n  gossip:\n    enabled: true\n",
+     "cluster.gossip.enabled"),
     ("ingest:\n  enabled: true\n", "ingest.enabled"),
     ("backend:\n  engine: host\n", "backend.engine"),
 ])

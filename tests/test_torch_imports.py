@@ -91,6 +91,23 @@ def test_observability_and_cache_plane_modules_are_in_the_port(name):
     assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
 
 
+FLEET_PLANE_MODULES = ["cache.plane.ring", "cache.plane.l2", "cache.plane.peer",
+                       "cache.plane.coordinator", "cluster", "cluster.security",
+                       "cluster.integrity", "cluster.epochs", "cluster.link",
+                       "cluster.replicate", "cluster.repair", "cluster.hedge", "cluster.suspect",
+                       "cluster.lifecycle"]
+
+
+@pytest.mark.parametrize("name", FLEET_PLANE_MODULES)
+def test_fleet_plane_modules_are_in_the_port(name):
+    """The static fleet's modules (ring, L2, peer client, coordinator and
+    the cluster package) exist under their JAX paths and sit in the walk
+    the no-jax probe imports."""
+    path = PORT.joinpath(*name.split("."))
+    assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
+    assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
+
+
 def test_pipeline_defaults_to_cuda_and_never_falls_back(tmp_path):
     assert inspect.signature(TilePipeline).parameters["device"].default == "cuda"
     service = PixelsService(ImageRegistry())

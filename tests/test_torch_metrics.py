@@ -45,17 +45,11 @@ from omero_ms_pixel_buffer_tpu_torch.resilience import configure
 from omero_ms_pixel_buffer_tpu_torch.utils import metrics as pm
 from omero_ms_pixel_buffer_tpu_torch.utils.config import Config
 
-# families of the JAX planes the port does not have: the cluster plane
-# (membership, gossip, brains, replication, repair, integrity, hedging,
-# drain, epochs) and the cache plane's L2 and peer tiers
+# families of the JAX modules the port does not have yet: dynamic
+# membership, gossip and the fleet brains (ROADMAP.md §1 item 8b)
 ABSENT_PLANE_FAMILIES = {
-    "cluster_brain_rounds_total", "cluster_demotions_total", "cluster_drain_events_total",
-    "cluster_epoch_events_total", "cluster_fleet_pressure", "cluster_gossip_rounds_total",
-    "cluster_hedge_total", "cluster_integrity_fail_total", "cluster_membership_events_total",
-    "cluster_repair_pulled_total", "cluster_repair_rounds_total", "cluster_replication_total",
-    "cluster_ring_version", "cluster_unsigned_payloads_total", "slo_burn_rate_fleet",
-    "tile_cache_l2_requests_total", "tile_cache_peer_requests_total",
-    "tile_cache_plane_purges_total",
+    "cluster_brain_rounds_total", "cluster_fleet_pressure", "cluster_gossip_rounds_total",
+    "cluster_membership_events_total", "slo_burn_rate_fleet",
 }
 # the session plane's families, on /metrics in both packages
 SESSION_PLANE_FAMILIES = {"session_annotation_ops_total", "session_channel_events_total",
