@@ -315,6 +315,31 @@ Phases, one JSON line each on stdout:
    on both. Reports each step's tiles/s, p50/p99, ``X-Cache`` counts (peer
    fetches, L2 hits), launches and lanes per replica, the drain's stats
    and the phase's seconds.
+24. ``path_gossip`` — dynamic membership: three replicas A, B and C of the
+   port as subprocesses (``--config``, ``--dev``) on the one card with
+   ``cluster.gossip`` (``interval-s`` 0.5, ``fanout`` 2, ``fail-after-s``
+   5), a ``cluster.secret``, the RESP stub in this process as the L2 and
+   the join hint, ``replication-factor`` 2 and the prefetcher off; A and
+   B seeded with each other, C with A alone. Converge: every ``/healthz``
+   ``cluster.membership`` lists all three (seconds reported). Cold:
+   ``path``'s 256 timed tiles over A, B and C, every PNG against the
+   source, the lanes of the three batchers equal to the distinct keys
+   (render-once), filter and SP launches > 0. Join: D seeded with C
+   alone; all four views agree and D's warm-up pulls entries
+   (``/internal/transfer``); then every key on D: no other replica
+   renders, D renders only keys it answers itself, every body step 2's.
+   Crash: SIGKILL B; A, C and D drop it within ``fail-after-s`` + 2
+   intervals (seconds reported), then every key once over them: the
+   re-rendered keys at most B's, every body against the source and step
+   2's bytes (or, for a lone lane, the host encoder's). Lease: the fleet
+   restarted on the same stub with ``lease-ttl-s`` 3 in place of gossip;
+   a signed ``POST /internal/drain?wait=1`` to one replica is seen as
+   draining by the others within one heartbeat (the drain's 1.5-interval
+   window) and it leaves their views within one more once its lease is
+   deleted. SIGTERM exits 0 on every replica but B. Reports each step's
+   tiles/s, p50/p99, ``X-Cache`` counts, lanes and launches per replica,
+   the convergence and detection seconds and each replica's
+   ``cluster_gossip_rounds_total`` and ``cluster_membership_events_total``.
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -327,7 +352,7 @@ lanes, fallback lanes, crops pulled to the host).
 
 Then the kernels' JSON line (seven rows; the filter's and SP packer's
 launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``,
-``path_disk``'s cold pass and ``path_fleet``, the WSI rows' from
+``path_disk``'s cold pass, ``path_fleet`` and ``path_gossip``, the WSI rows' from
 ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
 line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
@@ -340,7 +365,7 @@ another checkout (an earlier version timed by the same code), and
 ``--bitpack-sweep`` its default and stamped builds (``bitpack_sweep``), and
 ``--paths-only`` only the ``path`` (``dynamic``), ``path_obs``,
 ``path_prefetch``, ``path_session``, ``path_render``, ``path_config``,
-``path_disk`` and ``path_fleet`` phases
+``path_disk``, ``path_fleet`` and ``path_gossip`` phases
 (with ``--port-root``, to pair two versions in one call); the
 Zarr and viewer phases add no kernel row, their launches are on their phase
 lines. Any failure exits
@@ -4393,6 +4418,289 @@ def drive_fleet(registry: str, data: np.ndarray, timed, seed: int, device: str =
         stub.close()
 
 
+GOSSIP = {"enabled": True, "interval-s": 0.5, "fanout": 2, "fail-after-s": 5.0}
+LEASE_TTL_S = 3.0
+
+
+def member_views(ports) -> list:
+    """Each replica's ``/healthz`` cluster view (members, draining), on
+    fresh connections."""
+    views = []
+    for port in ports:
+        status, _, body = fleet_request(port, "GET", "/healthz")
+        require(status == 200, f"/healthz on {port} answered {status}")
+        m = json.loads(body)["cluster"]["membership"]
+        views.append((set(m["members"]), set(m["draining"])))
+    return views
+
+
+def wait_views(ports, want, what: str, timeout_s: float = 60.0, draining=None) -> float:
+    """Seconds until every replica's member view is ``want`` (and its
+    draining set ``draining``, when given), polled every 50 ms."""
+    t0 = time.perf_counter()
+    while True:
+        views = member_views(ports)
+        if all(m == set(want) and (draining is None or d == set(draining)) for m, d in views):
+            return time.perf_counter() - t0
+        require(time.perf_counter() - t0 < timeout_s, f"{what}: views {views}")
+        time.sleep(0.05)
+
+
+def start_replicas(registry: str, device: str, stub_port: int, specs, cluster: dict,
+                   tag: str) -> list:
+    """One ``PortProcess`` per (name, port, seed URLs) of ``specs``, all
+    started at once: the ``path_fleet`` config with ``cluster`` on top."""
+    procs = []
+    for name, port, seeds in specs:
+        cfg_path = os.path.join(WORK, f"{tag}_{name}.yaml")
+        with open(cfg_path, "w") as f:
+            json.dump({
+                "session-store": {"type": "memory"}, "image-registry": registry,
+                "backend": {"png": {"device-deflate-mode": "dynamic"}},
+                "slo": {"queue-size": 128}, "cache": {"prefetch": {"enabled": False}},
+                "cluster": {"members": seeds, "self": f"http://127.0.0.1:{port}",
+                            "l2": {"uri": f"redis://127.0.0.1:{stub_port}/0"},
+                            "secret": FLEET_SECRET, "replication-factor": 2,
+                            "peer-timeout-ms": FLEET_PEER_TIMEOUT_MS, **cluster},
+            }, f, indent=1)  # YAML's JSON subset
+        procs.append(PortProcess(["--config", cfg_path, "--device", device, "--dev"],
+                                 f"{tag}_{name}", port=port, wait=False))
+    for proc in procs:
+        proc.wait_listening()
+    return procs
+
+
+def stop_all(procs) -> list:
+    """SIGTERM to every process at once (each drains), then the exit codes."""
+    for p in procs:
+        p.proc.send_signal(signal.SIGTERM)
+    rcs = [p.proc.wait(60) for p in procs]
+    for p in procs:
+        p.proc = None
+    return rcs
+
+
+def cluster_counts(port: int) -> dict:
+    """``cluster_gossip_rounds_total`` and ``cluster_membership_events_total``
+    of one replica, by label."""
+    status, _, body = fleet_request(port, "GET", "/metrics")
+    require(status == 200, f"/metrics on {port} answered {status}")
+    out = {}
+    for (name, labels), v in metric_samples(body.decode()).items():
+        if name in ("cluster_gossip_rounds_total", "cluster_membership_events_total") and v:
+            out.setdefault(name, {})[labels.strip("{}")] = v
+    return out
+
+
+def latency(results) -> dict:
+    lat = np.array([t for *_, t in results]) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def drive_gossip(registry: str, data: np.ndarray, timed, seed: int, device: str = "cuda") -> dict:
+    """``path_gossip``: dynamic membership. Three replicas of ``python -m
+    omero_ms_pixel_buffer_tpu_torch --config`` on the one card with
+    ``cluster.gossip`` (interval 0.5 s, fanout 2, fail-after 5 s), a
+    ``cluster.secret``, the RESP stub in this process as the L2 and the
+    join hint, ``replication-factor`` 2 and the prefetcher off; A and B
+    seeded with each other, C with A alone. Steps: converge (every view
+    lists all three); cold (``path``'s timed tiles over A, B and C:
+    every PNG against the source, render-once, filter and SP launches);
+    join (D seeded with C alone: all four views agree, D's warm-up pulls
+    entries, then every key on D: no other replica renders, D renders
+    only keys it answers itself); crash (SIGKILL B: A, C and D drop it
+    within fail-after + 2 intervals, then every key once: re-rendered
+    keys at most B's, every body against the source and step 2's bytes);
+    lease (the fleet restarted with ``lease-ttl-s`` 3 on the same stub: a
+    drain of one replica is seen as draining by the others within one
+    heartbeat and leaves their views when its lease is deleted). SIGTERM
+    exits 0 on every replica but B. See the module docstring."""
+    from omero_ms_pixel_buffer_tpu_torch.cluster.security import sign
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import encode_png
+
+    t_phase = time.perf_counter()
+    interval, fail_after = GOSSIP["interval-s"], GOSSIP["fail-after-s"]
+    stub = RespStubThread()
+    stub_port = stub.start()
+    procs, lease_procs, clients = [], [], []
+    try:
+        ports = [free_port() for _ in range(4)]
+        a, b, c, d = urls = [f"http://127.0.0.1:{p}" for p in ports]
+        procs = start_replicas(registry, device, stub_port,
+                               [("a", ports[0], [a, b]), ("b", ports[1], [a, b]),
+                                ("c", ports[2], [a, c])], {"gossip": GOSSIP}, "path_gossip")
+        clients = [Client(p) for p in ports[:3]]
+        health = lambda cs: [get_json(cl, "/healthz") for cl in cs]  # noqa: E731
+        # 1. converge
+        converge_s = wait_views(ports[:3], urls[:3], "the gossip views did not converge")
+        # 2. cold: path's timed tiles over A, B and C
+        reqs = list(timed)
+        keys = sorted({r[0] for r in reqs})
+        h0 = health(clients)
+        cold, cold_s = run_fleet(clients, reqs, lambda i: i % 3, LANES)
+        h1 = health(clients)
+        verify([(s, body, t) for s, _, body, t in cold], reqs, data)
+        cold_delta = fleet_delta(h0, h1)
+        require(sum(x["lanes"] for x in cold_delta) == len(keys),
+                f"cold: {cold_delta} lanes for {len(keys)} keys (render-once)")
+        require(device != "cuda" or all(
+            sum(x["launches"][k] for x in cold_delta) > 0 for k in ("filter", "bitpack")),
+            f"cold launches: {cold_delta}")
+        first = {}
+        for r, (_, hd, body, _) in zip(reqs, cold):
+            first.setdefault(r[0], (hd["ETag"], body))
+        # 3. join: D seeded with C alone
+        t_join = time.perf_counter()
+        procs += start_replicas(registry, device, stub_port, [("d", ports[3], [d, c])],
+                                {"gossip": GOSSIP}, "path_gossip")
+        clients.append(Client(ports[3]))
+        join_converge_s = wait_views(ports, urls, "D did not join every view")
+        t_wait = time.perf_counter()
+        while get_json(clients[3], "/healthz")["cluster"]["replication"][
+                "transfers_pulled"] < 1:
+            require(time.perf_counter() - t_wait < 60, "D's warm-up pulled nothing")
+            time.sleep(0.05)
+        hj0 = health(clients)
+        d_entries = hj0[3]["result_cache"]["memory"]["entries"]
+        require(d_entries > 0, "D's warm-up absorbed no entry")
+        per_key = [(k, None, 200) for k in keys]
+        on_d, on_d_s = run_fleet([clients[3]], per_key, lambda i: 0, LANES)
+        hj1 = health(clients)
+        join_delta = fleet_delta(hj0, hj1)
+        d_tags = [hd.get("X-Cache") for _, hd, _, _ in on_d]
+        d_local = sum(1 for t in d_tags if t in ("hit", "miss"))
+        require(all(x["lanes"] == 0 for x in join_delta[:3]),
+                f"join: a key re-rendered off D: {join_delta}")
+        require(join_delta[3]["lanes"] <= d_local,
+                f"join: D rendered {join_delta[3]['lanes']} keys, answered {d_local} itself")
+        for k, (status, hd, body, _) in zip(keys, on_d):
+            require(status == 200 and body == first[k][1], f"join {k}: {status} differs")
+        join_s = time.perf_counter() - t_join
+        # 4. crash: SIGKILL B
+        hb = get_json(clients[1], "/healthz")
+        b_before_kill = fleet_delta([h0[1]], [hb])[0]
+        clients[1].close()
+        survivors = [ports[0], ports[2], ports[3]]
+        procs[1].proc.kill()
+        t_kill = time.perf_counter()
+        procs[1].proc.wait(30)
+        procs[1].proc = None
+        seen = {}
+        while len(seen) < 3:
+            for port, (members, _) in zip(survivors, member_views(survivors)):
+                if port not in seen and b not in members:
+                    seen[port] = time.perf_counter() - t_kill
+            require(time.perf_counter() - t_kill < 60, f"B not dropped: {seen}")
+            time.sleep(0.05)
+        detect_s = max(seen.values())
+        limit_s = fail_after + 2 * interval
+        require(detect_s <= limit_s, f"B dropped after {detect_s:.2f} s > {limit_s} s: {seen}")
+        live = [clients[0], clients[2], clients[3]]
+        hc0 = health(live)
+        again, again_s = run_fleet(live, per_key, lambda i: i % 3, LANES)
+        hc1 = health(live)
+        crash_delta = fleet_delta(hc0, hc1)
+        rendered = sum(x["lanes"] for x in crash_delta)
+        require(rendered <= cold_delta[1]["lanes"],
+                f"crash: {rendered} re-rendered, B owned {cold_delta[1]['lanes']}")
+        by_key = {r[0]: r for r in reqs}
+        verify([(s, body, t) for s, _, body, t in again], [by_key[k] for k in keys], data)
+        equal, host_route = 0, 0
+        for k, (status, hd, body, _) in zip(keys, again):
+            if body == first[k][1]:
+                equal += 1
+                continue
+            x, y, w, h = by_key[k][1]  # a lone lane's host bytes differ by design
+            require(encode_png(data[y:y + h, x:x + w]) == body, f"crash {k}: bytes differ")
+            host_route += 1
+        metrics = {url: cluster_counts(port) for url, port in zip(
+            [a, c, d], survivors)}
+        h_end = health(live)
+        for cl in clients:
+            cl.close()
+        clients = []
+        rcs = stop_all([procs[0], procs[2], procs[3]])
+        require(rcs == [0, 0, 0], f"gossip exit codes on SIGTERM: {rcs}")
+        # 5. lease mode on the same stub
+        lports = [free_port() for _ in range(3)]
+        lurls = [f"http://127.0.0.1:{p}" for p in lports]
+        lease_procs = start_replicas(registry, device, stub_port,
+                                     [(f"l{i}", p, lurls) for i, p in enumerate(lports)],
+                                     {"lease-ttl-s": LEASE_TTL_S}, "path_gossip_lease")
+        lease_converge_s = wait_views(lports, lurls, "the lease views did not converge")
+        heartbeat = LEASE_TTL_S / 3.0
+        drain = "/internal/drain?wait=1"
+        box = {}
+
+        def run_drain():
+            box["answer"] = fleet_request(lports[2], "POST", drain, {
+                "X-OMPB-Peer": lurls[0],
+                "X-OMPB-Sig": sign(FLEET_SECRET, "POST", drain, b"", peer=lurls[0])})
+            box["done"] = time.perf_counter()
+
+        drainer = threading.Thread(target=run_drain)
+        t_drain = time.perf_counter()
+        drainer.start()
+        seen_draining = None
+        while seen_draining is None:
+            views = member_views(lports[:2])
+            if all(lurls[2] in dr and lurls[2] in m for m, dr in views):
+                seen_draining = time.perf_counter() - t_drain
+            require(time.perf_counter() - t_drain < 30, f"no drain marker seen: {views}")
+            time.sleep(0.02)
+        drainer.join(60)
+        status, _, body = box["answer"]
+        drained = json.loads(body)
+        require(status == 200 and drained["state"] == "drained"
+                and drained["stats"]["announced"] and drained["stats"]["lease_released"],
+                f"lease drain: {status} {body!r}")
+        left_s = wait_views(lports[:2], lurls[:2], "the drained replica did not leave",
+                            timeout_s=30)
+        require(seen_draining <= heartbeat * 1.5,
+                f"draining seen after {seen_draining:.2f} s > one heartbeat")
+        require(left_s <= heartbeat * 1.5, f"left the views {left_s:.2f} s after the drain")
+        require(f"ompb:cluster:member:{lurls[2]}".encode() not in stub.stub.data,
+                "the drained lease is still in the stub")
+        lease_metrics = {url: cluster_counts(p) for url, p in zip(lurls[:2], lports[:2])}
+        lrcs = stop_all(lease_procs)
+        require(lrcs == [0, 0, 0], f"lease exit codes on SIGTERM: {lrcs}")
+        per_replica = fleet_delta(h0[:1] + h0[2:] + [hj0[3]], h_end)
+        launches = {k: sum(x["launches"][k] for x in per_replica) + b_before_kill["launches"][k]
+                    for k in b_before_kill["launches"]}
+        counts = lambda tags: {t: tags.count(t) for t in sorted(set(tags))}  # noqa: E731
+        return {
+            "phase": "path_gossip", "replicas": 4, "requests": len(reqs), "keys": len(keys),
+            "concurrency": LANES, "gossip": GOSSIP,
+            "startup_s": [p.startup_s for p in procs],
+            "converge_s": converge_s,
+            "cold": {"tiles_per_s": len(reqs) / cold_s, **latency(cold),
+                     "x_cache": counts([hd.get("X-Cache") for _, hd, _, _ in cold]),
+                     "per_replica": cold_delta},
+            "join": {"converge_s": join_converge_s, "d_entries_warmed": d_entries,
+                     "d_transfers_pulled": hj0[3]["cluster"]["replication"]["transfers_pulled"],
+                     "tiles_per_s": len(keys) / on_d_s, **latency(on_d),
+                     "x_cache": counts(d_tags), "per_replica": join_delta, "seconds": join_s},
+            "crash": {"detect_s": {u: seen[p] for u, p in zip([a, c, d], survivors)},
+                      "limit_s": limit_s, "tiles_per_s": len(keys) / again_s, **latency(again),
+                      "rerendered": rendered, "b_owned": cold_delta[1]["lanes"],
+                      "bodies_equal_to_cold": equal, "bodies_host_route": host_route,
+                      "x_cache": counts([hd.get("X-Cache") for _, hd, _, _ in again]),
+                      "per_replica": crash_delta},
+            "lease": {"lease_ttl_s": LEASE_TTL_S, "heartbeat_s": heartbeat,
+                      "converge_s": lease_converge_s, "draining_seen_s": seen_draining,
+                      "left_s": left_s, "drain_s": box["done"] - t_drain,
+                      "drain_stats": drained["stats"], "metrics": lease_metrics},
+            "metrics": metrics, "launches": launches,
+            "exit_codes": {"gossip": rcs, "lease": lrcs, "b": "SIGKILL"},
+            "seconds": time.perf_counter() - t_phase,
+        }
+    finally:
+        for cl in clients:
+            cl.close()
+        for p in procs + lease_procs:
+            p.__exit__(None, None, None)
+        stub.close()
+
 def smi_line() -> str:
     import subprocess
 
@@ -4434,8 +4742,9 @@ def main(argv=None) -> int:
                    help="timed requests of path_config (at most --requests)")
     p.add_argument("--paths-only", action="store_true",
                    help="only build, then the path (dynamic), path_obs, path_prefetch, "
-                        "path_session, path_render, path_config, path_disk and path_fleet "
-                        "phases, e.g. to pair two versions with --port-root (no result line)")
+                        "path_session, path_render, path_config, path_disk, path_fleet and "
+                        "path_gossip phases, e.g. to pair two versions with --port-root "
+                        "(no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -4498,6 +4807,7 @@ def main(argv=None) -> int:
             emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
             emit(drive_disk(registry, data))
             emit(drive_fleet(registry, data, path_timed[0], args.seed))
+            emit(drive_gossip(registry, data, path_timed[0], args.seed))
             print(smi_line(), flush=True)
             return 0
         t0 = time.perf_counter()
@@ -4600,8 +4910,10 @@ def main(argv=None) -> int:
         emit(disk)
         fleet = drive_fleet(registry, data, path_timed[0], args.seed)
         emit(fleet)
+        gossip = drive_gossip(registry, data, path_timed[0], args.seed)
+        emit(gossip)
         # each kernel's launches come from the phases that run it
-        main_phases = (path, obs, prefetch, session, disk, fleet)
+        main_phases = (path, obs, prefetch, session, disk, fleet, gossip)
         launches = {"filter": sum(ph["launches"]["filter"] for ph in main_phases),
                     "bitpack": sum(ph["launches"]["bitpack"] for ph in main_phases),
                     "bitpack_dense": rle["launches"]["bitpack_dense"],

@@ -120,12 +120,9 @@ def load_config(args, dev: bool = False) -> Config:
     return config
 
 
-async def _serve(args, config: Config) -> None:
-    from .http.server import wire
-
-    server = wire(config, device=args.device, dev=args.dev)
-    port = await server.start(args.host, config.port)
-    print(f"listening on {args.host}:{port}", flush=True)
+async def _serve(server, host: str, port: int) -> None:
+    port = await server.start(host, port)
+    print(f"listening on {host}:{port}", flush=True)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     loop.add_signal_handler(signal.SIGINT, stop.set)
@@ -152,7 +149,12 @@ def main(argv=None) -> int:
     try:
         config = load_config(args, dev=args.dev)
         configure_logging(config.logging)
-        asyncio.run(_serve(args, config))
+        from .http.server import wire
+
+        # built before the loop starts: wiring builds the native library
+        # and the CUDA kernels, which must not block a running loop
+        server = wire(config, device=args.device, dev=args.dev)
+        asyncio.run(_serve(server, args.host, config.port))
     except ConfigError as e:
         print(f"configuration error: {e}", file=sys.stderr)
         return 2

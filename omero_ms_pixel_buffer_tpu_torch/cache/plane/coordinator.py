@@ -1,10 +1,6 @@
 """CachePlane — the cluster-facing coordinator over L2 + the peer ring.
 
-(Copy of ``omero_ms_pixel_buffer_tpu/cache/plane/coordinator.py``, over a
-static member list: the lease, gossip and fleet-brain paths of the JAX
-plane, which only run with ``cluster.lease-ttl-s`` > 0 or
-``cluster.gossip.enabled``, are ``ROADMAP.md`` §1 item 8b; the port
-refuses both keys at start-up.)
+(Copy of ``omero_ms_pixel_buffer_tpu/cache/plane/coordinator.py``.)
 
 Sits between the process-local result cache and the render pipeline in
 the serving path (``http/server.TileServer.serve``):
@@ -15,13 +11,22 @@ and owns the outbound half of cluster invalidation (epoch bump + L2
 DELs + peer purge fan-out). Construction is pure wiring from the
 validated ``cluster:`` config block; either half is optional — L2
 alone shares results through Redis, the ring alone gives render-once
-ownership without any external service. It also carries epoch stamps
-that make invalidation win every race, next-owner replication of the
-hot set, owner-side hedging off the observed peer p99, the graceful-
-drain mechanics (ring rebuild without self, full-RAM handoff to the
-post-drain owners) the DrainCoordinator sequences, and the low-duty
-anti-entropy repair loop (digest exchange with one rotating peer per
-round).
+ownership without any external service.
+
+Since r17 the plane also hosts the cluster coordination loop
+(cluster/): lease-backed dynamic membership rebuilding the ring live,
+epoch stamps that make invalidation win every race, next-owner
+replication of the hot set with a join-time warm-up transfer,
+owner-side hedging off the observed peer p99, and the fleet brain
+exchange. Since r18 it owns the fleet-lifecycle mechanics too: the
+graceful-drain steps (lease marker, full-RAM handoff to the
+post-drain owners, lease release) the DrainCoordinator sequences,
+the low-duty anti-entropy repair loop (digest exchange with one
+rotating peer per round), and the quality-demotion sink (a quorum-
+demoted replica leaves every ownership ring until its signals
+recover). All of it degrades: a dead Redis freezes the membership
+view, a dead peer skips its round, and the serving path never sees an
+exception.
 
 The whole object inherits the cache contract: no operation here may
 fail a request. ``fetch`` returns misses on every failure path;
@@ -40,8 +45,11 @@ from ...cluster import (
     AntiEntropyRepairer,
     CorruptionLedger,
     EpochRegistry,
+    FleetBrains,
+    GossipManager,
     HedgePolicy,
     HotSetReplicator,
+    MembershipManager,
     RedisLink,
     body_matches,
     build_digest,
@@ -81,33 +89,49 @@ class CachePlane:
         peer_timeout_s: float = 0.5,
         l2_uri: Optional[str] = None,
         l2_ttl_s: float = 3600.0,
+        lease_ttl_s: float = 0.0,
         replication_factor: int = 1,
         transfer_max_entries: int = 128,
         hedge: Optional[HedgePolicy] = None,
         secret: Optional[str] = None,
         result_cache=None,
+        scheduler=None,
+        admission=None,
         repair_interval_s: float = 0.0,
         repair_max_keys: int = 64,
         quality=None,
+        suspicion=None,
+        gossip_interval_s: float = 0.0,
+        gossip_fanout: int = 2,
+        gossip_fail_after_s: float = 5.0,
         integrity_verify: bool = True,
     ):
         self.self_url = self_url
         self.secret = secret
         self.result_cache = result_cache
-        # byte integrity: every ingress of remote bytes (peer fetch,
-        # replica push, handoff/repair transfer, L2 read) re-hashes the
-        # body against the entry's strong ETag; the ledger counts the
-        # mismatches by member (cluster/integrity.py)
+        # r20 byte integrity: every ingress of remote bytes (peer
+        # fetch, replica push, handoff/warm-up/repair transfer, L2
+        # read) re-hashes the body against the entry's strong ETag;
+        # the ledger turns repeated mismatches into suspicion
+        # verdicts (cluster/integrity.py)
         self.integrity_verify = bool(integrity_verify)
         self.corruption = CorruptionLedger()
+        self.gossip_enabled = gossip_interval_s > 0 and bool(self_url)
         # the coordination link: the cluster's OWN connection to the
-        # shared Redis (an epoch bump must not queue behind a serving-
-        # path L2 get) — built whenever the shared Redis exists
+        # shared Redis (lease scans must not head-of-line-block a
+        # serving-path L2 get) — built whenever the shared Redis
+        # exists, since epoch bumps want it even with static
+        # membership
         self.link: Optional[RedisLink] = None
         self.epochs: Optional[EpochRegistry] = None
         if l2_uri:
             self.link = RedisLink(l2_uri)
             self.epochs = EpochRegistry(self.link)
+        elif self.gossip_enabled:
+            # no Redis at all: epochs still exist — bumps advance the
+            # local high-water mark and gossip disseminates it, so
+            # invalidation keeps converging with no coordinator
+            self.epochs = EpochRegistry(None)
         self.l2 = (
             RedisL2Tier(
                 l2_uri, ttl_s=l2_ttl_s, epochs=self.epochs,
@@ -120,19 +144,57 @@ class CachePlane:
         self.virtual_nodes = virtual_nodes
         self.ring_version = 0
         if self_url:
+            # the client exists whenever this replica has an identity
+            # — with dynamic membership the ring can appear AFTER
+            # construction (a peer's lease shows up in a scan), and
+            # every peer path must already have its client then
             self.peers = PeerClient(
                 self_url, timeout_s=peer_timeout_s, secret=secret
             )
         if members and self_url:
             self.ring = HashRing(members, virtual_nodes)
-        # fleet lifecycle state: replicas a quality quorum demoted (the
-        # quorum needs the fleet brains, ROADMAP.md §1 item 8b, so the
-        # set stays empty here) and this replica's own draining flag
-        # (set by the drain protocol; excludes self from its own ring
-        # so final fills route to the post-drain owners)
+        # fleet lifecycle state (r18): replicas the quality quorum
+        # demoted (never owners until restored) and this replica's own
+        # draining flag (set by the drain protocol; excludes self from
+        # its own ring so final fills route to the post-drain owners)
         self.demoted: frozenset = frozenset()
         self.draining = False
         self.quality = quality
+        self.suspicion = suspicion
+        self.membership = None
+        self.brains: Optional[FleetBrains] = None
+        if self.gossip_enabled and self.peers is not None:
+            # r20 decentralized mode: gossip IS membership; Redis
+            # (when configured) is only the L2 cache and the join-
+            # bootstrap hint the GossipManager consults best-effort
+            self.membership = GossipManager(
+                self.peers, self_url, members or (self_url,),
+                interval_s=gossip_interval_s,
+                fanout=gossip_fanout,
+                fail_after_s=gossip_fail_after_s,
+                on_change=self._on_membership_change,
+                link=self.link, secret=secret or "",
+                epochs=self.epochs,
+            )
+        elif lease_ttl_s > 0 and self.link is not None and self_url:
+            self.membership = MembershipManager(
+                self.link, self_url, members or (self_url,),
+                lease_ttl_s, on_change=self._on_membership_change,
+                secret=secret or "",
+            )
+        if self.membership is not None:
+            self.brains = FleetBrains(
+                self.link, self_url,
+                scheduler=scheduler, admission=admission,
+                quality=quality, suspicion=suspicion,
+                peer_failures_source=(
+                    self.peers.take_failures
+                    if self.peers is not None else None
+                ),
+                on_demote=self._on_demote,
+                secret=secret or "",
+                corruption_source=self.corruption.counts,
+            )
         self.replicator: Optional[HotSetReplicator] = None
         if replication_factor > 1 and self.peers is not None:
             self.replicator = HotSetReplicator(
@@ -154,11 +216,14 @@ class CachePlane:
                 interval_s=repair_interval_s,
                 max_keys=repair_max_keys,
             )
+        # gated on the CLIENT, not the ring: with dynamic membership
+        # the ring may only materialize after the first lease scan
         self.hedge = hedge if (
             hedge is not None and self.peers is not None
         ) else None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._tasks: set = set()
+        self._warmed_up = False
         self._closed = False
 
     # -- lifecycle -----------------------------------------------------
@@ -166,16 +231,25 @@ class CachePlane:
     def start(self, loop: asyncio.AbstractEventLoop) -> None:
         """Capture the serving loop (invalidation listeners fire from
         resolver threads and need somewhere to schedule the fan-out)
-        and start the low-duty anti-entropy loop when repair is on."""
+        and start the coordination loop when membership is dynamic
+        (plus the low-duty anti-entropy loop when repair is on)."""
         self._loop = loop
+        if self.membership is not None:
+            self._spawn(self._coord_loop())
         if self.repairer is not None:
             self._spawn(self._repair_loop())
 
     async def close(self) -> None:
-        # the closed flag FIRST: the background loop re-checks it every
-        # round, so even a cancellation swallowed by ``wait_for`` exits
-        # at the next loop top; the bounded wait drains the tasks
-        # without letting a pathological case park shutdown
+        # the closed flag FIRST: `asyncio.wait_for` (< 3.12) can
+        # SWALLOW a cancellation that races its inner future's
+        # completion (bpo-42130) — on a loopback fleet the coord
+        # exchanges complete in microseconds, so a cancel landing
+        # mid-heartbeat has a real chance of being eaten, and a
+        # cancel-only close would leave the loop heartbeating a
+        # closed link forever. The background loops re-check the
+        # flag every round, so even a swallowed cancel exits at the
+        # next loop top; the bounded wait drains them without
+        # letting a pathological case park shutdown.
         self._closed = True
         tasks = [t for t in self._tasks if not t.done()]
         for task in tasks:
@@ -201,14 +275,71 @@ class CachePlane:
 
         task.add_done_callback(_done)
 
-    # -- ownership ring --------------------------------------------------
+    # -- cluster coordination loop -------------------------------------
+
+    async def _coord_loop(self) -> None:
+        """The heartbeat: membership round (lease refresh + scan, or
+        a gossip push-pull fanout), brain exchange, and — once, after
+        the first successful refresh — the join-time warm-up pull.
+        One loop, one cadence; each round degrades independently.
+
+        In gossip mode the brain payload is computed BEFORE the round
+        (it piggybacks on the outbound digest) and the collected
+        fleet map comes from the gossip state instead of a Redis
+        MGET — so pressure, dead-dependency suspicion, and quality
+        demotion all keep converging with Redis gone entirely."""
+        membership = self.membership
+        gossip_mode = isinstance(membership, GossipManager)
+        first = True
+        while not self._closed:
+            if gossip_mode and self.brains is not None:
+                membership.set_local_brain(
+                    self.brains.local_payload()
+                )
+            ok = await membership.refresh_once()
+            if self.brains is not None and not self._closed:
+                if gossip_mode:
+                    self.brains.apply_fleet(
+                        membership.fleet_brains(),
+                        membership.members,
+                    )
+                else:
+                    await self.brains.publish_once(
+                        membership.interval_s
+                    )
+                    await self.brains.collect_once(
+                        membership.members
+                    )
+            if first and ok:
+                first = False
+                # spawned, not awaited: warm-up pulls each peer under
+                # the full peer timeout — inline it would delay the
+                # NEXT lease refresh past the TTL on a slow fleet and
+                # flap the fresh joiner off every ring
+                self._spawn(self._warm_up_once())
+            await asyncio.sleep(membership.interval_s)
+
+    def _on_membership_change(self, added, removed, members) -> None:
+        self._rebuild_ring(members)
+
+    def _on_demote(self, demoted: frozenset) -> None:
+        """Quality-quorum sink (cluster/suspect via brains): demoted
+        replicas stay in the member view (they serve on) but leave
+        the ownership ring until the quorum dissolves."""
+        if demoted == self.demoted:
+            return
+        self.demoted = demoted
+        self._rebuild_ring()
 
     def _ring_eligible(self, members=None) -> tuple:
-        """Who may OWN keys right now: the member view minus quality-
+        """Who may OWN keys right now: the live member view minus
+        draining replicas (planned leave announced), minus quality-
         demoted replicas, minus self while this replica drains."""
         eligible = set(
             members if members is not None else self.members_view()
         )
+        if self.membership is not None:
+            eligible -= set(self.membership.draining)
         eligible -= set(self.demoted)
         if self.draining and self.self_url in eligible:
             eligible.discard(self.self_url)
@@ -217,9 +348,10 @@ class CachePlane:
     def _rebuild_ring(self, members=None) -> None:
         """Rebuild the ownership ring from the eligible view. The
         swap is a single reference assignment (readers mid-request
-        keep the ring they started with). An EMPTY eligible view keeps
-        the last ring: lifecycle filters must never collapse routing
-        to nothing."""
+        keep the ring they started with — bounded-disagreement
+        semantics cover the window). An EMPTY eligible view keeps the
+        last ring: lifecycle filters must never collapse routing to
+        nothing."""
         eligible = self._ring_eligible(members)
         try:
             self.ring = HashRing(eligible, self.virtual_nodes)
@@ -238,6 +370,48 @@ class CachePlane:
             "ownership ring rebuilt (v%d): %d owners",
             self.ring_version, len(eligible),
         )
+
+    async def _warm_up_once(self) -> None:
+        """Join-time warm-up: a COLD replica (no manifest-warmed disk,
+        empty RAM) pulls each live peer's hottest entries once so it
+        serves warm within one transfer round. Any failure leaves it
+        exactly as cold as it already was."""
+        if (
+            self.replicator is None
+            or self.peers is None
+            or self.result_cache is None
+            or self._warmed_up
+        ):
+            return
+        cache = self.result_cache
+        try:
+            cold = len(cache.memory) == 0 and (
+                cache.disk is None or len(cache.disk) == 0
+            )
+        except Exception:
+            cold = False
+        if not cold:
+            return
+        self._warmed_up = True
+        members = (
+            self.membership.members if self.membership is not None
+            else (self.ring.members if self.ring is not None else ())
+        )
+        pulled = 0
+        for member in members:
+            if member == self.self_url:
+                continue
+            body = await self.peers.pull_transfer(
+                member, self.replicator.transfer_max_entries
+            )
+            if body is None:
+                continue
+            pulled += await self._absorb_transfer(
+                body, source="transfer", member=member
+            )
+        if pulled:
+            self.replicator.transfers_pulled += 1
+            log.info("join warm-up: absorbed %d hot entries", pulled)
 
     def verify_entry_bytes(
         self, entry: CachedTile, source: str,
@@ -288,19 +462,24 @@ class CachePlane:
     # -- graceful drain (cluster/lifecycle.py owns the timeline) -------
 
     def drain_propagation_s(self) -> float:
-        """How long the drain waits after announcing before the
-        handoff: with a static member list there is no marker to
-        propagate, so one short beat."""
-        return 0.05
+        """How long the drain waits after announcing so peers observe
+        the marker (one heartbeat interval, with margin) before the
+        handoff lands at the post-drain owners."""
+        if self.membership is not None:
+            return self.membership.interval_s * 1.5
+        return 0.05  # static membership: nothing to propagate
 
     async def begin_drain(self) -> bool:
-        """Drain step 1: the local ring rebuilds WITHOUT self (final
-        fills and the handoff both route to the post-drain owners).
-        Announcing the leave to peers needs a lease to mark (ROADMAP.md
-        §1 item 8b): False, as the JAX plane answers without one."""
+        """Drain step 1: announce the planned leave. The local ring
+        rebuilds WITHOUT self immediately (final fills and the
+        handoff both route to the post-drain owners); the lease
+        marker makes every peer do the same within one heartbeat."""
         self.draining = True
+        announced = False
+        if self.membership is not None:
+            announced = await self.membership.mark_draining()
         self._rebuild_ring()
-        return False
+        return announced
 
     async def handoff_hot_set(
         self, deadline: float, clock=time.monotonic
@@ -393,8 +572,9 @@ class CachePlane:
         return stats
 
     async def release_lease(self) -> bool:
-        """Drain step 4: leave the fleet for good (a static member list
-        holds no lease)."""
+        """Drain step 4: leave the fleet for good."""
+        if self.membership is not None:
+            return await self.membership.release_lease()
         return True
 
     async def absorb_handoff(
@@ -843,9 +1023,42 @@ class CachePlane:
                 target=label, outcome="error" if failed else "ok"
             )
 
+    def gossip_receive(self, remote: dict) -> Optional[dict]:
+        """Inbound half of a push-pull gossip exchange (the
+        ``/internal/gossip`` handler): merge the sender's digest,
+        reply with ours. None when this replica does not run gossip
+        membership (the handler answers 503 — a mixed-mode fleet
+        mid-migration degrades to the Redis plane)."""
+        membership = self.membership
+        if not isinstance(membership, GossipManager):
+            return None
+        return membership.receive(remote)
+
+    def note_peer_contact(self, url: str) -> None:
+        """Gossip-native join hint (r22): every authenticated peer
+        request carries the sender's serving URL in the signed
+        ``X-OMPB-Peer`` header, so ANY verified internal contact — in
+        either direction — teaches this replica a member address
+        without touching Redis. Only URL-shaped values from verified
+        requests are adopted (the HTTP layer gates on signature);
+        everything else is silently ignored — this is a hint, never
+        an authority."""
+        if not isinstance(url, str) or len(url) > 512:
+            return
+        if not (url.startswith("http://") or url.startswith("https://")):
+            return
+        if url == self.self_url:
+            return
+        membership = self.membership
+        if membership is not None and hasattr(membership, "note_contact"):
+            membership.note_contact(url)
+
     def members_view(self) -> tuple:
-        """The member list: the ring's (the static ``cluster.members``,
-        less self while draining)."""
+        """The live member list: the lease/gossip view when
+        membership is dynamic, the ring's (bootstrap) list
+        otherwise."""
+        if self.membership is not None:
+            return tuple(self.membership.members)
         if self.ring is not None:
             return tuple(self.ring.members)
         return ()
@@ -865,14 +1078,15 @@ class CachePlane:
     def cluster_snapshot(self) -> dict:
         """The /healthz ``cluster`` key: the coordination view."""
         out: dict = {
-            "enabled": self.replicator is not None
+            "enabled": self.membership is not None
+            or self.replicator is not None
             or self.hedge is not None,
             "self": self.self_url,
             "ring_version": self.ring_version,
             "authenticated": bool(self.secret),
             "draining": self.draining,
             "demoted": sorted(self.demoted),
-            "gossip": False,
+            "gossip": self.gossip_enabled,
             "integrity": {
                 "verify": self.integrity_verify,
                 "ledger": self.corruption.snapshot(),
@@ -882,14 +1096,20 @@ class CachePlane:
             out["repair"] = self.repairer.snapshot()
         if self.quality is not None:
             out["quality"] = self.quality.snapshot()
+        if self.suspicion is not None and self.suspicion.enabled:
+            out["suspicion"] = self.suspicion.snapshot()
         if self.link is not None:
             out["coord_link"] = self.link.snapshot()
+        if self.membership is not None:
+            out["membership"] = self.membership.snapshot()
         if self.epochs is not None:
             out["epochs"] = self.epochs.snapshot()
         if self.replicator is not None:
             out["replication"] = self.replicator.snapshot()
         if self.hedge is not None:
             out["hedge"] = self.hedge.snapshot()
+        if self.brains is not None:
+            out["brains"] = self.brains.snapshot()
         return out
 
 

@@ -1,8 +1,6 @@
 """Peer fetch — one bounded internal GET to a tile's owner.
 
-(Copy of ``omero_ms_pixel_buffer_tpu/cache/plane/peer.py``, without the
-join warm-up pull and the gossip exchange of dynamic membership,
-``ROADMAP.md`` §1 item 8b.)
+(Copy of ``omero_ms_pixel_buffer_tpu/cache/plane/peer.py``.)
 
 A replica that misses locally (and in L2) on a tile it does NOT own
 asks the owner once before rendering locally. The owner serves from
@@ -234,6 +232,24 @@ class PeerClient:
         )
         return ok
 
+    async def pull_transfer(
+        self, member: str, limit: int
+    ) -> Optional[bytes]:
+        """Join-time warm-up: GET one peer's hot-set transfer payload.
+        None on any failure (the joiner simply starts cold toward that
+        peer)."""
+        result = await self._bounded(
+            member, "GET", f"/internal/transfer?limit={int(limit)}",
+            outcome_prefix="transfer_",
+        )
+        if result is None:
+            return None  # _bounded already counted the failure
+        if result[0] != 200:
+            PEER_REQUESTS.inc(outcome="transfer_rejected")
+            return None
+        PEER_REQUESTS.inc(outcome="transfer_ok")
+        return result[2]
+
     async def push_handoff(self, member: str, payload: bytes) -> bool:
         """Graceful-drain handoff (cluster/lifecycle.py): POST one
         transfer-framed batch of this replica's RAM hot set to a
@@ -291,6 +307,38 @@ class PeerClient:
             return None
         PEER_REQUESTS.inc(outcome="digest_ok")
         return result[2]
+
+    async def gossip(
+        self, member: str, payload: bytes
+    ) -> Optional[dict]:
+        """One push-pull gossip exchange (cluster/gossip.py): POST
+        our digest, return the peer's parsed digest reply. None on
+        any transport failure, non-200, or an unparseable reply —
+        the round simply skips that target. Rides the shared
+        breaker/fault/timeout wrapper like every other peer op."""
+        import json as _json
+
+        result = await self._bounded(
+            member, "POST", "/internal/gossip",
+            body=payload, extra_headers={
+                "Content-Type": "application/json"
+            },
+            outcome_prefix="gossip_",
+        )
+        if result is None or result[0] != 200:
+            if result is not None:
+                PEER_REQUESTS.inc(outcome="gossip_rejected")
+            return None
+        try:
+            reply = _json.loads(result[2])
+        except Exception:
+            PEER_REQUESTS.inc(outcome="gossip_rejected")
+            return None
+        if not isinstance(reply, dict):
+            PEER_REQUESTS.inc(outcome="gossip_rejected")
+            return None
+        PEER_REQUESTS.inc(outcome="gossip_ok")
+        return reply
 
     async def get_json(
         self, member: str, path_qs: str

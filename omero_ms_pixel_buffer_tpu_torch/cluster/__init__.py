@@ -1,7 +1,14 @@
-"""The cluster plane (counterpart of ``omero_ms_pixel_buffer_tpu/cluster/``)
-over a static member list: the modules a fleet of ``cluster.members``
-runs without leases or gossip.
+"""The cluster plane (counterpart of ``omero_ms_pixel_buffer_tpu/cluster/``).
 
+- **membership** — coordination-free replica leases in the shared Redis
+  (heartbeat-refreshed, TTL-expired). ``cluster.members`` is the
+  bootstrap seed; each membership change rebuilds the ownership ring.
+- **gossip** — SWIM-style push-pull of membership, epochs and brains over
+  the signed ``/internal/gossip`` route; Redis, where configured, is only
+  the L2 and a join hint.
+- **brains** — per-replica pressure, open breakers and serve quality,
+  shared through Redis or gossip: fleet pressure for the scheduler,
+  suspect breakers, and the quality quorum's demotions.
 - **epochs** — generation stamps on shared-tier entries plus a purge-
   time bump, so a stale-epoch L2 read IS a miss and an in-flight fill
   that raced a purge lands already-stale.
@@ -18,34 +25,39 @@ runs without leases or gossip.
   strong content hash.
 - **suspect** — the serve-quality tracker (its quorum reaches the ring
   through the fleet brains).
-- **lifecycle** — graceful drain: hand the RAM hot set to the post-
-  drain owners, quiesce, leave.
+- **lifecycle** — graceful drain: announce the leave, hand the RAM hot
+  set to the post-drain owners, quiesce, leave.
 
-Dynamic membership (``membership``), gossip and the fleet brains are
-``ROADMAP.md`` §1 item 8b. Everything here inherits the cache plane's
+Everything here inherits the cache plane's
 contract: no operation may fail a request; every network edge carries a
 breaker, a fault point and a per-call timeout; every failure degrades to
 single-process behaviour.
 """
 
+from .brains import FleetBrains
 from .epochs import EpochRegistry, image_id_of
+from .gossip import GossipManager
 from .hedge import HedgePolicy
 from .integrity import CorruptionLedger, body_matches
 from .lifecycle import DrainCoordinator
 from .link import RedisLink
+from .membership import MembershipManager
 from .repair import AntiEntropyRepairer, build_digest, parse_digest
 from .replicate import HotSetReplicator, decode_transfer, encode_transfer
 from .security import NonceCache, SIG_HEADER, seal, sign, unseal, verify
 from .suspect import QualityTracker, SuspicionPolicy
 
 __all__ = [
+    "FleetBrains",
     "EpochRegistry",
     "image_id_of",
+    "GossipManager",
     "HedgePolicy",
     "CorruptionLedger",
     "body_matches",
     "DrainCoordinator",
     "RedisLink",
+    "MembershipManager",
     "AntiEntropyRepairer",
     "build_digest",
     "parse_digest",

@@ -1,8 +1,10 @@
 """Graceful drain — a planned leave must not look like a crash.
 
-(Copy of ``omero_ms_pixel_buffer_tpu/cluster/lifecycle.py``. Over the
-port's static member list there is no lease: step 1 rebuilds the
-replica's own ring without it and step 4 has nothing to release.)
+(Copy of ``omero_ms_pixel_buffer_tpu/cluster/lifecycle.py``. Step 1
+publishes the draining marker through the lease or the gossip digest,
+and step 4 releases the lease or tombstones the member; over a static
+member list there is neither, so step 1 only rebuilds the replica's own
+ring and step 4 has nothing to release.)
 
 Before this module a rolling restart rode the CRASH path: the lease
 expired one TTL after the process died, peers kept routing ownership

@@ -24,7 +24,10 @@ unrouted path, answers 405 ``405: Method Not Allowed``, as the JAX
 package's aiohttp app does with its catch-all OPTIONS route. HEAD answers
 the GET's status and headers without the body (and without
 ``Content-Length`` when that body is empty, as aiohttp answers). Connections are
-keep-alive. Sessions (``auth/stores.py``, the JAX ``session_middleware``):
+keep-alive. Requests are read as aiohttp's parser reads them (``http/
+target.py``): llhttp's request-line rules and 400s, routes matched on
+yarl's ``path_safe`` with each group decoded after, the first of a
+repeated header, ``100 Continue`` before the body. Sessions (``auth/stores.py``, the JAX ``session_middleware``):
 the ``sessionid`` cookie is looked up in the session store (OMERO.web's
 Django sessions in Redis or Postgres; an in-memory map; with ``dev`` the
 echo store, where every cookie value is its own key). Every path but
@@ -125,7 +128,9 @@ manifest journal makes a restart warm, and the door gate's hit exemption
 asks both tiers (``contains_any_tier``).
 
 The fleet plane (``cache/plane/``, ``cluster/``, the JAX ``cluster:``
-block over a static ``cluster.members``): between the local miss and the
+block; ``cluster.members`` is the ring, or with ``cluster.lease-ttl-s``
+or ``cluster.gossip`` the seed of a membership that changes while it
+serves): between the local miss and the
 render, the shared L2 tier and then one bounded GET to the key's owner
 on the consistent-hash ring (a request carrying ``X-OMPB-Peer`` is a hop,
 served here and never forwarded); a fill is published to L2 stamped with
@@ -134,9 +139,10 @@ DELs the image's L2 entries and POSTs ``/internal/purge`` to the other
 members. The cluster guard (with ``cluster.secret``, every ``/internal/*``
 request and every hop carries a valid ``X-OMPB-Sig``, one verdict a
 request) sits inside the flight record and before the door gate; the
-quality tracker sits outermost. ``/internal/`` serves purge, replica,
-transfer, handoff, digest, pull, drain and gossip (503) without a
-session; ``/healthz`` adds ``cluster`` and ``result_cache.plane``, and
+quality tracker sits outermost; a verified hop's ``X-OMPB-Peer`` is the
+gossip join hint. ``/internal/`` serves purge, replica, transfer,
+handoff, digest, pull, drain and gossip (503 without gossip membership)
+without a session; ``/healthz`` adds ``cluster`` and ``result_cache.plane``, and
 ``?probe=1`` pings the session store, L2 and the database. SIGTERM runs
 the drain first (``drain_on_signal``).
 
@@ -159,7 +165,6 @@ import threading
 import time
 from http.cookies import CookieError, SimpleCookie
 from typing import Dict, List, Optional, Tuple
-from urllib.parse import parse_qsl, unquote, urlsplit
 
 from .. import __version__
 from ..auth.omero_session import AllowListValidator
@@ -199,8 +204,8 @@ from ..resilience.scheduler import (
     classify,
     header_priority,
 )
-from ..runtime.native import host_engine
-from ..cluster import DrainCoordinator, HedgePolicy, QualityTracker
+from ..runtime.native import host_engine, loaded_host_engine
+from ..cluster import DrainCoordinator, HedgePolicy, QualityTracker, SuspicionPolicy
 from ..cluster.replicate import MAX_TRANSFER_BYTES
 from ..cluster.security import SIG_HEADER, NonceCache
 from ..cluster.security import verify as verify_cluster_sig
@@ -208,6 +213,16 @@ from ..session import AnnotationStore, ChannelRegistry
 from ..tile_ctx import TileCtx
 from ..utils.config import Config, ConfigError
 from ..utils.loop_watchdog import LoopWatchdog
+from .target import (
+    HTTP09,
+    ParseError,
+    match_groups,
+    parse_request_line,
+    path_of,
+    path_safe,
+    query_pairs,
+    split_target,
+)
 from ..utils.metrics import REGISTRY
 from ..utils.tracing import TRACER
 from . import protocols, websocket
@@ -223,19 +238,19 @@ CONTENT_TYPES = {
 }
 
 JSON_TYPE = "application/json; charset=utf-8"
-_TILE_PATH = re.compile(r"^/tile/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
-_RENDER_PATH = re.compile(r"^/render/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
-_HISTOGRAM_PATH = re.compile(r"^/histogram/([^/]+)/([^/]+)/([^/]+)/([^/]+)$")
-_DEBUG_TRACE_PATH = re.compile(r"^/debug/requests/([^/]+)$")
+_TILE_PATH = re.compile(r"^/tile/([^{}/]+)/([^{}/]+)/([^{}/]+)/([^{}/]+)$")
+_RENDER_PATH = re.compile(r"^/render/([^{}/]+)/([^{}/]+)/([^{}/]+)/([^{}/]+)$")
+_HISTOGRAM_PATH = re.compile(r"^/histogram/([^{}/]+)/([^{}/]+)/([^{}/]+)/([^{}/]+)$")
+_DEBUG_TRACE_PATH = re.compile(r"^/debug/requests/([^{}/]+)$")
 # the session plane's routes (the JAX app registers them when
 # ``session.enabled``): path pattern -> handler name by method
 _SESSION_ROUTES = (
-    (re.compile(r"^/session/([^/]+)/live$"),
+    (re.compile(r"^/session/([^{}/]+)/live$"),
      {"GET": "_session_live", "HEAD": "_session_live"}),
-    (re.compile(r"^/session/([^/]+)/viewport$"), {"POST": "_session_viewport"}),
-    (re.compile(r"^/annotations/([^/]+)$"),
+    (re.compile(r"^/session/([^{}/]+)/viewport$"), {"POST": "_session_viewport"}),
+    (re.compile(r"^/annotations/([^{}/]+)$"),
      {"POST": "_annotations_create", "GET": "_annotations_list", "HEAD": "_annotations_list"}),
-    (re.compile(r"^/annotations/([^/]+)/([^/]+)$"),
+    (re.compile(r"^/annotations/([^{}/]+)/([^{}/]+)$"),
      {"GET": "_annotation_get", "HEAD": "_annotation_get", "PUT": "_annotation_update",
       "DELETE": "_annotation_delete"}),
 )
@@ -263,7 +278,7 @@ _MAX_DRAIN = 64 << 20
 _PEER = PEER_HEADER.lower()
 # (path pattern, handler name by method) of the plane's /internal/* routes
 _INTERNAL_ROUTES = (
-    (re.compile(r"^/internal/purge/([^/]+)$"), {"POST": "_internal_purge"}),
+    (re.compile(r"^/internal/purge/([^{}/]+)$"), {"POST": "_internal_purge"}),
     (re.compile(r"^/internal/replica$"), {"POST": "_internal_replica"}),
     (re.compile(r"^/internal/transfer$"), {"GET": "_internal_transfer",
                                            "HEAD": "_internal_transfer"}),
@@ -435,9 +450,10 @@ class TileServer:
 
     def _build_plane(self, cl) -> None:
         """The cluster plane of the ``cluster:`` block, as the JAX app
-        builds it: the hedge policy, the quality tracker, the ``CachePlane``
-        and the drain coordinator. (The JAX app's suspicion policy only
-        acts through the fleet brains, ``ROADMAP.md`` §1 item 8b.)"""
+        builds it: the hedge policy, the quality tracker and suspicion
+        policy, the ``CachePlane`` (with lease or gossip membership and the
+        fleet brains when the block asks for them) and the drain
+        coordinator."""
         hedge = None
         if cl.hedge.enabled:
             peer_timeout_s = cl.peer_timeout_ms / 1000.0
@@ -446,13 +462,21 @@ class TileServer:
                 max_s=cl.hedge.max_ms / 1000.0,
                 fallback_s=cl.hedge.fallback_ms / 1000.0 or peer_timeout_s / 2.0)
         self.quality = QualityTracker()
+        suspicion = SuspicionPolicy(
+            enabled=cl.suspect.enabled, error_rate=cl.suspect.error_rate,
+            p99_factor=cl.suspect.p99_factor, min_requests=cl.suspect.min_requests,
+            peer_failures=cl.suspect.peer_failures,
+            corruption_after=cl.integrity.verdict_after)
         self.cache_plane = CachePlane(
             members=cl.members, self_url=cl.self_url, virtual_nodes=cl.virtual_nodes,
             peer_timeout_s=cl.peer_timeout_ms / 1000.0, l2_uri=cl.l2.uri, l2_ttl_s=cl.l2.ttl_s,
-            replication_factor=cl.replication_factor,
+            lease_ttl_s=cl.lease_ttl_s, replication_factor=cl.replication_factor,
             transfer_max_entries=cl.transfer_max_entries, hedge=hedge, secret=cl.secret,
-            result_cache=self.cache, repair_interval_s=cl.repair.interval_s,
-            repair_max_keys=cl.repair.max_keys, quality=self.quality,
+            result_cache=self.cache, scheduler=self.scheduler, admission=self.admission,
+            repair_interval_s=cl.repair.interval_s, repair_max_keys=cl.repair.max_keys,
+            quality=self.quality, suspicion=suspicion,
+            gossip_interval_s=cl.gossip.interval_s if cl.gossip.enabled else 0.0,
+            gossip_fanout=cl.gossip.fanout, gossip_fail_after_s=cl.gossip.fail_after_s,
             integrity_verify=cl.integrity.verify_bodies)
         # SIGTERM (``drain_on_signal``) or POST /internal/drain runs it;
         # live channels ride the drain (reconnect frames, the summary)
@@ -513,11 +537,17 @@ class TileServer:
         self._writers.add(writer)
         try:
             while True:
-                request = await self._read_request(reader)
+                request = await self._read_request(reader, writer)
                 if request is None:
                     break
                 method, target, version, headers, body = request
                 keep_alive = _keep_alive(version, headers)
+                if body is _EXPECTATION_FAILED:
+                    # aiohttp's expect handler answers before any route
+                    _write_response(writer, 417, {}, b"Unknown Expect: "
+                                    + headers["expect"].encode("latin-1"), False, version=version)
+                    await writer.drain()
+                    break
                 answer = await self._dispatch(method, target, headers, body)
                 if isinstance(answer, _Takeover):
                     # a live channel owns the connection until its pump ends
@@ -530,7 +560,7 @@ class TileServer:
                     break
                 status, out_headers, body = answer
                 _write_response(writer, status, out_headers, body, keep_alive,
-                                head=method == "HEAD")
+                                head=method == "HEAD", version=version)
                 await writer.drain()
                 if not keep_alive:
                     break
@@ -538,6 +568,9 @@ class TileServer:
             pass
         except _BadRequest as e:
             _write_response(writer, 400, {}, str(e).encode(), False)
+        except ParseError as e:
+            # aiohttp's answer to a request its parser refuses
+            _write_response(writer, 400, {}, e.body(), False, version="HTTP/1.0")
         finally:
             self._writers.discard(writer)
             writer.close()
@@ -546,14 +579,19 @@ class TileServer:
             except ConnectionError:
                 pass
 
-    async def _read_request(self, reader):
+    async def _read_request(self, reader, writer):
+        """(method, target, version, headers, body) of the next request, or
+        None at the end of the stream. A repeated header keeps its first
+        value, as aiohttp's ``headers.get`` reads it; ``Expect:
+        100-continue`` on HTTP/1.1 answers ``100 Continue`` before the body
+        is read, and another expectation reads no body
+        (``_EXPECTATION_FAILED``)."""
         line = await reader.readline()
+        while line in (b"\r\n", b"\n"):  # llhttp skips empty lines before a request
+            line = await reader.readline()
         if not line:
             return None
-        try:
-            method, target, version = line.decode("latin-1").rstrip("\r\n").split(" ")
-        except ValueError:
-            raise _BadRequest("Malformed request line") from None
+        method, target, version = parse_request_line(line.rstrip(b"\r\n"))
         headers: Dict[str, str] = {}
         for _ in range(_MAX_HEADERS + 1):
             raw = await reader.readline()
@@ -562,9 +600,20 @@ class TileServer:
             name, sep, value = raw.decode("latin-1").partition(":")
             if not sep:
                 raise _BadRequest("Malformed header")
-            headers[name.strip().lower()] = value.strip()
+            name = name.strip().lower()
+            if name == "content-length" and name in headers:
+                text = raw.rstrip(b"\r\n")
+                raise ParseError("Duplicate Content-Length", text,
+                                 len(text) - len(text.split(b":", 1)[1].lstrip()))
+            headers.setdefault(name, value.strip())
         else:
             raise _BadRequest("Too many headers")
+        expect = headers.get("expect")
+        if expect and version == "HTTP/1.1":
+            if expect.lower() != "100-continue":
+                return method, target, version, headers, _EXPECTATION_FAILED
+            writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+            await writer.drain()
         if "transfer-encoding" in headers:
             raise _BadRequest("Request bodies are not accepted")
         try:
@@ -589,7 +638,7 @@ class TileServer:
         to a serving route notes its status and wall time in the quality
         tracker first (the JAX ``quality_middleware``, outermost); a
         client that hangs up notes nothing."""
-        path = unquote(urlsplit(target).path)
+        path = path_of(split_target(target)[0])
         serving = method != "OPTIONS" and path.startswith(SERVING_PREFIXES)
         sig = _SigVerdict(self, method, target, headers)
         if self.quality is None or not serving:
@@ -653,6 +702,11 @@ class TileServer:
                 if self.config.cluster.secret:
                     if not sig.ok(body or b""):
                         return 403, {}, b"invalid cluster signature"
+                    if claims_peer:
+                        # the join hint: the peer marker carries the
+                        # sender's serving URL inside the HMAC, so a
+                        # verified contact teaches this replica a member
+                        self.cache_plane.note_peer_contact(headers.get(_PEER, ""))
                 elif is_internal and not claims_peer:
                     return 403, {}, b"peer requests only"
         return await self._traced(method, target, headers, path, rec, body)
@@ -683,36 +737,40 @@ class TileServer:
 
     async def _route(self, method: str, target: str, headers: Dict[str, str],
                      body: Optional[bytes] = b""):
-        parts = urlsplit(target)
+        # aiohttp's two spellings of the path: ``request.path`` (every escape
+        # decoded) for the prefix checks, and the router's ``path_safe``
+        # (``%2F`` and ``%25`` kept) for the routes, whose groups then decode
+        raw_path, raw_query = split_target(target)
+        path, safe = path_of(raw_path), path_safe(raw_path)
         _PATH_QS.set(aiohttp_path_qs(target))
         if method == "OPTIONS":
             return 200, {"Content-Type": JSON_TYPE}, json.dumps(DISCOVERY).encode()
         query: Dict[str, str] = {}
-        for k, v in parse_qsl(parts.query, keep_blank_values=True):
+        for k, v in query_pairs(raw_query):
             query.setdefault(k, v)  # first value per key, as aiohttp's
-        if parts.path.startswith(SERVING_PREFIXES):
-            shed = self._door_gate(parts.path, query, headers)
+        if path.startswith(SERVING_PREFIXES):
+            shed = self._door_gate(path, safe, query, headers)
             if shed is not None:
                 return shed
-        healthz = parts.path == "/healthz"
-        metrics = parts.path == "/metrics"
+        healthz = safe == "/healthz"
+        metrics = safe == "/metrics"
         debug = None
-        if self.recorder is not None and parts.path.startswith("/debug/requests"):
-            debug = (() if parts.path == "/debug/requests"
-                     else _DEBUG_TRACE_PATH.match(parts.path))
-        exempt = parts.path in _SESSION_EXEMPT or parts.path.startswith(("/internal/", "/debug/"))
+        if self.recorder is not None:
+            debug = (() if safe == "/debug/requests"
+                     else match_groups(_DEBUG_TRACE_PATH, safe))
+        exempt = path in _SESSION_EXEMPT or path.startswith(("/internal/", "/debug/"))
         m = render = histogram = adapter = None
         if not exempt:
-            m = _TILE_PATH.match(parts.path)
+            m = match_groups(_TILE_PATH, safe)
             if m is None and self.render_enabled:
-                m = render = _RENDER_PATH.match(parts.path)
+                m = render = match_groups(_RENDER_PATH, safe)
             if m is None and self.analysis_enabled:
-                m = histogram = _HISTOGRAM_PATH.match(parts.path)
+                m = histogram = match_groups(_HISTOGRAM_PATH, safe)
             if m is None:
-                adapter = self._adapter_route(parts.path)
+                adapter = self._adapter_route(safe)
         session_route = None
         if m is None and adapter is None and not exempt and self.session_channels is not None:
-            session_route = _session_route(unquote(parts.path))
+            session_route = _session_route(safe)
         key = None
         if not exempt:
             key, refusal = await self._session(headers.get("cookie"))
@@ -727,8 +785,8 @@ class TileServer:
                 return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
                     b"405: Method Not Allowed"
             return await getattr(self, name)(groups, headers, key or "", body, method)
-        if self.cache_plane is not None and parts.path.startswith("/internal/"):
-            internal = _match_route(_INTERNAL_ROUTES, unquote(parts.path))
+        if self.cache_plane is not None and path.startswith("/internal/"):
+            internal = _match_route(_INTERNAL_ROUTES, safe)
             if internal is not None:
                 methods, groups = internal
                 name = methods.get(method)
@@ -755,7 +813,7 @@ class TileServer:
         if adapter is not None:
             handler, groups = adapter
             return await handler(self, groups, query, headers, key)
-        path_params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
+        path_params = dict(zip(("imageId", "z", "c", "t"), m))
         if render is not None:
             ctx, error = self._render_ctx(path_params, query, key)
             if error is None:
@@ -768,17 +826,16 @@ class TileServer:
             return 400, {}, error.encode()
         return await self.serve(ctx, headers)
 
-    def _adapter_route(self, path: str):
-        """(handler, percent-decoded groups) of the adapter route that
-        matches ``path``, or None."""
-        path = unquote(path)
+    def _adapter_route(self, safe: str):
+        """(handler, decoded groups) of the adapter route that matches the
+        ``path_safe`` path, or None."""
         for pattern, handler in self._routes:
-            match = pattern.match(path)
-            if match is not None:
-                return handler, match.groups()
+            groups = match_groups(pattern, safe)
+            if groups is not None:
+                return handler, groups
         return None
 
-    def _door_gate(self, path: str, query: dict, headers: Dict[str, str]):
+    def _door_gate(self, path: str, safe: str, query: dict, headers: Dict[str, str]):
         """The door gate: None to go on, or the 503 of a request that would
         shed at ``acquire`` anyway while the wait queue is full (classified
         by its headers alone: no session exists yet). A ``/tile`` or
@@ -790,7 +847,7 @@ class TileServer:
             if not self.scheduler.would_overflow_shed(priority):
                 return None
             if path.startswith(("/tile/", "/render/")):
-                probe = self._door_probe_key(path, query)
+                probe = self._door_probe_key(safe, query)
                 if probe is not None and self.cache.contains_any_tier(probe):
                     return None
             self.scheduler.shed_at_door(priority)
@@ -803,16 +860,17 @@ class TileServer:
             if rec is not None:
                 rec.stamp("door", time.perf_counter() - t_door)
 
-    def _door_probe_key(self, path: str, query: dict) -> Optional[str]:
-        """The cache key the door gate probes, or None when the request
-        does not parse (it then sheds like any other): the w/h = 0
-        spelling normalised from an open buffer only (no I/O), a
-        ``/render`` request keyed with its spec."""
-        m = _RENDER_PATH.match(path) or _TILE_PATH.match(path)
+    def _door_probe_key(self, safe: str, query: dict) -> Optional[str]:
+        """The cache key the door gate probes for a ``path_safe`` path, or
+        None when the request does not parse (it then sheds like any
+        other): the w/h = 0 spelling normalised from an open buffer only
+        (no I/O), a ``/render`` request keyed with its spec."""
+        render = match_groups(_RENDER_PATH, safe)
+        m = render or match_groups(_TILE_PATH, safe)
         if m is None:
             return None
-        path_params = dict(zip(("imageId", "z", "c", "t"), m.groups()))
-        if path.startswith("/render/"):
+        path_params = dict(zip(("imageId", "z", "c", "t"), m))
+        if render is not None:
             ctx, error = self._render_ctx(path_params, query, None)
         else:
             ctx, error = self._tile_ctx(path_params, query, None)
@@ -1070,7 +1128,7 @@ class TileServer:
             done, _ = await asyncio.wait({fetch_task, pending},
                                          return_when=asyncio.FIRST_COMPLETED)
             if pending in done and fetch_task not in done:
-                result = pending.result()
+                result = pending.result()  # ompb-lint: disable=loop-block -- asyncio.Task already in asyncio.wait's done set: result() returns immediately, never blocks
                 if result is not None and result[1].get("x-ompb-degraded"):
                     # the owner served its own hybrid-resolution fallback:
                     # those bytes belong under a degraded key
@@ -1301,14 +1359,18 @@ class TileServer:
         return _json(200, self.drainer.snapshot())
 
     async def _internal_gossip(self, groups, query, headers, body):
-        """The gossip exchange's endpoint. Gossip membership is ROADMAP.md
-        §1 item 8b: a well-formed digest answers 503, as the JAX app does
-        without a gossip manager."""
+        """One push-pull gossip exchange (cluster/gossip.py): merge the
+        sender's digest and answer with ours; 503 without gossip
+        membership, as the JAX app answers."""
         if _PEER not in headers:
             return 403, {}, b"peer requests only"
-        if not isinstance(_json_body(body), dict):
+        remote = _json_body(body)
+        if not isinstance(remote, dict):
             return 400, {}, b"bad digest"
-        return 503, {}, b"gossip disabled"
+        reply = self.cache_plane.gossip_receive(remote)
+        if reply is None:
+            return 503, {}, b"gossip disabled"
+        return _json(200, reply)
 
     def drain_on_signal(self, done) -> bool:
         """SIGTERM with ``cluster.drain.signal``: run the drain, then call
@@ -1711,7 +1773,7 @@ class TileServer:
             "device": str(self.pipeline.device),
             "gpu": self.gpu,
             "kernels": launch_counts(),
-            "host_engine": host_engine(),
+            "host_engine": loaded_host_engine(),
             "host_png_lanes": self.pipeline.host_png_lanes,
             "device_deflate": self.pipeline.device_deflate,
             "host_deflate_lanes": self.pipeline.host_deflate_lanes,
@@ -1757,7 +1819,7 @@ class TileServer:
         every member's); ``/debug/requests/{traceId}``: one trace's
         events, 404 when none is kept."""
         if match:
-            trace_id = unquote(match.group(1))
+            trace_id = match[0]
             events = self.recorder.events(trace_id=trace_id)
             if not events:
                 return 404, {}, b"unknown trace id"
@@ -1828,12 +1890,6 @@ def check_planes(config: Config) -> List[str]:
     an opt-in plane or a value the port cannot honour, and return the
     default-on planes that are enabled, which start absent with one
     warning each."""
-    if config.cluster.lease_ttl_s > 0:
-        raise _refused("cluster.lease-ttl-s",
-                       "dynamic membership is ROADMAP.md §1 item 8b")
-    if config.cluster.gossip.enabled:
-        raise _refused("cluster.gossip.enabled",
-                       "gossip membership is ROADMAP.md §1 item 8b")
     if config.ingest.enabled:
         raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8b")
     if config.backend.engine == "host":
@@ -2029,6 +2085,11 @@ class _BadRequest(Exception):
     pass
 
 
+# the body ``_read_request`` gives a request whose ``Expect`` is not
+# ``100-continue`` (aiohttp answers 417 before routing, no body read)
+_EXPECTATION_FAILED = object()
+
+
 class _Takeover:
     """A route's answer that owns the connection: ``run(reader, writer)``
     calls ``fn(reader, writer, *args)``; the connection closes after it."""
@@ -2041,19 +2102,19 @@ class _Takeover:
         await self.fn(reader, writer, *self.args)
 
 
-def _session_route(path: str):
-    """(handler names by method, percent-decoded groups) of the session
-    route that matches ``path``, or None."""
-    return _match_route(_SESSION_ROUTES, path)
+def _session_route(safe: str):
+    """(handler names by method, decoded groups) of the session route that
+    matches the ``path_safe`` path, or None."""
+    return _match_route(_SESSION_ROUTES, safe)
 
 
-def _match_route(routes, path: str):
-    """(handler names by method, groups) of the first of ``routes`` whose
-    pattern matches ``path``, or None."""
+def _match_route(routes, safe: str):
+    """(handler names by method, decoded groups) of the first of ``routes``
+    whose pattern matches the ``path_safe`` path, or None."""
     for pattern, methods in routes:
-        match = pattern.match(path)
-        if match is not None:
-            return methods, match.groups()
+        groups = match_groups(pattern, safe)
+        if groups is not None:
+            return methods, groups
     return None
 
 
@@ -2139,11 +2200,14 @@ async def _first_of(*coros) -> None:
     finally:
         for task in tasks:
             task.cancel()
-        for task in tasks:
-            try:
-                await task
-            except (asyncio.CancelledError, ConnectionError, OSError):
-                pass
+        # waiting on the tasks raises none of their errors, so a
+        # cancellation of this coroutine itself still propagates
+        await asyncio.wait(tasks)
+    for task in tasks:
+        if not task.cancelled():
+            error = task.exception()
+            if error is not None and not isinstance(error, (ConnectionError, OSError)):
+                raise error
 
 
 def _apply_region_params(ctx: TileCtx, query):
@@ -2188,10 +2252,12 @@ def _failure(e: TileError) -> Tuple[int, dict, bytes]:
 
 
 def _keep_alive(version: str, headers: Dict[str, str]) -> bool:
+    """llhttp's rule: HTTP/1.1 keeps the connection unless asked to close;
+    every other version closes it unless asked to keep it."""
     conn = headers.get("connection", "").lower()
-    if version == "HTTP/1.0":
-        return conn == "keep-alive"
-    return conn != "close"
+    if version == "HTTP/1.1":
+        return conn != "close"
+    return conn == "keep-alive" and version != HTTP09
 
 
 def _retry_after(seconds: float) -> str:
@@ -2201,18 +2267,23 @@ def _retry_after(seconds: float) -> str:
 
 
 def _write_response(writer, status: int, headers: dict, body: bytes,
-                    keep_alive: bool, head: bool = False) -> None:
-    """One response. A 304 has no body and no Content-Length; a HEAD
-    answer keeps the GET's Content-Length, unless that body is empty, and
-    sends no body (aiohttp's headers)."""
+                    keep_alive: bool, head: bool = False, version: str = "HTTP/1.1") -> None:
+    """One response in the request's version. A 304 has no body and no
+    Content-Length; a HEAD answer keeps the GET's Content-Length, unless
+    that body is empty, and sends no body. ``Connection`` is aiohttp's:
+    ``close`` on an HTTP/1.1 connection that ends, ``keep-alive`` on an
+    HTTP/1.0 one that stays, else none."""
     reason = http.HTTPStatus(status).phrase
-    lines = [f"HTTP/1.1 {status} {reason}"]
+    lines = [f"{version} {status} {reason}"]
     if body and "Content-Type" not in headers:
         headers = {**headers, "Content-Type": "text/plain; charset=utf-8"}
     for k, v in headers.items():
         lines.append(f"{k}: {v}")
     if status != 304 and not (head and not body):
         lines.append(f"Content-Length: {len(body)}")
-    lines.append(f"Connection: {'keep-alive' if keep_alive else 'close'}")
+    if version == "HTTP/1.1" and not keep_alive:
+        lines.append("Connection: close")
+    elif version == "HTTP/1.0" and keep_alive:
+        lines.append("Connection: keep-alive")
     writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
                  + (b"" if head else body))

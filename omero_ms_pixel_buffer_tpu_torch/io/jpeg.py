@@ -544,7 +544,7 @@ class DeviceIdct:
 
     @property
     def device(self) -> torch.device:
-        if self._device is None:
+        if self._device is None:  # ompb-lint: disable=lock-discipline -- idempotent lazy resolve: two racing readers resolve the same device, and the lock guards only the side stream
             from ..runtime.device import resolve_device
 
             self._device = resolve_device(self._device_arg)

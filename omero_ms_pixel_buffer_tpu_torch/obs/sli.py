@@ -77,6 +77,16 @@ def _register_gauge() -> None:
             _gauge_registered = True
 
 
+
+def active_burn_rates() -> Optional[Dict[str, Dict[str, float]]]:
+    """The live SLI layer's burn rates, or None when no layer exists
+    (obs disabled). The cluster brain exchange reads this to ship burn
+    rates fleet-wide, through the same latest-instance weak ref the
+    process gauge follows."""
+    ref = _ACTIVE
+    sli = ref() if ref is not None else None
+    return None if sli is None else sli.burn_rates()
+
 class SliLayer:
     """Per-class good/total accounting over rolling time buckets."""
 

@@ -21,8 +21,10 @@ YAML ``resilience.breaker`` block sets them process-wide through
 hands out ``NULL_BREAKER``. Thread-safe; the clock is injectable. States,
 transitions, rejections and slow calls go to ``/metrics`` under the JAX
 names; each breaker also keeps its counts in ``snapshot()`` (``/healthz``
-``breakers``). The JAX package's fleet-gossip hints (``suspect``,
-``heal``) belong to its cluster plane, which the port does not have.
+``breakers``). The fleet brains (``cluster/brains.py``) mark a breaker
+``suspect`` when a strict majority of peers hold its dependency open:
+the next local failure then trips it at once, and a local success clears
+the hint.
 """
 
 from __future__ import annotations
@@ -105,6 +107,10 @@ class CircuitBreaker:
         self._opened_at = 0.0
         self._probes_in_flight = 0
         self._probe_admitted_at = 0.0
+        # fleet hint (cluster/brains): peers hold this dependency open.
+        # It never opens the breaker by itself; the next local failure
+        # trips at once, and a local success clears it
+        self._suspect = False
         self._stats = {"rejected": 0, "opened": 0, "transitions": 0, "slow": 0}
         BREAKER_STATE.set(0, dependency=name)
 
@@ -166,6 +172,7 @@ class CircuitBreaker:
                 self._transition(OPEN if slow else CLOSED)
                 return
             self._consecutive_failures = 0
+            self._suspect = False  # a live answer disproves the rumour
             self._outcomes.append((False, slow))
             if slow and len(self._outcomes) >= self.min_calls:
                 rate = sum(1 for _f, s in self._outcomes if s) / len(self._outcomes)
@@ -181,6 +188,11 @@ class CircuitBreaker:
                 return
             self._consecutive_failures += 1
             self._outcomes.append((True, False))
+            if self._suspect:
+                # the fleet already spent the failure budget
+                self._suspect = False
+                self._transition(OPEN)
+                return
             if self._consecutive_failures >= self.failure_threshold:
                 self._transition(OPEN)
                 return
@@ -188,6 +200,17 @@ class CircuitBreaker:
                 rate = sum(1 for f, _s in self._outcomes if f) / len(self._outcomes)
                 if rate >= self.failure_rate_threshold:
                     self._transition(OPEN)
+
+    def suspect(self) -> None:
+        """Fleet hint: a majority of peers hold this dependency open.
+        Sensitise, never open: the next local failure trips at once."""
+        with self._lock:
+            if self._state == CLOSED:
+                self._suspect = True
+
+    def clear_suspect(self) -> None:
+        with self._lock:
+            self._suspect = False
 
     def _visible_state(self) -> str:
         # callers hold self._lock; an open period that has passed reads
@@ -206,6 +229,7 @@ class CircuitBreaker:
         with self._lock:
             return {
                 "state": self._visible_state(),
+                "suspect": self._suspect,
                 "consecutive_failures": self._consecutive_failures,
                 "window_failures": sum(1 for f, _s in self._outcomes if f),
                 "window_slow": sum(1 for _f, s in self._outcomes if s),
@@ -284,6 +308,12 @@ class NullBreaker:
         pass
 
     def record_failure(self) -> None:
+        pass
+
+    def suspect(self) -> None:
+        pass
+
+    def clear_suspect(self) -> None:
         pass
 
     def snapshot(self) -> dict:

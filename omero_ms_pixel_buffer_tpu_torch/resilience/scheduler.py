@@ -1,6 +1,6 @@
 """SLO-aware request scheduling (copy of ``omero_ms_pixel_buffer_tpu/
-resilience/scheduler.py``, without the fleet-brain hook
-``note_fleet_pressure``, ``ROADMAP.md`` §1 item 8b).
+resilience/scheduler.py``, with the fleet-brain hook
+``note_fleet_pressure``).
 
 - **Priority classes**: ``INTERACTIVE`` > ``PREFETCH`` > ``BULK``. An
   ``x-ompb-priority`` header wins, the prefetch purpose headers
@@ -242,6 +242,13 @@ class SloScheduler:
         self.degraded = [0, 0, 0]
         self.expired_in_queue = [0, 0, 0]
         self.granted = [0, 0, 0]
+        # fleet-brain hint (cluster/brains.py): the mean of the peers'
+        # queue pressure. With the fleet saturated (``fleet_engaged``)
+        # this replica is about to inherit spillover, so even an
+        # uncontended grant takes the degrade check. Advisory only: it
+        # never sheds or queues, and decays when the brains report calm
+        self.fleet_pressure = 0.0
+        self.fleet_engaged = False
         # graceful drain (cluster/lifecycle.py): a draining replica
         # finishes real work at full resolution; it stops minting
         # degraded permits (their entries would be handed off to nobody)
@@ -252,10 +259,13 @@ class SloScheduler:
     def _waiting_total(self) -> int:
         return sum(self._waiting)
 
-    def _degrade_flag(self, deadline: Optional[Deadline]) -> bool:
+    def _degrade_flag(self, deadline: Optional[Deadline],
+                      contended: bool = True) -> bool:
         """A grant that waited serves the fallback when its remaining
         budget is under ``degrade_factor`` x the service-time estimate."""
         if deadline is None or not self.degrade_enabled or self.draining:
+            return False
+        if not contended and not self.fleet_engaged:
             return False
         if self._service_ewma <= 0.0:
             return False
@@ -295,6 +305,11 @@ class SloScheduler:
             if self._waiting[lower] > 0:
                 return False
         return True
+
+    def note_fleet_pressure(self, pressure: float, engaged: bool = False) -> None:
+        """The fleet brains' hook (any thread: two scalar writes)."""
+        self.fleet_pressure = max(0.0, float(pressure))
+        self.fleet_engaged = bool(engaged)
 
     def note_draining(self, draining: bool) -> None:
         """The drain protocol's hook: one scalar write."""
@@ -346,7 +361,7 @@ class SloScheduler:
                 self._waiting[priority] -= 1
             if entry.fut.done() and not entry.fut.cancelled():
                 if entry.fut.exception() is None:
-                    self.release(entry.fut.result(), train=False)
+                    self.release(entry.fut.result(), train=False)  # ompb-lint: disable=loop-block -- the future is done (checked above): result() returns at once, never blocks
             raise
         SLO_QUEUE_WAIT.observe(permit.queued_s)
         defer_exemplar(SLO_QUEUE_WAIT, permit.queued_s)
@@ -422,6 +437,8 @@ class SloScheduler:
             "expired_in_queue": dict(zip(names, self.expired_in_queue)),
             "service_ewma_ms": round(self._service_ewma * 1000.0, 3),
             "class_weights": list(self.class_weights),
+            "fleet_pressure": round(self.fleet_pressure, 4),
+            "fleet_engaged": self.fleet_engaged,
             "draining": self.draining,
         }
 

@@ -301,3 +301,9 @@ def host_engine() -> str:
     """The host PNG encoder lanes larger than every bucket take: "native"
     when the library builds and loads, else "python" (zlib)."""
     return "native" if get_engine() is not None else "python"
+
+
+def loaded_host_engine() -> str:
+    """``host_engine()`` without building or loading anything (for the
+    serving loop's reports): "native" once the engine is loaded."""
+    return "native" if _engine is not None else "python"

@@ -226,10 +226,6 @@ def test_shipped_config_starts_with_five_planes_absent():
 
 
 @pytest.mark.parametrize("key,value,named", [
-    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082", "lease-ttl-s": 5,
-                 "l2": {"uri": "redis://x:6379/2"}}, "cluster.lease-ttl-s"),
-    ("cluster", {"members": ["http://a:8082"], "self": "http://a:8082",
-                 "gossip": {"enabled": True}}, "cluster.gossip.enabled"),
     ("ingest__enabled", True, "ingest.enabled"),
     ("backend__engine", "host", "backend.engine"),
     ("backend__batching__device-encode", False, "backend.batching.device-encode"),
@@ -277,6 +273,56 @@ def test_static_fleet_config_starts(cluster, restore_process_state):
             assert plane.repairer.interval_s == 5 and plane.hedge is not None
     finally:
         server.pipeline.close()
+
+
+@pytest.mark.parametrize("mode", ["lease", "gossip"])
+async def test_membership_config_starts_and_serves(mode, restore_process_state):
+    """``cluster.lease-ttl-s`` > 0 and ``cluster.gossip.enabled`` (once
+    refused) start the plane with its membership manager and the fleet
+    brains; the replica serves ``/healthz`` with the membership view, and
+    the lease lands in the shared Redis (the port's RESP stub)."""
+    import asyncio
+
+    from omero_ms_pixel_buffer_tpu_torch.cache.plane.resp_stub import InMemoryRespServer
+    from omero_ms_pixel_buffer_tpu_torch.cluster import (
+        FleetBrains, GossipManager, MembershipManager)
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
+
+    stub = InMemoryRespServer()
+    await stub.start()
+    cluster = {"members": ["http://127.0.0.1:1"], "self": "http://127.0.0.1:1",
+               "l2": {"uri": stub.uri}, "secret": "s"}
+    cluster.update({"lease-ttl-s": 0.6} if mode == "lease"
+                   else {"gossip": {"enabled": True, "interval-s": 0.1}})
+    config = _config(cluster=cluster)
+    assert check_planes(config) == []
+    server = wire(config, device="cpu")
+    try:
+        port = await server.start("127.0.0.1", 0)
+        plane = server.cache_plane
+        assert isinstance(plane.membership,
+                          MembershipManager if mode == "lease" else GossipManager)
+        assert isinstance(plane.brains, FleetBrains)
+        key = b"ompb:cluster:member:http://127.0.0.1:1"
+        for _ in range(200):
+            if key in stub.data:
+                break
+            await asyncio.sleep(0.01)
+        assert key in stub.data
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(b"GET /healthz HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+        raw = await reader.read()
+        writer.close()
+        assert raw.startswith(b"HTTP/1.1 200 OK")
+        view = json.loads(raw.partition(b"\r\n\r\n")[2])
+        assert view["cluster"]["gossip"] == (mode == "gossip")
+        assert view["cluster"]["membership"]["members"] == ["http://127.0.0.1:1"]
+        assert set(view["cluster"]["brains"]) >= {"fleet_pressure", "demoted"}
+        assert {"fleet_pressure", "fleet_engaged"} <= set(view["slo"])
+    finally:
+        await server.close()
+        server.pipeline.close()
+        await stub.close()
 
 
 @pytest.mark.parametrize("key,value", [

@@ -12,6 +12,7 @@ import http.client
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -148,8 +149,6 @@ def test_dev_registry_without_a_config_file_serves(tmp_path, registry):
 
 
 @pytest.mark.parametrize("block,named", [
-    ("cluster:\n  members: [http://a:8082]\n  self: http://a:8082\n  gossip:\n    enabled: true\n",
-     "cluster.gossip.enabled"),
     ("ingest:\n  enabled: true\n", "ingest.enabled"),
     ("backend:\n  engine: host\n", "backend.engine"),
 ])
@@ -162,6 +161,47 @@ def test_unsupported_plane_exits_2_naming_the_key(tmp_path, block, named):
         env=ENV, cwd=str(tmp_path))
     assert out.returncode == 2
     assert f"'{named}'" in out.stderr and "ROADMAP.md" in out.stderr
+
+
+@pytest.mark.parametrize("mode", ["gossip", "lease"])
+def test_membership_config_starts_serves_and_exits_0(tmp_path, registry, mode):
+    """``cluster.gossip.enabled`` and ``cluster.lease-ttl-s`` (once refused
+    with exit code 2) start the replica from ``--config``: it serves a
+    tile, ``/healthz`` shows its membership view (the lease in the RESP
+    stub's store), and SIGTERM drains it and exits 0."""
+    stub = StubThread()
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self_port = s.getsockname()[1]
+        me = f"http://127.0.0.1:{self_port}"
+        block = (f"    enabled: true\n    interval-s: 0.2\n" if mode == "gossip" else "")
+        cfg = tmp_path / "config.yaml"
+        cfg.write_text(
+            f"session-store:\n  type: memory\nimage-registry: {registry}\nport: {self_port}\n"
+            f"cluster:\n  members: [{me}]\n  self: {me}\n  secret: s\n"
+            f"  l2:\n    uri: redis://127.0.0.1:{stub.port}/0\n"
+            + (f"  gossip:\n{block}" if mode == "gossip" else "  lease-ttl-s: 1.5\n"))
+        proc, port = _start(["--config", str(cfg), "--dev", "--device", "cpu",
+                             "--deflate-mode", "rle"], str(tmp_path))
+        try:
+            status, body = _get(port, TILE, "any-cookie")
+            assert status == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+            view = health["cluster"]
+            assert view["gossip"] == (mode == "gossip")
+            assert view["membership"]["members"] == [me]
+            assert "fleet_pressure" in health["slo"]
+            assert f"ompb:cluster:member:{me}".encode() in stub.stub.data
+        finally:
+            assert _stop(proc) == 0
+        # the drain's last step released the lease
+        assert f"ompb:cluster:member:{me}".encode() not in stub.stub.data
+    finally:
+        stub.close()
 
 
 def test_shipped_config_starts_and_a_dead_redis_answers_503(tmp_path, registry):

@@ -213,27 +213,34 @@ async def _fleet(tmp_path, kinds, l2=True, secret=SECRET, cluster=None, extra=No
     members = [f"http://127.0.0.1:{p}" for p in ports] + list(dead)
     replicas = []
     for i, (kind, port) in enumerate(zip(kinds, ports)):
-        cl = {"members": members, "self": members[i], "peer-timeout-ms": 2000,
-              **({"l2": {"uri": stub.uri}} if l2 else {}),
-              **({"secret": secret} if secret else {}), **(cluster or {})}
-        raw = {"session-store": {"type": "memory"}, "image-registry": _registry(tmp_path),
-               "backend": {"batching": {"coalesce-window-ms": 1.0}},
-               "cache": {"prefetch": {"enabled": False}}, "cluster": cl, **(extra or {})}
-        if kind == "port":
-            server = wire(Config.from_dict(raw), device="cpu",
-                          session_store=MemorySessionStore({"ck": "omero-key-1"}))
-            await server.start("127.0.0.1", port)
-            replicas.append(Replica("port", members[i], port, server))
-        else:
-            app = PixelBufferApp(JaxConfig.from_dict(raw),
-                                 session_store=JaxMemoryStore({"ck": "omero-key-1"}))
-            rep = Replica("jax", members[i], port, app)
-            rep.count_jax_renders()
-            rep.runner = web.AppRunner(app.make_app())
-            await rep.runner.setup()
-            await web.TCPSite(rep.runner, "127.0.0.1", port).start()
-            replicas.append(rep)
+        replicas.append(await _replica(tmp_path, kind, port, members, stub if l2 else None,
+                                       secret, cluster, extra))
     return Fleet(replicas, stub, members)
+
+
+async def _replica(tmp_path, kind, port, members, stub, secret, cluster=None, extra=None):
+    """One started replica of ``kind`` serving on ``port``, seeded with
+    ``members``."""
+    url = f"http://127.0.0.1:{port}"
+    cl = {"members": members, "self": url, "peer-timeout-ms": 2000,
+          **({"l2": {"uri": stub.uri}} if stub is not None else {}),
+          **({"secret": secret} if secret else {}), **(cluster or {})}
+    raw = {"session-store": {"type": "memory"}, "image-registry": _registry(tmp_path),
+           "backend": {"batching": {"coalesce-window-ms": 1.0}},
+           "cache": {"prefetch": {"enabled": False}}, "cluster": cl, **(extra or {})}
+    if kind == "port":
+        server = wire(Config.from_dict(raw), device="cpu",
+                      session_store=MemorySessionStore({"ck": "omero-key-1"}))
+        await server.start("127.0.0.1", port)
+        return Replica("port", url, port, server)
+    app = PixelBufferApp(JaxConfig.from_dict(raw),
+                         session_store=JaxMemoryStore({"ck": "omero-key-1"}))
+    rep = Replica("jax", url, port, app)
+    rep.count_jax_renders()
+    rep.runner = web.AppRunner(app.make_app())
+    await rep.runner.setup()
+    await web.TCPSite(rep.runner, "127.0.0.1", port).start()
+    return rep
 
 
 def _l2_purges() -> float:
@@ -698,27 +705,246 @@ async def test_mixed_fleet_renders_once_with_identical_bytes(tmp_path):
 
 
 async def test_gossip_route_and_body_bound(tmp_path):
-    """``/internal/gossip`` answers as the JAX app does without gossip
-    (403 without the marker, 400 on a bad digest, else 503); the plane
-    raises the body bound to the transfer bound, and without the plane
-    the front keeps its 1 MiB."""
-    fleet = await _fleet(tmp_path, ["port", "jax"], secret=None)
-    try:
-        for r in fleet.replicas:
-            got = []
-            for headers, body in (({}, b"{}"), ({"X-OMPB-Peer": "x"}, b"[]"),
-                                  ({"X-OMPB-Peer": "x"}, b"{}")):
-                status, _, text = await _request(r.port, "POST", "/internal/gossip",
-                                                 headers, body)
-                got.append((status, text))
-            assert got == [(403, b"peer requests only"), (400, b"bad digest"),
-                           (503, b"gossip disabled")]
-        assert fleet[0].app.max_body == (32 << 20) + 65536
-    finally:
-        await fleet.close()
+    """``/internal/gossip`` answers as the JAX app does: 403 without the
+    marker, 400 on a bad digest, the replica's own digest with gossip on
+    (the sender adopted into it) and 503 without; the plane raises the
+    body bound to the transfer bound, and without the plane the front
+    keeps its 1 MiB."""
+    for cluster in (GOSSIP, None):
+        fleet = await _fleet(tmp_path, ["port", "jax"], secret=None, cluster=cluster)
+        try:
+            for r in fleet.replicas:
+                got = []
+                for headers, body in (({}, b"{}"), ({"X-OMPB-Peer": "x"}, b"[]"),
+                                      ({"X-OMPB-Peer": "x"}, b'{"from": "http://z:1"}')):
+                    status, _, text = await _request(r.port, "POST", "/internal/gossip",
+                                                     headers, body)
+                    got.append((status, text))
+                assert got[:2] == [(403, b"peer requests only"), (400, b"bad digest")]
+                if cluster is None:
+                    assert got[2] == (503, b"gossip disabled")
+                else:
+                    reply = json.loads(got[2][1])
+                    assert got[2][0] == 200 and reply["from"] == r.url
+                    assert "http://z:1" in reply["members"]
+            assert fleet[0].app.max_body == (32 << 20) + 65536
+        finally:
+            await fleet.close()
     plain = wire(Config.from_dict({"session-store": {"type": "memory"}}), device="cpu")
     try:
         assert plain.max_body == 1 << 20 and plain.cache_plane is None
         assert plain.health()["cluster"] == {"enabled": False}
     finally:
         plain.pipeline.close()
+
+
+# -- dynamic membership: gossip and leases ------------------------------------------
+
+GOSSIP = {"gossip": {"enabled": True, "interval-s": 0.1, "fanout": 2, "fail-after-s": 3.0}}
+
+
+def _urls(ports):
+    return [f"http://127.0.0.1:{p}" for p in ports]
+
+
+async def _converged(replicas, urls, what, timeout=20.0):
+    await _poll(lambda: all(set(r.plane.membership.members) == set(urls) for r in replicas),
+                what, timeout)
+
+
+async def test_gossip_fleet_converges_renders_once_and_detects_a_crash(tmp_path):
+    """Three port replicas over gossip (A and B seeded with each other, C
+    with A alone) converge on one view; each key renders once fleet-wide;
+    a replica that dies leaves the survivors' views no sooner than
+    ``fail-after-s`` after its last heartbeat, and each key it owned
+    renders at most once more, with the bytes it had."""
+    ports = [_free_port() for _ in range(3)]
+    a, b, c = urls = _urls(ports)
+    replicas = []
+    try:
+        for port, seed in zip(ports, ([a, b], [a, b], [a, c])):
+            replicas.append(await _replica(tmp_path, "port", port, seed, None, SECRET, GOSSIP))
+        await _converged(replicas, urls, "the gossip views did not converge")
+        bodies = {}
+        for i, path in enumerate(TILES):
+            for r in (replicas[i % 3], replicas[(i + 1) % 3]):
+                status, _, body = await r.get(path)
+                assert status == 200 and bodies.setdefault(path, body) == body
+        renders = [r.renders() for r in replicas]
+        assert sum(renders) == len(TILES)  # render-once across the fleet
+        heard = [r.plane.membership._heard[b] for r in (replicas[0], replicas[2])]
+        await replicas[1].close()
+        survivors = [replicas[0], replicas[2]]
+        await _converged(survivors, [a, c], "the crash was not detected", timeout=30.0)
+        now = [r.plane.membership._clock() for r in survivors]
+        assert all(t - h > 3.0 for t, h in zip(now, heard))  # not before fail-after-s
+        assert all(e["event"] == "leave" for e in (
+            r.plane.membership.snapshot()["events"][-1] for r in survivors))
+        for r in survivors:
+            for path in TILES:
+                status, _, body = await r.get(path)
+                assert status == 200 and body == bodies[path]
+        # B's keys render once more at most (a survivor that fetched one
+        # from B already holds it), never twice
+        after = [r.renders() for r in survivors]
+        assert 0 <= sum(after) - (renders[0] + renders[2]) <= renders[1]
+        for r in survivors:
+            for path in TILES:
+                await r.get(path)
+        assert [r.renders() for r in survivors] == after
+    finally:
+        for r in replicas:
+            if r.kind == "port" and r.app._server is not None:
+                await r.close()
+
+
+async def test_lease_fleet_join_drain_and_leave(tmp_path):
+    """Port replicas on leases in the RESP stub: a joiner seeded with
+    itself alone enters every view within a few heartbeats; a drain
+    publishes its marker (every peer sees it draining, still a member, no
+    owner) and then deletes its lease, and it leaves every view."""
+    stub = InMemoryRespServer()
+    await stub.start()
+    ports = [_free_port() for _ in range(3)]
+    a, b, c = urls = _urls(ports)
+    lease = {"lease-ttl-s": 0.9}
+    replicas = []
+    try:
+        for port, url in zip(ports[:2], urls[:2]):
+            replicas.append(await _replica(tmp_path, "port", port, [url], stub, SECRET, lease))
+        await _converged(replicas, [a, b], "the leases did not meet")
+        replicas.append(await _replica(tmp_path, "port", ports[2], [c], stub, SECRET, lease))
+        await _converged(replicas, urls, "the joiner did not enter every view")
+        assert sorted(k for k in stub.data if k.startswith(b"ompb:cluster:member:")) == sorted(
+            f"ompb:cluster:member:{u}".encode() for u in urls)
+        target = "/internal/drain"
+        status, _, _ = await _request(ports[2], "POST", target, _signed("POST", target, a))
+        assert status == 200
+        others = replicas[:2]
+        await _poll(lambda: all(c in r.plane.membership.draining for r in others),
+                    "the drain marker was not seen")
+        assert all(c in r.plane.membership.members for r in others)
+        assert all(c not in r.plane._ring_eligible() for r in others)
+        await _converged(others, [a, b], "the drained replica did not leave")
+        assert f"ompb:cluster:member:{c}".encode() not in stub.data
+        for r in others:
+            events = [(e["event"], e["url"]) for e in r.plane.membership.snapshot()["events"]]
+            assert events[-2:] == [("drain", c), ("leave", c)]
+        assert replicas[2].plane.membership.released
+    finally:
+        for r in replicas:
+            await r.close()
+        await stub.close()
+
+
+async def test_mixed_gossip_fleet_joins_and_warms_up_both_ways(tmp_path):
+    """A JAX and a port replica gossip with each other and render each key
+    once with identical bytes. A port joiner seeded with the JAX replica
+    warms up from it (a port pull of JAX transfers); a JAX joiner seeded
+    with that port joiner warms up from the port replicas (a JAX pull of
+    port transfers); an out-of-seed port joiner enters the fleet through
+    one signed hop. Every view converges and the joiners serve the warmed
+    entries byte-equal."""
+    ports = [_free_port() for _ in range(5)]
+    a, b, c, d, e = urls = _urls(ports)
+    gossip = {**GOSSIP, "replication-factor": 2}
+    replicas = []
+    served = {}
+
+    def count(rep):
+        plane = rep.plane
+        inner = plane.hot_transfer_payload
+
+        def payload(limit):
+            served[rep.url] = served.get(rep.url, 0) + 1
+            return inner(limit)
+
+        plane.hot_transfer_payload = payload
+
+    try:
+        replicas.append(await _replica(tmp_path, "jax", ports[0], [a, b], None, SECRET, gossip))
+        replicas.append(await _replica(tmp_path, "port", ports[1], [a, b], None, SECRET,
+                                       gossip))
+        await _converged(replicas, [a, b], "jax + port did not converge")
+        bodies = {}
+        for i, path in enumerate(TILES):
+            one = await replicas[i % 2].get(path)
+            two = await replicas[(i + 1) % 2].get(path)
+            assert one[0] == two[0] == 200 and one[2] == two[2]
+            assert one[1]["etag"] == two[1]["etag"]
+            bodies[path] = one[2]
+        assert sum(r.renders() for r in replicas) == len(TILES)
+        for rep in replicas:
+            count(rep)
+        # a port joiner seeded with the JAX replica pulls its hot set
+        replicas.append(await _replica(tmp_path, "port", ports[2], [c, a], None, SECRET,
+                                       gossip))
+        count(replicas[2])
+        await _converged(replicas, [a, b, c], "the port joiner did not converge")
+        await _poll(lambda: replicas[2].plane.replicator.transfers_pulled == 1,
+                    "the port joiner did not warm up")
+        assert served.get(a, 0) >= 1  # from the JAX owner
+        # a JAX joiner seeded with the port joiner pulls from port owners
+        replicas.append(await _replica(tmp_path, "jax", ports[3], [d, c], None, SECRET, gossip))
+        await _converged(replicas, [a, b, c, d], "the JAX joiner did not converge")
+        await _poll(lambda: replicas[3].plane.replicator.transfers_pulled == 1,
+                    "the JAX joiner did not warm up")
+        assert served.get(b, 0) >= 1 and served.get(c, 0) >= 1
+        before = [r.renders() for r in replicas]
+        for joiner in replicas[2:4]:
+            for path in TILES:
+                status, hdrs, body = await joiner.get(path)
+                assert status == 200 and body == bodies[path], (joiner.kind, path)
+        assert sum(r.renders() for r in replicas) == sum(before)  # warm: nothing re-rendered
+        # an out-of-seed port joiner: one signed hop (as e) teaches the
+        # JAX replica its address; gossip does the rest
+        replicas.append(await _replica(tmp_path, "port", ports[4], [e], None, SECRET, gossip))
+        target = "/internal/digest?limit=1"
+        status, _, _ = await _request(ports[0], "GET", target, _signed("GET", target, e))
+        assert status == 200
+        await _converged(replicas, urls, "the out-of-seed joiner did not converge")
+        assert replicas[0].plane.membership.contacts_adopted >= 1
+    finally:
+        for r in replicas:
+            await r.close()
+
+
+async def test_gossip_replies_match_jax_bytes(tmp_path, monkeypatch):
+    """One replica of each package on the same port, with gossip on and
+    one dead seed, after its first round: the same signed digest POSTed
+    to ``/internal/gossip`` gets byte-equal replies (members, heartbeats,
+    the piggybacked brain), and both adopt the sender."""
+    from omero_ms_pixel_buffer_tpu.cluster import brains as jbrains
+    from omero_ms_pixel_buffer_tpu_torch.cluster import brains as pbrains
+
+    monkeypatch.setattr(jbrains, "time", _Clock)
+    monkeypatch.setattr(pbrains, "time", _Clock)
+    port, dead = _free_port(), _free_port()
+    me, sender = f"http://127.0.0.1:{port}", f"http://127.0.0.1:{dead}"
+    cluster = {"gossip": {"enabled": True, "interval-s": 60, "fail-after-s": 120}}
+    digest = json.dumps({"v": 1, "from": sender, "members": {
+        sender: {"hb": 7, "draining": False, "left": False},
+        me: {"hb": 3, "draining": False, "left": False},
+        "http://10.0.0.9:1": {"hb": 2, "draining": True, "left": False}}},
+        separators=(",", ":")).encode()
+    replies = {}
+    for kind in ("jax", "port"):
+        rep = await _replica(tmp_path, kind, port, [me, sender], None, SECRET, cluster)
+        try:
+            await _poll(lambda: rep.plane.membership.refreshes >= 1, "no first round")
+            status, hdrs, body = await _request(
+                port, "POST", "/internal/gossip",
+                _signed("POST", "/internal/gossip", sender, digest,
+                        **{"Content-Type": "application/json"}), digest)
+            replies[kind] = (status, hdrs.get("content-type"), body,
+                             rep.plane.membership.members)
+        finally:
+            await rep.close()
+        pbreaker.BOARD.reset()
+        JAX_BOARD.reset()
+    assert replies["port"] == replies["jax"]
+    status, ctype, body, members = replies["port"]
+    assert status == 200 and ctype == "application/json; charset=utf-8"
+    reply = json.loads(body)
+    assert reply["from"] == me and reply["members"][me]["hb"] == 4  # refuted past 3
+    assert set(members) == {me, sender, "http://10.0.0.9:1"}

@@ -367,3 +367,182 @@ async def test_result_cache_admission_bounds():
     cache.put("large", prc.CachedTile(b"x" * 1001))
     assert await cache.get("small") is not None and await cache.get("large") is None
     assert cache.snapshot()["memory"]["entries"] == 1
+
+
+# -- the request line, escapes and repeated headers, byte for byte ----------------------
+#
+# Each case is one raw request, sent as the same bytes to both fronts over a
+# socket; the answers' status lines, headers (aiohttp's Date and Server
+# aside) and bodies must be equal, the interim ``100 Continue`` included.
+
+
+async def _raw(port, data: bytes, body: bytes = b"") -> bytes:
+    """Everything the server writes back to ``data`` (then ``body``, once
+    the head is out) on one connection that the server closes."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(data)
+        await writer.drain()
+        if body:
+            await asyncio.sleep(0.05)
+            writer.write(body)
+            await writer.drain()
+        return await asyncio.wait_for(reader.read(), 30)
+    finally:
+        writer.close()
+
+
+def _answers(raw: bytes):
+    """[(status line, headers less Date and Server, body)] of every answer
+    in ``raw`` (an interim 100 first)."""
+    out = []
+    while raw:
+        top, _, rest = raw.partition(b"\r\n\r\n")
+        lines = top.decode("latin-1").split("\r\n")
+        headers = {}
+        for line in lines[1:]:
+            name, _, value = line.partition(": ")
+            if name.lower() not in ("date", "server"):
+                headers[name.lower()] = value
+        n = int(headers.get("content-length", 0)) if " 100 " not in lines[0] + " " else 0
+        out.append((lines[0], headers, rest[:n]))
+        raw = rest[n:]
+    return out
+
+
+def _request(method, target, *headers, version=" HTTP/1.1", connection="close"):
+    head = f"{method} {target}{version}\r\nHost: x\r\nConnection: {connection}\r\n"
+    return (head + "".join(h + "\r\n" for h in headers) + "\r\n").encode("latin-1")
+
+
+CK = "Cookie: sessionid=ck"
+WIRE_CASES = {
+    # percent-escapes in the path: the route matches the path with %2F and
+    # %25 kept, and each group then decodes
+    "escaped_image_id": (_request("GET", "/tile/%31/0/0/0?w=64&h=64", CK), 200),
+    "escaped_plus": (_request("GET", "/tile/%2B1/0/0/0?w=64&h=64", CK), 200),
+    "escaped_space": (_request("GET", "/tile/1/0/1/%201", CK), 404),
+    "escaped_slash_in_a_group": (_request("GET", "/tile/1%2F0/0/0/0", CK), 400),
+    "lower_case_escaped_slash": (_request("GET", "/tile/%31%2f/0/0/0", CK), 400),
+    "escaped_healthz": (_request("GET", "/heal%74hz/x"), 403),
+    # escapes that are not UTF-8 stay as written
+    "non_utf8_query_escape": (_request("GET", "/tile/1/1/1/0?x=%FF", CK), 400),
+    "non_utf8_query_escape_lower": (_request("GET", "/tile/1/0/0/0?x=%e9", CK), 400),
+    "truncated_utf8_escape": (_request("GET", "/tile/1/0/0/0?x=%C3", CK), 400),
+    "raw_utf8_in_the_query": (
+        b"GET /tile/1/0/0/0?x=\xc3\xa9 HTTP/1.1\r\nHost: x\r\n" + CK.encode() + b"\r\n\r\n",
+        400),
+    "raw_utf8_in_the_path": (
+        b"GET /tile/\xc3\xa9/0/0/0 HTTP/1.1\r\nHost: x\r\n\r\n", 400),
+    # repeated headers: the first value counts
+    "two_cookies_first_refused": (
+        _request("GET", "/tile/1/0/0/0?w=64&h=64", "Cookie: a=b", CK), 403),
+    "two_cookies_first_served": (
+        _request("GET", "/tile/1/0/0/0?w=64&h=64", CK, "Cookie: a=b"), 200),
+    "two_content_lengths": (
+        _request("GET", "/tile/1/0/0/0", CK, "Content-Length: 0", "Content-Length: 0"), 400),
+    # request-line edges
+    "lower_case_method": (_request("get", "/tile/1/0/0/0", CK), 400),
+    "unknown_version": (_request("GET", "/healthz", version=" HTTP/1.2"), 400),
+    "not_http": (_request("GET", "/healthz", version=" FOO/1.1"), 400),
+    "http_1_0": (_request("GET", TILE, CK, version=" HTTP/1.0"), 200),
+    "http_1_0_keep_alive": (_request("GET", TILE, CK, version=" HTTP/1.0",
+                                     connection="keep-alive"), 200),
+    "http_0_9": (_request("GET", TILE, CK, version=""), 200),
+    "two_spaces": (_request("GET ", TILE, CK), 200),
+    "method_walks_off_the_table": (_request("FOO", "/healthz"), 400),
+    "no_space_after_method": (_request("GETX", "/healthz"), 400),
+    "raw_byte_in_the_fragment": (b"GET /x#\xc3 HTTP/1.1\r\nHost: x\r\n\r\n", 400),
+    "tab_in_the_query": (b"GET /a?b\tc HTTP/1.1\r\nHost: x\r\n\r\n", 400),
+    "unexpected_start_of_target": (b"GET \xc3 HTTP/1.1\r\nHost: x\r\n\r\n", 400),
+    "two_digit_major_version": (_request("GET", "/healthz", version=" HTTP/11.1"), 400),
+    "junk_after_version": (_request("GET", "/healthz", version=" HTTP/1.1x"), 400),
+    "explicit_http_0_9": (_request("GET", TILE, CK, version=" HTTP/0.9"), 200),
+    "empty_lines_first": (b"\r\n\r\n" + _request("GET", TILE, CK), 200),
+    "expect_continue": (_request("GET", TILE, CK, "Expect: 100-continue"), 200),
+    "expect_unknown": (_request("GET", TILE, CK, "Expect: teapot", "Content-Length: 2"), 417),
+}
+
+
+@pytest.mark.parametrize("case", list(WIRE_CASES))
+async def test_wire_edges_match_jax(image_path, case):
+    """The parsing faults the reference probe found, pinned: equal status
+    lines, headers and bodies for the same raw bytes."""
+    data, status = WIRE_CASES[case]
+
+    async def body(f):
+        if "keep_alive" in case:
+            # aiohttp keeps the HTTP/1.0 connection: read one answer's worth
+            answers = []
+            for port in (f.jax.server.port, f.port_no):
+                reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                writer.write(data)
+                head = await reader.readuntil(b"\r\n\r\n")
+                n = int(head.lower().split(b"content-length: ")[1].split(b"\r\n")[0])
+                answers.append(_answers(head + await reader.readexactly(n)))
+                writer.close()
+        else:
+            answers = [_answers(await _raw(port, data))
+                       for port in (f.jax.server.port, f.port_no)]
+        assert answers[1] == answers[0]
+        assert answers[1][-1][0].split()[1] == str(status)
+    await _with_fronts(image_path, body)
+
+
+async def test_expect_continue_answers_before_the_body(image_path):
+    """``Expect: 100-continue`` on a request with a body: both fronts send
+    ``100 Continue`` before the client sends the body, then the answer."""
+    head = _request("POST", "/tile/1/0/0/0", CK, "Expect: 100-continue", "Content-Length: 4")
+
+    async def body(f):
+        seen = []
+        for port in (f.jax.server.port, f.port_no):
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(head)
+            interim = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 10)
+            writer.write(b"abcd")
+            rest = await asyncio.wait_for(reader.read(), 10)
+            writer.close()
+            seen.append(_answers(interim + rest))
+        assert seen[1] == seen[0]
+        assert seen[1][0][0] == "HTTP/1.1 100 Continue" and seen[1][1][0].split()[1] == "405"
+    await _with_fronts(image_path, body)
+
+
+@pytest.mark.parametrize("first,second,status", [
+    ("match", '"nope"', 304), ('"nope"', "match", 200)], ids=["first-matches", "second-matches"])
+async def test_repeated_if_none_match_reads_the_first(image_path, first, second, status):
+    async def body(f):
+        _, hdrs, _ = await f.both("GET", TILE, COOKIE)
+        etag = hdrs["etag"]
+        data = _request("GET", TILE, CK, f"If-None-Match: {etag if first == 'match' else first}",
+                        f"If-None-Match: {etag if second == 'match' else second}")
+        answers = [_answers(await _raw(port, data)) for port in (f.jax.server.port, f.port_no)]
+        assert answers[1] == answers[0]
+        assert answers[1][0][0].split()[1] == str(status)
+    await _with_fronts(image_path, body)
+
+
+@pytest.mark.parametrize("kind", ["path", "path_safe", "query"])
+def test_unquote_matches_yarl(kind):
+    """The port's percent-decoding (``http/target.py``) against yarl's, the
+    decoder behind aiohttp's ``request.path``, its router and its query,
+    on seeded random mixes of escapes (UTF-8 runs, truncated and invalid
+    ones, ``%2F``, ``%25``, ``+``)."""
+    import random
+
+    from yarl._quoting import _Unquoter
+
+    from omero_ms_pixel_buffer_tpu_torch.http import target
+
+    yarl_fn, port_fn = {
+        "path": (_Unquoter(unsafe="+"), target.path_of),
+        "path_safe": (_Unquoter(ignore="/%", unsafe="+"), target.path_safe),
+        "query": (_Unquoter(plus=True), lambda v: target.unquote(v, plus=True)),
+    }[kind]
+    parts = ["%", "2F", "2f", "25", "C3", "A9", "E2", "82", "AC", "FF", "e9", "+", "/", "a",
+             "%2", "%z", "F0", "9F", "98", "00", "3F", "%%", "é"]
+    rng = random.Random(16)
+    for _ in range(20000):
+        value = "".join(rng.choice(parts) for _ in range(rng.randint(0, 10)))
+        assert port_fn(value) == yarl_fn(value), value

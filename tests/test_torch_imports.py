@@ -95,14 +95,17 @@ FLEET_PLANE_MODULES = ["cache.plane.ring", "cache.plane.l2", "cache.plane.peer",
                        "cache.plane.coordinator", "cluster", "cluster.security",
                        "cluster.integrity", "cluster.epochs", "cluster.link",
                        "cluster.replicate", "cluster.repair", "cluster.hedge", "cluster.suspect",
-                       "cluster.lifecycle"]
+                       "cluster.lifecycle", "cluster.membership", "cluster.gossip",
+                       "cluster.brains", "http.target"]
 
 
 @pytest.mark.parametrize("name", FLEET_PLANE_MODULES)
 def test_fleet_plane_modules_are_in_the_port(name):
-    """The static fleet's modules (ring, L2, peer client, coordinator and
-    the cluster package) exist under their JAX paths and sit in the walk
-    the no-jax probe imports."""
+    """The fleet's modules (ring, L2, peer client, coordinator, the
+    cluster package with dynamic membership, gossip and the brains, and
+    the front's request-target rules) exist under their JAX paths (the
+    port's own ``http/target.py`` beside them) and sit in the walk the
+    no-jax probe imports."""
     path = PORT.joinpath(*name.split("."))
     assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
     assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()

@@ -32,12 +32,14 @@ import omero_ms_pixel_buffer_tpu.render.analysis  # noqa: F401
 import omero_ms_pixel_buffer_tpu.render.engine  # noqa: F401
 import omero_ms_pixel_buffer_tpu.render.supertile  # noqa: F401
 from omero_ms_pixel_buffer_tpu.auth.stores import MemorySessionStore as JaxMemoryStore
+from omero_ms_pixel_buffer_tpu.cluster import brains as jbrains
 from omero_ms_pixel_buffer_tpu.http.server import PixelBufferApp
 from omero_ms_pixel_buffer_tpu.io import fetch as jfetch
 from omero_ms_pixel_buffer_tpu.io.ometiff import write_ome_tiff
 from omero_ms_pixel_buffer_tpu.utils import metrics as jm
 from omero_ms_pixel_buffer_tpu.utils.config import Config as JaxConfig
 from omero_ms_pixel_buffer_tpu_torch.auth.stores import MemorySessionStore
+from omero_ms_pixel_buffer_tpu_torch.cluster import brains as pbrains
 from omero_ms_pixel_buffer_tpu_torch.http.server import wire
 from omero_ms_pixel_buffer_tpu_torch.io import fetch as pfetch
 from omero_ms_pixel_buffer_tpu_torch.resilience import breaker as pbreaker
@@ -45,9 +47,8 @@ from omero_ms_pixel_buffer_tpu_torch.resilience import configure
 from omero_ms_pixel_buffer_tpu_torch.utils import metrics as pm
 from omero_ms_pixel_buffer_tpu_torch.utils.config import Config
 
-# families of the JAX modules the port does not have yet: dynamic
-# membership, gossip and the fleet brains (ROADMAP.md §1 item 8b)
-ABSENT_PLANE_FAMILIES = {
+# dynamic membership, gossip and the fleet brains, on /metrics in both
+MEMBERSHIP_FAMILIES = {
     "cluster_brain_rounds_total", "cluster_fleet_pressure", "cluster_gossip_rounds_total",
     "cluster_membership_events_total", "slo_burn_rate_fleet",
 }
@@ -216,6 +217,10 @@ async def test_metrics_families_and_counters_match_jax(tmp_path, _process_defaul
         r = await jax.request("GET", url, headers=headers or {})
         return r.status, dict(r.headers), await r.read()
 
+    # the fleet burn gauge registers with a process's first FleetBrains:
+    # register both, so the family sets do not hang on which tests ran first
+    jbrains._register_fleet_gauge()
+    pbrains._register_fleet_gauge()
     try:
         before = [_samples((await get("/metrics"))[2].decode()) for get in (jax_get, port_get)]
         for url in REQUESTS:
@@ -225,8 +230,9 @@ async def test_metrics_families_and_counters_match_jax(tmp_path, _process_defaul
         (_, jh, jbody), (_, ph, pbody) = await jax_get("/metrics"), await port_get("/metrics")
         assert ph["Content-Type"] == jh["Content-Type"] == "text/plain; charset=utf-8"
         jax_fams, port_fams = _families(jbody.decode()), _families(pbody.decode())
-        assert {k: v for k, v in jax_fams.items() if k not in ABSENT_PLANE_FAMILIES} == port_fams
+        assert jax_fams == port_fams
         assert SESSION_PLANE_FAMILIES <= set(port_fams)
+        assert MEMBERSHIP_FAMILIES <= set(port_fams)
         after = [_samples(jbody.decode()), _samples(pbody.decode())]
         for name in ("tiles_served_total", "tile_cache_requests_total",
                      "tile_batches_dispatched_total"):

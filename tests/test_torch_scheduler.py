@@ -140,7 +140,8 @@ def _state(task):
 
 
 _SNAP_KEYS = ("enabled", "queue_size", "queued", "classified", "granted", "shed", "degraded",
-              "expired_in_queue", "service_ewma_ms", "class_weights", "draining")
+              "expired_in_queue", "service_ewma_ms", "class_weights", "fleet_pressure",
+              "fleet_engaged", "draining")
 
 
 @pytest.mark.parametrize("seed", range(8))
