@@ -6,7 +6,7 @@
         [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
         [--wsi-size 16384] [--wsi-requests 512] [--zarr-size 8192] \
         [--zarr-requests 256] [--zarr-s3-requests 128] [--config-requests 256] \
-        [--filter-sweep] \
+        [--filter-sweep] [--slice-paths] \
         [--bitpack-sweep] [--bitpack-time | --dense-time | --paths-only [--port-root DIR]]
 
 Phases, one JSON line each on stdout:
@@ -340,6 +340,35 @@ Phases, one JSON line each on stdout:
    tiles/s, p50/p99, ``X-Cache`` counts, lanes and launches per replica,
    the convergence and detection seconds and each replica's
    ``cluster_gossip_rounds_total`` and ``cluster_membership_events_total``.
+25. ``path_ingest`` — the write plane: a server with ``ingest.enabled``
+   over two copies of image 5 (image 6 on the filesystem, image 7 behind
+   the S3 stub, whose store's multipart threshold is lowered to 4 MiB
+   with 5 MiB parts). Three new 4096² planes (smooth fields plus noise)
+   in one ``POST /image/6/planes`` (96 MiB); every 512² tile of every
+   level read back through ``/tile`` PNG at 32 clients against the
+   written pixels; 8 ``PUT``s of 512² tiles at distinct cells, each read
+   back at every level; 3 commits over one tile while a reader thread
+   reads it (every read the old tile or a new one); 4 ``PUT``s on image 7
+   (multipart uploads), each read back. ``/healthz`` ``ingest`` must
+   count every commit and no failure; filter and SP launches > 0.
+   Reports commit ms per plane and per tile (p50, p99), MB/s written,
+   read-after-write tiles/s and the launches.
+26. ``path_mesh`` — the multi-device plane: images 1 and 2 through a mesh
+   of two slots injected on the one card (``reduced``: one card stands
+   for two) and through the same pipeline without one (``"auto"``, which
+   must build no mesh on a one-card host), in ``dynamic`` and in ``rle``:
+   256 timed ``/tile`` tiles, then (``dynamic``) 32 ``/render`` tiles, 16
+   ``/histogram`` requests, two fused 4x4 pans and a 4096² full-plane
+   lane batched with 15 tiles (rows over the mesh: the distributed
+   route), every body equal between the two servers (a lone request's
+   host route allowed on either side, pixel-checked). Then slot 1 fails
+   (``device.chip:1``, one failed dispatch): the retry runs at width 1
+   with the same bytes, breaker ``device:1`` opens, the width listener
+   warms the known shapes at 1; with the fault cleared the prober
+   (``mesh.probe-interval-ms`` 200) readmits the slot and the shapes are
+   warmed at 2. Reports tiles/s with and without the mesh, launches per
+   slot and the sharded programs alone (device ms over two slots and
+   one, beside their byte bounds).
 
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
@@ -352,9 +381,12 @@ lanes, fallback lanes, crops pulled to the host).
 
 Then the kernels' JSON line (seven rows; the filter's and SP packer's
 launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``,
-``path_disk``'s cold pass, ``path_fleet`` and ``path_gossip``, the WSI rows' from
+``path_disk``'s cold pass, ``path_fleet``, ``path_gossip``, ``path_ingest``
+and ``path_mesh``, the WSI rows' from
 ``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
-line, and last ``{"ok": true, "device": {...}}``. ``--filter-sweep`` stops
+line, and last ``{"ok": true, "device": {...}}``. ``--slice-paths`` runs
+only the build, the fixtures of images 1, 2 and 5, ``path_ingest`` and
+``path_mesh`` (no result line). ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
 ``--bitpack-time`` likewise prints the scalar-prefetch packer's device time
@@ -1033,7 +1065,7 @@ class Client:
                 conn.close()
             self._conns.clear()
 
-    def request(self, method: str, path: str, headers=None):
+    def request(self, method: str, path: str, headers=None, body=None):
         """(status, headers, body, seconds) of one request on this
         thread's connection, with the session cookie."""
         conn = getattr(self._local, "conn", None)
@@ -1043,7 +1075,7 @@ class Client:
             with self._lock:
                 self._conns.append(conn)
         t0 = time.perf_counter()
-        conn.request(method, path, headers={**COOKIE, **(headers or {})})
+        conn.request(method, path, body=body, headers={**COOKIE, **(headers or {})})
         resp = conn.getresponse()
         body = resp.read()
         return resp.status, dict(resp.getheaders()), body, time.perf_counter() - t0
@@ -2780,15 +2812,16 @@ def write_zarr_fixtures(img4: np.ndarray, img5: np.ndarray) -> dict:
     spawn = multiprocessing.get_context("spawn")  # no fork of a process holding CUDA
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=spawn) as pool:
         t0 = time.perf_counter()
-        frames4 = write_ngff_pooled(root4, img4, pool, chunks=(ZARR_CHUNK, ZARR_CHUNK),
-                                    levels=zarr_levels(img4.shape[-1]), compressor="blosc-lz4",
-                                    level_arg=5)
+        frames4 = 0 if img4 is None else write_ngff_pooled(
+            root4, img4, pool, chunks=(ZARR_CHUNK, ZARR_CHUNK),
+            levels=zarr_levels(img4.shape[-1]), compressor="blosc-lz4", level_arg=5)
         t4 = time.perf_counter() - t0
         frames5 = write_ngff_pooled(root5, img5, pool, chunks=(ZARR5_INNER, ZARR5_INNER),
                                     levels=ZARR5_LEVELS, compressor="blosc-lz4", level_arg=5,
                                     zarr_format=3, shards=(ZARR5_SHARD, ZARR5_SHARD))
         t5 = time.perf_counter() - t0 - t4
-    os.remove(os.path.join(root4, "0", "0.0.0.%d.%d" % ZARR_ABSENT))
+    if img4 is not None:
+        os.remove(os.path.join(root4, "0", "0.0.0.%d.%d" % ZARR_ABSENT))
     registry = os.path.join(WORK, "registry_zarr.json")
     with open(registry, "w") as f:
         json.dump({"images": [
@@ -2801,20 +2834,25 @@ def write_zarr_fixtures(img4: np.ndarray, img5: np.ndarray) -> dict:
 
     return {"registry": registry, "root4": root4, "root5": root5, "workers": workers,
             "frames": [frames4, frames5], "write_s": [t4, t5],
-            "bytes": [tree_bytes(root4), tree_bytes(root5)]}
+            "bytes": [0 if img4 is None else tree_bytes(root4), tree_bytes(root5)]}
 
 
 class S3Stub:
     """A path-style S3 endpoint on 127.0.0.1 over ``WORK``: it checks every
     request's SigV4 signature (the port's signer with the stub's secret;
-    a Range header must be signed), answers ranged GETs with 206, and
-    counts requests. ``stop`` closes it and its keep-alive connections;
-    ``start`` opens it again on the same port."""
+    a Range header must be signed; a write's payload sha256 must be its
+    body's), answers ranged GETs with 206, takes PUTs and multipart
+    uploads (create, part, complete against the parts' MD5 ETags, abort;
+    the key appears whole at complete), and counts requests (``writes``
+    by kind). ``stop`` closes it and its keep-alive connections; ``start``
+    opens it again on the same port."""
 
     def __init__(self, root: str):
         self.root, self.port, self.server = root, 0, None
         self.conns: set = set()
         self.requests = 0
+        self.writes: dict = {}
+        self.uploads: dict = {}
         self.lock = threading.Lock()
 
     def _handler(self):
@@ -2851,25 +2889,127 @@ class S3Stub:
                 self.end_headers()
                 self.wfile.write(body)
 
-            def do_GET(self):
-                with stub.lock:
-                    stub.requests += 1
+            def _verified(self, body: bytes):
+                """(path, query) of a correctly signed request, else None
+                after a 403."""
+                import hashlib
+                from urllib.parse import parse_qsl
+
                 m = auth_re.match(self.headers.get("Authorization", ""))
                 if m is None or m.group(1) != S3_ACCESS:
-                    return self._reply(403, b"AccessDenied")
+                    self._reply(403, b"AccessDenied")
+                    return None
                 _, region, signed, signature = m.groups()
+                payload = self.headers.get("x-amz-content-sha256", "")
+                if self.command != "GET" and payload != hashlib.sha256(body).hexdigest():
+                    self._reply(403, b"XAmzContentSHA256Mismatch")
+                    return None
                 rng = self.headers.get("Range")
                 if rng is not None and "range" not in signed.split(";"):
-                    return self._reply(403, b"unsigned Range")
+                    self._reply(403, b"unsigned Range")
+                    return None
+                path, _, raw_query = self.path.partition("?")
+                query = dict(parse_qsl(raw_query, keep_blank_values=True))
                 now = datetime.datetime.strptime(
                     self.headers.get("x-amz-date", ""), "%Y%m%dT%H%M%SZ"
                 ).replace(tzinfo=datetime.timezone.utc)
-                want = sigv4_headers("GET", self.headers["Host"], self.path.split("?")[0], region,
-                                     S3_ACCESS, S3_SECRET,
-                                     payload_sha256=self.headers.get("x-amz-content-sha256", ""),
-                                     now=now, extra_headers={"range": rng} if rng else None)
+                want = sigv4_headers(self.command, self.headers["Host"], path, region,
+                                     S3_ACCESS, S3_SECRET, payload_sha256=payload, now=now,
+                                     extra_headers={"range": rng} if rng else None,
+                                     query=query or None)
                 if want["authorization"].rsplit("Signature=", 1)[1] != signature:
-                    return self._reply(403, b"SignatureDoesNotMatch")
+                    self._reply(403, b"SignatureDoesNotMatch")
+                    return None
+                return path, query
+
+            def _file(self, path: str):
+                prefix = f"/{S3_BUCKET}/"
+                rel = unquote(path[len(prefix):]) if path.startswith(prefix) else ""
+                if not rel or ".." in rel.split("/"):
+                    return None
+                return os.path.join(stub.root, rel)
+
+            def _count(self, kind: str) -> None:
+                with stub.lock:
+                    stub.requests += 1
+                    stub.writes[kind] = stub.writes.get(kind, 0) + 1
+
+            def _body(self) -> bytes:
+                return self.rfile.read(int(self.headers.get("Content-Length", "0") or 0))
+
+            def _write(self, target: str, data: bytes) -> None:
+                os.makedirs(os.path.dirname(target), exist_ok=True)
+                tmp = f"{target}.stub-{threading.get_ident()}"
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                os.replace(tmp, target)  # a key shows whole, as S3's do
+
+            def do_PUT(self):
+                body = self._body()
+                got = self._verified(body)
+                if got is None:
+                    return
+                path, query = got
+                if "uploadId" in query:
+                    self._count("UploadPart")
+                    with stub.lock:
+                        parts = stub.uploads.get(query["uploadId"])
+                        if parts is not None:
+                            parts[int(query["partNumber"])] = body
+                    return self._reply(200 if parts is not None else 404)
+                target = self._file(path)
+                if target is None:
+                    return self._reply(400, b"InvalidKey")
+                self._count("PUT")
+                self._write(target, body)
+                self._reply(200)
+
+            def do_POST(self):
+                import hashlib
+
+                body = self._body()
+                got = self._verified(body)
+                if got is None:
+                    return
+                path, query = got
+                if "uploads" in query:
+                    self._count("CreateMultipartUpload")
+                    with stub.lock:
+                        upload = f"up{len(stub.uploads) + sum(stub.writes.values())}"
+                        stub.uploads[upload] = {}
+                    return self._reply(200, (f"<InitiateMultipartUploadResult><UploadId>"
+                                             f"{upload}</UploadId>"
+                                             "</InitiateMultipartUploadResult>").encode())
+                self._count("CompleteMultipartUpload")
+                with stub.lock:
+                    parts = stub.uploads.pop(query.get("uploadId", ""), None)
+                target = self._file(path)
+                if parts is None or target is None:
+                    return self._reply(404, b"NoSuchUpload")
+                listed = [int(n) for n in re.findall(rb"<PartNumber>(\d+)</PartNumber>", body)]
+                etags = re.findall(rb"<ETag>&quot;([0-9a-f]+)&quot;</ETag>", body)
+                if any(hashlib.md5(parts.get(n, b"")).hexdigest().encode() != e
+                       for n, e in zip(listed, etags)):
+                    return self._reply(200, b"<Error><Code>InvalidPart</Code></Error>")
+                self._write(target, b"".join(parts[n] for n in listed))
+                self._reply(200, b"<CompleteMultipartUploadResult/>")
+
+            def do_DELETE(self):
+                got = self._verified(b"")
+                if got is None:
+                    return
+                self._count("AbortMultipartUpload")
+                with stub.lock:
+                    stub.uploads.pop(got[1].get("uploadId", ""), None)
+                self._reply(204)
+
+            def do_GET(self):
+                with stub.lock:
+                    stub.requests += 1
+                got = self._verified(b"")
+                if got is None:
+                    return
+                rng = self.headers.get("Range")
                 prefix = f"/{S3_BUCKET}/"
                 rel = unquote(self.path[len(prefix):]) if self.path.startswith(prefix) else ""
                 path = os.path.join(stub.root, rel)
@@ -4701,6 +4841,522 @@ def drive_gossip(registry: str, data: np.ndarray, timed, seed: int, device: str 
             p.__exit__(None, None, None)
         stub.close()
 
+# ---------------------------------------------------------------------------
+# the ingest plane: Zarr shard writes while serving
+# ---------------------------------------------------------------------------
+
+INGEST_FILE, INGEST_S3 = 6, 7  # copies of image 5 on the filesystem and the S3 stub
+INGEST_TILES, INGEST_S3_TILES = 8, 4  # 512² tile writes on each
+INGEST_RACE_COMMITS = 3
+INGEST_MULTIPART = (4 << 20, 5 << 20)  # the S3 store's threshold and part size in the phase
+
+
+def write_ingest_fixtures() -> str:
+    """Two copies of image 5's tree (``fixture_zarr``): image 6 on the
+    filesystem, image 7 behind the S3 stub. Returns their registry."""
+    import shutil
+
+    src = os.path.join(WORK, "zarr5.zarr")
+    for name in ("ingest6.zarr", "ingest7.zarr"):
+        dst = os.path.join(WORK, name)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src, dst)
+    registry = os.path.join(WORK, "registry_ingest.json")
+    with open(registry, "w") as f:
+        json.dump({"images": [
+            {"id": INGEST_FILE, "path": os.path.join(WORK, "ingest6.zarr"), "name": "ingest"},
+            {"id": INGEST_S3, "path": f"s3://{S3_BUCKET}/ingest7.zarr", "type": "zarr",
+             "name": "ingest-s3"}]}, f)
+    return registry
+
+
+def _levels_of(plane: np.ndarray, levels: int):
+    return [plane[::2 ** lv, ::2 ** lv] for lv in range(levels)]
+
+
+def _readback(client: Client, image: int, c: int, x: int, y: int, w: int, h: int,
+              planes: np.ndarray, levels: int = ZARR5_LEVELS) -> int:
+    """The written region of channel ``c`` through ``/tile`` PNG at every
+    level (stride 2 each), held against ``planes`` (the image as
+    written); returns the tiles checked."""
+    checked = 0
+    for lv, level in enumerate(_levels_of(planes[c], levels)):
+        s = 2 ** lv
+        lx, ly, lw, lh = x // s, y // s, -(-w // s), -(-h // s)
+        res = "" if lv == 0 else f"&resolution={lv}"
+        path = f"/tile/{image}/0/{c}/0?x={lx}&y={ly}&w={lw}&h={lh}&format=png{res}"
+        status, body, _ = client.get(path)
+        require(status == 200, f"{path} answered {status}")
+        require(np.array_equal(decode_png(body), level[ly:ly + lh, lx:lx + lw]),
+                f"{path}: pixels differ from the written ones")
+        checked += 1
+    return checked
+
+
+def _put(client: Client, image: int, c: int, x: int, y: int, tile: np.ndarray):
+    h, w = tile.shape
+    path = f"/image/{image}/tile/0/{c}/0?x={x}&y={y}&w={w}&h={h}"
+    status, _, body, secs = client.request("PUT", path, body=tile.astype(">u2").tobytes())
+    require(status == 200, f"PUT {path} answered {status}: {body[:200]!r}")
+    return json.loads(body), secs
+
+
+def _pct(values) -> dict:
+    ms = np.array(values) * 1e3
+    return {"n": len(values), "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "max": float(ms.max())}
+
+
+def drive_ingest(registry: str, img5: np.ndarray, seed: int, device: str = "cuda") -> dict:
+    """``path_ingest``: a server with ``ingest.enabled`` over two copies of
+    image 5's layout (NGFF 0.5, (1, 3, 1, 4096, 4096) uint16, 2048² shards
+    of 512² inner chunks, blosc lz4 with shuffle, crc32c, 3 levels): image
+    6 on the filesystem, image 7 behind the S3 stub (its store's multipart
+    threshold lowered to 4 MiB, parts of 5 MiB). Three new 4096² planes in
+    one ``POST .../planes`` (96 MiB); every tile of every level read back
+    through ``/tile`` PNG (the kernels) against the written pixels; then
+    ``INGEST_TILES`` 512² ``PUT``s at distinct cells, each read back at
+    every level; then ``INGEST_RACE_COMMITS`` commits over one tile while
+    a reader thread reads it: every read the old or a new tile, none
+    mixed; then ``INGEST_S3_TILES`` ``PUT``s on image 7 (multipart), each
+    read back. Reports commit ms per plane and per tile (p50, p99), MB/s
+    written, read-after-write tiles/s and the kernel launches."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    size = ZARR5_SIZE
+    planes = np.stack([make_field(size, seed + 60 + c) for c in range(3)])
+    s3_planes = img5[0][:, 0].copy()  # image 7 starts as image 5
+    rng = np.random.default_rng(seed + 61)
+    stub = S3Stub(WORK)
+    env = {"OMPB_S3_ENDPOINT": stub.start(), "AWS_ACCESS_KEY_ID": S3_ACCESS,
+           "AWS_SECRET_ACCESS_KEY": S3_SECRET, "AWS_REGION": "us-east-1",
+           "AWS_SHARED_CREDENTIALS_FILE": os.path.join(WORK, "no-aws-credentials"),
+           "AWS_CONFIG_FILE": os.path.join(WORK, "no-aws-config")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    st = ServerThread(registry, device=device, ingest={"enabled": True})
+    try:
+        with st as client:
+            reset_launch_counts()
+            body = planes.astype(">u2").tobytes()
+            status, _, out, plane_s = client.request(
+                "POST", f"/image/{INGEST_FILE}/planes?planes=0:0:0,0:1:0,0:2:0", body=body)
+            require(status == 200, f"planes POST answered {status}: {out[:200]!r}")
+            plane_stats = json.loads(out)
+            require(plane_stats["tiles"] == 3 and plane_stats["epoch"] is None,
+                    f"planes POST: {plane_stats}")
+            reads = []
+            for lv in range(ZARR5_LEVELS):
+                ls, res = size >> lv, "" if lv == 0 else f"&resolution={lv}"
+                side = min(TILE, ls)
+                for c in range(3):
+                    for y in range(0, ls, side):
+                        for x in range(0, ls, side):
+                            reads.append((f"/tile/{INGEST_FILE}/0/{c}/0?x={x}&y={y}&w={side}"
+                                          f"&h={side}&format=png{res}", (lv, c, x, y), 200))
+            read_out, read_s = run_requests(client, reads, LANES)
+            checked = verify_zarr(read_out, reads,
+                                  lambda lv, c: planes[c, ::2 ** lv, ::2 ** lv])
+            tile_s, tile_bytes = [], 0
+            cells = rng.permutation((size // TILE) ** 2)[:INGEST_TILES]
+            for k, cell in enumerate(cells):
+                y, x = (int(v) * TILE for v in divmod(int(cell), size // TILE))
+                c = k % 3
+                tile = make_field(TILE, seed + 70 + k)
+                stats, secs = _put(client, INGEST_FILE, c, x, y, tile)
+                tile_s.append(secs)
+                tile_bytes += stats["bytes"]
+                planes[c, y:y + TILE, x:x + TILE] = tile
+                checked += _readback(client, INGEST_FILE, c, x, y, TILE, TILE, planes)
+            # a reader during commits: only the old tile or a new one
+            race_path = f"/tile/{INGEST_FILE}/0/0/0?x=0&y=0&w={TILE}&h={TILE}&format=png"
+            legal = [planes[0, :TILE, :TILE].copy()]
+            legal += [make_field(TILE, seed + 90 + k) for k in range(INGEST_RACE_COMMITS)]
+            stop, seen, mixed = threading.Event(), [], []
+
+            def reader():
+                while not stop.is_set():
+                    status, body, _ = client.get(race_path)
+                    got = decode_png(body) if status == 200 else None
+                    seen.append(status)
+                    if got is None or not any(np.array_equal(got, t) for t in legal):
+                        mixed.append(status)
+
+            thread = threading.Thread(target=reader, name="ingest-reader")
+            thread.start()
+            try:
+                for k in range(INGEST_RACE_COMMITS):
+                    _put(client, INGEST_FILE, 0, 0, 0, legal[1 + k])
+                    time.sleep(0.05)
+            finally:
+                stop.set()
+                thread.join(60)
+            planes[0, :TILE, :TILE] = legal[-1]
+            checked += _readback(client, INGEST_FILE, 0, 0, 0, TILE, TILE, planes)
+            # the same commits through the S3 stub, multipart included
+            store = st.server.pipeline.pixels_service.get_pixel_buffer(INGEST_S3).store
+            store.multipart_threshold, store.multipart_part_size = INGEST_MULTIPART
+            s3_s, s3_bytes = [], 0
+            for k, cell in enumerate(rng.permutation((size // TILE) ** 2)[:INGEST_S3_TILES]):
+                y, x = (int(v) * TILE for v in divmod(int(cell), size // TILE))
+                c = k % 3
+                tile = make_field(TILE, seed + 100 + k)
+                stats, secs = _put(client, INGEST_S3, c, x, y, tile)
+                s3_s.append(secs)
+                s3_bytes += stats["bytes"]
+                s3_planes[c, y:y + TILE, x:x + TILE] = tile
+                checked += _readback(client, INGEST_S3, c, x, y, TILE, TILE, s3_planes)
+            launches = launch_counts()
+            health = get_json(client, "/healthz")
+    finally:
+        stub.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(mixed == [] and len(seen) > 0,
+            f"path_ingest: {len(mixed)} of {len(seen)} racing reads were neither old nor new")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"path_ingest: the filter or the SP packer never launched: {launches}")
+    require(health["queue"]["failed"] == 0, "path_ingest: encode groups failed")
+    ingest = health["ingest"]
+    commits = 1 + INGEST_TILES + INGEST_RACE_COMMITS + INGEST_S3_TILES
+    require(ingest["commits"] == commits and ingest["failures"] == 0,
+            f"path_ingest: /healthz ingest {ingest}")
+    require(stub.writes.get("CompleteMultipartUpload", 0) > 0,
+            f"path_ingest: no multipart upload on the S3 stub: {stub.writes}")
+    lat = np.array([r[2] for r in read_out]) * 1e3
+    return {"phase": "path_ingest", "layout": "image 5's: NGFF 0.5, (1, 3, 1, 4096, 4096) "
+            "uint16, 2048² shards of 512² chunks, blosc lz4 shuffle, crc32c, 3 levels",
+            "planes": {"body_bytes": len(body), "commit_s": plane_s,
+                       "commit_ms_per_plane": plane_s * 1e3 / 3, **plane_stats,
+                       "mb_per_s_written": plane_stats["bytes"] / plane_s / 1e6,
+                       "mb_per_s_body": len(body) / plane_s / 1e6},
+            "read_after_write": {"tiles": len(reads), "tiles_per_s": len(reads) / read_s,
+                                 "p50_ms": float(np.percentile(lat, 50)),
+                                 "p99_ms": float(np.percentile(lat, 99))},
+            "tile_commit_ms": _pct(tile_s),
+            "tile_mb_per_s_written": tile_bytes / sum(tile_s) / 1e6,
+            "racing_reads": {"reads": len(seen), "mixed": len(mixed),
+                             "commits": INGEST_RACE_COMMITS},
+            "s3": {"tile_commit_ms": _pct(s3_s), "mb_per_s_written": s3_bytes / sum(s3_s) / 1e6,
+                   "multipart": list(INGEST_MULTIPART), "stub_writes": stub.writes},
+            "tiles_verified": checked, "launches": launches, "ingest": ingest,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# the multi-device plane: two mesh slots on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 2
+MESH_PROBE_MS = 200
+MESH_FULL = 4096  # the full-plane lane's side: larger than every bucket
+MESH_FULL_TRIES = 6
+
+
+def _mesh_requests(rng, data: np.ndarray, stack: np.ndarray) -> dict:
+    # the full-plane lane goes with 15 tiles at once (a batch of one would
+    # take the host route of a lone request); up to MESH_FULL_TRIES groups,
+    # each at another origin, until one is batched
+    full = [[(f"/tile/1/0/0/0?x={64 * k}&y=0&w={MESH_FULL}&h={MESH_FULL}&format=png",
+              (64 * k, 0, MESH_FULL, MESH_FULL), 200)] + tile_requests(rng, data.shape[0], 15)
+            for k in range(MESH_FULL_TRIES)]
+    return {
+        "warm": tile_requests(rng, data.shape[0], LANES),
+        "render": render_requests(rng, stack.shape[-1], LANES),
+        "histogram": [(p, spec, 200) for p, spec in histogram_requests(rng, stack, 8)],
+        "pans": viewport_requests(rng, stack.shape[-1], 2),
+        "full": full,
+        "chaos": tile_requests(rng, data.shape[0], LANES),
+        "healed": tile_requests(rng, data.shape[0], LANES),
+    }
+
+
+def _same_tiles(got, want, reqs, data: np.ndarray) -> int:
+    """Two servers' ``/tile`` PNG bodies of ``reqs``: equal, or (a batch of
+    one: the lone request's host route, on either side) one of them the
+    host encode of the region and both the source's pixels. Returns the
+    bodies that were equal."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import encode_png
+
+    equal = 0
+    for a, b, (path, (x, y, w, h), _) in zip(got, want, reqs):
+        if a == b:
+            equal += 1
+            continue
+        region = data[y:y + h, x:x + w]
+        require(encode_png(region) in (a, b), f"path_mesh: {path} bodies differ")
+        require(np.array_equal(decode_png(a), region) and np.array_equal(decode_png(b), region),
+                f"path_mesh: {path} pixels differ from the source")
+    return equal
+
+
+def _serve_mesh_arm(registry: str, data: np.ndarray, stack: np.ndarray, mode: str, mesh: bool,
+                    timed, extra: dict, device: str, full_groups=None) -> dict:
+    """One server of ``path_mesh``: ``mode``, with or without the injected
+    mesh of two slots on the card; the timed tiles, then (``dynamic``)
+    render, histogram, pans and the full-plane lane, then (mesh) slot 1
+    failed and healed. Returns bodies, rates and views."""
+    import torch
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, slot_launch_counts
+    from omero_ms_pixel_buffer_tpu_torch.parallel.mesh import make_mesh
+    from omero_ms_pixel_buffer_tpu_torch.resilience.faultinject import INJECTOR, always, first_n
+
+    st = ServerThread(registry, device=device, deflate_mode=mode, packer="pallas",
+                      mesh={"probe-interval-ms": MESH_PROBE_MS} if mesh else None)
+    if mesh:
+        card = torch.device(device, 0)
+        st.server.pipeline.mesh = make_mesh([card] * MESH_SLOTS)
+    out = {"bodies": {}, "distributed_lanes": 0}
+    before, slots_before = launch_counts(), slot_launch_counts()
+    with st as client:
+        run_requests(client, extra["warm"], LANES)
+        main_before = get_json(client, "/healthz")
+        main_out, secs = run_requests(client, timed, LANES)
+        main_after = get_json(client, "/healthz")
+        lat = np.array([r[2] for r in main_out]) * 1e3
+        out.update({"tiles_per_s": len(timed) / secs, "p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "timed_window": timed_window(main_before, main_after, secs)})
+        out["bodies"]["tiles"] = [r[1] for r in main_out]
+        if mode == "dynamic":
+            for name in ("render", "histogram"):
+                reqs = extra[name]
+                res, secs = run_requests(client, reqs, LANES)
+                out["bodies"][name] = [r[1] for r in res]
+                require(all(r[0] == 200 for r in res), f"path_mesh {name}: {[r[0] for r in res]}")
+                out[f"{name}_s"] = secs
+            out["bodies"]["full"], groups = [], 0
+            for reqs in extra["full"][:full_groups]:
+                res = run_requests(client, reqs, len(reqs))[0]
+                require(all(r[0] == 200 for r in res), f"path_mesh full: {[r[0] for r in res]}")
+                out["bodies"]["full"] += [r[1] for r in res]
+                groups += 1
+                if full_groups is None and st.server.pipeline.distributed_lanes:
+                    break
+            out["full_groups"] = groups
+            out["distributed_lanes"] = st.server.pipeline.distributed_lanes
+            pans = []
+            t0 = time.perf_counter()
+            for view in extra["pans"]:
+                res = run_requests(client, view, len(view))[0]
+                require(all(r[0] == 200 for r in res), "path_mesh: a pan tile failed")
+                pans += [r[1] for r in res]
+            out["pans_s"] = time.perf_counter() - t0
+            out["bodies"]["pans"] = pans
+            if mesh:
+                # slot 1 fails: the dispatch retries on the survivor
+                INJECTOR.install("device.mesh-dispatch", first_n(1, RuntimeError("wedged")))
+                INJECTOR.install(f"device.chip:{MESH_SLOTS - 1}",
+                                 always(RuntimeError("slot down")))
+                try:
+                    res = run_requests(client, extra["chaos"], LANES)[0]
+                    down = get_json(client, "/healthz")
+                finally:
+                    INJECTOR.clear()
+                t0 = time.perf_counter()
+                while (get_json(client, "/healthz")["render"]["mesh"]["healthy"] < MESH_SLOTS
+                       and time.perf_counter() - t0 < 30):
+                    time.sleep(0.05)
+                out["readmitted_s"] = time.perf_counter() - t0
+                healed_res = run_requests(client, extra["healed"], LANES)[0]
+                t0 = time.perf_counter()
+                while (set(get_json(client, "/healthz")["queue"]["mesh"]["warmed"])
+                       != {1, MESH_SLOTS} and time.perf_counter() - t0 < 30):
+                    time.sleep(0.05)
+                out["down"] = {"mesh": down["render"]["mesh"],
+                               "breaker": down["breakers"].get(f"device:{MESH_SLOTS - 1}")}
+            else:
+                res = run_requests(client, extra["chaos"], LANES)[0]
+                healed_res = run_requests(client, extra["healed"], LANES)[0]
+            out["bodies"]["chaos"] = [r[1] for r in res]
+            out["bodies"]["healed"] = [r[1] for r in healed_res]
+        health = get_json(client, "/healthz")
+    out["mesh_built"] = st.server.pipeline.mesh is not None
+    out["render_mesh"] = health["render"].get("mesh")
+    out["supertile"] = health["supertile"]
+    out["queue"] = health["queue"]
+    out["launches"] = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+    after_slots = slot_launch_counts()
+    out["slot_launches"] = {i: after_slots.get(i, 0) - slots_before.get(i, 0)
+                            for i in range(MESH_SLOTS)}
+    return out
+
+
+def mesh_programs(data: np.ndarray, stack: np.ndarray, seed: int) -> dict:
+    """The sharded programs alone on the card, over a mesh of two slots on
+    it and of one: device ms per call (torch.profiler, every kernel and
+    copy of the call) beside the byte bound (inputs read and outputs
+    written once at ``HBM_BYTES_PER_S``)."""
+    import torch
+
+    from omero_ms_pixel_buffer_tpu_torch.ops.convert import bits_tensor
+    from omero_ms_pixel_buffer_tpu_torch.ops.device_deflate import build_dynamic_tables
+    from omero_ms_pixel_buffer_tpu_torch.parallel import sharding as sh
+    from omero_ms_pixel_buffer_tpu_torch.parallel.mesh import make_mesh
+    from omero_ms_pixel_buffer_tpu_torch.render import analysis as ran
+    from omero_ms_pixel_buffer_tpu_torch.render import engine as rengine
+    from omero_ms_pixel_buffer_tpu_torch.render.luts import LutRegistry
+    from omero_ms_pixel_buffer_tpu_torch.render.model import RenderSpec
+    from omero_ms_pixel_buffer_tpu_torch.render.supertile import plan_mesh_partition
+
+    card = torch.device("cuda", 0)
+    tiles = bits_tensor(lane_tiles(data, seed)).to(card)  # (32, 512, 512)
+    planes = bits_tensor(np.ascontiguousarray(render_lanes(stack, seed))).to(card)
+    plane = bits_tensor(np.ascontiguousarray(data[:MESH_FULL, :MESH_FULL])).to(card)
+    tables, luts = rengine.build_tables(RenderSpec.from_params({"c": RENDER_C}),
+                                        np.dtype(np.uint16), LutRegistry())
+    span = 4 * TILE
+    st_stack = np.ascontiguousarray(stack[:, 0, :span, :span])
+    rects = [(x, y, TILE, TILE) for y in range(0, span, TILE) for x in range(0, span, TILE)]
+    hist_planes = np.ascontiguousarray(stack[:, 0, :TILE, :TILE].repeat(3, axis=0)[:8])
+    hist_tabs = np.stack([ran.build_bin_table(np.dtype(np.uint16), (0.0, 65535.0), 256)] * 8)
+    rows, row_bytes = TILE, 1 + TILE * 2
+    out = {}
+    for n in (MESH_SLOTS, 1):
+        mesh = make_mesh([card] * n)
+        flat, counts, extras = sh.sharded_filter_histogram(mesh, tiles, rows, row_bytes, 2)
+        plan = build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(),
+                                    real=tiles.shape[0])
+        origins, (sub_h, sub_w), coords, _ = plan_mesh_partition(rects, span, span, n)
+        sub = np.stack([st_stack[:, y:y + sub_h, x:x + sub_w] for y, x in origins])
+        streams_rle = sh.sharded_filter_deflate(mesh, tiles, rows, row_bytes, 2)
+        streams_dyn = sh.sharded_dynamic_emit(mesh, flat, plan)
+        streams_render = sh.sharded_render_filter_deflate(mesh, planes, tables, luts, rows,
+                                                          1 + TILE * 3)
+        streams_st = sh.sharded_supertile_carve_deflate(mesh, sub, tables, luts, coords, TILE,
+                                                        TILE)
+        calls = {
+            "sharded_batch_filter": (lambda: sh.sharded_batch_filter(mesh, tiles, 2),
+                                     tiles.numel() * 2 + tiles.shape[0] * rows * row_bytes),
+            "sharded_filter_deflate": (
+                lambda: sh.sharded_filter_deflate(mesh, tiles, rows, row_bytes, 2),
+                tiles.numel() * 2 + int(streams_rle[1].sum())),
+            "sharded_filter_histogram": (
+                lambda: sh.sharded_filter_histogram(mesh, tiles, rows, row_bytes, 2),
+                tiles.numel() * 2 + flat.numel() + counts.numel() * 4),
+            "sharded_dynamic_emit": (
+                lambda: sh.sharded_dynamic_emit(mesh, flat, plan),
+                flat.numel() + sum(np.asarray(t).nbytes for t in plan)
+                + int(streams_dyn[1].sum())),
+            "distributed_filter_plane": (
+                lambda: sh.distributed_filter_plane(mesh, plane),
+                plane.numel() * 2 + MESH_FULL * (1 + MESH_FULL * 2)),
+            "sharded_render_filter_deflate": (
+                lambda: sh.sharded_render_filter_deflate(mesh, planes, tables, luts, rows,
+                                                         1 + TILE * 3),
+                planes.numel() * 2 + int(streams_render[1].sum())),
+            "sharded_supertile_carve_deflate": (
+                lambda: sh.sharded_supertile_carve_deflate(mesh, sub, tables, luts, coords,
+                                                           TILE, TILE),
+                sub.nbytes + int(streams_st[1].sum())),
+            "sharded_histogram_batch": (
+                lambda: ran.sharded_histogram_batch(mesh, hist_planes, hist_tabs, 256),
+                hist_planes.nbytes + hist_tabs.nbytes + 8 * 256 * 4),
+        }
+        for name, (call, nbytes) in calls.items():
+            row = out.setdefault(name, {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                                        "bound_by": "bytes"})
+            row[f"device_ms_{n}_slot{'s' if n > 1 else ''}"] = call_device_ms(torch, call,
+                                                                              iters=5)
+            row[f"call_ms_{n}_slot{'s' if n > 1 else ''}"] = time_ms(torch, call, iters=5,
+                                                                     warmup=1)
+    return out
+
+
+def drive_mesh(registry: str, data: np.ndarray, stack: np.ndarray, seed: int,
+               device: str = "cuda") -> dict:
+    """``path_mesh``: image 1 and image 2 served through a mesh of
+    ``MESH_SLOTS`` slots injected on the one card (``reduced``: one card
+    stands for two) and through the same pipeline without one (``"auto"``,
+    which must build no mesh on a one-card host), in ``dynamic`` and in
+    ``rle``: 256 timed ``/tile`` tiles, then (``dynamic``) 32 ``/render``
+    tiles, 16 ``/histogram`` requests, two fused 4x4 pans and one 4096²
+    full-plane lane (rows over the mesh), each body byte-equal between the
+    two servers. Then slot 1 fails (``device.chip:1`` and one failed
+    dispatch): the group retries at width 1 with the same bytes, the
+    breaker ``device:1`` opens and the width listener warms the known
+    shapes at 1; the prober (``mesh.probe-interval-ms`` 200) readmits slot
+    1 and the width listener fires at 2. Reports tiles/s with and without
+    the mesh, the launches per slot and the sharded programs alone."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 80)
+    timed = tile_requests(rng, data.shape[0], 256)
+    extra = _mesh_requests(rng, data, stack)
+    reset_launch_counts()
+    arms = {}
+    for mode in ("dynamic", "rle"):
+        # the mesh first: it sends full-plane groups until one is batched,
+        # and the server without the mesh then sends as many
+        arms[(mode, True)] = _serve_mesh_arm(registry, data, stack, mode, True, timed, extra,
+                                             device)
+        arms[(mode, False)] = _serve_mesh_arm(registry, data, stack, mode, False, timed, extra,
+                                              device, arms[(mode, True)].get("full_groups"))
+    launches = launch_counts()
+    checked = equal = 0
+    tile_reqs = {"tiles": timed, "full": [r for g in extra["full"] for r in g],
+                 "chaos": extra["chaos"], "healed": extra["healed"]}
+    for mode in ("dynamic", "rle"):
+        plain, meshed = arms[(mode, False)], arms[(mode, True)]
+        require(not plain["mesh_built"] and plain["render_mesh"] is None,
+                f"path_mesh: 'auto' built a mesh on a one-card host ({mode})")
+        require(meshed["render_mesh"] is not None, "path_mesh: the mesh has no manager")
+        for name, bodies in plain["bodies"].items():
+            if name in tile_reqs:
+                equal += _same_tiles(meshed["bodies"][name], bodies, tile_reqs[name], data)
+            else:
+                require(meshed["bodies"][name] == bodies,
+                        f"path_mesh {mode}: {name} bodies differ with the mesh")
+                equal += len(bodies)
+            checked += len(bodies)
+        slots = meshed["slot_launches"]
+        require(all(slots[i] > 0 for i in range(MESH_SLOTS)),
+                f"path_mesh {mode}: a slot never launched: {slots}")
+        require(meshed["queue"]["failed"] == 0 and plain["queue"]["failed"] == 0,
+                f"path_mesh {mode}: encode groups failed")
+    verify([(200, b, 0) for b in arms[("dynamic", False)]["bodies"]["tiles"]], timed, data)
+    ref = RenderReference(stack)
+    verify_render([(200, b, 0) for b in arms[("dynamic", True)]["bodies"]["render"]],
+                  extra["render"], ref)
+    for body, (path, spec, _) in zip(arms[("dynamic", True)]["bodies"]["histogram"],
+                                     extra["histogram"]):
+        verify_histogram(body, stack, spec)
+    verify([(200, b, 0) for b in arms[("dynamic", True)]["bodies"]["full"]],
+           tile_reqs["full"], data)
+    require(arms[("dynamic", True)]["distributed_lanes"] > 0,
+            "path_mesh: the full-plane lane did not take the distributed route")
+    meshed = arms[("dynamic", True)]
+    down = meshed["down"]
+    require(down["mesh"]["healthy"] == MESH_SLOTS - 1
+            and down["mesh"]["last_dispatch"]["n_devices"] == MESH_SLOTS - 1
+            and down["breaker"]["state"] == "open",
+            f"path_mesh: slot {MESH_SLOTS - 1} did not drop out: {down}")
+    require(meshed["render_mesh"]["healthy"] == MESH_SLOTS
+            and meshed["render_mesh"]["last_dispatch"]["n_devices"] == MESH_SLOTS,
+            f"path_mesh: the prober did not readmit the slot: {meshed['render_mesh']}")
+    require(set(meshed["queue"]["mesh"]["warmed"]) == {1, MESH_SLOTS},
+            f"path_mesh: the width listener warmed {meshed['queue']['mesh']}")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"path_mesh: the filter or the SP packer never launched: {launches}")
+    report = {"phase": "path_mesh", "slots": MESH_SLOTS,
+              "reduced": "two mesh slots on one card stand for two cards",
+              "bodies_compared": checked, "bodies_equal": equal, "launches": launches,
+              "programs": mesh_programs(data, stack, seed) if device == "cuda" else None}
+    for (mode, mesh), arm in arms.items():
+        key = f"{mode}_{'mesh' if mesh else 'single'}"
+        report[key] = {k: v for k, v in arm.items()
+                       if k not in ("bodies", "queue", "mesh_built")}
+        report[key]["stage_ms_mean"] = arm["queue"]["stage_ms_mean"]
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -4745,6 +5401,9 @@ def main(argv=None) -> int:
                         "path_session, path_render, path_config, path_disk, path_fleet and "
                         "path_gossip phases, e.g. to pair two versions with --port-root "
                         "(no result line)")
+    p.add_argument("--slice-paths", action="store_true",
+                   help="only build, the fixtures of images 1, 2 and 5, then the path_ingest "
+                        "and path_mesh phases (no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -4795,6 +5454,13 @@ def main(argv=None) -> int:
         registry = write_fixture(data, stack)
         emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
               "seconds": time.perf_counter() - t0})
+        if args.slice_paths:
+            img5 = make_stack(ZARR5_SIZE, args.seed + 5)[None, :, :1]  # make_zarr_images' image 5
+            write_zarr_fixtures(None, img5)
+            emit(drive_ingest(write_ingest_fixtures(), img5, args.seed))
+            emit(drive_mesh(registry, data, stack, args.seed))
+            print(smi_line(), flush=True)
+            return 0
         if args.paths_only:
             path = drive_path(registry, data, args.seed, args.requests, "dynamic", "pallas",
                               launched=("filter", "bitpack"), idle=("bitpack_dense",))
@@ -4912,8 +5578,12 @@ def main(argv=None) -> int:
         emit(fleet)
         gossip = drive_gossip(registry, data, path_timed[0], args.seed)
         emit(gossip)
+        ingest = drive_ingest(write_ingest_fixtures(), img5, args.seed)
+        emit(ingest)
+        mesh = drive_mesh(registry, data, stack, args.seed)
+        emit(mesh)
         # each kernel's launches come from the phases that run it
-        main_phases = (path, obs, prefetch, session, disk, fleet, gossip)
+        main_phases = (path, obs, prefetch, session, disk, fleet, gossip, ingest, mesh)
         launches = {"filter": sum(ph["launches"]["filter"] for ph in main_phases),
                     "bitpack": sum(ph["launches"]["bitpack"] for ph in main_phases),
                     "bitpack_dense": rle["launches"]["bitpack_dense"],

@@ -184,10 +184,12 @@ from ..cache.result_cache import CachedTile, TileResultCache, etag_matches
 from ..cache.single_flight import SingleFlight
 from ..dispatch.batcher import BatchingTileWorker
 from ..errors import ServiceUnavailableError, TileError
+from ..ingest import IngestError, IngestPlane
 from ..io.fetch import io_snapshot
 from ..obs import FlightRecorder, SliLayer
 from ..obs.recorder import ambient_stage, current_record, record_scope
 from ..ops.kernels import launch_counts
+from ..parallel.mesh import MeshProber
 from ..render.analysis import HistogramSpec
 from ..render.masks import MAX_SHAPES
 from ..render.model import RenderSpec
@@ -198,6 +200,7 @@ from ..resilience.admission import AdmissionController
 from ..resilience.breaker import BOARD
 from ..resilience.deadline import Deadline
 from ..resilience.scheduler import (
+    PRIORITY_INTERACTIVE,
     PRIORITY_NAMES,
     SloScheduler,
     SweepDetector,
@@ -254,6 +257,13 @@ _SESSION_ROUTES = (
      {"GET": "_annotation_get", "HEAD": "_annotation_get", "PUT": "_annotation_update",
       "DELETE": "_annotation_delete"}),
 )
+# the ingest plane's write routes (the JAX app registers them when
+# ``ingest.enabled``), behind the session check like the session routes
+_INGEST_ROUTES = (
+    (re.compile(r"^/image/([^{}/]+)/tile/([^{}/]+)/([^{}/]+)/([^{}/]+)$"),
+     {"PUT": "_ingest_tile"}),
+    (re.compile(r"^/image/([^{}/]+)/planes$"), {"POST": "_ingest_planes"}),
+)
 _SSE_HEADERS = {"Content-Type": "text/event-stream", "Cache-Control": "no-cache",
                 "X-Accel-Buffering": "no"}
 # routes that need no session (the JAX session middleware's exemptions)
@@ -267,13 +277,17 @@ _ROUTE_METHODS = "GET,HEAD,OPTIONS"
 # the discovery document (getMicroserviceDetails)
 DISCOVERY = {"provider": "PixelBufferMicroservice", "version": __version__, "features": []}
 _MAX_HEADERS = 100
-# request bodies: up to aiohttp's client_max_size reach the handler (1 MiB,
-# or with the cluster plane the JAX app's bound: an L2-framed entry or a
-# transfer-framed batch, plus 64 KiB); a larger one (up to _MAX_DRAIN) is
-# read and dropped, and the handler sees None, as a JAX handler sees
-# aiohttp's 413 inside its body parse
+# request bodies, with a Content-Length or chunked: up to aiohttp's
+# client_max_size reach the handler (1 MiB, or the JAX app's larger bound
+# with the cluster plane: an L2-framed entry or a transfer-framed batch,
+# plus 64 KiB; with the ingest plane: ingest.staging-bytes plus 64 KiB); a
+# larger one is read and dropped, and the handler sees None, as a JAX
+# handler sees aiohttp's 413 inside its body parse. Without the ingest
+# plane a body over _MAX_DRAIN is a 400; with it every body is read (an
+# ingest handler answers aiohttp's 413 for one over the bound)
 _MAX_BODY = 1 << 20
 _MAX_DRAIN = 64 << 20
+_DRAIN_CHUNK = 1 << 16
 # the cluster plane's surface, lower-cased as the front keys its headers
 _PEER = PEER_HEADER.lower()
 # (path pattern, handler name by method) of the plane's /internal/* routes
@@ -418,6 +432,28 @@ class TileServer:
         if cl.plane_enabled:
             self._build_plane(cl)
             self.max_body = max((cc.max_entry_kb << 10) + 65536, MAX_TRANSFER_BYTES + 65536)
+        # the ingest plane: the write routes over the same pixels service
+        # the readers use (so one ACL resolver, buffer memo and
+        # invalidation path); without a cluster epoch registry a commit's
+        # epoch is this local sequence
+        self.ingest: Optional[IngestPlane] = None
+        self._ingest_epoch_seq = 0
+        self.max_drain: Optional[int] = _MAX_DRAIN
+        ig = config.ingest
+        if ig.enabled:
+            self.ingest = IngestPlane(self.pipeline.pixels_service,
+                                      max_inflight_shards=ig.max_inflight_shards,
+                                      staging_bytes=ig.staging_bytes)
+            # the JAX app's client_max_size with the plane on
+            self.max_body = max(self.max_body, (cc.max_entry_kb << 10) + 65536,
+                                ig.staging_bytes + 65536)
+            self.max_drain = None
+        # the background mesh probe (``mesh.probe-interval-ms``): readmits
+        # a recovered device before a dispatch has to fail
+        self.mesh_prober: Optional[MeshProber] = None
+        if config.mesh.probe_interval_ms > 0:
+            self.mesh_prober = MeshProber(self.pipeline.mesh_manager,
+                                          interval_s=config.mesh.probe_interval_ms / 1000.0)
         self._drain_task: Optional[asyncio.Task] = None
         self._probe_task: Optional[asyncio.Task] = None
         self._probe_cache: Optional[Tuple[float, dict]] = None
@@ -491,6 +527,8 @@ class TileServer:
             self.watchdog.start()  # on the serving loop's thread
         if self.prefetcher is not None:
             self.prefetcher.start()
+        if self.mesh_prober is not None:
+            self.mesh_prober.start()
         if self.session_channels is not None:
             # delta pushes come from resolver threads: they land on this loop
             self.session_channels.start(asyncio.get_running_loop())
@@ -517,6 +555,8 @@ class TileServer:
             self._server = None
         if self.watchdog is not None:
             self.watchdog.stop()
+        if self.mesh_prober is not None:
+            self.mesh_prober.stop()
         if self.prefetcher is not None:
             await self.prefetcher.close()
         if self.cache_plane is not None:
@@ -615,21 +655,56 @@ class TileServer:
             writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
             await writer.drain()
         if "transfer-encoding" in headers:
-            raise _BadRequest("Request bodies are not accepted")
+            if ("content-length" in headers
+                    or headers["transfer-encoding"].strip().lower() != "chunked"):
+                raise _BadRequest("Bad Transfer-Encoding")
+            return method, target, version, headers, await self._read_chunked(reader)
         try:
             length = int(headers.get("content-length", "0") or 0)
         except ValueError:
             raise _BadRequest("Bad Content-Length") from None
-        if length < 0 or length > _MAX_DRAIN:
+        if length < 0 or (self.max_drain is not None and length > self.max_drain):
             raise _BadRequest("Bad Content-Length")
         body: Optional[bytes] = b""
         if length > self.max_body:
             while length:  # over the limit: read and dropped
-                length -= len(await reader.readexactly(min(length, 1 << 16)))
+                length -= len(await reader.readexactly(min(length, _DRAIN_CHUNK)))
             body = None
         elif length:
             body = await reader.readexactly(length)
         return method, target, version, headers, body
+
+    async def _read_chunked(self, reader) -> Optional[bytes]:
+        """A chunked body, decoded as aiohttp's parser decodes it (chunk
+        extensions and trailers skipped); over ``max_body`` the rest is
+        read and dropped (None), and over ``max_drain`` it is a 400."""
+        parts: List[bytes] = []
+        size = 0
+        while True:
+            line = await reader.readline()
+            if not line.endswith(b"\n"):
+                raise asyncio.IncompleteReadError(line, None)
+            try:
+                n = int(line.split(b";", 1)[0].strip(), 16)
+            except ValueError:
+                raise _BadRequest("Bad chunk size") from None
+            if n < 0:
+                raise _BadRequest("Bad chunk size")
+            if n == 0:
+                while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+                    pass  # trailers
+                break
+            size += n
+            if self.max_drain is not None and size > self.max_drain:
+                raise _BadRequest("Bad chunked body")
+            while n:
+                piece = await reader.readexactly(min(n, _DRAIN_CHUNK))
+                n -= len(piece)
+                if size <= self.max_body:
+                    parts.append(piece)
+            if await reader.readline() not in (b"\r\n", b"\n"):
+                raise _BadRequest("Bad chunk terminator")
+        return b"".join(parts) if size <= self.max_body else None
 
     async def _dispatch(self, method: str, target: str, headers: Dict[str, str],
                         body: Optional[bytes] = b""):
@@ -771,6 +846,9 @@ class TileServer:
         session_route = None
         if m is None and adapter is None and not exempt and self.session_channels is not None:
             session_route = _session_route(safe)
+        ingest_route = None
+        if m is None and adapter is None and not exempt and self.ingest is not None:
+            ingest_route = _match_route(_INGEST_ROUTES, safe)
         key = None
         if not exempt:
             key, refusal = await self._session(headers.get("cookie"))
@@ -785,6 +863,15 @@ class TileServer:
                 return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
                     b"405: Method Not Allowed"
             return await getattr(self, name)(groups, headers, key or "", body, method)
+        if ingest_route is not None:
+            # behind the session check; the scheduler pin lives in the
+            # handler (outside the door gate and the flight record)
+            methods, groups = ingest_route
+            name = methods.get(method)
+            if name is None:
+                return 405, {"Allow": ",".join(sorted({*methods, "OPTIONS"}))}, \
+                    b"405: Method Not Allowed"
+            return await getattr(self, name)(groups, query, key or "", body)
         if self.cache_plane is not None and path.startswith("/internal/"):
             internal = _match_route(_INTERNAL_ROUTES, safe)
             if internal is not None:
@@ -1681,6 +1768,139 @@ class TileServer:
         self._annotation_changed(image_id, sub_epoch)
         return _json(200, {"deleted": True, "epoch": sub_epoch})
 
+    # -- the ingest plane ------------------------------------------------------
+
+    def _ingest_snapshot(self) -> dict:
+        if self.ingest is None:
+            return {"enabled": False}
+        return {**self.ingest.snapshot(), "enabled": True}
+
+    async def _ingest_allowed(self, image_id: int, session_key: str) -> bool:
+        """Write permission from the metadata resolver's
+        ``can_write_image`` (OMERO's permissions, ``db/metadata.py``); a
+        resolver without one (the file registry: no ACLs) allows the
+        write, as it allows the read."""
+        resolver = getattr(self.pipeline.pixels_service, "metadata_resolver", None)
+        can_write = getattr(resolver, "can_write_image", None)
+        if can_write is None:
+            return True
+        loop = asyncio.get_running_loop()
+        return bool(await loop.run_in_executor(None, can_write, image_id, session_key))
+
+    def _too_large(self, body: Optional[bytes]) -> Optional[Tuple[int, dict, bytes]]:
+        """aiohttp's 413 of ``request.read()`` for a body at or over the
+        bound (its text names the size read when the bound was crossed;
+        the port names the body's whole size)."""
+        if body is not None and len(body) < self.max_body:
+            return None
+        actual = self.max_body if body is None else len(body)
+        return 413, {}, (f"Maximum request body size {self.max_body} exceeded, "
+                         f"actual body size {actual}").encode()
+
+    async def _ingest_commit(self, image_id: int, key: str, tiles: list):
+        """The write path shared by both routes: write permission, a
+        scheduler permit that cannot be degraded, stage and commit on a
+        worker thread (stage ``ingest`` of the ambient record), then the
+        epoch bump first, the purges, and the written tiles' delta to the
+        live channels. A failed commit is a 503: each object publishes
+        atomically and the fault points fire before the publish."""
+        if not await self._ingest_allowed(image_id, key):
+            return 403, {}, f"Cannot write Image:{image_id}".encode()
+        permit = None
+        try:
+            # a write is never degradable, and it must not train the
+            # viewer models: a linear acquisition scan is the canonical
+            # sweep, and the writer's own viewers would be demoted
+            permit = await self.scheduler.acquire(
+                PRIORITY_INTERACTIVE, Deadline.after(self.request_budget_s), degradable=False)
+        except TileError as e:
+            return _failure(e)
+        try:
+            plane = self.ingest
+
+            def commit() -> dict:
+                with ambient_stage("ingest"):
+                    return plane.write_tiles(image_id, tiles, session_key=key)
+
+            cvctx = contextvars.copy_context()
+            loop = asyncio.get_running_loop()
+            try:
+                stats = await loop.run_in_executor(None, lambda: cvctx.run(commit))
+            except IngestError as e:
+                return e.code, {}, e.message.encode()
+            except TileError as e:
+                return _failure(e)
+            except Exception as e:
+                log.warning("ingest commit failed: %s", e)
+                return 503, {}, f"ingest commit failed: {e}".encode()
+        finally:
+            # a multi-second shard rebuild must not inflate the read
+            # service-time estimate
+            self.scheduler.release(permit, train=False)
+        epoch = None
+        plane = self.cache_plane
+        if plane is not None and plane.epochs is not None:
+            await plane.epochs.bump(image_id)
+            epoch = plane.epochs.known(image_id)
+        else:
+            # no epoch registry: a local token, so open buffers' shard
+            # index memos still invalidate
+            self._ingest_epoch_seq += 1
+            self.pipeline.pixels_service.note_epoch(image_id, self._ingest_epoch_seq)
+        self._invalidate_image(image_id)
+        if self.session_channels is not None:
+            # the written tiles on top of the whole-image frame: viewers
+            # re-fetch just these
+            self.session_channels.push_delta(image_id, epoch=self._session_epoch(image_id),
+                                             tiles=[t[:7] for t in tiles])
+        return _json(200, {"image": image_id, "epoch": epoch, **stats})
+
+    async def _ingest_tile(self, groups, query, key, body):
+        """PUT /image/{id}/tile/{z}/{c}/{t}?x&y&w&h: one tile, w*h
+        big-endian pixels of the image's type (the raw /tile read's byte
+        order, so the bytes put are the bytes read back)."""
+        try:
+            image_id, z, c, t = (int(g) for g in groups)
+            x, y, w, h = (int(query[k]) for k in ("x", "y", "w", "h"))
+        except (KeyError, TypeError, ValueError):
+            return 400, {}, (b"expected /image/{id}/tile/{z}/{c}/{t}?x&y&w&h "
+                             b"with integer values")
+        refusal = self._too_large(body)
+        if refusal is not None:
+            return refusal
+        return await self._ingest_commit(image_id, key, [(z, c, t, x, y, w, h, body)])
+
+    async def _ingest_planes(self, groups, query, key, body):
+        """POST /image/{id}/planes?planes=z:c:t,...: whole planes appended
+        in one commit; the body is the listed planes' big-endian pixels,
+        concatenated in order."""
+        try:
+            image_id = int(groups[0])
+        except (TypeError, ValueError):
+            return 400, {}, b"bad image id"
+        coords = []
+        try:
+            for part in query.get("planes", "").split(","):
+                z, c, t = (int(v) for v in part.split(":"))
+                coords.append((z, c, t))
+        except (TypeError, ValueError):
+            return 400, {}, b"expected ?planes=z:c:t[,z:c:t...] with integer coordinates"
+        loop = asyncio.get_running_loop()
+        meta = await loop.run_in_executor(None, self.pipeline.pixels_service.get_pixels,
+                                          image_id, key)
+        if meta is None:
+            return 404, {}, f"Cannot find Image:{image_id}".encode()
+        refusal = self._too_large(body)
+        if refusal is not None:
+            return refusal
+        if not body or len(body) % len(coords):
+            return 400, {}, (f"body ({len(body)} bytes) is not {len(coords)} "
+                             "equal whole planes").encode()
+        step = len(body) // len(coords)
+        tiles = [(z, c, t, 0, 0, meta.size_x, meta.size_y, body[i * step:(i + 1) * step])
+                 for i, (z, c, t) in enumerate(coords)]
+        return await self._ingest_commit(image_id, key, tiles)
+
     async def _normalize_region(self, ctx: TileCtx) -> None:
         """Rewrite w/h = 0 (the full plane) to the plane's size before any
         key derives from the region, so both spellings share one cache
@@ -1763,6 +1983,7 @@ class TileServer:
             "prefetch": (self.prefetcher.snapshot() if self.prefetcher is not None
                          else {"enabled": False}),
             "session": self._session_snapshot(),
+            "ingest": self._ingest_snapshot(),
             "slo": {**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()},
             "admission": admission,
             "protocols": {**self.protocols_enabled,
@@ -1777,7 +1998,7 @@ class TileServer:
             "host_png_lanes": self.pipeline.host_png_lanes,
             "device_deflate": self.pipeline.device_deflate,
             "host_deflate_lanes": self.pipeline.host_deflate_lanes,
-            "render": {"enabled": self.render_enabled, **self.pipeline.render_snapshot()},
+            "render": self._render_health(),
             "analysis": {"enabled": self.analysis_enabled, **self.pipeline.analysis_snapshot()},
             "supertile": {"enabled": self.worker.supertile,
                           "stamped_lanes": self.worker.stamped,
@@ -1794,6 +2015,15 @@ class TileServer:
             "retries": retry.snapshot(),
         }
 
+
+    def _render_health(self) -> dict:
+        """``/healthz`` ``render``, with the serving mesh's manager under
+        ``mesh`` once the pipeline has one (JAX: the same key)."""
+        out = {"enabled": self.render_enabled, **self.pipeline.render_snapshot()}
+        mgr = self.pipeline.mesh_manager()
+        if mgr is not None:
+            out["mesh"] = mgr.snapshot()
+        return out
 
     def _result_cache_snapshot(self) -> dict:
         out = self.cache.snapshot()
@@ -1890,15 +2120,11 @@ def check_planes(config: Config) -> List[str]:
     an opt-in plane or a value the port cannot honour, and return the
     default-on planes that are enabled, which start absent with one
     warning each."""
-    if config.ingest.enabled:
-        raise _refused("ingest.enabled", "the write plane is ROADMAP.md §1 item 8b")
     if config.backend.engine == "host":
         raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
     if not config.backend.batching.device_encode:
         raise _refused("backend.batching.device-encode",
                        "the whole-host engine is ROADMAP.md §1 item 11")
-    if config.mesh.probe_interval_ms > 0:
-        raise _refused("mesh.probe-interval-ms", "the multi-device plane is ROADMAP.md §1 item 9")
     if not config.cache.enabled:
         raise _refused("cache.enabled", "the front always serves through the result cache")
     if not config.slo.enabled:
@@ -2002,7 +2228,7 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
         pixels_service, buckets=tuple(be.batching.buckets), queue_depth=be.png.queue_depth,
         device=device, device_deflate_mode=be.png.device_deflate_mode, packer=packer,
         device_deflate=be.png.device_deflate, lut_dir=config.render.lut_dir,
-        max_tile_bytes=be.max_tile_mb << 20,
+        max_tile_bytes=be.max_tile_mb << 20, supertile_mesh=config.supertile.mesh,
     )
     host_engine()
     if config.render.enabled:
@@ -2044,7 +2270,7 @@ def create_server(
     supertile_enabled: bool = True, max_inflight: Optional[int] = None,
     queue_size: Optional[int] = None, request_budget_ms: Optional[float] = None,
     obs: bool = True, head_sample_rate: Optional[float] = None, prefetch: bool = False,
-    session: Optional[dict] = None,
+    session: Optional[dict] = None, ingest: Optional[dict] = None, mesh: Optional[dict] = None,
 ) -> TileServer:
     """The service over a JSON registry with in-memory sessions (the echo
     store with ``dev``), the other keys at the JAX defaults: ``wire`` of
@@ -2058,7 +2284,8 @@ def create_server(
     ``obs.enabled`` (on, the JAX default), ``head_sample_rate``
     ``obs.head-sample-rate`` and ``prefetch`` ``cache.prefetch.enabled``
     (off unless asked, as the JAX app of the HTTP contract tests runs);
-    ``session`` is the ``session:`` block (default: the JAX defaults)."""
+    ``session``, ``ingest`` and ``mesh`` are the ``session:``, ``ingest:``
+    and ``mesh:`` blocks (default: the JAX defaults)."""
     raw = {
         "session-store": {"type": "memory"},
         "image-registry": registry_path,
@@ -2075,6 +2302,8 @@ def create_server(
         else {"enabled": obs, "head-sample-rate": head_sample_rate},
         "cache": {"prefetch": {"enabled": prefetch}},
         "session": session or {},
+        "ingest": ingest or {},
+        "mesh": mesh or {},
     }
     if request_budget_ms is not None:
         raw["resilience"]["request-budget-ms"] = request_budget_ms

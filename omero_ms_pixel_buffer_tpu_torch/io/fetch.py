@@ -236,9 +236,13 @@ class FetchPool:
                 },
             }
 
-    def request(self, url: str, headers: dict, timeout_s: float) -> Tuple[int, bytes]:
-        """One GET over a pooled connection: (status, body). The caller's
-        ``resilient_get`` gates it through the store's breaker."""
+    def request(self, url: str, headers: dict, timeout_s: float, method: str = "GET",
+                body: Optional[bytes] = None) -> Tuple[int, bytes]:
+        """One request over a pooled connection: (status, body). The
+        caller's ``resilient_get`` gates it through the store's breaker.
+        ``method`` and ``body`` carry the ingest plane's writes (PUT,
+        POST) over the same keep-alive sockets; a write is retried only
+        when a reused socket died while idle, before the server saw it."""
         parsed = urllib.parse.urlsplit(url)
         key = (parsed.scheme, parsed.netloc)
         path = parsed.path or "/"
@@ -260,7 +264,7 @@ class FetchPool:
                            else http.client.HTTPConnection)
                     conn = cls(parsed.netloc, timeout=timeout_s)
                 try:
-                    conn.request("GET", path, headers=headers)
+                    conn.request(method, path, body=body, headers=headers)
                     resp = conn.getresponse()
                     data = resp.read()  # drain so the socket is reusable
                 except (http.client.HTTPException, OSError) as e:
@@ -271,7 +275,7 @@ class FetchPool:
                     # idle; a fresh connection's failure is an outage
                     if reused and attempt == 0:
                         continue
-                    raise StoreError(f"GET {url} failed: {e}") from None
+                    raise StoreError(f"{method} {url} failed: {e}") from None
                 with self._lock:
                     self._in_use[key] -= 1
                     idle = self._idle.setdefault(key, [])
@@ -280,7 +284,7 @@ class FetchPool:
                     else:
                         conn.close()
                 return resp.status, data
-            raise StoreError(f"GET {url} failed")  # pragma: no cover
+            raise StoreError(f"{method} {url} failed")  # pragma: no cover
         finally:
             sem.release()
 

@@ -1,5 +1,5 @@
-"""Key-value chunk stores: filesystem, HTTP and S3 with SigV4 (the read
-half of ``omero_ms_pixel_buffer_tpu/io/stores.py``).
+"""Key-value chunk stores: filesystem, HTTP and S3 with SigV4 (counterpart
+of ``omero_ms_pixel_buffer_tpu/io/stores.py``).
 
 A store maps relative keys (``0/.zarray``, ``0/0.0.1.2.3``) to bytes;
 None means the key does not exist (Zarr fill_value: an absent chunk is
@@ -24,8 +24,14 @@ failures (5xx, dropped connections) retry under the jittered policy of
 ``resilience/retry.py``; 4xx never retries. Each remote store has its
 dependency's circuit breaker: repeated failures open it, and GETs then
 fail fast with ``StoreUnavailableError`` (-> 503) until a half-open
-probe heals it. The write half (``put``, multipart uploads) waits for
-the port's ingest plane.
+probe heals it.
+
+The write half serves the ingest plane: ``FileStore.put`` writes a
+same-directory temporary file (fsynced) and renames it onto the key, and
+``S3Store.put`` is one signed PUT up to ``multipart_threshold`` (64 MiB),
+a multipart upload of 16 MiB parts above it. Either way a reader sees
+the whole old object or the whole new one. ``HTTPStore`` has no ``put``:
+the ingest plane answers 409 for an image on it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import datetime
 import hashlib
 import hmac
 import os
+import tempfile
 import time
 import urllib.parse
 from typing import List, Optional, Sequence, Tuple
@@ -149,6 +156,28 @@ class FileStore:
     def get_many(self, requests: Sequence[RangeReq],
                  stats: Optional[FetchStats] = None) -> List[Optional[bytes]]:
         return fetch_many(self, requests, stats=stats)
+
+    def put(self, key: str, data: bytes) -> None:
+        """Atomic whole-object write: the bytes land in a fsynced temporary
+        file beside the key, then ``os.replace`` puts it in place, so a
+        concurrent reader sees the whole old object or the whole new one."""
+        path = os.path.join(self.root, validate_key(key))
+        parent = os.path.dirname(path) or "."
+        os.makedirs(parent, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".", suffix=".tmp",
+                                   dir=parent)
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
 
     def describe(self) -> str:
         return self.root
@@ -347,20 +376,35 @@ class S3Store:
             return None
         return fresh
 
-    def _signed_get(self, key: str, creds: Optional[Tuple] = None,
-                    extra_headers: Optional[dict] = None,
-                    point: str = "store.s3") -> Tuple[int, bytes]:
-        """One SigV4-signed GET through the shared pool (unsigned without
-        credentials)."""
+    def _signed_request(self, method: str, key: str, body: Optional[bytes] = None,
+                        creds: Optional[Tuple] = None, extra_headers: Optional[dict] = None,
+                        point: str = "store.s3",
+                        query: Optional[dict] = None) -> Tuple[int, bytes]:
+        """One SigV4-signed request through the shared pool (unsigned
+        without credentials). A write (PUT, POST, DELETE) signs its
+        payload's sha256 and the query string (multipart uploads); a GET
+        signs the empty payload."""
         url, canonical_path = self._url_and_path(key)
+        if query:
+            url += "?" + _canonical_query(query)
         access, secret, token = creds if creds is not None else self._creds
         headers: dict = dict(extra_headers or {})
         if access and secret:
             host = urllib.parse.urlparse(url).netloc
-            headers = sigv4_headers("GET", host, canonical_path, self.region, access, secret,
-                                    token, extra_headers=extra_headers)
-        return resilient_get(lambda: POOL.request(url, headers, self.timeout_s),
-                             breaker=self.breaker, name=f"s3://{self.bucket}", point=point)
+            headers = sigv4_headers(
+                method, host, canonical_path, self.region, access, secret, token,
+                payload_sha256=(hashlib.sha256(body or b"").hexdigest()
+                                if method != "GET" else _EMPTY_SHA256),
+                extra_headers=extra_headers, query=query)
+        return resilient_get(
+            lambda: POOL.request(url, headers, self.timeout_s, method=method, body=body),
+            breaker=self.breaker, name=f"s3://{self.bucket}", point=point)
+
+    def _signed_get(self, key: str, creds: Optional[Tuple] = None,
+                    extra_headers: Optional[dict] = None,
+                    point: str = "store.s3") -> Tuple[int, bytes]:
+        return self._signed_request("GET", key, creds=creds, extra_headers=extra_headers,
+                                    point=point)
 
     def _get_refreshing(self, key: str, extra_headers: Optional[dict] = None,
                         point: str = "store.s3") -> Tuple[int, bytes]:
@@ -412,6 +456,64 @@ class S3Store:
     def get_many(self, requests: Sequence[RangeReq],
                  stats: Optional[FetchStats] = None) -> List[Optional[bytes]]:
         return fetch_many(self, requests, stats=stats)
+
+    # a multipart part is at least 5 MiB (S3's minimum, but for the
+    # last); S3 shows the key only at CompleteMultipartUpload, so a large
+    # shard still publishes atomically
+    multipart_threshold = 64 << 20
+    multipart_part_size = 16 << 20
+
+    def put(self, key: str, data: bytes) -> None:
+        """SigV4-signed whole-object write: one PUT up to
+        ``multipart_threshold``, a multipart upload above it. The key
+        serves the previous object or the whole new one; an aborted
+        upload never shows. Part ETags are the parts' MD5s, computed
+        here (S3's ETag of a part without SSE-KMS)."""
+        validate_key(key)
+        if len(data) <= self.multipart_threshold:
+            status, _ = self._signed_request("PUT", key, body=data)
+            if status != 200:
+                raise StoreError(f"S3 PUT {status} for s3://{self.bucket}/{key}")
+            return
+        self._multipart_put(key, data)
+
+    def _multipart_put(self, key: str, data: bytes) -> None:
+        status, body = self._signed_request("POST", key, body=b"", query={"uploads": ""})
+        if status != 200:
+            raise StoreError(f"S3 CreateMultipartUpload {status} for s3://{self.bucket}/{key}")
+        text = body.decode("utf-8", "replace")
+        lo, hi = text.find("<UploadId>"), text.find("</UploadId>")
+        if lo < 0 or hi < 0:
+            raise StoreError(f"S3 CreateMultipartUpload returned no UploadId for "
+                             f"s3://{self.bucket}/{key}")
+        upload_id = text[lo + len("<UploadId>"):hi]
+        try:
+            etags = []
+            psize = self.multipart_part_size
+            for n, off in enumerate(range(0, len(data), psize), 1):
+                part = data[off:off + psize]
+                status, _ = self._signed_request(
+                    "PUT", key, body=part, query={"partNumber": n, "uploadId": upload_id})
+                if status != 200:
+                    raise StoreError(f"S3 UploadPart {status} (part {n}) for "
+                                     f"s3://{self.bucket}/{key}")
+                etags.append(hashlib.md5(part).hexdigest())
+            complete = "".join(f"<Part><PartNumber>{n}</PartNumber>"
+                               f"<ETag>&quot;{etag}&quot;</ETag></Part>"
+                               for n, etag in enumerate(etags, 1))
+            payload = f"<CompleteMultipartUpload>{complete}</CompleteMultipartUpload>".encode()
+            status, body = self._signed_request("POST", key, body=payload,
+                                                query={"uploadId": upload_id})
+            # S3 can answer 200 with an <Error> body for a failed complete
+            if status != 200 or b"<Error>" in body:
+                raise StoreError(f"S3 CompleteMultipartUpload {status} for "
+                                 f"s3://{self.bucket}/{key}")
+        except BaseException:
+            try:  # best effort: no half-uploaded parts left to accrue
+                self._signed_request("DELETE", key, query={"uploadId": upload_id})
+            except Exception:
+                pass
+            raise
 
     def describe(self) -> str:
         return f"s3://{self.bucket}/{self.prefix}"

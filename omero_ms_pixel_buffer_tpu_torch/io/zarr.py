@@ -677,6 +677,57 @@ class ZarrArray:
                 return None
             return self._decode_chunk(raw, idx)
 
+    def encode_chunk(self, chunk: np.ndarray) -> bytes:
+        """One full-shape chunk -> its stored payload: the exact forward
+        image of the decode chain (the v3 codec list in order, or the v2
+        compressor), so the ingest plane's bytes read back identically.
+        The chunk is cast to the array's stored dtype and byte order.
+        Bare zstd needs the ``zstandard`` package (``ZarrError`` without
+        it); blosc bit-shuffle has no encoder."""
+        if tuple(chunk.shape) != tuple(self.chunks):
+            raise ZarrError(
+                f"encode_chunk expects shape {self.chunks}, got {tuple(chunk.shape)}")
+        raw = np.ascontiguousarray(chunk.astype(self.dtype, copy=False)).tobytes()
+        if self.codecs is not None:  # the v3 chain, forward
+            for name, conf in self.codecs:
+                if name == "gzip":
+                    raw = gzip.compress(raw, int(conf.get("level", 5)))
+                elif name == "zstd":
+                    if _zstd is None:  # pragma: no cover
+                        raise ZarrError("zstd unavailable")
+                    raw = _zstd.ZstdCompressor(level=int(conf.get("level", 3))).compress(raw)
+                elif name == "blosc":
+                    shuffle = conf.get("shuffle", "shuffle")
+                    if shuffle == "bitshuffle":
+                        raise ZarrError("blosc bitshuffle encode is not supported")
+                    raw = blosc_compress(raw, typesize=self.dtype.itemsize,
+                                         cname=conf.get("cname", "lz4"),
+                                         shuffle=(shuffle != "noshuffle"))
+                elif name == "crc32c":
+                    raw += struct.pack("<I", crc32c(raw))
+                else:  # unreachable: the chain is checked when opened
+                    raise ZarrError(f"Unsupported v3 codec: {name}")
+            return raw
+        if self.compressor:  # the v2 compressor
+            cid = self.compressor["id"]
+            level = int(self.compressor.get("level", 6) or 6)
+            if cid == "zlib":
+                return zlib.compress(raw, level)
+            if cid == "gzip":
+                return gzip.compress(raw, level)
+            if cid == "zstd":
+                if _zstd is None:  # pragma: no cover
+                    raise ZarrError("zstd unavailable")
+                return _zstd.ZstdCompressor(level=level).compress(raw)
+            if cid == "lz4":
+                return struct.pack("<i", len(raw)) + lz4_block_compress(raw)
+            if cid == "blosc":
+                return blosc_compress(raw, typesize=self.dtype.itemsize,
+                                      cname=self.compressor.get("cname", "lz4"),
+                                      shuffle=bool(self.compressor.get("shuffle", 1)))
+            raise ZarrError(f"Unsupported compressor: {cid}")
+        return raw
+
     # -- the batch planner ----------------------------------------
 
     def chunk_indices_for(

@@ -1,6 +1,6 @@
 """Streaming device-encode queue (counterpart of ``DeviceEncodeDispatcher``
-in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, single
-device, every device deflate mode).
+in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, every device
+deflate mode, on one device or over a serving mesh).
 
 Callers get a Future per encode group at once. One SUBMIT thread stages
 each group's host batch to the device and launches its first device
@@ -29,6 +29,20 @@ device. The bit packer is chosen once per queue (``packer``, default
 Failure contract: any failure in a group resolves THAT group's future
 with the exception (its lanes answer 500) and is counted in
 ``snapshot()["failed"]``; there is no host re-encode.
+
+With a serving mesh (``set_mesh_manager``, ``parallel/mesh.py``), a group
+that is not staged runs wholly on the readback thread, inside
+``MeshManager.dispatch``, as in the JAX package: its lanes padded to a
+power of two and then to a multiple of the healthy width
+(``_mesh_padded_lanes``), the sharded chain of ``parallel/sharding.py``
+(``tiles``: the one-pass chain; ``dynamic``: pass 1, the host plan, pass
+2; ``render``; ``supertile``: ``submit_supertile``, each slot compositing
+its window of the bounding stack), then a wait for every slot. A failure
+there probes the slots and retries once on the survivors. The queue
+remembers the raw-tile group shapes it has sharded (``_seen_mesh``); when
+the healthy width changes, a background thread launches each of them
+once at the new width (``_warm_width``), as the JAX queue pre-compiles
+them.
 
 Telemetry for ``/metrics``, at the JAX package's boundaries:
 ``device_stage_seconds`` by stage (``h2d``: the submit thread's host to
@@ -67,7 +81,15 @@ from ..ops.device_deflate import (
 )
 from ..obs.recorder import current_record, defer_exemplar, record_scope
 from ..ops.png import frame_png
+from ..parallel.sharding import (
+    sharded_dynamic_emit,
+    sharded_filter_deflate,
+    sharded_filter_histogram,
+    sharded_render_filter_deflate,
+    sharded_supertile_carve_deflate,
+)
 from ..render.engine import fused_render_filter_deflate_batch, packed_rgb_tables
+from ..render.supertile import plan_mesh_partition
 from ..resilience.faultinject import INJECTOR
 from ..utils.metrics import REGISTRY
 
@@ -90,6 +112,33 @@ DEVICE_QUEUE_IDLE_SECONDS = REGISTRY.histogram(
     "Device idle gap between one encode group's compute finishing and "
     "the next group's launch (0-bucketed when the launch overlapped)",
 )
+
+
+# how many distinct mesh group shapes the width-change warm-up replays
+_WARM_SHAPES = 16
+
+
+def _pow2_lanes(b: int) -> int:
+    return 1 << max(b - 1, 0).bit_length()
+
+
+def _mesh_padded_lanes(b: int, width: int) -> int:
+    """A mesh group's lanes: a power of two, then up to a multiple of the
+    healthy width (one rule for serving and the warm-up)."""
+    return -(-_pow2_lanes(b) // width) * width
+
+
+def _pad_lanes(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[0] == n:
+        return x
+    pad = torch.zeros((n - x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def _sync_mesh(mesh) -> None:
+    """Wait for every slot's current stream (the readback thread's)."""
+    for dev in {s.device for s in mesh.slots if s.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def _observe_stage(duration: float, stage: str) -> None:
@@ -135,6 +184,19 @@ class DeviceEncodeDispatcher:
         self._composite_ms = 0.0  # device ms of render groups' composites
         self._composite_n = 0
         self._last_compute_done: Optional[float] = None
+        # the serving mesh (None: one device), the raw-tile group shapes it
+        # has served and the (width, shape) pairs warmed
+        self.mesh_manager = None
+        self._seen_mesh: Dict[tuple, None] = {}
+        self._warmed: set = set()
+        self._warm_lock = threading.Lock()
+        self._warm_thread: Optional[threading.Thread] = None
+
+    def set_mesh_manager(self, manager) -> None:
+        """Serve every group that is not staged over ``manager``'s mesh,
+        and warm the known shapes when its healthy width changes."""
+        self.mesh_manager = manager
+        manager.add_width_listener(self._on_mesh_width)
 
     # -- streams and events ----------------------------------------------
 
@@ -174,12 +236,19 @@ class DeviceEncodeDispatcher:
         """/healthz view: the packer, groups submitted and completed, lanes
         encoded, groups failed, in-flight count, per stage (``STAGES``)
         the completed groups that ran it, their total milliseconds and the
-        mean over them, render groups submitted, and the device time of
-        the completed render groups' composites (CUDA only). Two views
+        mean over them, render groups submitted, the device time of the
+        completed render groups' composites (CUDA only) and, with a mesh,
+        the group shapes it has served and the widths warmed. Two views
         differ by what ran between them."""
+        mesh = None
+        if self.mesh_manager is not None:
+            with self._warm_lock:
+                mesh = {"seen_shapes": len(self._seen_mesh),
+                        "warmed": sorted({w for w, _ in self._warmed})}
         with self._stats_lock:
             ran = {k: n for k, n in self._stage_n.items() if n}
             return {
+                "mesh": mesh,
                 "packer": self.packer,
                 "queue_depth": self.queue_depth,
                 "inflight": self._inflight,
@@ -236,6 +305,23 @@ class DeviceEncodeDispatcher:
             (planes, index_tables, color_luts, rows, row_bytes, filter_mode,
              deflate_mode, mask, staged),
             (list(lanes), list(sizes), 8, 2))
+
+    def submit_supertile(
+        self, stack: np.ndarray, index_tables, color_luts,
+        rel_rects: Sequence[Tuple[int, int, int, int]], tile_w: int, tile_h: int,
+        filter_mode: str, deflate_mode: str, lanes: Sequence[int],
+    ) -> "concurrent.futures.Future":
+        """Enqueue one mesh-fused super-tile group: ``stack`` the host
+        (C, H, W) unsigned bounding stack, ``rel_rects`` its lanes' (x,
+        y, w, h) rectangles in it, all of one (tile_w, tile_h) size.
+        Composite, carve, filter and deflate run over the mesh, each slot
+        on its window (planned inside the managed dispatch, so a retry on
+        the survivors re-plans); resolves to {lane: png bytes}."""
+        return self._enqueue(
+            self._stage_supertile_group,
+            (stack, index_tables, color_luts, list(rel_rects), tile_w, tile_h, filter_mode,
+             deflate_mode, len(lanes)),
+            (list(lanes), [(tile_w, tile_h)] * len(lanes), 8, 2))
 
     def _enqueue(self, stage_fn, args, frame) -> "concurrent.futures.Future":
         """Queue ``stage_fn(*args)`` on the submit thread; ``frame`` is
@@ -354,7 +440,14 @@ class DeviceEncodeDispatcher:
         """Submit thread: H2D (bucket route), then on the side stream pass 1
         of a dynamic group or the whole chain of a one-pass group. Returns
         ((mode, device tensors, the event that ends them, None), the time
-        the first kernel's enqueue began)."""
+        the first kernel's enqueue began). With a mesh, a group that is not
+        staged leaves a ("mesh", (tag, lanes, run)) for the readback
+        thread."""
+        if self.mesh_manager is not None and not staged:
+            self._register_mesh_shape(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
+            run = self._mesh_tiles_run(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
+            tag = "dynamic" if deflate_mode == "dynamic" else "tiles"
+            return ("mesh", (tag, tiles.shape[0], run), None, None), time.perf_counter()
         with self._on_stream():
             batch = tiles if staged else tiles.to(self.device, non_blocking=True)
             t_h2d = time.perf_counter()
@@ -375,6 +468,10 @@ class DeviceEncodeDispatcher:
         then on the side stream the whole render chain. Returns ((mode,
         device tensors, the event that ends them, the composite's timing
         events or None), the time the first kernel's enqueue began)."""
+        if self.mesh_manager is not None and not staged:
+            run = self._mesh_render_run(planes, index_tables, color_luts, rows, row_bytes,
+                                        filter_mode, deflate_mode, mask)
+            return ("mesh", ("render", planes.shape[0], run), None, None), time.perf_counter()
         packed = packed_rgb_tables(index_tables, color_luts)
         with self._on_stream():
             if staged:
@@ -394,6 +491,111 @@ class DeviceEncodeDispatcher:
             )
             return (deflate_mode, out, self._mark(), timing), t_h2d
 
+    def _stage_supertile_group(self, stack, index_tables, color_luts, rel_rects, tile_w,
+                               tile_h, filter_mode, deflate_mode, n_lanes):
+        if self.mesh_manager is None:
+            raise RuntimeError("submit_supertile needs a serving mesh")
+        c, stack_h, stack_w = stack.shape
+
+        def run(mesh):
+            # planned inside the managed dispatch: a retry on the
+            # survivors re-plans for their width
+            origins, (sub_h, sub_w), coords, rows_map = plan_mesh_partition(
+                rel_rects, stack_h, stack_w, mesh.size)
+            sub = np.stack([stack[:, sy:sy + sub_h, sx:sx + sub_w] for sy, sx in origins])
+            streams, lengths = sharded_supertile_carve_deflate(
+                mesh, sub, index_tables, color_luts, coords, tile_h, tile_w,
+                filter_mode=filter_mode, deflate_mode=deflate_mode, packer=self.packer)
+            sel = torch.tensor(rows_map, dtype=torch.int64, device=streams.device)
+            streams, lengths = streams.index_select(0, sel), lengths.index_select(0, sel)
+            _sync_mesh(mesh)
+            return streams, lengths
+
+        return ("mesh", ("supertile", n_lanes, run), None, None), time.perf_counter()
+
+    # -- mesh groups (readback thread, inside the managed dispatch) ---------
+
+    def _mesh_tiles_run(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode):
+        """The sharded chain of one raw-tile group as ``run(mesh)``:
+        (streams, lengths) of its real lanes, waited for."""
+        b = tiles.shape[0]
+
+        def run(mesh):
+            batch = _pad_lanes(tiles, _mesh_padded_lanes(b, mesh.size))
+            if deflate_mode == "dynamic":
+                # the host plan between the two sharded passes, inside the
+                # managed dispatch: a slot failing in either pass degrades
+                # the mesh, and the retry re-runs both
+                flat, counts, extras = sharded_filter_histogram(
+                    mesh, batch, rows, row_bytes, bpp, filter_mode=filter_mode)
+                tables = build_dynamic_tables(counts.cpu().numpy(), extras.cpu().numpy(),
+                                              real=b)
+                streams, lengths = sharded_dynamic_emit(mesh, flat, tables, packer=self.packer)
+            else:
+                streams, lengths = sharded_filter_deflate(
+                    mesh, batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+                    deflate_mode=deflate_mode, packer=self.packer)
+            _sync_mesh(mesh)
+            return streams[:b], lengths[:b]
+
+        return run
+
+    def _mesh_render_run(self, planes, index_tables, color_luts, rows, row_bytes, filter_mode,
+                         deflate_mode, mask):
+        """The sharded render chain of one group as ``run(mesh)``; the ROI
+        mask is padded and sharded with its lanes."""
+        b = planes.shape[0]
+
+        def run(mesh):
+            n = _mesh_padded_lanes(b, mesh.size)
+            streams, lengths = sharded_render_filter_deflate(
+                mesh, _pad_lanes(planes, n), index_tables, color_luts, rows, row_bytes,
+                filter_mode=filter_mode, deflate_mode=deflate_mode, packer=self.packer,
+                mask=None if mask is None else _pad_lanes(mask, n))
+            _sync_mesh(mesh)
+            return streams[:b], lengths[:b]
+
+        return run
+
+    def _register_mesh_shape(self, tiles, rows, row_bytes, bpp, filter_mode,
+                             deflate_mode) -> None:
+        """Remember a raw-tile mesh group's shape for the width warm-up."""
+        key = (tuple(tiles.shape[1:]), str(tiles.dtype), _pow2_lanes(tiles.shape[0]), rows,
+               row_bytes, bpp, filter_mode, deflate_mode)
+        with self._warm_lock:
+            self._seen_mesh[key] = None
+            while len(self._seen_mesh) > _WARM_SHAPES:
+                self._seen_mesh.pop(next(iter(self._seen_mesh)))
+
+    def _on_mesh_width(self, width: int) -> None:
+        """The mesh manager's width listener: launch every known group
+        shape once at the new width, on a background thread, before the
+        first serving dispatch there."""
+        with self._warm_lock:
+            shapes = [k for k in self._seen_mesh if (width, k) not in self._warmed]
+        if not shapes or self._closed:
+            return
+        t = threading.Thread(target=self._warm_width, args=(width, shapes),
+                             name="devenc-mesh-warm", daemon=True)
+        t.start()
+        self._warm_thread = t
+
+    def _warm_width(self, width: int, shapes) -> None:
+        for key in shapes:
+            lane_shape, dtype, pow2_b, rows, row_bytes, bpp, filter_mode, deflate_mode = key
+            try:
+                mesh = self.mesh_manager.mesh()
+                if mesh.size != width:
+                    return  # the mesh moved again: a newer warm-up owns it
+                zeros = torch.zeros((pow2_b,) + lane_shape, dtype=getattr(torch, dtype[6:]))
+                self._mesh_tiles_run(zeros, rows, row_bytes, bpp, filter_mode,
+                                     deflate_mode)(mesh)
+                with self._warm_lock:
+                    self._warmed.add((width, key))
+                log.info("warmed mesh width %d for group shape %s", width, lane_shape)
+            except Exception:
+                log.exception("mesh warm-up failed for %s", key)
+
     def _readback_scoped(self, rec, *args):
         with record_scope(rec):
             return self._readback_group(*args)
@@ -412,7 +614,12 @@ class DeviceEncodeDispatcher:
 
         self._wait(ev)
         timing = {"stage": t_stage}
-        if mode == "dynamic":
+        if mode == "mesh":
+            tag, real, run = tensors
+            streams, lengths = self.mesh_manager.dispatch(run, real_lanes=real, tag=tag)
+            timing["compute"] = lap()
+            _observe_stage(t[-1] - t_dispatch, "compute")
+        elif mode == "dynamic":
             flat, counts, extras, real_b = tensors
             counts_np = counts.cpu().numpy()
             extras_np = extras.cpu().numpy()

@@ -74,6 +74,23 @@ answers 503 with the breaker's ``retry_after_s``, as in the JAX package;
 another failed read (a corrupt chunk, a store error) answers 404 for
 every lane of its batched read.
 
+The serving mesh (``parallel/``): ``mesh`` is ``"auto"`` (a mesh over
+the visible CUDA devices when there are more than one, built at the
+first batch; never on the CPU), a ``Mesh`` the caller injects (the tests:
+slots over ``cpu``; two slots may share one card), or None. With a mesh,
+the encode queue carries a ``MeshManager`` and shards every group that
+is not staged over it; the plane cache is skipped (its crops would keep
+every lane on one device), as in the JAX package. A PNG lane larger than
+every bucket (grey, filter ``up``) goes to the distributed plane lane:
+its rows shard over the mesh with a one-row halo
+(``distributed_filter_plane``) and the host deflates the filtered rows;
+a failure there answers 500 (JAX: a host encode). With
+``device_deflate=False`` the bucket lanes are filtered by
+``sharded_batch_filter``. Super-tiles fuse on the mesh
+(``submit_supertile``, each slot compositing its window) unless
+``supertile_mesh`` is False, which serves their lanes independently;
+histograms reduce with ``sharded_histogram_batch``.
+
 Deadlines: ``resolve`` and every single-lane read check the lane's
 ``Deadline`` (else the ambient one); a spent budget leaves the lane None,
 which the batcher answers 504.
@@ -125,6 +142,8 @@ from ..ops.convert import bits_tensor, to_big_endian_bytes_np
 from ..ops.crop import resolve_region
 from ..ops.device_deflate import DEFLATE_MODES
 from ..ops.kernels.filter import filter_tiles
+from ..parallel.mesh import MeshManager, make_mesh
+from ..parallel.sharding import distributed_filter_plane, pad_batch, sharded_batch_filter
 from ..ops.png import (
     _PNG_DTYPES,
     PNG_FILTER,
@@ -221,6 +240,7 @@ class TilePipeline:
         device_deflate: bool = True,
         lut_dir: Optional[str] = None,
         max_tile_bytes: int = MAX_TILE_BYTES,
+        supertile_mesh: bool = True,
     ):
         if device_deflate_mode not in DEFLATE_MODES:
             raise ValueError(f"Unknown device deflate mode: {device_deflate_mode}")
@@ -259,9 +279,45 @@ class TilePipeline:
         self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0, "stage_read": 0.0}
         self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
         self._epoch = 0  # invalidations seen: the open buffers' epoch token
+        # the serving mesh: "auto", an injected Mesh, or None; its manager
+        # is built with it at the first batch
+        self.mesh = "auto"
+        self.supertile_mesh = bool(supertile_mesh)
+        self._mesh_lock = threading.Lock()
+        self._mesh_manager: Optional[MeshManager] = None
+        self.distributed_lanes = 0  # lanes of the distributed plane route
 
     def close(self) -> None:
         self.dispatcher.close()
+
+    # -- the serving mesh ------------------------------------------------------
+
+    def _get_mesh(self):
+        """The serving mesh, built once: ``"auto"`` becomes a mesh over
+        the visible CUDA devices when more than one is visible (else
+        None); an injected mesh gets its ``MeshManager``, handed to the
+        encode queue."""
+        with self._mesh_lock:
+            if isinstance(self.mesh, str):
+                self.mesh = None
+                if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+                    self.mesh = make_mesh()
+                    log.info("serving mesh: %s", self.mesh)
+            if self.mesh is not None and self._mesh_manager is None:
+                self._mesh_manager = MeshManager(self.mesh)
+                self.dispatcher.set_mesh_manager(self._mesh_manager)
+            return self.mesh
+
+    def mesh_manager(self) -> Optional[MeshManager]:
+        """The serving mesh's manager, once the first batch has built it.
+        Lock-free: ``/healthz`` and the prober must not wait on a batch."""
+        return self._mesh_manager  # ompb-lint: disable=lock-discipline -- atomic reference read; a health probe must never block behind the first batch
+
+    @property
+    def last_mesh_dispatch(self) -> Optional[dict]:
+        """The mesh manager's ``last_dispatch`` (None without a mesh)."""
+        mgr = self.mesh_manager()
+        return None if mgr is None else mgr.last_dispatch
 
     def invalidate_image(self, image_id: int) -> None:
         """The invalidation hook of a changed ``pixels`` row: drop the
@@ -619,7 +675,11 @@ class TilePipeline:
                         if ctx.analysis is not None and resolved[i] is not None]
         own_path = set(render_idx) | set(analysis_idx)
 
-        plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
+        mesh = self._get_mesh()
+        plane_groups, plane_handles = {}, {}
+        if mesh is None:
+            # with a mesh the sharded bucket route serves these lanes
+            plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
         in_plane = {i for lanes in plane_groups.values() for i in lanes}
 
         # host reads, grouped per (image, level) for the batched reader;
@@ -653,6 +713,7 @@ class TilePipeline:
         # PNG lanes: grey (h, w) or interleaved RGB (h, w, 3) tiles
         png_groups: Dict[tuple, List[int]] = {}
         host_lanes: List[int] = []
+        sp_lanes: List[int] = []
         for i, (ctx, tile) in enumerate(zip(ctxs, tiles)):
             if tile is None:
                 continue
@@ -660,7 +721,10 @@ class TilePipeline:
             if ctx.format == "png" and _png_lane(tile):
                 bucket = self._bucket(tile.shape[1], tile.shape[0])
                 if bucket is None:
-                    host_lanes.append(i)  # larger than every bucket
+                    if mesh is not None and tile.ndim == 2 and PNG_FILTER == "up":
+                        sp_lanes.append(i)  # rows sharded over the mesh
+                    else:
+                        host_lanes.append(i)  # larger than every bucket
                     continue
             if bucket is not None:
                 samples = 1 if tile.ndim == 2 else 3
@@ -669,6 +733,13 @@ class TilePipeline:
                 results[i] = self.encode(ctx, tile)
         if host_lanes:
             self._host_png_lanes(host_lanes, tiles, ctxs, results)
+        for i in sp_lanes:
+            try:
+                with stage_all([ctxs[i]], "device"):
+                    self._distributed_plane_lane(mesh, i, tiles[i], results)
+            except Exception:
+                log.exception("distributed plane lane failed; lane -> 500")
+                results[i] = InternalError("distributed plane lane failed")
 
         pending: List[Tuple[List[int], concurrent.futures.Future]] = []
         for ((bh, bw), dtype_str, samples), lanes in png_groups.items():
@@ -867,7 +938,13 @@ class TilePipeline:
         if samples == 3:
             self._count(rgb_device_lanes=len(lanes))
         batch = _pad_batch([tiles[i] for i in lanes], bh, bw, dtype, samples)
-        filtered = filter_tiles(bits_tensor(batch).to(self.device), PNG_FILTER)
+        mesh = self._get_mesh()
+        if mesh is not None:
+            padded, real = pad_batch(bits_tensor(batch), mesh.size)
+            filtered = sharded_batch_filter(mesh, padded, samples * dtype.itemsize,
+                                            PNG_FILTER)[:real]
+        else:
+            filtered = filter_tiles(bits_tensor(batch).to(self.device), PNG_FILTER)
         sizes = [(tiles[i].shape[1], tiles[i].shape[0]) for i in lanes]
         self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize,
                                samples)
@@ -879,6 +956,20 @@ class TilePipeline:
         filtered = filter_tiles(self.plane_cache.crop_batch(plane, coords, bh, bw), PNG_FILTER)
         sizes = [(resolved[i].w, resolved[i].h) for i in lanes]
         self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
+
+    def _distributed_plane_lane(self, mesh, i, tile, results) -> None:
+        """One grey PNG lane larger than every bucket over the mesh: its
+        rows padded below to a multiple of the width (the Up filter looks
+        only up, so the pad never reaches them), sharded with a one-row
+        halo, filtered by the filter kernel on every slot; the filtered
+        rows come back once for the host deflate tail."""
+        h, w = tile.shape
+        pad = (-h) % mesh.size
+        arr = np.pad(tile, ((0, pad), (0, 0))) if pad else tile
+        filtered = distributed_filter_plane(mesh, bits_tensor(np.ascontiguousarray(arr)), "up")
+        self.distributed_lanes += 1
+        self._finish_png_lanes(filtered[:h].cpu().numpy()[None], [i], [(w, h)], results,
+                               tile.dtype.itemsize)
 
     def _finish_png_lanes(self, filtered, lanes, sizes, results, itemsize, samples=1) -> None:
         """Deflate + frame filtered scanlines (B, bh, 1 + bw*bpp) on the
@@ -928,6 +1019,8 @@ class TilePipeline:
                 st_groups.setdefault(id(token), []).append(i)
         fused: set = set()
         carved: Dict[tuple, list] = {}
+        if self._get_mesh() is not None and not self.supertile_mesh:
+            st_groups = {}  # ``supertile.mesh: false``: the lanes shard one by one
         for lanes in st_groups.values():
             fused |= self._supertile_group(lanes, resolved, ctxs, results, use_fused, pending,
                                            carved)
@@ -1180,6 +1273,8 @@ class TilePipeline:
             size_groups.setdefault((resolved[i].w, resolved[i].h), []).append(j)
         self._count(st_groups=1, st_device_lanes=len(live))
         stile.SUPERTILE_SIZE.observe(len(live))
+        if self._get_mesh() is not None:
+            return self._supertile_mesh(live, rel, stack, tspec, tdtype, size_groups, pending)
         stile.SUPERTILE_LANES.inc(len(live), path="device")
         try:
             INJECTOR.fire("render.supertile")
@@ -1203,6 +1298,30 @@ class TilePipeline:
             return set(live)
         for size, js in size_groups.items():
             carved.setdefault(size + bucket, []).append(([live[j] for j in js], subs[size]))
+        return set(live)
+
+    def _supertile_mesh(self, live, rel, stack, tspec, tdtype, size_groups, pending) -> set:
+        """A super-tile fused on the mesh: one ``submit_supertile`` group
+        per lane size, each slot compositing and carving its window of
+        the bounding stack. A failure answers 500 for its lanes."""
+        stile.SUPERTILE_LANES.inc(len(live), path="mesh")
+        try:
+            INJECTOR.fire("render.supertile")
+            tables, luts = self._render_tables_for(tspec, tdtype)
+        except Exception as e:
+            log.exception("super-tile tables failed; lanes -> 500")
+            pending.append((list(live), self.dispatcher.failed_group(e)))
+            return set(live)
+        for (w, h), js in size_groups.items():
+            lane_ids = [live[j] for j in js]
+            try:
+                fut = self.dispatcher.submit_supertile(
+                    stack, tables, luts, [(rel[j][0], rel[j][1], w, h) for j in js], w, h,
+                    PNG_FILTER, "rle", lane_ids)
+                self._count(st_encode_groups=1)
+            except Exception as e:
+                fut = self.dispatcher.failed_group(e)
+            pending.append((lane_ids, fut))
         return set(live)
 
     def _submit_carved(self, carved, pending) -> None:
@@ -1460,16 +1579,22 @@ class TilePipeline:
             events = None
             if self.device.type == "cuda":
                 events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+            mesh = self._get_mesh()
+            if mesh is not None:
+                events = None
             try:
                 INJECTOR.fire("analysis.engine")
-                counts = ranalysis.histogram_batch(planes, tabs, bins, self.device, events)
+                if mesh is not None:
+                    counts = ranalysis.sharded_histogram_batch(mesh, planes, tabs, bins)
+                else:
+                    counts = ranalysis.histogram_batch(planes, tabs, bins, self.device, events)
             except Exception:
                 log.exception("device histogram failed; lanes -> 500")
                 self._count(hist_failed_groups=1)
                 failed.update(jobs[j][0] for j, _ in members)
                 continue
             self._count(hist_groups=1, hist_lanes=len(members))
-            ranalysis.HIST_TILES.inc(len(members), path="device")
+            ranalysis.HIST_TILES.inc(len(members), path="device" if mesh is None else "mesh")
             if events is not None:
                 ms = events[0].elapsed_time(events[1])
                 with self._stats_lock:

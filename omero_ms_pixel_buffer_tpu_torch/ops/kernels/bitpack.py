@@ -28,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 TB = 256  # tokens per block of the dense formulation (``block_bases``)
 SP_TILE = 4096  # tokens per CTA of the scalar-prefetch kernel (csrc/bitpack.cu)
@@ -153,7 +153,7 @@ def launch_tiles(bits: torch.Tensor, nbits: torch.Tensor, maxbits: int, source: 
         code = fn(bits.data_ptr(), nbits.data_ptr(), out.data_ptr(), totals.data_ptr(),
                   ws.data_ptr(), ws_bytes, B, ntok, nwords, _build.stream_handle(dev))
     _build.check(code, f"{source} kernel launch")
-    wrapper.launches += 1
+    count_launch(wrapper)
     # little-endian words: their bytes in memory are the LSB-first stream
     return out.view(torch.uint8), totals
 

@@ -26,7 +26,7 @@ import torch
 
 from ..convert import bits_view, to_big_endian_bytes
 from ..png import FILTER_CODES, filter_batch
-from . import _build
+from . import _build, count_launch
 
 # ompb_filter(in, out, rows, H, WS, S, itemsize, mode, stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -67,7 +67,7 @@ def _launch(tiles: torch.Tensor, mode: str) -> torch.Tensor:
         code = fn(bits.data_ptr(), out.data_ptr(), rows, H, ws, S, itemsize,
                   FILTER_CODES[mode], _build.stream_handle(tiles.device))
     _build.check(code, "filter kernel launch")
-    filter_tiles.launches += 1
+    count_launch(filter_tiles)
     return out
 
 

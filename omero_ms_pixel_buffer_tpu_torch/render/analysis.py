@@ -261,6 +261,26 @@ def histogram_batch(planes: np.ndarray, bin_tables: np.ndarray, bins: int,
         return counts.cpu().numpy()
 
 
+def sharded_histogram_batch(mesh, planes: np.ndarray, bin_tables: np.ndarray,
+                            bins: int) -> np.ndarray:
+    """The mesh route (JAX ``render/analysis.py:302``): the lanes padded
+    to a multiple of the mesh width and split into contiguous blocks,
+    each slot reducing its block with ``histogram_batch`` on its device
+    (no collectives): host (B, bins) int32, the same integers as one
+    device's."""
+    n = mesh.size
+    b = planes.shape[0]
+    pad = (-b) % n
+    if pad:
+        planes = np.concatenate([planes, np.zeros((pad,) + planes.shape[1:], planes.dtype)])
+        bin_tables = np.concatenate(
+            [bin_tables, np.zeros((pad,) + bin_tables.shape[1:], bin_tables.dtype)])
+    per = planes.shape[0] // n
+    out = [histogram_batch(planes[i * per:(i + 1) * per], bin_tables[i * per:(i + 1) * per],
+                           bins, slot.device) for i, slot in enumerate(mesh.slots)]
+    return np.concatenate(out)[:b]
+
+
 def histogram_host(planes, bin_tables, bins: int) -> np.ndarray:
     """Numpy mirror: integer-identical counts."""
     planes = np.asarray(planes)

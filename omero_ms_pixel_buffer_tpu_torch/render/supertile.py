@@ -305,3 +305,91 @@ def carve_host(rgb: np.ndarray, x: int, y: int, w: int, h: int) -> np.ndarray:
     """Host mirror of the carve: a view into the composited super-tile
     RGB (its pixels equal the device carve's real region)."""
     return rgb[y : y + h, x : x + w]
+
+
+# ---------------------------------------------------------------------------
+# mesh partition planning (JAX ``render/supertile.py:389``): per-slot
+# overlapped windows of a super-tile
+# ---------------------------------------------------------------------------
+
+
+def plan_mesh_partition(
+    rel_rects: Sequence[Tuple[int, int, int, int]],
+    stack_h: int,
+    stack_w: int,
+    n_slots: int,
+) -> Tuple[
+    List[Tuple[int, int]], Tuple[int, int], np.ndarray, List[int]
+]:
+    """Carve a super-tile's lanes into per-slot overlapped sub-rect
+    windows of the staged bounding stack, for the mesh-fused chain
+    (parallel/sharding.sharded_supertile_carve_deflate).
+
+    ``rel_rects`` are the lanes' (x, y, w, h) rectangles RELATIVE to
+    the bounding rect (one homogeneous (w, h) size class — the caller
+    partitions by size first). Lanes sort row-major and split into
+    balanced contiguous chunks, one per slot; each slot's window is
+    the bounding rect of its lanes extended to the common (sub_h,
+    sub_w) by sliding the origin WITHIN the full stack — so windows
+    overlap rather than zero-fill, and the overlap between neighboring
+    slots' windows IS the halo (sized by whatever the carve footprint
+    needs; the composite itself is pointwise, so the halo exists
+    purely so each lane's rectangle lies wholly inside one slot's
+    window).
+
+    Returns ``(origins, (sub_h, sub_w), coords, rows)``:
+
+    - ``origins``: n_slots (sy, sx) window origins into the stack;
+    - ``(sub_h, sub_w)``: the common window size (fits inside the
+      stack by construction, so slicing never clamps);
+    - ``coords``: (n_slots, L, 2) int32 window-local (y, x) tile
+      origins with L = pow2(max lanes/slot), dummy places at (0, 0)
+      (their carved bytes are simply never read back);
+    - ``rows``: for each input lane (in ``rel_rects`` order) its
+      global output row ``slot * L + place`` in the sharded program's
+      slot-major result.
+    """
+    n = len(rel_rects)
+    order = sorted(
+        range(n), key=lambda i: (rel_rects[i][1], rel_rects[i][0])
+    )
+    base, rem = divmod(n, n_slots)
+    chunks: List[List[int]] = []
+    pos = 0
+    for c in range(n_slots):
+        size = base + (1 if c < rem else 0)
+        chunks.append(order[pos : pos + size])
+        pos += size
+    cap = max((len(ch) for ch in chunks), default=1) or 1
+    L = 1 << (cap - 1).bit_length()
+    sub_h = sub_w = 1
+    boxes: List[Optional[Tuple[int, int, int, int]]] = []
+    for ch in chunks:
+        if not ch:
+            boxes.append(None)
+            continue
+        box = bounding_rect([rel_rects[i] for i in ch])
+        boxes.append(box)
+        sub_w = max(sub_w, box[2])
+        sub_h = max(sub_h, box[3])
+    sub_h = min(sub_h, stack_h)
+    sub_w = min(sub_w, stack_w)
+    origins: List[Tuple[int, int]] = []
+    coords = np.zeros((n_slots, L, 2), dtype=np.int32)
+    rows = [0] * n
+    for c, (ch, box) in enumerate(zip(chunks, boxes)):
+        if box is None:
+            origins.append((0, 0))
+            continue
+        # slide the origin back inside the stack instead of padding:
+        # the window reads real neighbor pixels (the halo), which the
+        # pointwise composite renders identically everywhere
+        sy = max(0, min(box[1], stack_h - sub_h))
+        sx = max(0, min(box[0], stack_w - sub_w))
+        origins.append((sy, sx))
+        for place, i in enumerate(ch):
+            x, y, _, _ = rel_rects[i]
+            coords[c, place, 0] = y - sy
+            coords[c, place, 1] = x - sx
+            rows[i] = c * L + place
+    return origins, (sub_h, sub_w), coords, rows

@@ -201,6 +201,13 @@ class CircuitBreaker:
                 if rate >= self.failure_rate_threshold:
                     self._transition(OPEN)
 
+    def heal(self) -> None:
+        """Close at once: an active probe (not a gated call) found the
+        dependency answering, so the half-open trial has nothing left to
+        learn (the mesh manager's device probes)."""
+        with self._lock:
+            self._transition(CLOSED)
+
     def suspect(self) -> None:
         """Fleet hint: a majority of peers hold this dependency open.
         Sensitise, never open: the next local failure trips at once."""
@@ -308,6 +315,9 @@ class NullBreaker:
         pass
 
     def record_failure(self) -> None:
+        pass
+
+    def heal(self) -> None:
         pass
 
     def suspect(self) -> None:

@@ -226,10 +226,8 @@ def test_shipped_config_starts_with_five_planes_absent():
 
 
 @pytest.mark.parametrize("key,value,named", [
-    ("ingest__enabled", True, "ingest.enabled"),
     ("backend__engine", "host", "backend.engine"),
     ("backend__batching__device-encode", False, "backend.batching.device-encode"),
-    ("mesh__probe-interval-ms", 500, "mesh.probe-interval-ms"),
     ("cache__enabled", False, "cache.enabled"),
     ("slo__enabled", False, "slo.enabled"),
     ("backend__png__filter", "paeth", "backend.png.filter"),
@@ -243,6 +241,34 @@ def test_opt_in_planes_stop_startup(key, value, named):
     with pytest.raises(pconfig.ConfigError, match=named.replace(".", r"\.") + ".*ROADMAP|"
                        + named.replace(".", r"\.") + ".*port"):
         check_planes(config)
+
+
+@pytest.mark.parametrize("key,value,named", [
+    ("ingest__enabled", True, "ingest.enabled"),
+    ("mesh__probe-interval-ms", 500, "mesh.probe-interval-ms"),
+])
+def test_once_refused_planes_start(key, value, named, restore_process_state):
+    """``ingest.enabled`` and ``mesh.probe-interval-ms`` (refused until the
+    write and multi-device planes were ported) start from the shipped
+    config: ``check_planes`` passes them, and the ingest plane (its routes'
+    bounds, ``/healthz`` ``ingest``) or the background mesh prober is
+    built."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
+
+    config = _config(**{key: value})
+    assert check_planes(config) == []
+    server = wire(config, device="cpu")
+    try:
+        health = server.health()
+        if named == "ingest.enabled":
+            assert server.ingest is not None and health["ingest"]["enabled"] is True
+            assert health["ingest"]["staging_bytes"] == 256 << 20
+            assert server.max_body == (256 << 20) + 65536
+        else:
+            assert server.mesh_prober is not None and server.mesh_prober.interval_s == 0.5
+            assert health["ingest"] == {"enabled": False}
+    finally:
+        server.pipeline.close()
 
 
 @pytest.mark.parametrize("cluster", [

@@ -149,7 +149,7 @@ def test_dev_registry_without_a_config_file_serves(tmp_path, registry):
 
 
 @pytest.mark.parametrize("block,named", [
-    ("ingest:\n  enabled: true\n", "ingest.enabled"),
+    ("backend:\n  batching:\n    device-encode: false\n", "backend.batching.device-encode"),
     ("backend:\n  engine: host\n", "backend.engine"),
 ])
 def test_unsupported_plane_exits_2_naming_the_key(tmp_path, block, named):
@@ -161,6 +161,41 @@ def test_unsupported_plane_exits_2_naming_the_key(tmp_path, block, named):
         env=ENV, cwd=str(tmp_path))
     assert out.returncode == 2
     assert f"'{named}'" in out.stderr and "ROADMAP.md" in out.stderr
+
+
+def test_ingest_and_mesh_config_starts_writes_and_exits_0(tmp_path):
+    """``ingest.enabled: true`` with ``mesh.probe-interval-ms: 500`` (once
+    refused with exit code 2) start from ``--config``: a ``PUT`` commits,
+    the tile reads back, ``/healthz`` counts the commit, and SIGTERM exits
+    0."""
+    from omero_ms_pixel_buffer_tpu.io.zarr import write_ngff
+
+    root = str(tmp_path / "img.zarr")
+    write_ngff(root, IMG, chunks=(32, 32), levels=1, zarr_format=3, shards=(64, 64))
+    reg = tmp_path / "registry.json"
+    reg.write_text(json.dumps({"images": [{"id": 1, "path": root}]}))
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text(f"session-store:\n  type: memory\nimage-registry: {reg}\nport: 0\n"
+                   "ingest:\n  enabled: true\nmesh:\n  probe-interval-ms: 500\n")
+    proc, port = _start(["--config", str(cfg), "--dev", "--device", "cpu"], str(tmp_path))
+    try:
+        tile = np.arange(32 * 32, dtype=np.uint16).reshape(32, 32)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("PUT", "/image/1/tile/0/0/0?x=32&y=0&w=32&h=32",
+                     body=tile.astype(">u2").tobytes(), headers={"Cookie": "sessionid=k"})
+        r = conn.getresponse()
+        assert r.status == 200, r.read()
+        assert json.loads(r.read())["tiles"] == 1
+        conn.close()
+        status, body = _get(port, "/tile/1/0/0/0?x=32&y=0&w=32&h=32", "k")
+        assert status == 200 and body == tile.astype(">u2").tobytes()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        assert health["ingest"]["commits"] == 1 and health["ingest"]["enabled"] is True
+    finally:
+        assert _stop(proc) == 0
 
 
 @pytest.mark.parametrize("mode", ["gossip", "lease"])

@@ -10,6 +10,7 @@ If-None-Match matching, key strings, the segmented LRU) against the JAX
 package's. Tolerance: zero (statuses, header values and bodies)."""
 
 import asyncio
+import json
 import threading
 import time
 
@@ -546,3 +547,101 @@ def test_unquote_matches_yarl(kind):
     for _ in range(20000):
         value = "".join(rng.choice(parts) for _ in range(rng.randint(0, 10)))
         assert port_fn(value) == yarl_fn(value), value
+
+
+# -- request bodies with the ingest plane on ---------------------------------
+
+
+def _tree_digest(root):
+    import hashlib
+    import os
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(d, name)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+async def test_chunked_ingest_put_is_read_as_jax_reads_it(tmp_path, monkeypatch):
+    """A chunked ``PUT`` (three chunks): both fronts decode it, commit the
+    same objects (one clock in the gzip headers) and read the tile back."""
+    import gzip
+
+    from test_torch_ingest import AUTH, Fronts, _FixedClock, _raw, _wire
+
+    monkeypatch.setattr(gzip, "time", _FixedClock)
+    f = await Fronts().start(tmp_path)
+    try:
+        tile = np.random.default_rng(31).integers(0, 4096, (32, 32), dtype=np.uint16)
+        body = _wire(tile)
+        status, hdrs, out = await f.both("PUT", "/image/1/tile/0/0/0?x=32&y=32&w=32&h=32", AUTH,
+                                         chunks=[body[:100], body[100:1500], body[1500:]])
+        assert status == 200 and hdrs["content-type"].startswith("application/json")
+        status, _, back = await _raw(f.port_no, "GET", "/tile/1/0/0/0?x=32&y=32&w=32&h=32",
+                                     AUTH)
+        assert status == 200 and back == body
+        assert _tree_digest(f.roots["jax"]) == _tree_digest(f.roots["port"])
+    finally:
+        await f.close()
+
+
+async def test_96_mib_planes_post_commits_in_both(tmp_path):
+    """Three 4096² uint16 planes in one ``POST .../planes``: a 96 MiB body,
+    under the default bound (``staging-bytes`` 256 MiB + 64 KiB). Both
+    fronts read it whole and commit the same objects."""
+    from omero_ms_pixel_buffer_tpu.io.zarr import write_ngff
+    from test_torch_ingest import AUTH, Fronts
+
+    src = str(tmp_path / "src.zarr")
+    write_ngff(src, np.zeros((1, 3, 1, 4096, 4096), np.uint16), chunks=(2048, 2048), levels=1,
+               zarr_format=2, compressor=None)
+    f = await Fronts().start(tmp_path, src=src)
+    try:
+        planes = np.random.default_rng(96).integers(0, 65535, (3, 4096, 4096), dtype=np.uint16)
+        body = planes.astype(">u2").tobytes()
+        assert len(body) == 96 << 20
+        status, _, out = await f.both("POST", "/image/1/planes?planes=0:0:0,0:1:0,0:2:0", AUTH,
+                                      body)
+        assert status == 200
+        assert json.loads(out)["bytes"] == 96 << 20
+        assert _tree_digest(f.roots["jax"]) == _tree_digest(f.roots["port"])
+    finally:
+        await f.close()
+
+
+@pytest.mark.parametrize("entry_kb,size,chunked", [
+    (4096, (8 << 20) + 65536, False), (4096, 9 << 20, False), (4096, 9 << 20, True),
+    (4096, (8 << 20) + 65535, False), (16384, (16 << 20) + 65536, False),
+    (16384, (16 << 20) + 65535, False),
+], ids=["at-the-bound", "over", "over-chunked", "under", "entry-bound", "under-entry-bound"])
+async def test_ingest_body_bound_answers_like_aiohttp(tmp_path, entry_kb, size, chunked):
+    """With the ingest plane the bound is aiohttp's ``client_max_size`` of
+    the JAX app: the larger of ``staging-bytes`` (8 MiB here) + 64 KiB and
+    ``cache.max-entry-kb`` + 64 KiB. A body at or over it is
+    aiohttp's 413 from ``request.read()`` (its text up to the size it
+    names, which follows the socket's reads in aiohttp); one byte under
+    it reaches the handler (a tile body of the wrong size: 400). Nothing
+    is written."""
+    from test_torch_ingest import AUTH, Fronts
+
+    bound = max(8 << 20, entry_kb << 10) + 65536
+    f = await Fronts().start(tmp_path, extra={
+        "ingest": {"enabled": True, "staging-bytes": 8 << 20},
+        "cache": {"prefetch": {"enabled": False}, "max-entry-kb": entry_kb}})
+    try:
+        body = b"\0" * size
+        status, _, out = await f.both(
+            "PUT", "/image/1/tile/0/0/0?x=0&y=0&w=32&h=32", AUTH, body,
+            chunks=[body[i:i + (1 << 20)] for i in range(0, size, 1 << 20)] if chunked else None,
+            compare_body=False)
+        if size >= bound:
+            prefix = f"Maximum request body size {bound} exceeded, actual body size "
+            assert status == 413 and out.decode().startswith(prefix)
+        else:
+            assert status == 400 and out.startswith(b"tile body is")
+        assert _tree_digest(f.roots["jax"]) == _tree_digest(f.roots["port"])
+    finally:
+        await f.close()

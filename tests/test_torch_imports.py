@@ -111,6 +111,31 @@ def test_fleet_plane_modules_are_in_the_port(name):
     assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
 
 
+WRITE_AND_MESH_PLANE_MODULES = ["ingest", "ingest.assembler", "parallel", "parallel.mesh",
+                                "parallel.sharding"]
+
+
+@pytest.mark.parametrize("name", WRITE_AND_MESH_PLANE_MODULES)
+def test_write_and_mesh_plane_modules_are_in_the_port(name):
+    """The ingest plane's and the multi-device plane's modules exist under
+    their JAX paths and sit in the walk the no-jax probe imports."""
+    path = PORT.joinpath(*name.split("."))
+    assert path.with_suffix(".py").is_file() or (path / "__init__.py").is_file(), name
+    assert path.with_suffix(".py") in _sources() or path / "__init__.py" in _sources()
+
+
+def test_mesh_entry_points_default_to_cuda():
+    """``make_mesh`` with no devices takes the visible CUDA devices (none
+    on a host without one: ``"auto"`` then builds no mesh)."""
+    from omero_ms_pixel_buffer_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() == 0:
+        with pytest.raises(ValueError, match="slot"):
+            make_mesh()
+    else:
+        assert all(d.type == "cuda" for d in make_mesh().devices)
+
+
 def test_pipeline_defaults_to_cuda_and_never_falls_back(tmp_path):
     assert inspect.signature(TilePipeline).parameters["device"].default == "cuda"
     service = PixelsService(ImageRegistry())
