@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 42] [--size 8192] [--requests 256] \
         [--rle-requests 128] [--stored-requests 32] [--render-size 4096] \
-        [--render-requests 128] [--histogram-requests 128] [--viewports 16] \
-        [--wsi-size 16384] [--wsi-requests 512] [--zarr-size 8192] \
-        [--zarr-requests 256] [--zarr-s3-requests 128] [--config-requests 256] \
+        [--render-requests 128] [--histogram-requests 128] [--viewports 8] \
+        [--wsi-size 8192] [--wsi-requests 256] [--zarr-size 8192] \
+        [--zarr-requests 128] [--zarr-s3-requests 64] [--config-requests 256] \
         [--filter-sweep] [--slice-paths] \
         [--bitpack-sweep] [--bitpack-time | --dense-time | --paths-only [--port-root DIR]]
 
@@ -370,6 +370,39 @@ Phases, one JSON line each on stdout:
    slot and the sharded programs alone (device ms over two slots and
    one, beside their byte bounds).
 
+27. ``path_png_policy`` (after ``path_host_deflate``) — image 1 through
+   one server per PNG policy (``backend.png``), the device engine,
+   ``dynamic``: ``up`` (the reference arm), ``none``, ``sub``, ``average``,
+   ``paeth`` and ``adaptive`` at level 9, strategy ``default``; a warm-up
+   round of 32 and the same 64 timed 512² tiles at 32 clients each. Every
+   body's inflated scanlines equal the source filtered in numpy in the
+   server's mode (so every row's filter-type byte is the mode's, or the
+   row's ``adaptive`` choice); the device modes launch the filter kernel
+   and the SP packer, ``adaptive`` launches nothing and its lanes take the
+   host route (``host_png_lanes``); every tile's ETag differs from the
+   ``up`` server's. The ``paeth`` server also renders 32 ``/render`` lanes
+   of image 2, held against the numpy composite filtered with paeth.
+   Reports each arm's tiles/s, p50/p99, launches, stream bytes and lanes.
+28. ``path_host_engine`` (after ``path_config``) — the port as a
+   ``--config`` subprocess with ``backend.engine: host``, then with
+   ``backend.batching.device-encode: false`` (``--device cuda`` both
+   times): 256 image-1 ``/tile`` PNG tiles and 64 image-2 ``/render``
+   tiles at 32 clients, 8 region and 8 full-plane ``/histogram``
+   requests and a 4x4 super-tile viewport, every body against the source.
+   The subprocess's ``/healthz``: no plane cache, encode queue or GPU, no
+   CUDA context (``cuda_initialized``), no launch; its pid absent from
+   ``nvidia-smi --query-compute-apps=pid``; this process's counters
+   unchanged. Reports tiles/s and p50/p99 per route.
+29. ``path_planes_off`` — a server with ``cache.enabled: false``,
+   ``slo.enabled: false`` and ``max_inflight`` 4: one tile 32 times in
+   turn (32 executions, no ``ETag``/``X-Cache``), then 64 distinct tiles
+   at once: 200s (pixel-checked) and 503s with ``Retry-After``, the 503s
+   equal to the gate's sheds; ``/healthz`` and ``/metrics`` answer 200
+   during the burst.
+30. ``microbench`` (after ``path_mesh``) — ``runtime/microbench.py``
+   ``run_microbench()`` at its defaults (32 lanes of 512², a 4096² plane)
+   on the card: its dict on one line with the launches it made.
+
 Each path phase also reports ``timed_window``: the encode queue's groups,
 stage means and thread busy shares over its timed requests alone (two
 ``/healthz`` views, just before and just after them), and how many of
@@ -379,14 +412,18 @@ batch of one, encoded on the host), host-encoded oversize lanes and
 counts (``supertile``: lanes stamped, groups, fused device and host
 lanes, fallback lanes, crops pulled to the host).
 
-Then the kernels' JSON line (seven rows; the filter's and SP packer's
+Then the kernels' JSON line (nine rows; the filter's and SP packer's
 launches from ``path``, ``path_obs``, ``path_prefetch``, ``path_session``,
-``path_disk``'s cold pass, ``path_fleet``, ``path_gossip``, ``path_ingest``
-and ``path_mesh``, the WSI rows' from
-``path_wsi``), the ``nvidia-smi --query-gpu=name,power.limit``
-line, and last ``{"ok": true, "device": {...}}``. ``--slice-paths`` runs
-only the build, the fixtures of images 1, 2 and 5, ``path_ingest`` and
-``path_mesh`` (no result line). ``--filter-sweep`` stops
+``path_planes_off``, ``path_disk``'s cold pass, ``path_fleet``,
+``path_gossip``, ``path_ingest``, ``path_mesh``, ``microbench`` and the
+``up``, ``none`` and ``sub`` arms of ``path_png_policy``, the SP
+packer's also from its ``average`` and ``paeth`` arms; the filter's
+``filter_u16_average`` and ``filter_u16_paeth`` rows, timed at the main
+shape, from those two arms; the WSI rows' from ``path_wsi``), the
+``nvidia-smi --query-gpu=name,power.limit`` line, and last ``{"ok":
+true, "device": {...}}``. ``--slice-paths`` runs only the build, the
+fixtures of images 1 and 2, ``path_png_policy``, ``path_host_engine``,
+``path_planes_off`` and ``microbench`` (no result line). ``--filter-sweep`` stops
 after the fixture and prints instead the filter kernel's device times over
 rows per warp and by mode (``filter_sweep``), and the nvidia-smi line;
 ``--bitpack-time`` likewise prints the scalar-prefetch packer's device time
@@ -410,6 +447,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import concurrent.futures
+import contextlib
 import http.client
 import io
 import json
@@ -861,6 +899,20 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
     del flush
     f_plain = time_ms(torch, lambda: filter_tiles_plain(u16, "up"))
     f_bytes = u16.numel() * 2 + LANES * TILE * (1 + TILE * 2)
+    # the modes path_png_policy serves beside up, at the main shape
+    mode_rows = []
+    for m in ("average", "paeth"):
+        m_ms = kernel_ms(torch, lambda m=m: filter_tiles(u16, m), "filter_row_groups")
+        m_call = time_ms(torch, lambda m=m: filter_tiles(u16, m))
+        mode_rows.append(
+            {"name": f"filter_u16_{m}", "route": "cuda",
+             "source": "omero_ms_pixel_buffer_tpu_torch/csrc/filter.cu",
+             "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/filter.py:137",
+             "max_abs_err": filter_errs[f"u16_{m}"], "ms": m_ms if m_ms else m_call,
+             "ms_from": "profiler" if m_ms else "events", "call_ms": m_call,
+             "plain_ms": time_ms(torch, lambda m=m: filter_tiles_plain(u16, m)),
+             "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+             "library_ms": None})
 
     # the packer on the real pass-2 tokens of these lanes
     row_bytes = 1 + TILE * 2
@@ -944,6 +996,7 @@ def check_kernels(torch, device, tiles: np.ndarray, seed: int) -> list:
          "call_ms": f_call, "plain_ms": f_plain,
          "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None},
+        *mode_rows,
         {"name": "bitpack", "route": "cuda",
          "source": "omero_ms_pixel_buffer_tpu_torch/csrc/bitpack.cu",
          "replaces": "omero_ms_pixel_buffer_tpu/ops/pallas/bitpack.py:201",
@@ -3692,6 +3745,7 @@ class PortProcess:
                 [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", *args,
                  "--port", str(self.port)], stdout=subprocess.PIPE, stderr=err, text=True,
                 env=port_env(), cwd=WORK)
+        self.pid = self.proc.pid
         if wait:
             self.wait_listening()
 
@@ -5357,6 +5411,339 @@ def drive_mesh(registry: str, data: np.ndarray, stack: np.ndarray, seed: int,
     return report
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the PNG policy, the whole-host engine, the planes turned off and
+# the kernel microbenchmarks
+# ---------------------------------------------------------------------------
+
+POLICY_MODES = (("up", 6, "fast"), ("none", 6, "fast"), ("sub", 6, "fast"),
+                ("average", 6, "fast"), ("paeth", 6, "fast"), ("adaptive", 9, "default"))
+POLICY_REQUESTS = 64
+POLICY_RENDER = 32  # /render lanes of image 2 under paeth
+
+
+def png_scanlines(body: bytes):
+    """(filtered scanlines (H, 1 + row bytes) uint8, width, height, colour
+    type) of a PNG, its CRCs checked."""
+    require(body[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat = 8, b""
+    while pos < len(body):
+        (n,) = struct.unpack(">I", body[pos:pos + 4])
+        tag, data = body[pos + 4:pos + 8], body[pos + 8:pos + 8 + n]
+        require(zlib.crc32(tag + data) & 0xFFFFFFFF
+                == struct.unpack(">I", body[pos + 8 + n:pos + 12 + n])[0], "bad CRC")
+        if tag == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", data[:10])
+        elif tag == b"IDAT":
+            idat += data
+        pos += 12 + n
+    rb = w * (3 if color == 2 else 1) * depth // 8
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + rb), w, h, color
+
+
+def check_filtered(body: bytes, pixels: np.ndarray, mode: str) -> set:
+    """A PNG body held against its source pixels under filter ``mode``:
+    its inflated scanlines must equal the port's numpy filter of the
+    pixels' big-endian rows (``filter_rows_np``: the reference the kernel
+    and the JAX filter are pinned to), so every pixel and every row's
+    filter-type byte is right. Returns the set of filter-type bytes."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import filter_rows_np
+
+    rows, w, h, _ = png_scanlines(body)
+    be = np.ascontiguousarray(pixels.astype(pixels.dtype.newbyteorder(">")))
+    src = be.view(np.uint8).reshape(pixels.shape[0], -1)
+    bpp = (3 if pixels.ndim == 3 else 1) * pixels.dtype.itemsize
+    require((w, h) == (pixels.shape[1], pixels.shape[0]), "PNG size differs from the source")
+    require(np.array_equal(rows, filter_rows_np(src, bpp, mode)),
+            f"{mode}: scanlines differ from the source filtered in numpy")
+    return set(rows[:, 0].tolist())
+
+
+def drive_png_policy(registry: str, data: np.ndarray, stack: np.ndarray, seed: int,
+                     device: str = "cuda") -> dict:
+    """``path_png_policy``: image 1 through one server per PNG policy
+    (``backend.png`` filter, level, strategy), the device engine,
+    ``dynamic``: ``up`` (the reference arm), the filter kernel's four other
+    modes and ``adaptive`` at level 9, strategy ``default``. Each serves
+    one warm-up round of 32 tiles and the same ``POLICY_REQUESTS`` timed
+    512² PNG tiles at 32 clients; every body's scanlines equal the source
+    filtered in numpy in the server's mode (the filter-type byte of every
+    row is the mode's, or for ``adaptive`` the row's choice). The device
+    modes launch the filter kernel and the SP packer; ``adaptive`` lanes
+    launch nothing, take the host route (``host_png_lanes``, or the lone
+    host route) and their ETags differ from ``up``'s. The ``paeth`` server
+    also renders ``POLICY_RENDER`` three-channel ``/render`` lanes of
+    image 2, held against the numpy composite filtered with paeth."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omero_ms_pixel_buffer_tpu_torch.ops.png import FILTER_CODES
+
+    size = data.shape[0]
+    rng = np.random.default_rng(seed + 21)
+    warm = tile_requests(rng, size, LANES)
+    timed = tile_requests(rng, size, POLICY_REQUESTS)
+    ref = RenderReference(stack)
+    renders = render_requests(np.random.default_rng(seed + 22), stack.shape[-1], POLICY_RENDER)
+    arms, etags = {}, {}
+    for mode, level, strategy in POLICY_MODES:
+        png = {"filter": mode, "level": level, "strategy": strategy}
+        with ServerThread(registry, device=device, png=png) as client:
+            reset_launch_counts()
+            for (path, (x, y, w, h), _), (status, body, _) in zip(
+                    warm, run_requests(client, warm, LANES)[0]):
+                require(status == 200, f"{mode}: {path} answered {status}")
+                check_filtered(body, data[y:y + h, x:x + w], mode)
+            before = get_json(client, "/healthz")
+            with concurrent.futures.ThreadPoolExecutor(LANES) as pool:
+                t0 = time.perf_counter()
+                out = list(pool.map(lambda r: client.request("GET", r[0]), timed))
+                secs = time.perf_counter() - t0
+            after = get_json(client, "/healthz")
+            tile_launches = launch_counts()
+            render = None
+            if mode == "paeth":
+                r_out, r_secs = run_requests(client, renders, LANES)
+                for (status, body, _), (path, (x, y, w, h), _, query) in zip(r_out, renders):
+                    require(status == 200, f"paeth render: {path} answered {status}")
+                    types = check_filtered(body, ref.rgb(query, x, y, w, h), "paeth")
+                    require(types == {FILTER_CODES["paeth"]}, f"render filter types {types}")
+                render = {"requests": len(renders), "tiles_per_s": len(renders) / r_secs,
+                          **latency(r_out)}
+            launches = launch_counts()
+            health = get_json(client, "/healthz")
+        types_seen = set()
+        for (status, hdrs, body, _), (path, (x, y, w, h), _) in zip(out, timed):
+            require(status == 200, f"{mode}: {path} answered {status}")
+            types = check_filtered(body, data[y:y + h, x:x + w], mode)
+            if mode != "adaptive":
+                require(types == {FILTER_CODES[mode]}, f"{mode}: filter types {types}")
+            types_seen |= types
+            etags.setdefault(path, {})[mode] = hdrs["ETag"]
+        window = timed_window(before, after, secs)
+        if mode == "adaptive":
+            require(tile_launches["filter"] == 0 and tile_launches["bitpack"] == 0,
+                    f"adaptive lanes launched a kernel: {tile_launches}")
+            require(window["lanes"] == 0 and window["host_png_lanes"] > 0,
+                    f"adaptive lanes left the host route: {window}")
+        else:
+            require(tile_launches["filter"] > 0 and tile_launches["bitpack"] > 0,
+                    f"{mode}: the filter or the SP packer never launched: {tile_launches}")
+        require(health["queue"]["failed"] == 0, f"{mode}: encode groups failed")
+        arms[f"{mode}.{level}.{strategy}"] = {
+            "tiles_per_s": POLICY_REQUESTS / secs, **latency([(o[3],) for o in out]),
+            "launches": tile_launches, "filter_types": sorted(types_seen),
+            "stream_bytes_mean": float(np.mean([png_stream_len(o[2]) for o in out])),
+            "device_lanes": window["lanes"], "lone_lanes": window["lone_lanes"],
+            "host_png_lanes": window["host_png_lanes"], "groups": window["groups"],
+            "stage_ms_mean": window["stage_ms_mean"], "render": render,
+            "render_launches": ({k: launches[k] - tile_launches[k] for k in launches}
+                                if render else None)}
+    for path, by_mode in etags.items():
+        others = [m for m in by_mode if m != "up"]
+        require(all(by_mode[m] != by_mode["up"] for m in others),
+                f"{path}: an ETag equals the up policy's: {by_mode}")
+    return {"phase": "path_png_policy", "requests": POLICY_REQUESTS, "concurrency": LANES,
+            "arms": arms, "tiles_checked": len(POLICY_MODES) * (LANES + POLICY_REQUESTS),
+            "renders_checked": POLICY_RENDER, "etags_differ_from_up": len(etags)}
+
+
+HOST_TILES, HOST_RENDERS, HOST_HISTOGRAMS = 256, 64, 8  # the histograms add 8 full planes
+
+
+def compute_pids() -> list:
+    """The pids ``nvidia-smi`` lists with a compute context."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout
+    return [int(ln) for ln in out.split() if ln.strip().isdigit()]
+
+
+def drive_host_engine(registry: str, data: np.ndarray, stack: np.ndarray, seed: int,
+                      device: str = "cuda") -> dict:
+    """``path_host_engine``: the port as a ``--config`` subprocess with
+    ``backend.engine: host``, then with ``backend.batching.device-encode:
+    false`` (``--device cuda`` both times: the host engine reads no
+    device), the two started together. Each serves ``HOST_TILES`` image-1
+    ``/tile`` PNG tiles and ``HOST_RENDERS`` image-2 ``/render`` tiles at
+    32 clients, ``HOST_HISTOGRAMS`` region and 8 full-plane ``/histogram``
+    requests, and a 4x4 super-tile viewport at once: every tile against
+    its source pixels, the first arm's renders and histograms against the
+    numpy composite and ``np.bincount``, the second's against the first's
+    bytes. Each subprocess's ``/healthz`` must show no plane
+    cache, no encode queue, no GPU, no CUDA context and zero launches, its
+    pid must be absent from ``nvidia-smi --query-compute-apps``, and this
+    process's launch counters must not move."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts
+
+    os.makedirs(WORK, exist_ok=True)
+    size = data.shape[0]
+    tiles = tile_requests(np.random.default_rng(seed + 31), size, HOST_TILES)
+    renders = render_requests(np.random.default_rng(seed + 32), stack.shape[-1], HOST_RENDERS)
+    hists = histogram_requests(np.random.default_rng(seed + 33), stack, HOST_HISTOGRAMS)
+    view = viewport_requests(np.random.default_rng(seed + 34), stack.shape[-1], 1)[0]
+    ref = RenderReference(stack)
+    smi_self = os.getpid() in compute_pids()
+    launches0 = launch_counts()
+    arms, first = {}, None
+    with contextlib.ExitStack() as stack_ctx:
+        procs = {}
+        for name, backend in (("engine_host", {"engine": "host"}),
+                              ("device_encode_false", {"batching": {"device-encode": False}})):
+            cfg = os.path.join(WORK, f"{name}.yaml")
+            with open(cfg, "w") as f:
+                json.dump({"session-store": {"type": "memory"}, "image-registry": registry,
+                           "backend": backend, "cache": {"prefetch": {"enabled": False}}}, f)
+            procs[name] = stack_ctx.enter_context(
+                PortProcess(["--config", cfg, "--dev", "--device", "cuda"], name, wait=False))
+        for proc in procs.values():  # started together
+            proc.wait_listening()
+        for name, proc in procs.items():
+            client = Client(proc.port)
+            try:
+                t_out, t_secs = run_requests(client, tiles, LANES)
+                checked = verify(t_out, tiles, data)
+                r_out, r_secs = run_requests(client, renders, LANES)
+                with concurrent.futures.ThreadPoolExecutor(LANES) as pool:
+                    t0 = time.perf_counter()
+                    h_out = list(pool.map(lambda r: client.request("GET", r[0]), hists))
+                    h_secs = time.perf_counter() - t0
+                v_out, v_secs = run_requests(client, view, len(view))
+                health = get_json(client, "/healthz")
+                pids = compute_pids()
+            finally:
+                client.close()
+            bodies = ([b for _, b, _ in r_out], [o[2] for o in h_out], [b for _, b, _ in v_out])
+            if first is None:
+                # the first arm against the sources; the second must answer
+                # the same bytes (renders and histograms take one route)
+                checked += verify_render(r_out, renders, ref) + verify_render(v_out, view, ref)
+                for (status, _, body, _), (path, spec) in zip(h_out, hists):
+                    require(status == 200, f"{name}: {path} answered {status}")
+                    verify_histogram(body, stack, spec)
+                first = bodies
+            else:
+                require(bodies == first, f"{name}: render or histogram bodies differ from "
+                        "the first arm's")
+                checked += len(r_out) + len(v_out)
+            pid, rc = proc.pid, proc.stop()
+            require(rc == 0, f"{name}: the port exited {rc}")
+            require(health["config"]["pipeline_engine"] == "host"
+                    and health["device"] == "host",
+                    f"{name}: not the host engine: {health['config']}")
+            require(health["plane_cache"] is None and health["queue"] is None
+                    and health["gpu"] is None and not health["cuda_initialized"],
+                    f"{name}: a device object or a CUDA context: {health['gpu']}")
+            require(all(v == 0 for v in health["kernels"].values()),
+                    f"{name}: a kernel launched: {health['kernels']}")
+            require(pid not in pids, f"{name}: nvidia-smi lists the host engine's pid {pid}")
+            arms[name] = {
+                "tiles": {"requests": len(tiles), "tiles_per_s": len(tiles) / t_secs,
+                          **latency(t_out)},
+                "render": {"requests": len(renders), "tiles_per_s": len(renders) / r_secs,
+                           **latency(r_out)},
+                "histogram": {"requests": len(hists), "per_s": len(hists) / h_secs,
+                              **latency([(o[3],) for o in h_out])},
+                "supertile_view": {"requests": len(view), "seconds": v_secs,
+                                   "groups": health["supertile"]["groups"],
+                                   "host_lanes": health["supertile"]["host_lanes"]},
+                "bodies_checked": checked + len(h_out), "startup_s": proc.startup_s,
+                "host_png_lanes": health["host_png_lanes"], "lone": health["batcher"]["lone"],
+                "render_host_lanes": health["render"]["host_lanes"],
+                "host_engine": health["host_engine"], "kernels": health["kernels"],
+                "cuda_initialized": health["cuda_initialized"], "compute_pids": pids,
+                "exit_code": rc}
+    require(launch_counts() == launches0, "this process launched a kernel during the phase")
+    return {"phase": "path_host_engine", "arms": arms, "smi_lists_this_process": smi_self}
+
+
+PLANES_OFF_REPEATS, PLANES_OFF_BURST, PLANES_OFF_INFLIGHT = 32, 64, 4
+
+
+def drive_planes_off(registry: str, data: np.ndarray, seed: int, device: str = "cuda") -> dict:
+    """``path_planes_off``: a server with ``cache.enabled: false`` and
+    ``slo.enabled: false``, ``resilience.admission.max-inflight`` 4 (the
+    binary door gate). One tile asked ``PLANES_OFF_REPEATS`` times in turn:
+    every answer 200 with the source's pixels and no ``ETag``,
+    ``Cache-Control`` or ``X-Cache``, each one executed (the batcher's
+    lanes). Then ``PLANES_OFF_BURST`` distinct tiles at once: 200s with
+    the source's pixels and 503s, each with ``Retry-After``, the 503s equal
+    to the gate's sheds; ``/healthz`` and ``/metrics`` answer 200 during
+    the burst."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    size = data.shape[0]
+    one = tile_requests(np.random.default_rng(seed + 41), size, 1) * PLANES_OFF_REPEATS
+    burst = tile_requests(np.random.default_rng(seed + 42), size, PLANES_OFF_BURST)
+    with ServerThread(registry, device=device, cache=False, slo=False,
+                      max_inflight=PLANES_OFF_INFLIGHT) as client:
+        reset_launch_counts()
+        h0 = get_json(client, "/healthz")
+        repeat_out = [client.request("GET", one[0][0]) for _ in one]
+        h1 = get_json(client, "/healthz")
+        side = Client(client.port)
+        try:
+            with concurrent.futures.ThreadPoolExecutor(PLANES_OFF_BURST) as pool:
+                t0 = time.perf_counter()
+                futs = [pool.submit(client.request, "GET", r[0]) for r in burst]
+                time.sleep(0.05)
+                health_mid = side.request("GET", "/healthz")
+                metrics_mid = side.request("GET", "/metrics")
+                burst_out = [f.result() for f in futs]
+                secs = time.perf_counter() - t0
+        finally:
+            side.close()
+        h2 = get_json(client, "/healthz")
+        launches = launch_counts()
+    for status, hdrs, body, _ in repeat_out:
+        require(status == 200, f"a repeat answered {status}")
+        require(not {"ETag", "Cache-Control", "X-Cache"} & set(hdrs),
+                f"a cache header with the cache off: {hdrs}")
+    verify([(s, b, t) for s, _, b, t in repeat_out], one, data)
+    executed = h1["batcher"]["lanes"] - h0["batcher"]["lanes"]
+    require(executed == PLANES_OFF_REPEATS, f"{executed} of {PLANES_OFF_REPEATS} repeats executed")
+    statuses = [s for s, _, _, _ in burst_out]
+    require(set(statuses) <= {200, 503} and 503 in statuses and 200 in statuses,
+            f"burst statuses {sorted(set(statuses))}")
+    ok = [(s, b, t) for s, _, b, t in burst_out if s == 200]
+    verify(ok, [r for r, (s, *_) in zip(burst, burst_out) if s == 200], data)
+    require(all("Retry-After" in h for s, h, _, _ in burst_out if s == 503),
+            "a 503 without Retry-After")
+    shed = h2["admission"]["shed_total"] - h1["admission"]["shed_total"]
+    require(shed == statuses.count(503), f"{shed} sheds for {statuses.count(503)} 503s")
+    require(health_mid[0] == 200 and metrics_mid[0] == 200,
+            f"/healthz {health_mid[0]}, /metrics {metrics_mid[0]} during the burst")
+    require(h2["slo"] == {"enabled": False} and h2["result_cache"] == {"enabled": False},
+            "a plane is on")
+    return {"phase": "path_planes_off", "repeats": PLANES_OFF_REPEATS, "executed": executed,
+            "hits": 0, "burst": PLANES_OFF_BURST, "max_inflight": PLANES_OFF_INFLIGHT,
+            "ok": statuses.count(200), "shed_503": statuses.count(503), "seconds": secs,
+            **latency([(o[3],) for o in burst_out if o[0] == 200]),
+            "healthz_during_burst": health_mid[0], "metrics_during_burst": metrics_mid[0],
+            "launches": launches, "lone": h2["batcher"]["lone"] - h1["batcher"]["lone"]}
+
+
+def drive_microbench(device: str = "cuda") -> dict:
+    """``microbench``: ``runtime/microbench.run_microbench()`` at the JAX
+    defaults (32 lanes of 512², a 4096² resident plane) on the card, with
+    the launches it made; ``project_throughput`` at a 12.5 GB/s link."""
+    from omero_ms_pixel_buffer_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from omero_ms_pixel_buffer_tpu_torch.runtime.microbench import (
+        project_throughput,
+        run_microbench,
+    )
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    micro = run_microbench(device=device)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    require(micro["backend"] == "cuda" or device != "cuda", "the microbench left the card")
+    require(launches["filter"] > 0 and launches["bitpack"] > 0,
+            f"microbench: the filter or the SP packer never launched: {launches}")
+    return {"phase": "microbench", **micro, "launches": launches, "seconds": secs,
+            "projection": project_throughput(micro, 12500.0)}
+
+
 def smi_line() -> str:
     import subprocess
 
@@ -5382,17 +5769,17 @@ def main(argv=None) -> int:
                    help="timed requests of the render phase")
     p.add_argument("--histogram-requests", type=int, default=128,
                    help="timed region requests of the histogram phase (plus 8 full planes)")
-    p.add_argument("--viewports", type=int, default=16,
+    p.add_argument("--viewports", type=int, default=8,
                    help="4x4 viewports of the super-tile phases")
-    p.add_argument("--wsi-size", type=int, default=16384,
+    p.add_argument("--wsi-size", type=int, default=8192,
                    help="width and height of the RGB JPEG pyramid (image 3)")
-    p.add_argument("--wsi-requests", type=int, default=512,
+    p.add_argument("--wsi-requests", type=int, default=256,
                    help="timed tiles of path_wsi (path_wsi_device_idct takes a quarter)")
     p.add_argument("--zarr-size", type=int, default=8192,
                    help="width and height of the NGFF 0.4 image (image 4)")
-    p.add_argument("--zarr-requests", type=int, default=256,
+    p.add_argument("--zarr-requests", type=int, default=128,
                    help="timed level-0 tiles of path_zarr")
-    p.add_argument("--zarr-s3-requests", type=int, default=128,
+    p.add_argument("--zarr-s3-requests", type=int, default=64,
                    help="timed tiles of path_zarr_s3")
     p.add_argument("--config-requests", type=int, default=256,
                    help="timed requests of path_config (at most --requests)")
@@ -5402,8 +5789,9 @@ def main(argv=None) -> int:
                         "path_gossip phases, e.g. to pair two versions with --port-root "
                         "(no result line)")
     p.add_argument("--slice-paths", action="store_true",
-                   help="only build, the fixtures of images 1, 2 and 5, then the path_ingest "
-                        "and path_mesh phases (no result line)")
+                   help="only build, the fixtures of images 1 and 2, then the path_png_policy, "
+                        "path_host_engine, path_planes_off and microbench phases "
+                        "(no result line)")
     p.add_argument("--filter-sweep", action="store_true",
                    help="only build, then time the filter kernel over launch shapes "
                         "(no path phases, no result line)")
@@ -5455,10 +5843,10 @@ def main(argv=None) -> int:
         emit({"phase": "fixture", "size": args.size, "render_stack": list(stack.shape),
               "seconds": time.perf_counter() - t0})
         if args.slice_paths:
-            img5 = make_stack(ZARR5_SIZE, args.seed + 5)[None, :, :1]  # make_zarr_images' image 5
-            write_zarr_fixtures(None, img5)
-            emit(drive_ingest(write_ingest_fixtures(), img5, args.seed))
-            emit(drive_mesh(registry, data, stack, args.seed))
+            emit(drive_png_policy(registry, data, stack, args.seed))
+            emit(drive_host_engine(registry, data, stack, args.seed))
+            emit(drive_planes_off(registry, data, args.seed))
+            emit(drive_microbench())
             print(smi_line(), flush=True)
             return 0
         if args.paths_only:
@@ -5560,6 +5948,8 @@ def main(argv=None) -> int:
         render = drive_render(registry, stack, args.seed, args.render_requests)
         emit(render)
         emit(drive_host_deflate(registry, data, args.seed))
+        policy = drive_png_policy(registry, data, stack, args.seed)
+        emit(policy)
         emit(drive_histogram(registry, stack, args.seed, args.histogram_requests))
         emit(supertile_pair(registry, stack, args.seed, args.viewports))
         wsi_run = drive_wsi(wsi_registry, ref, args.seed, args.wsi_requests)
@@ -5572,6 +5962,9 @@ def main(argv=None) -> int:
         for line in drive_viewer(zarr_fx["registry"], img4, args.seed):
             emit(line)
         emit(drive_config(registry, data, *path_timed, args.config_requests, args.seed))
+        emit(drive_host_engine(registry, data, stack, args.seed))
+        planes_off = drive_planes_off(registry, data, args.seed)
+        emit(planes_off)
         disk = drive_disk(registry, data)
         emit(disk)
         fleet = drive_fleet(registry, data, path_timed[0], args.seed)
@@ -5582,10 +5975,19 @@ def main(argv=None) -> int:
         emit(ingest)
         mesh = drive_mesh(registry, data, stack, args.seed)
         emit(mesh)
-        # each kernel's launches come from the phases that run it
-        main_phases = (path, obs, prefetch, session, disk, fleet, gossip, ingest, mesh)
+        micro = drive_microbench()
+        emit(micro)
+        # each kernel's launches come from the phases that run it; the
+        # filter's paeth and average rows from their path_png_policy arms
+        arms = policy["arms"]
+        main_phases = (path, obs, prefetch, session, planes_off, disk, fleet, gossip, ingest,
+                       mesh, micro, arms["up.6.fast"], arms["none.6.fast"], arms["sub.6.fast"])
         launches = {"filter": sum(ph["launches"]["filter"] for ph in main_phases),
-                    "bitpack": sum(ph["launches"]["bitpack"] for ph in main_phases),
+                    "bitpack": (sum(ph["launches"]["bitpack"] for ph in main_phases)
+                                + arms["average.6.fast"]["launches"]["bitpack"]
+                                + arms["paeth.6.fast"]["launches"]["bitpack"]),
+                    "filter_u16_average": arms["average.6.fast"]["launches"]["filter"],
+                    "filter_u16_paeth": arms["paeth.6.fast"]["launches"]["filter"],
                     "bitpack_dense": rle["launches"]["bitpack_dense"],
                     "filter_render_rgb8": render["launches"]["filter"],
                     "bitpack_render_rle": render["launches"]["bitpack"],

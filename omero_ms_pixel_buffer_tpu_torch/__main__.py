@@ -30,9 +30,12 @@ default ``pallas`` on CUDA). ``OMPB_JPEG_DEVICE_IDCT=1`` moves JPEG
 tiles' IDCT to the device.
 
 On ``cuda`` the kernels are built (or found built) before the port opens;
-without a GPU the command fails unless ``--device cpu`` is given. A config
-the port cannot honour (an opt-in plane it lacks, an unsupported value)
-stops start-up with the ``ConfigError`` that names the key (exit code 2).
+without a GPU the command fails unless ``--device cpu`` is given. With
+``backend.engine: host`` (or ``backend.batching.device-encode: false``)
+the service runs the whole-host engine: no kernel is built, no CUDA call
+is made and ``--device`` is not read, so no card is needed. A config the
+parser refuses stops start-up with the ``ConfigError`` that names the key
+(exit code 2).
 ``debug-context`` builds the same wiring without serving, prints it and
 exits (``debug.py``). The line ``listening on HOST:PORT`` is printed once
 serving. SIGINT stops (exit code 0); SIGTERM too, after the graceful drain

@@ -49,11 +49,18 @@ def main(argv: Optional[list] = None) -> int:
             images = "images resolved from the OMERO database"
         resolver = type(svc.metadata_resolver).__name__ if svc.metadata_resolver else "none"
         print(f"pixels service: {type(svc).__name__} ({images}; metadata resolver: {resolver})")
-        print(f"pipeline: device={pipeline.device} buckets={pipeline.buckets} "
-              f"deflate_mode={pipeline.device_deflate_mode} "
-              f"packer={pipeline.dispatcher.packer} "
-              f"device_deflate={pipeline.device_deflate}")
-        if server.kernel_libraries:
+        if pipeline.engine == "host":
+            print(f"pipeline: engine=host buckets={pipeline.buckets} "
+                  f"png={pipeline.encode_signature()}")
+        else:
+            print(f"pipeline: device={pipeline.device} buckets={pipeline.buckets} "
+                  f"deflate_mode={pipeline.device_deflate_mode} "
+                  f"packer={pipeline.dispatcher.packer} "
+                  f"device_deflate={pipeline.device_deflate} "
+                  f"png={pipeline.encode_signature()}")
+        if pipeline.engine == "host":
+            print("kernels: none (the host engine)")
+        elif server.kernel_libraries:
             for name, lib in server.kernel_libraries.items():
                 print(f"kernel {name}: {'built' if lib['built'] else 'found'} {lib['path']}")
         else:

@@ -64,8 +64,14 @@ the sweep detector), and a miss acquires an execution slot under its
 ``Retry-After``, a deadline spent in the queue or later 504, and a grant
 flagged degraded is served from the next pyramid level, upscaled, under
 its own cache key, tagged ``X-OMPB-Degraded: 1`` (PNG ``/tile`` and
-render requests only). The event-loop watchdog (``utils/
-loop_watchdog.py``) is armed at start.
+render requests only). With ``slo.enabled: false`` there is no
+scheduler and no sweep detector: the JAX binary door gate takes their
+place in front of the serving routes (after OPTIONS, before the session
+check), answering 503 ``Service overloaded`` with ``Retry-After`` beyond
+``resilience.admission.max-inflight`` requests in flight, and every
+request that passes it executes; ``/healthz`` and ``/metrics`` stay
+reachable. The event-loop watchdog (``utils/loop_watchdog.py``) is armed
+at start.
 
 Tiles, renders and histograms go through the result cache's memory tier
 (``cache/``), keyed by ``TileCtx.cache_key`` after the w/h = 0 spelling is rewritten to the
@@ -81,7 +87,10 @@ answers 403, 404 or 503. Concurrent misses with one
 ``TileCtx.dedupe_key`` share one pipeline execution (single-flight),
 which fills the cache once. A changed ``pixels`` row seen by the metadata
 resolver purges the image's cached tiles, authorization verdicts, open
-buffer, device planes and decoded blocks (``_invalidate_image``).
+buffer, device planes and decoded blocks (``_invalidate_image``). With
+``cache.enabled: false`` there is no result cache, single-flight,
+prefetcher or fleet plane (as in JAX): every request executes, and a 200
+carries no ``ETag``, ``Cache-Control`` or ``X-Cache`` (so never a 304).
 
 Observability (``obs/``, the JAX ``obs:`` block, on by default): every
 request to a serving route carries a ``FlightRecord`` from the door
@@ -148,8 +157,9 @@ the drain first (``drain_on_signal``).
 
 ``wire`` builds the whole service from a ``utils.config.Config`` (the
 JAX ``PixelBufferApp.__init__``): ``create_app`` and ``create_server``
-both go through it. Opt-in planes the port does not have stop start-up
-with a ``ConfigError`` naming the key when they are turned on.
+both go through it, with every value the JAX ``Config`` accepts: the
+``backend.png`` policy, the host engine,
+``cache.enabled: false`` and ``slo.enabled: false`` included.
 """
 
 from __future__ import annotations
@@ -165,6 +175,8 @@ import threading
 import time
 from http.cookies import CookieError, SimpleCookie
 from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from .. import __version__
 from ..auth.omero_session import AllowListValidator
@@ -214,7 +226,7 @@ from ..cluster.security import SIG_HEADER, NonceCache
 from ..cluster.security import verify as verify_cluster_sig
 from ..session import AnnotationStore, ChannelRegistry
 from ..tile_ctx import TileCtx
-from ..utils.config import Config, ConfigError
+from ..utils.config import Config
 from ..utils.loop_watchdog import LoopWatchdog
 from .target import (
     HTTP09,
@@ -372,33 +384,45 @@ class TileServer:
                 head_sample_rate=oc.head_sample_rate, ring_size=oc.ring_size,
                 sli=SliLayer(budget_s=oc.slow_threshold_ms / 1000.0))
         cc = config.cache
-        admission = (TinyLFU(counters=cc.tinylfu.counters, sample_size=cc.tinylfu.sample_size)
-                     if cc.tinylfu.enabled else None)
-        self.cache = TileResultCache(memory_bytes=cc.memory_mb << 20,
-                                     max_entry_bytes=cc.max_entry_kb << 10,
-                                     protected_fraction=cc.protected_fraction, ttl_s=cc.ttl_s,
-                                     admission=admission, disk_dir=cc.disk_dir,
-                                     disk_bytes=cc.disk_mb << 20, manifest=cc.manifest)
+        # ``cache.enabled: false`` turns the whole subsystem off, as in
+        # JAX: no result cache, single-flight, prefetcher or fleet plane
+        self.cache: Optional[TileResultCache] = None
+        if cc.enabled:
+            admission = (TinyLFU(counters=cc.tinylfu.counters,
+                                 sample_size=cc.tinylfu.sample_size)
+                         if cc.tinylfu.enabled else None)
+            self.cache = TileResultCache(memory_bytes=cc.memory_mb << 20,
+                                         max_entry_bytes=cc.max_entry_kb << 10,
+                                         protected_fraction=cc.protected_fraction,
+                                         ttl_s=cc.ttl_s, admission=admission,
+                                         disk_dir=cc.disk_dir, disk_bytes=cc.disk_mb << 20,
+                                         manifest=cc.manifest)
         self.max_age_s = int(cc.max_age_s)
         self.etag_precheck = cc.etag_precheck
-        self._flight = SingleFlight()
+        self._flight: Optional[SingleFlight] = SingleFlight() if cc.enabled else None
         res, slo = config.resilience, config.slo
         self.admission = AdmissionController(
             max_inflight=(res.admission.max_inflight if max_inflight is None
                           else max_inflight),
             retry_after_s=res.admission.retry_after_s)
-        self.sweep_detector = SweepDetector(threshold=slo.sweep_window, ttl_s=slo.sweep_ttl_s)
-        self.scheduler = SloScheduler(
-            self.admission, queue_size=slo.queue_size if queue_size is None else queue_size,
-            class_weights=slo.class_weights, degrade=slo.degrade,
-            degrade_factor=slo.degrade_factor)
+        # ``slo.enabled: false``: no scheduler and no sweep detector; the
+        # binary door gate of ``_route`` takes their place
+        self.sweep_detector: Optional[SweepDetector] = None
+        self.scheduler: Optional[SloScheduler] = None
+        if slo.enabled:
+            self.sweep_detector = SweepDetector(threshold=slo.sweep_window,
+                                                ttl_s=slo.sweep_ttl_s)
+            self.scheduler = SloScheduler(
+                self.admission, queue_size=slo.queue_size if queue_size is None else queue_size,
+                class_weights=slo.class_weights, degrade=slo.degrade,
+                degrade_factor=slo.degrade_factor)
         self.priority_header = slo.priority_header
         if request_budget_ms is None:
             request_budget_ms = (res.request_budget_ms if res.request_budget_ms is not None
                                  else config.event_bus_send_timeout_ms)
         self.request_budget_s = request_budget_ms / 1000.0
         self.prefetcher: Optional[ViewportPrefetcher] = None
-        if cc.prefetch.enabled:
+        if self.cache is not None and cc.prefetch.enabled:
             pf = cc.prefetch
             self.prefetcher = ViewportPrefetcher(
                 self._prefetch_fetch, self.cache, self.admission,
@@ -429,7 +453,8 @@ class TileServer:
         self.cluster_nonces = NonceCache()
         self.max_body = _MAX_BODY
         cl = config.cluster
-        if cl.plane_enabled:
+        if cl.plane_enabled and self.cache is not None:
+            # the fleet layers fill and are filled by the local cache
             self._build_plane(cl)
             self.max_body = max((cc.max_entry_kb << 10) + 65536, MAX_TRANSFER_BYTES + 65536)
         # the ingest plane: the write routes over the same pixels service
@@ -562,7 +587,8 @@ class TileServer:
         if self.cache_plane is not None:
             await self.cache_plane.close()
         await self.worker.close()
-        self.cache.close()
+        if self.cache is not None:
+            self.cache.close()
         if TRACER.reporter is not None:  # flush the spans, as the JAX app's cleanup
             TRACER.reporter.close()
             TRACER.reporter = None
@@ -824,9 +850,24 @@ class TileServer:
         for k, v in query_pairs(raw_query):
             query.setdefault(k, v)  # first value per key, as aiohttp's
         if path.startswith(SERVING_PREFIXES):
+            if self.scheduler is None:
+                # the binary door gate (the JAX ``admission_middleware``):
+                # a slot for the whole request, or 503 at once
+                if not self.admission.try_acquire():
+                    return 503, {"Retry-After": _retry_after(self.admission.retry_after_s)}, \
+                        b"Service overloaded"
+                try:
+                    return await self._past_door(method, path, safe, query, headers, body)
+                finally:
+                    self.admission.release()
             shed = self._door_gate(path, safe, query, headers)
             if shed is not None:
                 return shed
+        return await self._past_door(method, path, safe, query, headers, body)
+
+    async def _past_door(self, method: str, path: str, safe: str, query: Dict[str, str],
+                         headers: Dict[str, str], body: Optional[bytes]):
+        """A request past the door: the session check, then its route."""
         healthz = safe == "/healthz"
         metrics = safe == "/metrics"
         debug = None
@@ -933,7 +974,7 @@ class TileServer:
             priority = classify(headers, None, None, self.priority_header)
             if not self.scheduler.would_overflow_shed(priority):
                 return None
-            if path.startswith(("/tile/", "/render/")):
+            if self.cache is not None and path.startswith(("/tile/", "/render/")):
                 probe = self._door_probe_key(safe, query)
                 if probe is not None and self.cache.contains_any_tier(probe):
                     return None
@@ -1031,87 +1072,103 @@ class TileServer:
         """A parsed ``/tile``, ``/render``, ``/histogram`` or adapter
         request: classified, then through the result cache; a miss takes a
         scheduler slot under the request's deadline and one flight. A
-        served tile or render is observed by the prefetcher."""
+        served tile or render is observed by the prefetcher. Without the
+        scheduler there is no class and no slot here (the door gate held
+        one); without the result cache every request executes once, on
+        its own."""
         rec = ctx.obs = current_record()
-        ctx.priority = classify(headers, ctx.omero_session_key, self.sweep_detector,
-                                self.priority_header)
-        if header_priority(headers, self.priority_header) is None:
-            # only unlabelled traffic trains the sweep detector; a sweep
-            # demotes the session's next request, not this one
-            r = ctx.region
-            self.sweep_detector.observe(ctx.omero_session_key, ctx.image_id, ctx.z, ctx.c,
-                                        ctx.t, ctx.resolution, r.x, r.y, r.width, r.height)
+        sched, cache = self.scheduler, self.cache
+        if sched is not None:
+            ctx.priority = classify(headers, ctx.omero_session_key, self.sweep_detector,
+                                    self.priority_header)
+            if header_priority(headers, self.priority_header) is None:
+                # only unlabelled traffic trains the sweep detector; a
+                # sweep demotes the session's next request, not this one
+                r = ctx.region
+                self.sweep_detector.observe(ctx.omero_session_key, ctx.image_id, ctx.z, ctx.c,
+                                            ctx.t, ctx.resolution, r.x, r.y, r.width, r.height)
         if rec is not None:
             rec.tag("priority", PRIORITY_NAMES.get(ctx.priority, "interactive"))
-            rec.tag("engine", "device")
-        with ambient_stage("cache_probe"):
-            await self._normalize_region(ctx)
+            rec.tag("engine", self.pipeline.engine)
         inm = headers.get("if-none-match", "")
         quality = self.pipeline.encode_signature()
-        key = ctx.cache_key(quality)
-        with ambient_stage("cache_probe"):
-            entry = await self.cache.get(key)
-        plane = self.cache_plane
+        key = None
         plane_epoch = plane_pending = plane_generation = None
-        if plane is not None and entry is not None:
-            # replication qualifies on frequency, and most keys cross the
-            # bar on a hit (O(1) when it declines)
-            plane.note_hit(key, entry)
-        if plane is not None and entry is None:
-            # the cluster consult, between the local miss and the render:
-            # the shared L2, then one bounded GET to the key's owner. The
-            # generation is taken before the hop, so an invalidation racing
-            # it blocks the re-admission
-            peer_originated = _PEER in headers
-            plane_generation = self.cache.generation()
-            plane_entry, source, plane_epoch, plane_pending = await plane.fetch(
-                key, _PATH_QS.get(), _cookie_session_id(headers.get("cookie")),
-                peer_originated=peer_originated)
-            if peer_originated and plane_epoch is None:
-                # the owner's side of a hop: the fill stamps the epoch the
-                # requester observed before it
-                plane_epoch = _parse_epoch(headers.get(EPOCH_HEADER.lower()))
-            if plane_entry is not None:
+        if cache is not None:
+            with ambient_stage("cache_probe"):
+                await self._normalize_region(ctx)
+            key = ctx.cache_key(quality)
+            with ambient_stage("cache_probe"):
+                entry = await cache.get(key)
+            plane = self.cache_plane
+            if plane is not None and entry is not None:
+                # replication qualifies on frequency, and most keys cross
+                # the bar on a hit (O(1) when it declines)
+                plane.note_hit(key, entry)
+            if plane is not None and entry is None:
+                # the cluster consult, between the local miss and the
+                # render: the shared L2, then one bounded GET to the key's
+                # owner. The generation is taken before the hop, so an
+                # invalidation racing it blocks the re-admission
+                peer_originated = _PEER in headers
+                plane_generation = cache.generation()
+                plane_entry, source, plane_epoch, plane_pending = await plane.fetch(
+                    key, _PATH_QS.get(), _cookie_session_id(headers.get("cookie")),
+                    peer_originated=peer_originated)
+                if peer_originated and plane_epoch is None:
+                    # the owner's side of a hop: the fill stamps the epoch
+                    # the requester observed before it
+                    plane_epoch = _parse_epoch(headers.get(EPOCH_HEADER.lower()))
+                if plane_entry is not None:
+                    if await self._authorize_cached(ctx):
+                        cache.put(key, plane_entry, generation=plane_generation)
+                        self._observe_prefetch(ctx)
+                        return self._tile_response(ctx, plane_entry, inm, source)
+                    # not confirmed: the full path answers 403, 404 or 503
+                    # (and never admits the fetched bytes under an
+                    # unverified session)
+            if entry is not None:
+                if inm and self.etag_precheck and etag_matches(inm, entry.etag):
+                    # the client already holds these exact bytes:
+                    # revalidation discloses nothing, so it answers before
+                    # the session join
+                    return 304, self._cache_headers(entry.etag), b""
                 if await self._authorize_cached(ctx):
-                    self.cache.put(key, plane_entry, generation=plane_generation)
                     self._observe_prefetch(ctx)
-                    return self._tile_response(ctx, plane_entry, inm, source)
-                # not confirmed: the full path answers 403, 404 or 503 (and
-                # never admits the fetched bytes under an unverified session)
-        if entry is not None:
-            if inm and self.etag_precheck and etag_matches(inm, entry.etag):
-                # the client already holds these exact bytes: revalidation
-                # discloses nothing, so it answers before the session join
-                return 304, self._cache_headers(entry.etag), b""
-            if await self._authorize_cached(ctx):
-                self._observe_prefetch(ctx)
-                return self._tile_response(ctx, entry, inm, "hit")
-            # not confirmed: the full path answers 403, 404 or 503
+                    return self._tile_response(ctx, entry, inm, "hit")
+                # not confirmed: the full path answers 403, 404 or 503
         ctx.deadline = Deadline.after(self.request_budget_s)
         permit = None
         served = False
         try:
-            try:
-                permit = await self.scheduler.acquire(ctx.priority, ctx.deadline,
-                                                      degradable=_degradable(ctx))
-            except TileError as e:
-                if rec is not None and isinstance(e, ServiceUnavailableError):
-                    rec.tag("shed_at", "queue")  # acquire's only 503 is a shed
-                return _failure(e)
-            if rec is not None and permit.queued_s > 0.0:
-                rec.stamp("queue_wait", permit.queued_s)
             full_res_key = None
-            if permit.degraded:
-                # the next-lower level, upscaled, under its own key; the
-                # full-resolution key is kept for a flight that comes back
-                # undegraded (no coarser level)
-                ctx.degraded = 1
-                full_res_key, key = key, ctx.cache_key(quality)
-                entry = await self.cache.get(key)
-                if entry is not None and await self._authorize_cached(ctx):
-                    return self._tile_response(ctx, entry, inm, "hit", degraded=1)
+            if sched is not None:
+                try:
+                    permit = await sched.acquire(ctx.priority, ctx.deadline,
+                                                 degradable=_degradable(ctx))
+                except TileError as e:
+                    if rec is not None and isinstance(e, ServiceUnavailableError):
+                        rec.tag("shed_at", "queue")  # acquire's only 503 is a shed
+                    return _failure(e)
+                if rec is not None and permit.queued_s > 0.0:
+                    rec.stamp("queue_wait", permit.queued_s)
+                if permit.degraded:
+                    # the next-lower level, upscaled, under its own key;
+                    # the full-resolution key is kept for a flight that
+                    # comes back undegraded (no coarser level)
+                    ctx.degraded = 1
+                    if cache is not None:
+                        full_res_key, key = key, ctx.cache_key(quality)
+                        entry = await cache.get(key)
+                        if entry is not None and await self._authorize_cached(ctx):
+                            return self._tile_response(ctx, entry, inm, "hit", degraded=1)
             try:
-                if plane_pending is not None:
+                if key is None:
+                    # no result cache: this request's own execution
+                    body, meta = await self.worker.handle(ctx)
+                    entry = CachedTile(body, etag="", filename=meta["filename"])
+                    degraded = int(meta.get("degraded", 0))
+                elif plane_pending is not None:
                     # the hedge fired: the local render races the peer fetch
                     reply, early = await self._hedged_fetch(
                         ctx, key, full_res_key, plane_epoch, plane_pending, plane_generation,
@@ -1131,12 +1188,14 @@ class TileServer:
                 plane_pending.cancel()  # every exit cancels an unconsumed hedge
             if permit is not None:
                 # failures do not train the service-time estimate
-                self.scheduler.release(permit, train=served)
-        # the full path validated the session and resolved the image under
-        # its ACL: the verdict serves this pair's hits for a while
-        self._authz_record(ctx)
+                sched.release(permit, train=served)
+        if cache is not None:
+            # the full path validated the session and resolved the image
+            # under its ACL: the verdict serves this pair's hits a while
+            self._authz_record(ctx)
         self._observe_prefetch(ctx)
-        return self._tile_response(ctx, entry, inm, "miss", degraded=degraded)
+        return self._tile_response(ctx, entry, inm, "miss" if cache is not None else None,
+                                   degraded=degraded)
 
     def _observe_prefetch(self, ctx: TileCtx) -> None:
         """Feed a served tile or render to the prefetcher; histogram
@@ -1159,19 +1218,21 @@ class TileServer:
         must not keep them."""
         return {"ETag": etag, "Cache-Control": f"private, max-age={self.max_age_s}"}
 
-    def _tile_response(self, ctx: TileCtx, entry: CachedTile, inm: str, x_cache: str,
-                       degraded: int = 0) -> Tuple[int, dict, bytes]:
+    def _tile_response(self, ctx: TileCtx, entry: CachedTile, inm: str,
+                       x_cache: Optional[str], degraded: int = 0) -> Tuple[int, dict, bytes]:
         """200 with the body, or 304 when ``inm`` matches its ETag; a
-        degraded body is tagged ``X-OMPB-Degraded`` (the levels down)."""
+        degraded body is tagged ``X-OMPB-Degraded`` (the levels down).
+        An entry without an ETag (no result cache) carries none of the
+        cache's headers and never answers 304."""
         tag = {"X-OMPB-Degraded": str(degraded)} if degraded else {}
-        if inm and etag_matches(inm, entry.etag):
+        if inm and entry.etag and etag_matches(inm, entry.etag):
             return 304, {**self._cache_headers(entry.etag), **tag}, b""
         t_frame = time.perf_counter()
         headers = {
             "Content-Type": CONTENT_TYPES.get(ctx.format, "application/octet-stream"),
             "Content-Disposition": f'attachment; filename="{entry.filename}"',
-            **self._cache_headers(entry.etag),
-            "X-Cache": x_cache,
+            **(self._cache_headers(entry.etag) if entry.etag else {}),
+            **({"X-Cache": x_cache} if x_cache else {}),
             **tag,
         }
         if ctx.obs is not None:
@@ -1302,7 +1363,8 @@ class TileServer:
         if epoch is not None:
             # stamped on the open buffer before the pipeline drops it
             self.pipeline.pixels_service.note_epoch(image_id, epoch)
-        self.cache.invalidate_image(image_id)
+        if self.cache is not None:
+            self.cache.invalidate_image(image_id)
         if self.prefetcher is not None:
             self.prefetcher.invalidate_image(image_id)
         self._authz_purge(image_id)
@@ -1807,14 +1869,16 @@ class TileServer:
         if not await self._ingest_allowed(image_id, key):
             return 403, {}, f"Cannot write Image:{image_id}".encode()
         permit = None
-        try:
-            # a write is never degradable, and it must not train the
-            # viewer models: a linear acquisition scan is the canonical
-            # sweep, and the writer's own viewers would be demoted
-            permit = await self.scheduler.acquire(
-                PRIORITY_INTERACTIVE, Deadline.after(self.request_budget_s), degradable=False)
-        except TileError as e:
-            return _failure(e)
+        if self.scheduler is not None:
+            try:
+                # a write is never degradable, and it must not train the
+                # viewer models: a linear acquisition scan is the canonical
+                # sweep, and the writer's own viewers would be demoted
+                permit = await self.scheduler.acquire(
+                    PRIORITY_INTERACTIVE, Deadline.after(self.request_budget_s),
+                    degradable=False)
+            except TileError as e:
+                return _failure(e)
         try:
             plane = self.ingest
 
@@ -1836,7 +1900,8 @@ class TileServer:
         finally:
             # a multi-second shard rebuild must not inflate the read
             # service-time estimate
-            self.scheduler.release(permit, train=False)
+            if permit is not None:
+                self.scheduler.release(permit, train=False)
         epoch = None
         plane = self.cache_plane
         if plane is not None and plane.epochs is not None:
@@ -1963,7 +2028,8 @@ class TileServer:
         device IDCT's (``jpeg``: its mode, calls and device ms), the read
         plane's (``io``: store requests, coalescing, bytes, chunk decodes,
         the connection pool) and the stores' circuit breakers
-        (``breakers``, with the retry counts under ``retries``), the flight
+        (``breakers``, with the retry counts under ``retries``), whether the
+        process holds a CUDA context (``cuda_initialized``), the flight
         recorder's (``obs``: started, kept, dropped, the ring, the SLI burn
         rates) and the prefetcher's (``prefetch``). The status
         is "degraded" (still 200) while a breaker is open, every execution
@@ -1984,15 +2050,20 @@ class TileServer:
                          else {"enabled": False}),
             "session": self._session_snapshot(),
             "ingest": self._ingest_snapshot(),
-            "slo": {**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()},
+            "slo": ({**self.scheduler.snapshot(), "sweep": self.sweep_detector.snapshot()}
+                    if self.scheduler is not None else {"enabled": False}),
             "admission": admission,
             "protocols": {**self.protocols_enabled,
                           "requests": protocols.request_counts()},
             "watchdog": watchdog,
             "deadline": rdeadline.snapshot(),
             "request_budget_ms": self.request_budget_s * 1000.0,
-            "device": str(self.pipeline.device),
+            "device": (str(self.pipeline.device) if self.pipeline.device is not None
+                       else "host"),
             "gpu": self.gpu,
+            # whether this process holds a CUDA context (never on the host
+            # engine); a query, it creates none
+            "cuda_initialized": torch.cuda.is_initialized(),
             "kernels": launch_counts(),
             "host_engine": loaded_host_engine(),
             "host_png_lanes": self.pipeline.host_png_lanes,
@@ -2026,6 +2097,8 @@ class TileServer:
         return out
 
     def _result_cache_snapshot(self) -> dict:
+        if self.cache is None:
+            return {"enabled": False}  # the JAX ``cache`` view
         out = self.cache.snapshot()
         if self.cache_plane is not None:
             out["plane"] = self.cache_plane.snapshot()
@@ -2088,13 +2161,17 @@ class TileServer:
             "session_store": type(self.session_store).__name__,
             "session_validator": type(self.session_validator).__name__,
             "engine": cfg.backend.engine,
+            "pipeline_engine": self.pipeline.engine,
             "batching": {"buckets": list(self.pipeline.buckets), "max_batch": w.max_batch,
                          "coalesce_window_ms": w.coalesce_window_s * 1000.0,
                          "burst_window_ms": w.burst_window_s * 1000.0, "workers": w.workers},
-            "cache": {"memory_bytes": self.cache.memory.max_bytes,
-                      "protected_fraction": cfg.cache.protected_fraction,
-                      "ttl_s": self.cache.ttl_s, "max_entry_bytes": self.cache.max_entry_bytes,
-                      "max_age_s": self.max_age_s, "etag_precheck": self.etag_precheck},
+            "cache": ({"memory_bytes": self.cache.memory.max_bytes,
+                       "protected_fraction": cfg.cache.protected_fraction,
+                       "ttl_s": self.cache.ttl_s, "max_entry_bytes": self.cache.max_entry_bytes,
+                       "max_age_s": self.max_age_s, "etag_precheck": self.etag_precheck}
+                      if self.cache is not None else {"enabled": False}),
+            "png": {"filter": self.pipeline.png_filter, "level": self.pipeline.png_level,
+                    "strategy": self.pipeline.png_strategy},
             "breaker": {"enabled": BOARD.enabled, **BOARD.defaults},
             "io_timeout_ms": timeouts.io_timeout_s() * 1000.0,
             "supertile": {"enabled": w.supertile, "limits": list(w.supertile_limits)},
@@ -2110,31 +2187,12 @@ class TileServer:
 ABSENT_PLANES: Tuple[Tuple[str, object], ...] = ()
 
 
-def _refused(key: str, why: str) -> ConfigError:
-    return ConfigError(f"'{key}' is not supported by the PyTorch port: {why}")
-
-
 def check_planes(config: Config) -> List[str]:
     """Decide once what the port does with the planes it does not have:
-    raise ``ConfigError`` (naming the key and its ``ROADMAP.md`` item) for
-    an opt-in plane or a value the port cannot honour, and return the
-    default-on planes that are enabled, which start absent with one
-    warning each."""
-    if config.backend.engine == "host":
-        raise _refused("backend.engine", "the whole-host engine is ROADMAP.md §1 item 11")
-    if not config.backend.batching.device_encode:
-        raise _refused("backend.batching.device-encode",
-                       "the whole-host engine is ROADMAP.md §1 item 11")
-    if not config.cache.enabled:
-        raise _refused("cache.enabled", "the front always serves through the result cache")
-    if not config.slo.enabled:
-        raise _refused("slo.enabled", "the front always schedules with the SLO scheduler")
-    png = config.backend.png
-    for key, value, default in (("filter", png.filter, "up"), ("level", png.level, 6),
-                                ("strategy", png.strategy, "fast")):
-        if value != default:
-            raise _refused(f"backend.png.{key}",
-                           f"host PNG encoding is fixed at the default {default!r}")
+    return the default-on planes that are enabled, which start absent
+    with one warning each (none is left). Every value the JAX package's
+    ``Config`` accepts is served; the ``jax:`` block is parsed and has no
+    effect."""
     if config.jax.compilation_cache_dir:
         log.warning("the jax: block has no effect on the PyTorch port")
     absent = [name for name, on in ABSENT_PLANES if on(config)]
@@ -2182,9 +2240,15 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
     -> pipeline -> batcher -> HTTP front, every key reaching the object it
     reaches in JAX. ``dev`` takes the echo session store; ``packer`` is
     the bit packer (default ``OMPB_BITPACK``, else ``pallas`` on CUDA).
-    On CUDA the kernels are built (or found built) here, so a build
-    failure stops start-up; the host engine and the LUT registry are
-    built (or found) here too."""
+    The pipeline takes the ``backend.png`` policy and the engine as the
+    JAX app maps it: ``backend.engine: host`` or
+    ``backend.batching.device-encode: false`` is the host engine; ``jax``,
+    ``auto``, ``device`` and ``tpu`` are the CUDA device engine (no link
+    probe: the card is required). On the device engine on CUDA the kernels are
+    built (or found built) here, so a build failure stops start-up; the
+    host engine builds no kernel and makes no CUDA call (``device`` is
+    not read). The native host engine and the LUT registry are built (or
+    found) here too."""
     from ..auth.ice import IceSessionValidator
     from ..auth.stores import make_session_store
     from ..io.fetch import configure as configure_fetch
@@ -2213,8 +2277,12 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
     if config.session_store.synchronicity == "sync":
         log.warning("session-store.synchronicity: sync no longer serializes lookups; "
                     "the key is accepted for compatibility only")
+    be = config.backend
+    engine = "host" if be.engine == "host" or not be.batching.device_encode else "device"
     if pixels_service is None:
-        pixels_service = _pixels_service(config, device)
+        # the host engine's opt-in JPEG device IDCT runs its CPU version:
+        # the process never touches the card
+        pixels_service = _pixels_service(config, device if engine == "device" else "cpu")
     if session_validator is None:
         if config.omero_validate_sessions:
             session_validator = IceSessionValidator(
@@ -2223,18 +2291,19 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
                 cache_ttl_s=config.omero_session_validation_ttl_s)
         else:
             session_validator = AllowListValidator()
-    be = config.backend
     pipeline = TilePipeline(
         pixels_service, buckets=tuple(be.batching.buckets), queue_depth=be.png.queue_depth,
         device=device, device_deflate_mode=be.png.device_deflate_mode, packer=packer,
         device_deflate=be.png.device_deflate, lut_dir=config.render.lut_dir,
         max_tile_bytes=be.max_tile_mb << 20, supertile_mesh=config.supertile.mesh,
+        png_filter=be.png.filter, png_level=be.png.level, png_strategy=be.png.strategy,
+        engine=engine,
     )
     host_engine()
     if config.render.enabled:
         pipeline.lut_registry  # noqa: B018 - read the LUT directory before serving
     gpu, kernels = None, {}
-    if pipeline.device.type == "cuda":
+    if pipeline.device is not None and pipeline.device.type == "cuda":
         from ..ops.kernels import _build
 
         built = _build.build()
@@ -2271,6 +2340,7 @@ def create_server(
     queue_size: Optional[int] = None, request_budget_ms: Optional[float] = None,
     obs: bool = True, head_sample_rate: Optional[float] = None, prefetch: bool = False,
     session: Optional[dict] = None, ingest: Optional[dict] = None, mesh: Optional[dict] = None,
+    png: Optional[dict] = None, cache: bool = True, slo: bool = True,
 ) -> TileServer:
     """The service over a JSON registry with in-memory sessions (the echo
     store with ``dev``), the other keys at the JAX defaults: ``wire`` of
@@ -2285,22 +2355,24 @@ def create_server(
     ``obs.head-sample-rate`` and ``prefetch`` ``cache.prefetch.enabled``
     (off unless asked, as the JAX app of the HTTP contract tests runs);
     ``session``, ``ingest`` and ``mesh`` are the ``session:``, ``ingest:``
-    and ``mesh:`` blocks (default: the JAX defaults)."""
+    and ``mesh:`` blocks (default: the JAX defaults); ``png`` adds
+    ``backend.png`` keys (``filter``, ``level``, ``strategy``), ``cache``
+    is ``cache.enabled`` and ``slo`` ``slo.enabled``."""
     raw = {
         "session-store": {"type": "memory"},
         "image-registry": registry_path,
         "backend": {"batching": {"buckets": list(buckets)},
                     "png": {"device-deflate": device_deflate,
                             "device-deflate-mode": deflate_mode,
-                            "queue-depth": queue_depth}},
+                            "queue-depth": queue_depth, **(png or {})}},
         "render": {"lut-dir": lut_dir},
         "supertile": {"enabled": supertile_enabled},
         "resilience": {"admission": {} if max_inflight is None
                        else {"max-inflight": max_inflight}},
-        "slo": {} if queue_size is None else {"queue-size": queue_size},
+        "slo": {"enabled": slo, **({} if queue_size is None else {"queue-size": queue_size})},
         "obs": {"enabled": obs} if head_sample_rate is None
         else {"enabled": obs, "head-sample-rate": head_sample_rate},
-        "cache": {"prefetch": {"enabled": prefetch}},
+        "cache": {"enabled": cache, "prefetch": {"enabled": prefetch}},
         "session": session or {},
         "ingest": ingest or {},
         "mesh": mesh or {},

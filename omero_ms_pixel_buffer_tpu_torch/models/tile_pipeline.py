@@ -1,6 +1,14 @@
 """The tile pipeline (counterpart of ``TilePipeline`` in
 ``omero_ms_pixel_buffer_tpu/models/tile_pipeline.py``; raw, PNG and TIFF
-lanes on the device engine, PNG with device deflate in any of its modes).
+lanes on the device engine, PNG with device deflate in any of its modes,
+and the whole-host engine).
+
+The PNG encode policy (``png_filter``, ``png_level``, ``png_strategy``:
+the YAML ``backend.png`` keys) reaches every PNG route and the cache key
+(``encode_signature``). The device filter has the five fixed modes;
+``adaptive`` lanes take the host PNG route by configuration, before any
+submission, and render lanes filter ``up`` under it. ``engine="host"``
+serves every lane without a device (below).
 
     resolve (metadata, buffer, level, region) -> plane-cache staging ->
     batched host reads -> PNG lanes padded into shape buckets ->
@@ -91,6 +99,14 @@ a failure there answers 500 (JAX: a host encode). With
 ``supertile_mesh`` is False, which serves their lanes independently;
 histograms reduce with ``sharded_histogram_batch``.
 
+The host engine (``engine="host"``, the JAX ``handle_batch`` with
+``use_device`` false): PNG lanes take ``_host_png_lanes`` (one fused native
+call, else ``encode`` per lane), render lanes the host mirror
+(``render_png_host``, JPEG through ``encode_jpeg``), super-tiles one host
+composite and host carves, histograms ``histogram_host`` (path ``host``
+in ``analysis_histograms_total``); raw and TIFF lanes are as on the
+device engine. No device object exists and no CUDA call is made.
+
 Deadlines: ``resolve`` and every single-lane read check the lane's
 ``Deadline`` (else the ambient one); a spent budget leaves the lane None,
 which the batcher answers 504.
@@ -146,6 +162,7 @@ from ..parallel.mesh import MeshManager, make_mesh
 from ..parallel.sharding import distributed_filter_plane, pad_batch, sharded_batch_filter
 from ..ops.png import (
     _PNG_DTYPES,
+    FILTER_CODES,
     PNG_FILTER,
     PNG_LEVEL,
     PNG_STRATEGY,
@@ -174,6 +191,9 @@ log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.pipeline")
 # allocation guard: a w/h=0 request on a huge plane must not materialize
 # more than this (the JAX package's backend.max-tile-mb default)
 MAX_TILE_BYTES = 256 << 20
+# the engines: ``device`` (the card; the JAX ``jax``/``auto``/``device``/
+# ``tpu``) and ``host`` (no device at all; the JAX ``host``)
+ENGINES = ("device", "host")
 
 
 class ResolvedTile:
@@ -216,18 +236,29 @@ class DeferredTile:
 
 
 class TilePipeline:
-    """Device engine: every PNG lane is Up-filtered and deflated on
-    ``device`` (default ``cuda``; raises without a GPU) in
-    ``device_deflate_mode`` (``dynamic``, the JAX package's default,
-    ``rle`` or ``stored``: the YAML key ``backend.png.device-deflate-mode``)
-    with the bit packer ``packer`` (default
-    ``device_deflate.default_packer``); with ``device_deflate=False`` it
-    is filtered on the device and deflated on the host. ``lut_dir``
-    holds operator ``.lut`` files for render lanes; ``max_tile_bytes``
-    bounds a lane's pixels (a projection's whole stack). Only tests pass
-    ``device="cpu"``, which runs the kernels' plain versions."""
+    """``engine="device"`` (the default): every PNG lane is filtered with
+    ``png_filter`` and deflated on ``device`` (default ``cuda``; raises
+    without a GPU) in ``device_deflate_mode`` (``dynamic``, the JAX
+    package's default, ``rle`` or ``stored``: the YAML key
+    ``backend.png.device-deflate-mode``) with the bit packer ``packer``
+    (default ``device_deflate.default_packer``); with
+    ``device_deflate=False`` it is filtered on the device and deflated on
+    the host at ``png_level``/``png_strategy``. Filter ``adaptive`` has no
+    device form: those PNG lanes take the host PNG route by configuration
+    (``_host_png_lanes``, counted in ``host_png_lanes``), and render
+    lanes filter with ``up`` (``render_filter_mode``).
 
-    engine = "device"
+    ``engine="host"`` (the JAX ``backend.engine: host``, or
+    ``backend.batching.device-encode: false``) touches no device: no
+    ``resolve_device``, encode queue, plane cache or mesh, and no CUDA
+    call. PNG lanes take ``_host_png_lanes``, render lanes and super-tiles
+    the host mirror, histograms ``histogram_host``; raw and TIFF lanes are
+    the same on both engines. ``device`` is None there.
+
+    ``lut_dir`` holds operator ``.lut`` files for render lanes;
+    ``max_tile_bytes`` bounds a lane's pixels (a projection's whole
+    stack). Only tests pass ``device="cpu"``, which runs the kernels'
+    plain versions."""
 
     def __init__(
         self,
@@ -241,19 +272,39 @@ class TilePipeline:
         lut_dir: Optional[str] = None,
         max_tile_bytes: int = MAX_TILE_BYTES,
         supertile_mesh: bool = True,
+        png_filter: str = PNG_FILTER,
+        png_level: int = PNG_LEVEL,
+        png_strategy: str = PNG_STRATEGY,
+        engine: str = "device",
     ):
         if device_deflate_mode not in DEFLATE_MODES:
             raise ValueError(f"Unknown device deflate mode: {device_deflate_mode}")
+        if engine not in ENGINES:
+            raise ValueError(f"Unknown engine: {engine}")
+        self.engine = engine
         self.device_deflate_mode = device_deflate_mode
-        self.device = resolve_device(device)
+        self.png_filter, self.png_level, self.png_strategy = png_filter, png_level, png_strategy
+        # PNG lanes go to the device only on the device engine with a
+        # filter the device has; render lanes take the device chain only
+        # with device deflate on the device engine
+        self._device_png = engine == "device" and png_filter in FILTER_CODES
+        self._fused = engine == "device" and device_deflate
+        self._render_filter = rengine.render_filter_mode(png_filter)
         self.pixels_service = pixels_service
         self.buckets = tuple(sorted(buckets))
-        self.plane_cache = DevicePlaneCache(self.device)
-        self.dispatcher = DeviceEncodeDispatcher(
-            self.device, queue_depth=queue_depth, packer=packer)
+        self.device: Optional[torch.device] = None
+        self.plane_cache: Optional[DevicePlaneCache] = None
+        self.dispatcher: Optional[DeviceEncodeDispatcher] = None
+        if engine == "device":
+            self.device = resolve_device(device)
+            self.plane_cache = DevicePlaneCache(self.device)
+            self.dispatcher = DeviceEncodeDispatcher(
+                self.device, queue_depth=queue_depth, packer=packer)
         self.device_deflate = device_deflate
         self.max_tile_bytes = max_tile_bytes
-        self.host_png_lanes = 0  # lanes larger than every bucket, host-encoded
+        # PNG lanes encoded on the host (larger than every bucket, filter
+        # ``adaptive``, or the host engine)
+        self.host_png_lanes = 0
         self.host_deflate_lanes = 0  # device-filtered lanes deflated on the host
         # render state: the LUT registry (built on first use), the
         # per-(spec, dtype) table memo, the ROI raster cache, render lanes
@@ -279,16 +330,17 @@ class TilePipeline:
         self._stats_ms = {"st": 0.0, "hist": 0.0, "read": 0.0, "batch": 0.0, "stage_read": 0.0}
         self._st_events: List[tuple] = []  # (start, end, bytes) per fused group
         self._epoch = 0  # invalidations seen: the open buffers' epoch token
-        # the serving mesh: "auto", an injected Mesh, or None; its manager
-        # is built with it at the first batch
-        self.mesh = "auto"
+        # the serving mesh: "auto", an injected Mesh, or None (always on
+        # the host engine); its manager is built with it at the first batch
+        self.mesh = "auto" if engine == "device" else None
         self.supertile_mesh = bool(supertile_mesh)
         self._mesh_lock = threading.Lock()
         self._mesh_manager: Optional[MeshManager] = None
         self.distributed_lanes = 0  # lanes of the distributed plane route
 
     def close(self) -> None:
-        self.dispatcher.close()
+        if self.dispatcher is not None:
+            self.dispatcher.close()
 
     # -- the serving mesh ------------------------------------------------------
 
@@ -297,6 +349,8 @@ class TilePipeline:
         the visible CUDA devices when more than one is visible (else
         None); an injected mesh gets its ``MeshManager``, handed to the
         encode queue."""
+        if self.engine == "host":
+            return None
         with self._mesh_lock:
             if isinstance(self.mesh, str):
                 self.mesh = None
@@ -334,13 +388,19 @@ class TilePipeline:
         ns = self.pixels_service.invalidate(image_id)
         if ns is None:
             return
-        self.plane_cache.invalidate_ns(ns)
+        if self.plane_cache is not None:
+            self.plane_cache.invalidate_ns(ns)
         self.pixels_service.block_cache.purge_ns(ns)
 
-    def plane_cache_snapshot(self) -> dict:
-        return self.plane_cache.snapshot()
+    def plane_cache_snapshot(self) -> Optional[dict]:
+        """``/healthz`` ``plane_cache``; None on the host engine, which
+        never builds one (the JAX shape)."""
+        return None if self.plane_cache is None else self.plane_cache.snapshot()
 
-    def device_queue_snapshot(self) -> dict:
+    def device_queue_snapshot(self) -> Optional[dict]:
+        """``/healthz`` ``queue``; None on the host engine."""
+        if self.dispatcher is None:
+            return None
         return {"deflate_mode": self.device_deflate_mode, **self.dispatcher.snapshot()}
 
     # -- render state ------------------------------------------------------
@@ -421,7 +481,7 @@ class TilePipeline:
             st = self._stats
             return {
                 "hist_tables_cached": len(self._hist_tables),
-                "device": str(self.device),
+                "device": str(self.device) if self.device is not None else "host",
                 "device_groups": st["hist_groups"],
                 "device_lanes": st["hist_lanes"],
                 "failed_groups": st["hist_failed_groups"],
@@ -473,8 +533,9 @@ class TilePipeline:
 
     def encode_signature(self) -> str:
         """The 'quality' part of the result-cache key: the PNG encode
-        policy the bytes depend on."""
-        return f"{PNG_FILTER}.{PNG_LEVEL}.{PNG_STRATEGY}"
+        policy the bytes depend on, so a new policy gives new keys and
+        ETags."""
+        return f"{self.png_filter}.{self.png_level}.{self.png_strategy}"
 
     # -- resolve / read ----------------------------------------------------
 
@@ -623,7 +684,7 @@ class TilePipeline:
             return to_big_endian_bytes_np(tile).tobytes()
         if fmt == "png":
             try:
-                return encode_png(tile, PNG_FILTER, PNG_LEVEL, PNG_STRATEGY)
+                return encode_png(tile, self.png_filter, self.png_level, self.png_strategy)
             except PngEncodeError:
                 log.error("PNG encode failed for %s", tile.dtype)
                 return None
@@ -677,7 +738,7 @@ class TilePipeline:
 
         mesh = self._get_mesh()
         plane_groups, plane_handles = {}, {}
-        if mesh is None:
+        if mesh is None and self._device_png:
             # with a mesh the sharded bucket route serves these lanes
             plane_groups, plane_handles = self._stage_plane_lanes(ctxs, resolved)
         in_plane = {i for lanes in plane_groups.values() for i in lanes}
@@ -719,12 +780,16 @@ class TilePipeline:
                 continue
             bucket = None
             if ctx.format == "png" and _png_lane(tile):
-                bucket = self._bucket(tile.shape[1], tile.shape[0])
+                if self._device_png:
+                    bucket = self._bucket(tile.shape[1], tile.shape[0])
                 if bucket is None:
-                    if mesh is not None and tile.ndim == 2 and PNG_FILTER == "up":
+                    if (self._device_png and mesh is not None and tile.ndim == 2
+                            and self.png_filter == "up"):
                         sp_lanes.append(i)  # rows sharded over the mesh
                     else:
-                        host_lanes.append(i)  # larger than every bucket
+                        # larger than every bucket, filter adaptive, or
+                        # the host engine
+                        host_lanes.append(i)
                     continue
             if bucket is not None:
                 samples = 1 if tile.ndim == 2 else 3
@@ -808,17 +873,19 @@ class TilePipeline:
         return None
 
     def _host_png_lanes(self, lanes, tiles, ctxs, results) -> None:
-        """PNG lanes larger than every bucket, on the host: one fused
-        native call for all of them, or ``encode`` per lane without the
-        native engine (and for a lane the engine failed)."""
+        """PNG lanes on the host (larger than every bucket, filter
+        ``adaptive``, the host engine): one fused native call for all of
+        them, or ``encode`` per lane without the native engine, for a
+        filter it lacks (``average``, ``paeth``, ``adaptive``) and for a
+        lane it failed."""
         self.host_png_lanes += len(lanes)
         engine = get_engine()
         encoded = None
         if engine is not None:
             with stage_all([ctxs[i] for i in lanes], "encode"):
                 encoded = engine.png_encode_batch(
-                    [tiles[i] for i in lanes], filter_mode=PNG_FILTER, level=PNG_LEVEL,
-                    strategy=PNG_STRATEGY)
+                    [tiles[i] for i in lanes], filter_mode=self.png_filter,
+                    level=self.png_level, strategy=self.png_strategy)
         if encoded is None:
             encoded = [None] * len(lanes)
         for i, png in zip(lanes, encoded):
@@ -910,7 +977,7 @@ class TilePipeline:
         bpp = samples * itemsize
         try:
             return self.dispatcher.submit(
-                batch, h, 1 + w * bpp, bpp, PNG_FILTER,
+                batch, h, 1 + w * bpp, bpp, self.png_filter,
                 self.device_deflate_mode, idxs,
                 [(w, h)] * len(idxs), itemsize * 8, 0 if samples == 1 else 2,
                 staged=staged,
@@ -942,9 +1009,9 @@ class TilePipeline:
         if mesh is not None:
             padded, real = pad_batch(bits_tensor(batch), mesh.size)
             filtered = sharded_batch_filter(mesh, padded, samples * dtype.itemsize,
-                                            PNG_FILTER)[:real]
+                                            self.png_filter)[:real]
         else:
-            filtered = filter_tiles(bits_tensor(batch).to(self.device), PNG_FILTER)
+            filtered = filter_tiles(bits_tensor(batch).to(self.device), self.png_filter)
         sizes = [(tiles[i].shape[1], tiles[i].shape[0]) for i in lanes]
         self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize,
                                samples)
@@ -953,7 +1020,8 @@ class TilePipeline:
         """Crops of a resident plane filtered on the device; only the
         filtered scanlines come back, for the host deflate tail."""
         coords = [(resolved[i].y, resolved[i].x) for i in lanes]
-        filtered = filter_tiles(self.plane_cache.crop_batch(plane, coords, bh, bw), PNG_FILTER)
+        filtered = filter_tiles(self.plane_cache.crop_batch(plane, coords, bh, bw),
+                                self.png_filter)
         sizes = [(resolved[i].w, resolved[i].h) for i in lanes]
         self._finish_png_lanes(filtered.cpu().numpy(), lanes, sizes, results, dtype.itemsize)
 
@@ -990,11 +1058,11 @@ class TilePipeline:
             pngs = engine.png_assemble_batch(
                 payloads, [w for w, _ in sizes], [h for _, h in sizes],
                 [bit_depth] * len(lanes), [color_type] * len(lanes),
-                level=PNG_LEVEL, strategy=PNG_STRATEGY)
+                level=self.png_level, strategy=self.png_strategy)
         for j, (i, png) in enumerate(zip(lanes, pngs)):
             w, h = sizes[j]
             results[i] = png if png is not None else assemble_png(
-                payloads[j], w, h, bit_depth, color_type, PNG_LEVEL, PNG_STRATEGY)
+                payloads[j], w, h, bit_depth, color_type, self.png_level, self.png_strategy)
 
     # -- render lanes ------------------------------------------------------
 
@@ -1010,7 +1078,7 @@ class TilePipeline:
         mirror (JPEG, larger than every bucket, ``device_deflate=False``).
         Returns [(lanes, group future)]. A lane that cannot render stays
         None (404); a projection stack over budget gets a 413 marker."""
-        use_fused = self.device_deflate
+        use_fused = self._fused
         pending = []
         st_groups: Dict[int, List[int]] = {}
         for i in idxs:
@@ -1074,6 +1142,7 @@ class TilePipeline:
                 slots = [None] * len(coords)
                 per_lane[i] = slots
                 use_cache = (spec.projection is not None and upscale is None
+                             and self.plane_cache is not None
                              and _plane_cacheable(buf, rt.meta.dtype))
                 # a lane whose crops are all resident stays on the device:
                 # the fused route, unsigned pixels (no view needed, no
@@ -1167,7 +1236,7 @@ class TilePipeline:
                     mask = torch.from_numpy(
                         bucket_mask_batch([stacks[i].mask for i in lanes], bh, bw))
                 fut = self.dispatcher.submit_render(
-                    batch, tables, luts, h, 1 + w * 3, PNG_FILTER, "rle", lanes,
+                    batch, tables, luts, h, 1 + w * 3, self._render_filter, "rle", lanes,
                     [(w, h)] * len(lanes), mask=mask, staged=is_dev)
             except Exception as e:
                 fut = self.dispatcher.failed_group(e)
@@ -1232,7 +1301,8 @@ class TilePipeline:
             coords = [(z, ch.index, t, bx, by, bw_, bh_) for ch in chans for (z, t) in zts]
         slots: List[Optional[np.ndarray]] = [None] * len(coords)
         missing, owners = [], []
-        use_cache = upscale is None and _plane_cacheable(buf, dtype)
+        use_cache = (upscale is None and self.plane_cache is not None
+                     and _plane_cacheable(buf, dtype))
         for j, coord in enumerate(coords):
             arr = self._plane_cache_region(buf, read_level, coord, dtype) if use_cache else None
             if arr is not None:
@@ -1317,7 +1387,7 @@ class TilePipeline:
             try:
                 fut = self.dispatcher.submit_supertile(
                     stack, tables, luts, [(rel[j][0], rel[j][1], w, h) for j in js], w, h,
-                    PNG_FILTER, "rle", lane_ids)
+                    self._render_filter, "rle", lane_ids)
                 self._count(st_encode_groups=1)
             except Exception as e:
                 fut = self.dispatcher.failed_group(e)
@@ -1337,7 +1407,7 @@ class TilePipeline:
                     with self.dispatcher.stream_context():
                         tiles = torch.cat([t for _, t in parts])
                 fut = self.dispatcher.submit(
-                    tiles, h, 1 + w * 3, 3, PNG_FILTER, "rle", lane_ids,
+                    tiles, h, 1 + w * 3, 3, self._render_filter, "rle", lane_ids,
                     [(w, h)] * len(lane_ids), 8, 2, staged=True)
                 self._count(st_encode_groups=1)
             except Exception as e:
@@ -1391,7 +1461,7 @@ class TilePipeline:
             try:
                 tile_rgb = stile.carve_host(rgb, rx, ry, rt.w, rt.h)
                 if spec.format == "png":
-                    results[i] = rengine.png_from_rgb_host(tile_rgb, PNG_FILTER)
+                    results[i] = rengine.png_from_rgb_host(tile_rgb, self._render_filter)
                 else:
                     results[i] = rengine.encode_jpeg(np.ascontiguousarray(tile_rgb), spec.quality)
             except Exception:
@@ -1411,7 +1481,8 @@ class TilePipeline:
                 stack = self._pull_crop(stack, lane.dtype)
             tables, luts = self._render_tables_for(lane.spec, lane.dtype)
             if spec.format == "png":
-                results[i] = rengine.render_png_host(stack, tables, luts, PNG_FILTER, lane.mask)
+                results[i] = rengine.render_png_host(stack, tables, luts, self._render_filter,
+                                                     lane.mask)
             else:
                 rgb = rengine.render_host(stack, tables, luts, lane.mask)
                 results[i] = rengine.encode_jpeg(rgb, spec.quality)
@@ -1563,8 +1634,9 @@ class TilePipeline:
 
     def _reduce_histogram_jobs(self, jobs, ctxs, resolved, results) -> None:
         """Group the staged (plane, table) pairs by shape and reduce each
-        group in one ``histogram_batch`` on the device; a group that fails
-        answers 500 for its lanes (no host mirror behind it)."""
+        group in one ``histogram_batch`` on the device (``histogram_host``
+        on the host engine); a device group that fails answers 500 for its
+        lanes (no host mirror behind it)."""
         counts_map: Dict[Tuple[int, int], np.ndarray] = {}
         groups: Dict[tuple, List[Tuple[int, int]]] = {}
         for j, (i, entry) in enumerate(jobs):
@@ -1576,6 +1648,13 @@ class TilePipeline:
         for (_shape, _dstr, _k, bins), members in groups.items():
             planes = np.stack([jobs[j][1][e][2] for j, e in members])
             tabs = np.stack([jobs[j][1][e][3] for j, e in members])
+            if self.device is None:
+                # the host engine: the numpy reduction (path host)
+                counts = ranalysis.histogram_host(planes, tabs, bins)
+                ranalysis.HIST_TILES.inc(len(members), path="host")
+                for (j, e), c in zip(members, counts):
+                    counts_map[(j, e)] = c
+                continue
             events = None
             if self.device.type == "cuda":
                 events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))

@@ -791,6 +791,37 @@ def fused_filter_deflate_batch(
     return streams[:b], lengths[:b]
 
 
+def fused_filter_deflate_dynamic(
+    tiles: torch.Tensor, rows: int, row_bytes: int, bpp: int,
+    filter_mode: str = "up", packer: Optional[str] = None,
+):
+    """Both ``dynamic`` passes back to back (the microbenchmark and other
+    callers outside the encode queue): pass 1, one pull of the counts,
+    the host plan, pass 2. ((B, cap) uint8 streams, (B,) lengths)."""
+    flat, counts, extras, b = fused_filter_histogram_batch(
+        tiles, rows, row_bytes, bpp, filter_mode=filter_mode)
+    return dynamic_emit_batch(flat, counts.cpu().numpy(), extras.cpu().numpy(),
+                              packer=packer, real=b)
+
+
+def deflate_filtered_batch(
+    filtered: torch.Tensor, rows: int, row_bytes: int, mode: str = "rle",
+    packer: Optional[str] = None,
+):
+    """Streams of already-filtered scanlines (B, H, 1 + W*bpp) on the
+    device, possibly bucket-padded: ((B, cap) uint8 zlib streams, (B,)
+    lengths) of the leading ``rows`` x ``row_bytes`` of each lane in a
+    one-pass ``mode`` (``rle`` or ``stored``; the JAX package's
+    ``deflate_filtered_batch``, which the microbenchmark times)."""
+    if mode not in ("rle", "stored"):
+        raise ValueError(f"Unknown one-pass device deflate mode: {mode}")
+    packer = resolve_packer(packer, filtered.device)
+    filtered, b = _pad_pow2_lanes(filtered)
+    flat = filtered[:, :rows, :row_bytes].reshape(filtered.shape[0], -1)
+    streams, lengths = _streams_core(flat, mode, packer)
+    return streams[:b], lengths[:b]
+
+
 # ---------------------------------------------------------------------------
 # Host twin of the rle stream (the render host mirror's encoder)
 # ---------------------------------------------------------------------------

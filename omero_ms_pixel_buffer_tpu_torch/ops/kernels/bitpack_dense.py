@@ -30,10 +30,28 @@ import torch
 from .bitpack import TB, _check_args, _MASK, _words_to_bytes, block_bases, launch_tiles
 
 SPAN = (TB * 21 + 31) // 32 + 2  # words one block can touch (21-bit tokens)
-# the formulation's int ops per token: two (SPAN, TB) compare-select-add
-# sweeps plus the log-step offset scan (the JAX package's
-# ``emit_ops_per_token("dense")``)
-OPS_PER_TOKEN = 2 * 3 * SPAN + 2 * (TB.bit_length() - 1)
+_LOG_TB = TB.bit_length() - 1
+
+
+def emit_ops_per_token(kind: str) -> float:
+    """The TPU emit formulations' int ops per token, analytical (a copy of
+    the JAX package's ``ops/pallas/bitpack.py`` ``emit_ops_per_token``):
+    ``dense`` touches every (word, token) cell of a block's (SPAN, TB)
+    one-hot twice at ~3 ops, plus the log-step offset scan; ``sp`` runs
+    three log-step block prefix sums over TB lanes and, per word, a
+    log2(TB)-step binary search and two boundary gathers, over the
+    block's TB tokens."""
+    if kind == "dense":
+        return 2 * 3 * SPAN + 2 * _LOG_TB
+    if kind == "sp":
+        per_block = (3 * 2 * _LOG_TB * TB + SPAN * (4 * _LOG_TB + 8) + 6 * TB)
+        return per_block / TB
+    raise ValueError(f"unknown emit kind: {kind}")
+
+
+# the dense formulation's int ops per token: two (SPAN, TB)
+# compare-select-add sweeps plus the log-step offset scan
+OPS_PER_TOKEN = emit_ops_per_token("dense")
 _CHUNK_BYTES = 512 << 20  # largest int64 temporary of the plain version
 DENSE_TILE = 4096  # tokens per CTA of the kernel (csrc/bitpack_dense.cu)
 

@@ -5,10 +5,12 @@ The device path builds complete zlib streams (``ops/device_deflate``);
 the host frames them into PNG chunks (``frame_png``). ``filter_batch``
 is the plain PyTorch filter — the contract the CUDA filter kernel
 (``ops/kernels/filter.py``) is held to — and ``filter_rows_np`` is the
-numpy reference both are tested against. ``encode_png`` is the host
-encode of one tile (numpy filter + Python zlib): the single-request
-route, and the route of lanes larger than every bucket when the native
-engine is missing.
+numpy reference both are tested against; it alone has the ``adaptive``
+mode (the device filter has the five fixed modes). ``encode_png`` is the
+host encode of one tile (numpy filter + Python zlib) under any filter,
+level and strategy: the single-request route, and the host PNG route
+(lanes larger than every bucket, the host engine, ``adaptive`` lanes)
+wherever the native engine is missing or lacks the filter.
 """
 
 from __future__ import annotations
@@ -37,8 +39,11 @@ _PNG_DTYPES = {
 }
 
 
-# the JAX package's PNG encode policy defaults (backend.png: filter,
-# level, strategy)
+# the PNG encode policy's defaults (backend.png: filter, level, strategy);
+# a pipeline takes its own policy (``TilePipeline(png_filter=, png_level=,
+# png_strategy=)``). ``filter`` is one of ``FILTER_CODES`` or ``adaptive``
+# (host only), ``strategy`` one of ``ZLIB_STRATEGIES`` (an unknown name is
+# zlib's default strategy, as in the JAX package)
 PNG_FILTER = "up"
 PNG_LEVEL = 6
 PNG_STRATEGY = "fast"
@@ -145,28 +150,40 @@ def _paeth_predictor(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def _residual(rows: np.ndarray, a: np.ndarray, b: np.ndarray, code: int) -> np.ndarray:
+    """The filtered bytes of ``rows`` under filter ``code`` (``a``: the
+    byte to the left, ``b``: the byte above)."""
+    if code == FILTER_NONE:
+        return rows
+    if code == FILTER_SUB:
+        return rows - a
+    if code == FILTER_UP:
+        return rows - b
+    if code == FILTER_AVERAGE:
+        avg = (a.astype(np.uint16) + b.astype(np.uint16)) >> 1
+        return rows - avg.astype(np.uint8)
+    return rows - _paeth_predictor(a, b, _shift_up(a))
+
+
 def filter_rows_np(rows: np.ndarray, bpp: int, mode: str = "none") -> np.ndarray:
     """Filter a (H, row_bytes) byte matrix; returns (H, 1+row_bytes) with
-    the filter-type byte prepended per row."""
-    if mode not in FILTER_CODES:
-        raise ValueError(f"Unknown filter mode: {mode}")
+    the filter-type byte prepended per row. ``mode`` is one of
+    ``FILTER_CODES`` or ``adaptive``: per row, the filter whose residual
+    has the least sum of |signed byte| (the first on a tie)."""
     h = rows.shape[0]
-    code = FILTER_CODES[mode]
     a = _shift_left(rows, bpp)
     b = _shift_up(rows)
-    if code == FILTER_NONE:
-        res = rows
-    elif code == FILTER_SUB:
-        res = rows - a
-    elif code == FILTER_UP:
-        res = rows - b
-    elif code == FILTER_AVERAGE:
-        avg = (a.astype(np.uint16) + b.astype(np.uint16)) >> 1
-        res = rows - avg.astype(np.uint8)
-    else:
-        res = rows - _paeth_predictor(a, b, _shift_up(a))
-    filt = np.full((h, 1), code, dtype=np.uint8)
-    return np.concatenate([filt, res], axis=1)
+    if mode in FILTER_CODES:
+        code = FILTER_CODES[mode]
+        filt = np.full((h, 1), code, dtype=np.uint8)
+        return np.concatenate([filt, _residual(rows, a, b, code)], axis=1)
+    if mode != "adaptive":
+        raise ValueError(f"Unknown filter mode: {mode}")
+    cands = np.stack([_residual(rows, a, b, code) for code in range(5)])  # (5, H, RB)
+    costs = np.abs(cands.astype(np.int8).astype(np.int32)).sum(axis=2)  # (5, H)
+    best = costs.argmin(axis=0)
+    chosen = cands[best, np.arange(h)]
+    return np.concatenate([best.astype(np.uint8)[:, None], chosen], axis=1)
 
 
 # ---------------------------------------------------------------------------

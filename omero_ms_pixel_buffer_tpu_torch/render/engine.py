@@ -20,7 +20,9 @@ the composite, the ROI mask multiply, the PNG filter kernel on
 (B, H, W, 3) uint8 and the ``rle`` or ``stored`` stream build. The host
 mirror (``render_host``, ``render_png_host``, the numpy filter and
 ``zlib_rle_np``) is copied and gives the same bytes; JPEG goes through
-Pillow where it is installed.
+Pillow where it is installed. Render lanes filter with the configured PNG
+filter, except ``adaptive`` (host only), which ``render_filter_mode`` pins
+to ``up`` on the device and on the host mirror alike.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from ..ops.device_deflate import (
     zlib_rle_np,
 )
 from ..ops.kernels.filter import filter_tiles
-from ..ops.png import filter_rows_np, frame_png
+from ..ops.png import FILTER_CODES, filter_rows_np, frame_png
 from .luts import LUT_SIZE, LutRegistry
 from .model import ChannelSpec, RenderSpec
 from ..utils.metrics import REGISTRY
@@ -66,6 +68,14 @@ DEFAULT_COLORS: Tuple[Tuple[int, int, int], ...] = (
 MAX_COMPOSITE_CHANNELS = 16  # request sanity, not arithmetic safety
 
 QUANT_BINS = 65536  # the quantized (u16) index space
+
+
+def render_filter_mode(png_filter: str) -> str:
+    """The PNG filter of render lanes under the configured ``png_filter``:
+    itself when the device filter has it, else ``up`` (``adaptive``), so
+    the device chain and the host mirror give the same bytes (the JAX
+    pipeline's ``_render_filter_mode``)."""
+    return png_filter if png_filter in FILTER_CODES else "up"
 
 
 class RenderError(ValueError):

@@ -3,7 +3,8 @@ resilience/admission.py``): at most ``max_inflight`` requests execute at
 once. Under the SLO scheduler a full counter means "wait in the queue",
 not a shed; the scheduler counts its own sheds through ``count_shed`` so
 that ``shed_total`` (and ``resilience_shed_total``) stays the one number.
-``has_headroom`` gates the prefetcher's speculative work."""
+``has_headroom`` gates the prefetcher's speculative work; ``try_acquire``
+is the binary door gate of a front without the scheduler."""
 
 from __future__ import annotations
 
@@ -34,6 +35,14 @@ class AdmissionController:
         self._inflight = 0
         self._shed = 0
         self._lock = threading.Lock()
+
+    def try_acquire(self) -> bool:
+        """Take a slot, or count a shed: the binary door gate's test
+        (``slo.enabled: false``)."""
+        if self.try_slot():
+            return True
+        self.count_shed()
+        return False
 
     def try_slot(self) -> bool:
         """Take a slot if one is free (the scheduler's probe; a full gate

@@ -206,11 +206,16 @@ def test_logging_setup_matches_jax(tmp_path):
 
 # -- the port's wiring ----------------------------------------------------------------
 
-def _config(**blocks):
+def _raw(**blocks):
+    """The shipped config's dict with each ``a__b`` key set."""
     raw = copy.deepcopy(SHIPPED_RAW)
     for key, value in blocks.items():
         _set(raw, tuple(key.split("__")), value)
-    return pconfig.Config.from_dict(raw)
+    return raw
+
+
+def _config(**blocks):
+    return pconfig.Config.from_dict(_raw(**blocks))
 
 
 def test_shipped_config_starts_with_five_planes_absent():
@@ -234,13 +239,92 @@ def test_shipped_config_starts_with_five_planes_absent():
     ("backend__png__level", 9, "backend.png.level"),
     ("backend__png__strategy", "default", "backend.png.strategy"),
 ])
-def test_opt_in_planes_stop_startup(key, value, named):
-    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes
+def test_opt_in_planes_stop_startup(key, value, named, restore_process_state):
+    """The values the port once refused at start-up (the whole-host
+    engine, the cache and the scheduler turned off, a PNG policy other
+    than ``up``/6/``fast``) now start: ``check_planes`` passes them, and
+    ``wire`` builds what the JAX app builds for them (the host engine with
+    no device object; no result cache, single-flight or prefetcher; no
+    scheduler or sweep detector; the policy in the pipeline and its cache
+    key). Serving under each value is held against the JAX app in
+    ``test_torch_host_engine.py``, ``test_torch_planes_off.py`` and
+    ``test_torch_png_policy.py``."""
+    from omero_ms_pixel_buffer_tpu_torch.http.server import check_planes, wire
 
     config = _config(**{key: value})  # a valid config to both parsers
-    with pytest.raises(pconfig.ConfigError, match=named.replace(".", r"\.") + ".*ROADMAP|"
-                       + named.replace(".", r"\.") + ".*port"):
-        check_planes(config)
+    assert dataclasses.asdict(config) == dataclasses.asdict(
+        jconfig.Config.from_dict(_raw(**{key: value})))
+    assert check_planes(config) == []
+    server = wire(config, device="cpu")
+    try:
+        pipe, health = server.pipeline, server.health()
+        host = named in ("backend.engine", "backend.batching.device-encode")
+        assert pipe.engine == ("host" if host else "device")
+        assert (pipe.dispatcher is None) == host and (health["plane_cache"] is None) == host
+        assert (server.cache is None) == (named == "cache.enabled")
+        assert (server.prefetcher is None) == (named == "cache.enabled")
+        assert (health["result_cache"] == {"enabled": False}) == (named == "cache.enabled")
+        assert (server.scheduler is None) == (named == "slo.enabled")
+        assert (health["slo"] == {"enabled": False}) == (named == "slo.enabled")
+        png = config.backend.png
+        assert pipe.encode_signature() == f"{png.filter}.{png.level}.{png.strategy}"
+        assert health["config"]["png"] == {"filter": png.filter, "level": png.level,
+                                           "strategy": png.strategy}
+    finally:
+        server.pipeline.close()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("backend__png__level", "abc"),
+    ("backend__engine", "gpu"),
+    ("backend__png__filter", "bogus"),
+    ("backend__png__strategy", "bogus"),
+], ids=["level-not-an-integer", "unknown-engine", "unknown-filter", "unknown-strategy"])
+def test_invalid_png_policy_answers_as_jax(key, value, tmp_path):
+    """An invalid value answers as the JAX package does: the parser's
+    exception and message where the JAX ``Config`` refuses it (a level
+    that is not an integer, an unknown engine); where it accepts it (an
+    unknown filter or strategy: the JAX ``Config`` checks neither), the
+    same lone PNG request gives the same answer in both pipelines (None,
+    a 404, for an unknown filter; zlib's default strategy for an unknown
+    one)."""
+    raw = _raw(**{key: value})
+    try:
+        jconfig.Config.from_dict(copy.deepcopy(raw))
+    except Exception as e:
+        with pytest.raises(Exception) as got:
+            pconfig.Config.from_dict(copy.deepcopy(raw))
+        assert (type(got.value).__name__, str(got.value)) == (type(e).__name__, str(e))
+        return
+    import numpy as np
+
+    from omero_ms_pixel_buffer_tpu.io.ometiff import write_ome_tiff
+    from omero_ms_pixel_buffer_tpu.io.pixels_service import ImageRegistry as JaxRegistry
+    from omero_ms_pixel_buffer_tpu.io.pixels_service import PixelsService as JaxService
+    from omero_ms_pixel_buffer_tpu.models.tile_pipeline import TilePipeline as JaxPipeline
+    from omero_ms_pixel_buffer_tpu.tile_ctx import RegionDef as JaxRegion
+    from omero_ms_pixel_buffer_tpu.tile_ctx import TileCtx as JaxCtx
+    from omero_ms_pixel_buffer_tpu_torch.io.pixels_service import ImageRegistry, PixelsService
+    from omero_ms_pixel_buffer_tpu_torch.models.tile_pipeline import TilePipeline
+    from omero_ms_pixel_buffer_tpu_torch.tile_ctx import RegionDef, TileCtx
+
+    png = pconfig.Config.from_dict(copy.deepcopy(raw)).backend.png
+    path = str(tmp_path / "img.ome.tiff")
+    write_ome_tiff(path, np.arange(64 * 96, dtype=np.uint16).reshape(1, 1, 1, 64, 96))
+    jreg, reg = JaxRegistry(), ImageRegistry()
+    jreg.add(1, path)
+    reg.add(1, path)
+    policy = dict(png_filter=png.filter, png_level=png.level, png_strategy=png.strategy)
+    jax_pipe = JaxPipeline(JaxService(jreg), engine="host", **policy)
+    port = TilePipeline(PixelsService(reg), device="cpu", **policy)
+    try:
+        want = jax_pipe.handle(JaxCtx(1, 0, 0, 0, JaxRegion(0, 0, 64, 48), format="png"))
+        got = port.handle(TileCtx(1, 0, 0, 0, RegionDef(0, 0, 64, 48), format="png"))
+        assert got == want
+        assert (got is None) == (key == "backend__png__filter")
+    finally:
+        jax_pipe.close()
+        port.close()
 
 
 @pytest.mark.parametrize("key,value,named", [

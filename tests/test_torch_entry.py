@@ -3,9 +3,10 @@ CPU: ``python -m omero_ms_pixel_buffer_tpu_torch --config FILE --device
 cpu`` with Redis sessions in a RESP stub answers 403 for an unknown
 session and a 200 PNG whose bytes equal the JAX pipeline's for the same
 lone request, and exits 0 on SIGTERM; ``debug-context`` prints the
-wiring; ``--dev --registry`` with no config file serves; a config that
-turns on a plane the port lacks exits 2 naming the key. Tolerance: zero
-(statuses, bytes, exit codes)."""
+wiring; ``--dev --registry`` with no config file serves; the whole-host
+engine (``backend.engine: host``, ``device-encode: false``) serves with
+``--device cuda`` and no card. Tolerance: zero (statuses, bytes, exit
+codes)."""
 
 import asyncio
 import http.client
@@ -152,15 +153,49 @@ def test_dev_registry_without_a_config_file_serves(tmp_path, registry):
     ("backend:\n  batching:\n    device-encode: false\n", "backend.batching.device-encode"),
     ("backend:\n  engine: host\n", "backend.engine"),
 ])
-def test_unsupported_plane_exits_2_naming_the_key(tmp_path, block, named):
+def test_unsupported_plane_exits_2_naming_the_key(tmp_path, registry, block, named):
+    """The whole-host engine, once refused with exit code 2, starts from
+    ``--config`` with ``--device cuda`` on a host with no card (the host
+    engine reads no device): the lone PNG request's bytes are the JAX host
+    engine's, ``/healthz`` names the host engine and no plane cache, and
+    SIGTERM exits 0. ``debug-context`` prints the host engine."""
+    from omero_ms_pixel_buffer_tpu.io.pixels_service import ImageRegistry as JaxRegistry
+    from omero_ms_pixel_buffer_tpu.io.pixels_service import PixelsService as JaxService
+    from omero_ms_pixel_buffer_tpu.models.tile_pipeline import TilePipeline as JaxPipeline
+    from omero_ms_pixel_buffer_tpu.tile_ctx import RegionDef as JaxRegion
+    from omero_ms_pixel_buffer_tpu.tile_ctx import TileCtx as JaxCtx
+
     cfg = tmp_path / "config.yaml"
-    cfg.write_text("session-store:\n  type: memory\n" + block)
+    cfg.write_text(f"session-store:\n  type: memory\nimage-registry: {registry}\nport: 0\n"
+                   + block)
     out = subprocess.run(
-        [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", "--config", str(cfg),
-         "--device", "cpu", "--port", "0"], capture_output=True, text=True, timeout=300,
-        env=ENV, cwd=str(tmp_path))
-    assert out.returncode == 2
-    assert f"'{named}'" in out.stderr and "ROADMAP.md" in out.stderr
+        [sys.executable, "-m", "omero_ms_pixel_buffer_tpu_torch", "debug-context", "--config",
+         str(cfg), "--device", "cuda"], capture_output=True, text=True, timeout=300, env=ENV,
+        cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "pipeline: engine=host" in out.stdout and "kernels: none" in out.stdout
+    proc, port = _start(["--config", str(cfg), "--dev", "--device", "cuda"], str(tmp_path))
+    try:
+        status, body = _get(port, TILE, "k")
+        jreg = JaxRegistry()
+        jreg.add(1, json.loads(open(registry).read())["images"][0]["path"])
+        jax_pipe = JaxPipeline(JaxService(jreg), engine="host")
+        try:
+            want = jax_pipe.handle(JaxCtx(1, 0, 0, 0, JaxRegion(40, 20, 128, 96), format="png",
+                                          omero_session_key="k"))
+        finally:
+            jax_pipe.close()
+        assert status == 200 and body == want
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        assert health["config"]["pipeline_engine"] == "host" and health["device"] == "host"
+        assert health["plane_cache"] is None and health["gpu"] is None
+        # the configured engine name stays as written; the pipeline's is host
+        assert health["config"]["engine"] == ("host" if named == "backend.engine" else "jax")
+    finally:
+        assert _stop(proc) == 0
 
 
 def test_ingest_and_mesh_config_starts_writes_and_exits_0(tmp_path):
