@@ -1,0 +1,8 @@
+"""Device: the share of the window in which no kernel, copy or memset ran
+on the card (the union of their intervals in the trace)."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
