@@ -88,7 +88,8 @@ Phases, one JSON line each on stdout:
    through ``/debug/requests/{traceId}`` to a kept record with a
    ``device`` stage whose stages sum to no more than its total. Reports
    ``device_idle_share``: the ``device_queue_idle_seconds`` sum over the
-   window's seconds.
+   window's seconds, a device-clock reading (the gaps between the encode
+   queue's group segments, from their CUDA events).
 5b. ``path_prefetch`` — a fresh server with the prefetcher on
    (``create_server(prefetch=True)``): one session pans 512² tiles along a
    row, 12 steps of ``/tile`` PNG, then 12 of ``/render`` (image 1, one
@@ -1380,7 +1381,10 @@ def drive_obs(registry: str, data: np.ndarray, timed, seed: int, device: str = "
     exemplar's trace id resolves through ``/debug/requests/{traceId}`` to a
     kept record with a ``device`` stage whose stages sum to no more than its
     total (up to their rounding to 0.001 ms each). ``device_idle_share`` is
-    the ``device_queue_idle_seconds`` sum over the window's seconds."""
+    the ``device_queue_idle_seconds`` sum over the window's seconds: the
+    device-clock gaps between the encode queue's group segments (CUDA
+    timing events), so the share of the window the queue's stream idled
+    between groups."""
     from omero_ms_pixel_buffer_tpu_torch.ops.kernels import (
         launch_counts,
         reset_launch_counts,

@@ -31,7 +31,12 @@ lane deadline ambient (``deadline_scope``), so store retries and the
 fetch planner stop once no lane can use their result, and with its first
 lane's flight record ambient (``record_scope``), so exemplars deep in the
 pipeline and the encode queue name a trace. Each lane's record is stamped
-``batch_wait`` (enqueue to batch execution) and tagged ``batch_size``.
+``batch_wait`` (enqueue to batch execution) and tagged ``batch_size``,
+and gets ``ready_at`` on the worker thread where its answer came to exist
+(the executor's return; for a deferred lane, its group's resolution on
+the readback thread); ``handle`` observes the time from there to its
+resumption as ``request_handoff_seconds``, the answer's wait for the
+serving loop.
 Served tiles, batch sizes, deduplicated lanes, dispatched batches and
 burst continuations go to ``/metrics`` under the JAX names.
 
@@ -58,6 +63,7 @@ import concurrent.futures
 import contextvars
 import logging
 import os
+import threading
 import time
 from typing import List, Optional, Set, Tuple
 
@@ -70,7 +76,7 @@ from ..errors import (
     TileError,
 )
 from ..models.tile_pipeline import DeferredTile, TilePipeline
-from ..obs.recorder import record_scope
+from ..obs.recorder import REQUEST_HANDOFF_SECONDS, record_scope
 from ..render.supertile import MAX_PIXELS, MIN_COVERAGE, MIN_LANES, assign_supertiles
 from ..resilience.deadline import deadline_scope, note_exceeded
 from ..resilience.scheduler import DeadlineQueue
@@ -202,6 +208,8 @@ class BatchingTileWorker:
         except asyncio.TimeoutError:
             note_exceeded("bus")
             raise GatewayTimeoutError() from None
+        if rec is not None and rec.ready_at is not None:
+            REQUEST_HANDOFF_SECONDS.observe(time.perf_counter() - rec.ready_at)
         if tile is None:
             if ctx.expired:
                 note_exceeded("pipeline")
@@ -360,8 +368,17 @@ class BatchingTileWorker:
         lead_rec = next((c.obs for c in ctxs if c.obs is not None), None)
         with deadline_scope(batch_deadline), record_scope(lead_rec):
             run_ctx = contextvars.copy_context()
+        recs = [c.obs for c, _ in batch if c.obs is not None]
+
+        def run():
+            out = run_ctx.run(work)
+            t_ready = time.perf_counter()
+            for rec in recs:
+                rec.ready_at = t_ready
+            return out
+
         try:
-            results = await loop.run_in_executor(self._executor, lambda: run_ctx.run(work))
+            results = await loop.run_in_executor(self._executor, run)
         except Exception:
             log.exception("batch execution failed")
             for _, f in batch:
@@ -374,7 +391,7 @@ class BatchingTileWorker:
                 lane_ctx.region = ctx.region  # resolved w/h for the filename
                 lane_ctx.degraded = ctx.degraded
             if isinstance(result, DeferredTile):
-                self._chain_deferred(loop, result, [lf for _, lf in lanes])
+                self._chain_deferred(loop, result, lanes)
                 continue
             for _, lane_fut in lanes:
                 if lane_fut.done():
@@ -385,8 +402,21 @@ class BatchingTileWorker:
                     lane_fut.set_result(result)
 
     @staticmethod
-    def _chain_deferred(loop, deferred: DeferredTile, futs) -> None:
+    def _chain_deferred(loop, deferred: DeferredTile, lanes) -> None:
+        """Deliver a deferred lane's answer to its lanes' futures on the
+        loop. A group that resolves after the batch came back stamps
+        ``ready_at`` on the readback thread; one already resolved keeps
+        the batch's stamp (its callback runs here, on the loop)."""
+        futs = [f for _, f in lanes]
+        recs = [c.obs for c, _ in lanes if c.obs is not None]
+        loop_thread = threading.get_ident()
+
         def on_done(cfut):
+            if threading.get_ident() != loop_thread:
+                t_ready = time.perf_counter()
+                for rec in recs:
+                    rec.ready_at = t_ready
+
             def deliver():
                 exc = cfut.exception()
                 for lane_fut in futs:

@@ -50,13 +50,26 @@ device copy, enqueued; then from the launch of the group's last kernel on
 the submit thread: ``compute`` to the readback thread's event wait for a
 one-pass group, or for a dynamic group ``hist`` to the pass-1 counts on
 the host and ``emit`` over the host plan and pass 2; ``d2h``: the stream
-pull; ``frame``: the PNG framing), and ``device_queue_idle_seconds``, the
-gap between one group's compute finishing (its last event wait returned)
-and the next group's first kernel enqueue (0 when that launch came
-first). The submit and readback threads carry the submitting request's
-flight record (``record_scope``), so the stage observations' exemplars
-name its trace. ``snapshot()`` keeps the finer per-group host stage
-means of ``STAGES``.
+pull; ``frame``: the PNG framing), and ``device_queue_idle_seconds``, on
+the device's clock: the gap from the end event of the group segment
+recorded last on a device to the start event of the next (0 when they
+overlapped), where a segment is a one-pass, render or mesh group's device
+work, or one pass of a dynamic group. The submit and readback threads
+carry the submitting request's flight record (``record_scope``), so the
+stage observations' exemplars name its trace.
+
+``snapshot()`` keeps, per completed group, the host stages of ``STAGES``:
+the queue's three waits (``submit_wait``, enqueue to the submit thread;
+``slot_wait``, the in-flight slot; ``readback_wait``, hand-off to the
+readback thread) and the work laps on the two threads. Beside them, each
+thread's work spans on two clocks (``threads``: wall and the thread's own
+CPU, leaving out the slot wait, the event waits and the mesh's
+synchronise; a CPU share under 100 % is time the thread waited to run),
+and each group's device span from CUDA timing events (``device_ms_total``
+by kind over ``device_groups``). Every lap, wait and device program
+enqueue enters a profiler range while a profiler runs
+(``obs.recorder.profiler_range``): ``ompb.queue.<stage>`` for the laps and
+waits, ``ompb.prog.<program>`` for the device programs.
 """
 
 from __future__ import annotations
@@ -79,7 +92,14 @@ from ..ops.device_deflate import (
     resolve_packer,
     tables_from_numpy,
 )
-from ..obs.recorder import current_record, defer_exemplar, record_scope
+from ..obs.recorder import (
+    close_range,
+    current_record,
+    defer_exemplar,
+    open_range,
+    profiler_range,
+    record_scope,
+)
 from ..ops.png import frame_png
 from ..parallel.sharding import (
     sharded_dynamic_emit,
@@ -95,12 +115,18 @@ from ..utils.metrics import REGISTRY
 
 log = logging.getLogger("omero_ms_pixel_buffer_tpu_torch.device_dispatch")
 
-# per-group stage timings (host wall clock, seconds): H2D + the first
-# launch on the submit thread; then on the readback thread, for a dynamic
-# group the wait for pass 1 with the counts pull, the host Huffman plan
-# and pass 2 launch + wait, for a one-pass group the wait for its chain
-# (compute); for every group the stream pull and the PNG framing
-STAGES = ("stage", "pass1_wait", "plan", "pass2", "compute", "pull", "frame")
+# per-group stage timings (host wall clock, seconds): the wait for the
+# submit thread, the wait for an in-flight slot, then H2D + the first
+# launch on the submit thread; the wait for the readback thread; then on
+# it, for a dynamic group the wait for pass 1 with the counts pull, the
+# host Huffman plan and pass 2 launch + wait, for a one-pass group the
+# wait for its chain (compute); for every group the stream pull and the
+# PNG framing
+STAGES = ("submit_wait", "slot_wait", "stage", "readback_wait", "pass1_wait", "plan",
+          "pass2", "compute", "pull", "frame")
+# the kinds of device span a group has (a dynamic group has two)
+DEVICE_KINDS = ("tiles", "dynamic_pass1", "dynamic_pass2", "render", "mesh")
+THREADS = ("submit", "readback")
 
 DEVICE_STAGE_SECONDS = REGISTRY.histogram(
     "device_stage_seconds",
@@ -109,8 +135,8 @@ DEVICE_STAGE_SECONDS = REGISTRY.histogram(
 )
 DEVICE_QUEUE_IDLE_SECONDS = REGISTRY.histogram(
     "device_queue_idle_seconds",
-    "Device idle gap between one encode group's compute finishing and "
-    "the next group's launch (0-bucketed when the launch overlapped)",
+    "Device-clock gap from the last encode group segment's end event on a "
+    "device to the next segment's start event (0 when they overlapped)",
 )
 
 
@@ -135,10 +161,82 @@ def _pad_lanes(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, pad])
 
 
-def _sync_mesh(mesh) -> None:
-    """Wait for every slot's current stream (the readback thread's)."""
-    for dev in {s.device for s in mesh.slots if s.device.type == "cuda"}:
-        torch.cuda.current_stream(dev).synchronize()
+def _mesh_streams(mesh) -> list:
+    """The current stream (this thread's) of every CUDA slot device."""
+    return [torch.cuda.current_stream(dev)
+            for dev in {s.device for s in mesh.slots if s.device.type == "cuda"}]
+
+
+def _gap_s(prev, start) -> Optional[float]:
+    """Seconds on the device's clock from ``prev`` (an end event, or None)
+    to ``start``; 0 when ``prev`` had not yet happened when ``start`` did."""
+    if prev is None:
+        return None
+    if not prev.query():
+        return 0.0
+    return max(0.0, prev.elapsed_time(start)) / 1e3
+
+
+class _ThreadClock:
+    """One thread's work span on two clocks, wall (``perf_counter``) and
+    the thread's own CPU (``thread_time``), the explicit waits inside it
+    (``pause``/``resume``) left out of both."""
+
+    __slots__ = ("wall", "cpu", "_w", "_c")
+
+    def __init__(self):
+        self.wall = self.cpu = 0.0
+        self.resume()
+
+    def resume(self) -> None:
+        self._w, self._c = time.perf_counter(), time.thread_time()
+
+    def pause(self) -> None:
+        self.wall += time.perf_counter() - self._w
+        self.cpu += time.thread_time() - self._c
+
+
+class _Lap:
+    """One host lap of a group: its seconds into ``timing[name]`` and its
+    profiler range."""
+
+    __slots__ = ("timing", "name", "range", "t0", "t1")
+
+    def __init__(self, timing: dict, name: str, rec):
+        self.timing, self.name = timing, name
+        self.range = profiler_range(f"queue.{name}", rec)
+
+    def __enter__(self) -> "_Lap":
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = time.perf_counter()
+        self.timing[self.name] = self.t1 - self.t0
+        self.range.__exit__(*exc)
+
+
+class _GroupClock:
+    """What one group carries from its enqueue to its readback: its
+    flight record, its host waits and the open wait's start and range."""
+
+    __slots__ = ("rec", "waits", "_name", "_t0", "_range")
+
+    def __init__(self, rec):
+        self.rec = rec
+        self.waits: Dict[str, float] = {}
+        self._name = None
+
+    def begin(self, name: str) -> None:
+        self._name, self._t0 = name, time.perf_counter()
+        self._range = open_range(f"queue.{name}", self.rec)
+
+    def end(self) -> None:
+        if self._name is not None:
+            self.waits[self._name] = time.perf_counter() - self._t0
+            close_range(self._range)
+            self._name = None
 
 
 def _observe_stage(duration: float, stage: str) -> None:
@@ -183,7 +281,15 @@ class DeviceEncodeDispatcher:
         self._render_groups = 0
         self._composite_ms = 0.0  # device ms of render groups' composites
         self._composite_n = 0
-        self._last_compute_done: Optional[float] = None
+        self._device_ms = dict.fromkeys(DEVICE_KINDS, 0.0)
+        self._device_n = 0
+        self._thread_s = {name: [0.0, 0.0] for name in THREADS}  # wall, CPU
+        # the end event of the segment recorded last on each device, and
+        # the lock that keeps that order the devices' own
+        self._last_end: Dict[int, object] = {}
+        self._ev_lock = threading.Lock()
+        # the running thread's work clock (the waits pause it)
+        self._tls = threading.local()
         # the serving mesh (None: one device), the raw-tile group shapes it
         # has served and the (width, shape) pairs warmed
         self.mesh_manager = None
@@ -205,18 +311,57 @@ class DeviceEncodeDispatcher:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _mark(self):
-        """Record an event on the side stream (None on the CPU)."""
-        if self._stream is None:
+    def _open_segment(self, stream=None):
+        """A timing event opening a group segment on ``stream`` (default:
+        the side stream), with the end event recorded last on its device
+        before it: (start, previous end). None on the CPU."""
+        stream = stream or self._stream
+        if stream is None:
             return None
-        ev = torch.cuda.Event()
-        ev.record(self._stream)
+        ev = torch.cuda.Event(enable_timing=True)
+        with self._ev_lock:
+            ev.record(stream)
+            return ev, self._last_end.get(stream.device_index)
+
+    def _close_segment(self, stream=None):
+        """A timing event closing a group segment on ``stream`` (default:
+        the side stream); the threads wait on it. None on the CPU."""
+        stream = stream or self._stream
+        if stream is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        with self._ev_lock:
+            ev.record(stream)
+            self._last_end[stream.device_index] = ev
         return ev
 
-    @staticmethod
-    def _wait(ev) -> None:
-        if ev is not None:
+    def _wait(self, ev) -> None:
+        """Wait for ``ev``, outside this thread's work clock."""
+        if ev is None:
+            return
+        clock = getattr(self._tls, "clock", None)
+        if clock is not None:
+            clock.pause()
+        try:
             ev.synchronize()
+        finally:
+            if clock is not None:
+                clock.resume()
+
+    def _sync_mesh(self, mesh) -> None:
+        """Close a segment on every slot's current stream (the readback
+        thread's) and wait for them; the ends are left for the group's
+        device span (``_tls.mesh_ends``)."""
+        ends = [(s, self._close_segment(s)) for s in _mesh_streams(mesh)]
+        for _, ev in ends:
+            self._wait(ev)
+        self._tls.mesh_ends = {s.device_index: ev for s, ev in ends}
+
+    def _add_thread(self, name: str, clock: _ThreadClock) -> None:
+        with self._stats_lock:
+            acc = self._thread_s[name]
+            acc[0] += clock.wall
+            acc[1] += clock.cpu
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -237,9 +382,11 @@ class DeviceEncodeDispatcher:
         encoded, groups failed, in-flight count, per stage (``STAGES``)
         the completed groups that ran it, their total milliseconds and the
         mean over them, render groups submitted, the device time of the
-        completed render groups' composites (CUDA only) and, with a mesh,
-        the group shapes it has served and the widths warmed. Two views
-        differ by what ran between them."""
+        completed render groups' composites (CUDA only), the submit and
+        readback threads' work milliseconds on the wall and CPU clocks,
+        the completed groups' device milliseconds by kind and their count
+        (CUDA only) and, with a mesh, the group shapes it has served and
+        the widths warmed. Two views differ by what ran between them."""
         mesh = None
         if self.mesh_manager is not None:
             with self._warm_lock:
@@ -264,6 +411,10 @@ class DeviceEncodeDispatcher:
                 "render_groups": self._render_groups,
                 "composite_groups": self._composite_n,
                 "composite_device_ms_total": self._composite_ms,
+                "threads": {name: {"wall_ms": w * 1e3, "cpu_ms": c * 1e3}
+                            for name, (w, c) in self._thread_s.items()},
+                "device_groups": self._device_n,
+                "device_ms_total": dict(self._device_ms),
             }
 
     # -- submission --------------------------------------------------------
@@ -335,10 +486,12 @@ class DeviceEncodeDispatcher:
         fut.add_done_callback(self._discard_pending)
         with self._stats_lock:
             self._groups += 1
+        group = _GroupClock(current_record())
+        group.begin("submit_wait")
         try:
-            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame,
-                                     current_record())
+            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame, group)
         except RuntimeError as e:  # close() raced the check
+            group.end()
             self._fail(fut, e)
         return fut
 
@@ -382,98 +535,122 @@ class DeviceEncodeDispatcher:
             self._inflight -= 1
         self._slots.release()
 
-    # -- queue telemetry -------------------------------------------------------
+    # -- the two threads ------------------------------------------------------
 
-    def _note_launch(self, t_launch: float) -> None:
-        """A group's first kernel is being enqueued: the idle gap since the
-        last group's compute finished (0 when it had not yet)."""
-        with self._stats_lock:
-            last = self._last_compute_done
-        if last is not None:
-            DEVICE_QUEUE_IDLE_SECONDS.observe(max(0.0, t_launch - last))
-
-    def _note_compute_done(self, t_done: float) -> None:
-        with self._stats_lock:
-            self._last_compute_done = t_done
-
-    def _run_stage(self, fut, stage_fn, args, frame, rec=None) -> None:
+    def _run_stage(self, fut, stage_fn, args, frame, group: _GroupClock) -> None:
         """Submit thread: take an in-flight slot, stage + launch the first
-        device work, chain the readback. The ``device.encode-group``
-        fault point (tests) fails the group before it takes a slot."""
+        device work, hand the group to the readback thread. The
+        ``device.encode-group`` fault point (tests) fails the group before
+        it takes a slot."""
+        group.end()  # submit_wait
+        clock = self._tls.clock = _ThreadClock()
+        try:
+            self._stage_on_submit(fut, stage_fn, args, frame, group, clock)
+        finally:
+            self._tls.clock = None
+            clock.pause()
+            self._add_thread("submit", clock)
+
+    def _stage_on_submit(self, fut, stage_fn, args, frame, group, clock) -> None:
         try:
             INJECTOR.fire("device.encode-group")
         except Exception as e:
             self._fail(fut, e)
             return
+        clock.pause()
+        group.begin("slot_wait")
         self._slots.acquire()
+        group.end()
+        clock.resume()
         with self._stats_lock:
             self._inflight += 1
         try:
-            with record_scope(rec):
+            with record_scope(group.rec):
                 t0 = time.perf_counter()
-                launched, t_h2d = stage_fn(*args)
+                with profiler_range("queue.stage", group.rec):
+                    launched, t_h2d = stage_fn(*args)
                 t_dispatch = time.perf_counter()
                 _observe_stage(t_h2d - t0, "h2d")
-            self._note_launch(t_h2d)
-            rfut = self._readback.submit(self._readback_scoped, rec, t_dispatch - t0,
-                                         t_dispatch, launched, *frame)
+            group.begin("readback_wait")
+            self._readback.submit(self._readback_scoped, fut, group, t_dispatch - t0,
+                                  t_dispatch, launched, *frame)
+        except Exception as e:
+            group.end()
+            self._release_slot()
+            self._fail(fut, e)
+
+    def _readback_scoped(self, fut, group: _GroupClock, *args) -> None:
+        """Readback thread: finish the group under its flight record, free
+        its slot and resolve its future (a failure resolves it with the
+        exception)."""
+        group.end()  # readback_wait
+        clock = self._tls.clock = _ThreadClock()
+        try:
+            with record_scope(group.rec):
+                out = self._readback_group(group, *args)
         except Exception as e:
             self._release_slot()
             self._fail(fut, e)
-            return
-        rfut.add_done_callback(lambda rf: self._finish_group(fut, rf))
-
-    def _finish_group(self, fut, rfut) -> None:
-        self._release_slot()
-        exc = rfut.exception()
-        if exc is not None:
-            self._fail(fut, exc)
-            return
-        try:
-            fut.set_result(rfut.result())
-        except concurrent.futures.InvalidStateError:
-            pass
+        else:
+            self._release_slot()
+            try:
+                fut.set_result(out)
+            except concurrent.futures.InvalidStateError:
+                pass  # close()'s drain deadline got there first
+        finally:
+            self._tls.clock = None
+            clock.pause()
+            self._add_thread("readback", clock)
 
     # -- the device work ---------------------------------------------------
 
     def _stage_group(self, tiles, rows, row_bytes, bpp, filter_mode, deflate_mode, staged):
         """Submit thread: H2D (bucket route), then on the side stream pass 1
         of a dynamic group or the whole chain of a one-pass group. Returns
-        ((mode, device tensors, the event that ends them, None), the time
-        the first kernel's enqueue began). With a mesh, a group that is not
-        staged leaves a ("mesh", (tag, lanes, run)) for the readback
-        thread."""
+        ((mode, device tensors, the event that ends them, None, (the
+        segment's kind, its start from ``_open_segment``)), the time the
+        first kernel's enqueue began). With a mesh, a group that is not staged
+        leaves a ("mesh", (tag, lanes, run)) for the readback thread."""
         if self.mesh_manager is not None and not staged:
             self._register_mesh_shape(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
             run = self._mesh_tiles_run(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
             tag = "dynamic" if deflate_mode == "dynamic" else "tiles"
-            return ("mesh", (tag, tiles.shape[0], run), None, None), time.perf_counter()
+            return (("mesh", (tag, tiles.shape[0], run), None, None, ("mesh", None)),
+                    time.perf_counter())
+        rec = current_record()
         with self._on_stream():
+            start = self._open_segment()
             batch = tiles if staged else tiles.to(self.device, non_blocking=True)
             t_h2d = time.perf_counter()
             if deflate_mode == "dynamic":
-                out = fused_filter_histogram_batch(
-                    batch, rows, row_bytes, bpp, filter_mode=filter_mode,
-                )
+                with profiler_range("prog.pass1", rec):
+                    out = fused_filter_histogram_batch(
+                        batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+                    )
             else:
-                out = fused_filter_deflate_batch(
-                    batch, rows, row_bytes, bpp, filter_mode=filter_mode,
-                    mode=deflate_mode, packer=self.packer,
-                )
-            return (deflate_mode, out, self._mark(), None), t_h2d
+                with profiler_range("prog.one_pass", rec):
+                    out = fused_filter_deflate_batch(
+                        batch, rows, row_bytes, bpp, filter_mode=filter_mode,
+                        mode=deflate_mode, packer=self.packer,
+                    )
+            kind = "dynamic_pass1" if deflate_mode == "dynamic" else "tiles"
+            return (deflate_mode, out, self._close_segment(), None, (kind, start)), t_h2d
 
     def _stage_render_group(self, planes, index_tables, color_luts, rows, row_bytes,
                             filter_mode, deflate_mode, mask, staged):
         """Submit thread: H2D of the planes and the mask (unless staged),
         then on the side stream the whole render chain. Returns ((mode,
         device tensors, the event that ends them, the composite's timing
-        events or None), the time the first kernel's enqueue began)."""
+        events or None, ("render", the segment's start)), the time the first
+        kernel's enqueue began)."""
         if self.mesh_manager is not None and not staged:
             run = self._mesh_render_run(planes, index_tables, color_luts, rows, row_bytes,
                                         filter_mode, deflate_mode, mask)
-            return ("mesh", ("render", planes.shape[0], run), None, None), time.perf_counter()
+            return (("mesh", ("render", planes.shape[0], run), None, None, ("mesh", None)),
+                    time.perf_counter())
         packed = packed_rgb_tables(index_tables, color_luts)
         with self._on_stream():
+            start = self._open_segment()
             if staged:
                 batch, mask_dev = planes, mask
             else:
@@ -484,12 +661,13 @@ class DeviceEncodeDispatcher:
             if self._stream is not None:
                 timing = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
-            out = fused_render_filter_deflate_batch(
-                batch, index_tables, color_luts, rows, row_bytes,
-                filter_mode=filter_mode, mode=deflate_mode, packer=self.packer,
-                mask=mask_dev, packed=packed, composite_events=timing,
-            )
-            return (deflate_mode, out, self._mark(), timing), t_h2d
+            with profiler_range("prog.render_chain", current_record()):
+                out = fused_render_filter_deflate_batch(
+                    batch, index_tables, color_luts, rows, row_bytes,
+                    filter_mode=filter_mode, mode=deflate_mode, packer=self.packer,
+                    mask=mask_dev, packed=packed, composite_events=timing,
+                )
+            return (deflate_mode, out, self._close_segment(), timing, ("render", start)), t_h2d
 
     def _stage_supertile_group(self, stack, index_tables, color_luts, rel_rects, tile_w,
                                tile_h, filter_mode, deflate_mode, n_lanes):
@@ -508,10 +686,11 @@ class DeviceEncodeDispatcher:
                 filter_mode=filter_mode, deflate_mode=deflate_mode, packer=self.packer)
             sel = torch.tensor(rows_map, dtype=torch.int64, device=streams.device)
             streams, lengths = streams.index_select(0, sel), lengths.index_select(0, sel)
-            _sync_mesh(mesh)
+            self._sync_mesh(mesh)
             return streams, lengths
 
-        return ("mesh", ("supertile", n_lanes, run), None, None), time.perf_counter()
+        return (("mesh", ("supertile", n_lanes, run), None, None, ("mesh", None)),
+                time.perf_counter())
 
     # -- mesh groups (readback thread, inside the managed dispatch) ---------
 
@@ -535,7 +714,7 @@ class DeviceEncodeDispatcher:
                 streams, lengths = sharded_filter_deflate(
                     mesh, batch, rows, row_bytes, bpp, filter_mode=filter_mode,
                     deflate_mode=deflate_mode, packer=self.packer)
-            _sync_mesh(mesh)
+            self._sync_mesh(mesh)
             return streams[:b], lengths[:b]
 
         return run
@@ -552,7 +731,7 @@ class DeviceEncodeDispatcher:
                 mesh, _pad_lanes(planes, n), index_tables, color_luts, rows, row_bytes,
                 filter_mode=filter_mode, deflate_mode=deflate_mode, packer=self.packer,
                 mask=None if mask is None else _pad_lanes(mask, n))
-            _sync_mesh(mesh)
+            self._sync_mesh(mesh)
             return streams[:b], lengths[:b]
 
         return run
@@ -596,62 +775,79 @@ class DeviceEncodeDispatcher:
             except Exception:
                 log.exception("mesh warm-up failed for %s", key)
 
-    def _readback_scoped(self, rec, *args):
-        with record_scope(rec):
-            return self._readback_group(*args)
-
-    def _readback_group(self, t_stage, t_dispatch, launched, lanes, sizes, bit_depth,
-                        color_type):
+    def _readback_group(self, group: _GroupClock, t_stage, t_dispatch, launched, lanes, sizes,
+                        bit_depth, color_type):
         """Readback thread: wait for the group's device work (for a dynamic
         group: pull the counts, plan the tables and run pass 2), then pull
-        and frame."""
-        mode, tensors, ev, composite = launched
-        t = [time.perf_counter()]
-
-        def lap():
-            t.append(time.perf_counter())
-            return t[-1] - t[-2]
-
-        self._wait(ev)
-        timing = {"stage": t_stage}
+        and frame; then read its device events and keep its stats."""
+        mode, tensors, ev, composite, (kind, start) = launched
+        rec = group.rec
+        timing = dict(group.waits, stage=t_stage)
+        segments = []  # (kind, (start, previous end), end) on the side stream
         if mode == "mesh":
             tag, real, run = tensors
-            streams, lengths = self.mesh_manager.dispatch(run, real_lanes=real, tag=tag)
-            timing["compute"] = lap()
-            _observe_stage(t[-1] - t_dispatch, "compute")
+            starts = {}
+
+            def timed(mesh):
+                # the attempt that succeeds leaves its starts and ends
+                starts.clear()
+                for s in _mesh_streams(mesh):
+                    starts[s.device_index] = self._open_segment(s)
+                self._tls.mesh_ends = {}
+                return run(mesh)
+
+            with _Lap(timing, "compute", rec) as lap:
+                with profiler_range(f"prog.mesh_{tag}", rec):
+                    streams, lengths = self.mesh_manager.dispatch(timed, real_lanes=real,
+                                                                  tag=tag)
+            _observe_stage(lap.t1 - t_dispatch, "compute")
+            ends = self._tls.mesh_ends
+            segments += [("mesh", starts[i], ends[i]) for i in starts.keys() & ends.keys()]
         elif mode == "dynamic":
             flat, counts, extras, real_b = tensors
-            counts_np = counts.cpu().numpy()
-            extras_np = extras.cpu().numpy()
-            timing["pass1_wait"] = lap()
-            _observe_stage(t[-1] - t_dispatch, "hist")
-            tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
-            with self._on_stream():
-                tables = tables_from_numpy(tables, flat.device)
-                timing["plan"] = lap()
-                streams, lengths = dynamic_emit(flat, tables, packer=self.packer)
-                self._wait(self._mark())
-            timing["pass2"] = lap()
+            with _Lap(timing, "pass1_wait", rec) as lap:
+                self._wait(ev)
+                counts_np = counts.cpu().numpy()
+                extras_np = extras.cpu().numpy()
+            _observe_stage(lap.t1 - t_dispatch, "hist")
+            if start is not None:
+                segments.append((kind, start, ev))
+            with _Lap(timing, "plan", rec):
+                tables = build_dynamic_tables(counts_np, extras_np, real=real_b)
+                with self._on_stream():
+                    start2 = self._open_segment()
+                    tables = tables_from_numpy(tables, flat.device)
+            with _Lap(timing, "pass2", rec):
+                with self._on_stream():
+                    with profiler_range("prog.pass2", rec):
+                        streams, lengths = dynamic_emit(flat, tables, packer=self.packer)
+                    end2 = self._close_segment()
+                self._wait(end2)
+            if start2 is not None:
+                segments.append(("dynamic_pass2", start2, end2))
             _observe_stage(timing["plan"] + timing["pass2"], "emit")
             streams, lengths = streams[:real_b], lengths[:real_b]
         else:
             streams, lengths = tensors
-            timing["compute"] = lap()
-            _observe_stage(t[-1] - t_dispatch, "compute")
-        self._note_compute_done(t[-1])
-        streams_np, lengths_np = self._pull(streams, lengths, sizes[0])
-        timing["pull"] = lap()
+            with _Lap(timing, "compute", rec) as lap:
+                self._wait(ev)
+            _observe_stage(lap.t1 - t_dispatch, "compute")
+            if start is not None:
+                segments.append((kind, start, ev))
+        with _Lap(timing, "pull", rec):
+            streams_np, lengths_np = self._pull(streams, lengths, sizes[0])
         _observe_stage(timing["pull"], "d2h")
-        out = {
-            lane: frame_png(
-                np.ascontiguousarray(streams_np[j, : int(lengths_np[j])]).tobytes(),
-                sizes[j][0], sizes[j][1], bit_depth, color_type,
-            )
-            for j, lane in enumerate(lanes)
-        }
-        timing["frame"] = lap()
+        with _Lap(timing, "frame", rec):
+            out = {
+                lane: frame_png(
+                    np.ascontiguousarray(streams_np[j, : int(lengths_np[j])]).tobytes(),
+                    sizes[j][0], sizes[j][1], bit_depth, color_type,
+                )
+                for j, lane in enumerate(lanes)
+            }
         _observe_stage(timing["frame"], "frame")
         composite_ms = composite[0].elapsed_time(composite[1]) if composite else None
+        device_ms = self._read_segments(segments)
         with self._stats_lock:
             for k, v in timing.items():
                 self._stage_s[k] += v
@@ -659,9 +855,28 @@ class DeviceEncodeDispatcher:
             if composite_ms is not None:
                 self._composite_ms += composite_ms
                 self._composite_n += 1
+            if device_ms:
+                for kind, ms in device_ms.items():
+                    self._device_ms[kind] += ms
+                self._device_n += 1
             self._lanes += len(lanes)
             self._completed += 1
         return out
+
+    @staticmethod
+    def _read_segments(segments) -> Dict[str, float]:
+        """Device milliseconds of a group's segments by kind (a mesh
+        group's is its slowest device's), each segment's idle gap
+        observed; every event has happened."""
+        device_ms: Dict[str, float] = {}
+        for kind, (start, prev), end in segments:
+            ms = start.elapsed_time(end)
+            device_ms[kind] = max(device_ms.get(kind, 0.0), ms) if kind == "mesh" else (
+                device_ms.get(kind, 0.0) + ms)
+            gap = _gap_s(prev, start)
+            if gap is not None:
+                DEVICE_QUEUE_IDLE_SECONDS.observe(gap)
+        return device_ms
 
     def _pull(self, streams, lengths, size):
         """Pull lengths and the leading ``cap`` stream bytes (the adaptive

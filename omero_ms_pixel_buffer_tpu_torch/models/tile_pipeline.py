@@ -170,7 +170,7 @@ from ..ops.png import (
     assemble_png,
     encode_png,
 )
-from ..obs.recorder import stage_all, stage_of
+from ..obs.recorder import profiler_range, stage_all, stage_of
 from ..ops.tiff import TiffEncodeError, encode_tiff
 from ..render import analysis as ranalysis
 from ..render import engine as rengine
@@ -1353,9 +1353,10 @@ class TilePipeline:
             with self.dispatcher.stream_context():
                 planes = bits_tensor(stack).to(self.device, non_blocking=True)
                 start = self._mark_timing()
-                cut = stile.composite_carve_torch(
-                    planes, tables, luts, [(ry, rx) for rx, ry in rel], bh_b, bw_b,
-                    packed=packed)
+                with profiler_range("prog.composite_carve", ctxs[live[0]].obs):
+                    cut = stile.composite_carve_torch(
+                        planes, tables, luts, [(ry, rx) for rx, ry in rel], bh_b, bw_b,
+                        packed=packed)
                 self._st_timed(start, stack.nbytes + packed.nbytes
                                + len(live) * bh_b * bw_b * 3)
                 subs = {}
@@ -1663,10 +1664,12 @@ class TilePipeline:
                 events = None
             try:
                 INJECTOR.fire("analysis.engine")
-                if mesh is not None:
-                    counts = ranalysis.sharded_histogram_batch(mesh, planes, tabs, bins)
-                else:
-                    counts = ranalysis.histogram_batch(planes, tabs, bins, self.device, events)
+                with profiler_range("prog.histogram", ctxs[jobs[members[0][0]][0]].obs):
+                    if mesh is not None:
+                        counts = ranalysis.sharded_histogram_batch(mesh, planes, tabs, bins)
+                    else:
+                        counts = ranalysis.histogram_batch(planes, tabs, bins, self.device,
+                                                           events)
             except Exception:
                 log.exception("device histogram failed; lanes -> 500")
                 self._count(hist_failed_groups=1)

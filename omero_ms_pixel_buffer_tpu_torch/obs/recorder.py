@@ -19,7 +19,21 @@ A kept record becomes one JSON wide event in a bounded ring served at
 root and one ``stage:<name>`` child per touched stage) through
 ``utils/tracing.py``'s reporter when one is configured and live tracing
 is off. Stage durations feed ``request_stage_seconds`` for every record,
-kept or not.
+kept or not, and the time no stage claimed feeds
+``request_unclaimed_seconds``. A lane that passed the batcher also
+carries ``ready_at``, the moment its answer existed on a worker thread;
+the batcher observes the wait from there to the serving coroutine's
+resumption as ``request_handoff_seconds``.
+
+Profiler ranges: while a ``torch.profiler`` runs anywhere in the process
+(torch's process-wide flag), every stage timer also enters
+``record_function("ompb.<stage>@<trace id>")`` (``profiler_range``), so
+a capture of the server lays the stages, the encode queue's laps and
+waits and the device programs on the profiler's clock, sharing the
+request's trace id; with no profiler the check costs one attribute read.
+A profiler started with default settings records the ranges of its own
+thread only; one started with ``profile_all_threads`` records every
+thread's.
 
 Threading: a record is stamped by one thread at a time (the serving loop,
 the batch executor, the encode queue's threads), completed once; the ring
@@ -36,6 +50,9 @@ import time
 import zlib
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _torch_profiler
 
 from ..utils.metrics import REGISTRY
 
@@ -69,6 +86,16 @@ REQUEST_STAGE_SECONDS = REGISTRY.histogram(
 HTTP_REQUEST_SECONDS = REGISTRY.histogram(
     "http_request_seconds",
     "End-to-end request latency at the HTTP door, by outcome",
+)
+REQUEST_UNCLAIMED_SECONDS = REGISTRY.histogram(
+    "request_unclaimed_seconds",
+    "Per-request wall time no flight-recorder stage claimed (total minus "
+    "the stage sums, floored at 0), every record",
+)
+REQUEST_HANDOFF_SECONDS = REGISTRY.histogram(
+    "request_handoff_seconds",
+    "Time from a batched lane's answer existing on a worker thread to the "
+    "serving coroutine resuming with it",
 )
 RECORDS_KEPT = REGISTRY.counter(
     "obs_records_kept_total",
@@ -124,7 +151,7 @@ class FlightRecord:
         "trace_id", "span_id", "parent_span_id", "path", "method",
         "t0", "ts", "starts", "durs", "tags", "faults", "status",
         "outcome", "total", "kept", "keep_reason", "enqueued_at",
-        "peer_origin", "pending_exemplars", "_completed",
+        "ready_at", "peer_origin", "pending_exemplars", "_completed",
     )
 
     def __init__(
@@ -149,6 +176,8 @@ class FlightRecord:
         self.kept = False
         self.keep_reason: Optional[str] = None
         self.enqueued_at: Optional[float] = None
+        # when the lane's answer existed on a worker thread (the batcher)
+        self.ready_at: Optional[float] = None
         self.peer_origin: Optional[str] = None
         # deferred metric exemplars: (histogram, value, labels) noted
         # mid-request, installed at completion ONLY if kept — every
@@ -238,15 +267,20 @@ class FlightRecord:
 
 class _StageTimer:
     """Slots-based stage timer (a generator contextmanager costs ~3x
-    as much, and the hot path enters several of these per request)."""
+    as much, and the hot path enters several of these per request),
+    with its profiler range while a profiler runs."""
 
-    __slots__ = ("rec", "stage_name", "t0")
+    __slots__ = ("rec", "stage_name", "t0", "range")
 
     def __init__(self, rec: "FlightRecord", stage_name: str):
         self.rec = rec
         self.stage_name = stage_name
 
     def __enter__(self) -> "FlightRecord":
+        self.range = None
+        if _torch_profiler._is_profiler_enabled:
+            self.range = profiler_range(self.stage_name, self.rec)
+            self.range.__enter__()
         self.t0 = time.perf_counter()
         return self.rec
 
@@ -254,6 +288,44 @@ class _StageTimer:
         self.rec.stamp(
             self.stage_name, time.perf_counter() - self.t0
         )
+        if self.range is not None:
+            self.range.__exit__(*exc)
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range_name(name: str, rec: Optional["FlightRecord"]) -> str:
+    return f"ompb.{name}" if rec is None else f"ompb.{name}@{rec.trace_id}"
+
+
+def profiler_range(name: str, rec: Optional["FlightRecord"] = None):
+    """``torch.profiler.record_function("ompb.<name>@<trace id>")`` (no
+    ``@`` part without a record) while a profiler runs in the process,
+    else a shared no-op: the range lands on the profiler's clock, over
+    the kernels it enqueues. The trace id is in the name because the
+    profiler's Chrome export drops a range's ``args``."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return torch.profiler.record_function(_range_name(name, rec))
+
+
+def open_range(name: str, rec: Optional["FlightRecord"] = None):
+    """A profiler range opened on this thread and closed, from any
+    thread, by ``close_range`` of the returned handle (a wait that
+    crosses threads); None with no profiler."""
+    if not _torch_profiler._is_profiler_enabled:
+        return None
+    rf = torch.profiler.record_function(_range_name(name, rec))
+    rf.__enter__()
+    done = torch.futures.Future()
+    rf._call_end_callbacks_on_future(done)
+    return done
+
+
+def close_range(handle) -> None:
+    if handle is not None and not handle.done():
+        handle.set_result(None)
 
 
 class _RetroSpan:
@@ -362,6 +434,10 @@ class FlightRecorder:
             REQUEST_STAGE_SECONDS.observe(
                 dur, stage=name, exemplar=exemplar
             )
+        # the wide event's unattributed_ms, for every record
+        REQUEST_UNCLAIMED_SECONDS.observe(
+            max(0.0, rec.total - sum(rec.durs)), exemplar=exemplar
+        )
         HTTP_REQUEST_SECONDS.observe(
             rec.total, outcome=rec.outcome, exemplar=exemplar
         )
@@ -506,10 +582,16 @@ def stage_all(ctxs, name: str):
     """One timer, stamped onto every lane's record (batched stages:
     the group's wall time is attributed to each lane it served —
     stage sums are per-request attribution, not machine-time
-    accounting, and the wide event says so via ``batched`` tags)."""
+    accounting, and the wide event says so via ``batched`` tags). Its
+    profiler range names the first lane's trace."""
+    span = _NO_RANGE
+    if _torch_profiler._is_profiler_enabled:
+        lead = next((c.obs for c in ctxs if getattr(c, "obs", None) is not None), None)
+        span = profiler_range(name, lead)
     t0 = time.perf_counter()
     try:
-        yield
+        with span:
+            yield
     finally:
         dur = time.perf_counter() - t0
         for ctx in ctxs:

@@ -172,7 +172,8 @@ def test_one_pass_group_reports_compute_stage():
         assert sorted(out) == list(range(LANES))
         snap = q.snapshot()
         assert snap["packer"] == "pallas_dense" and snap["failed"] == 0
-        assert set(snap["stage_ms_mean"]) == {"stage", "compute", "pull", "frame"}
+        assert set(snap["stage_ms_mean"]) == {"submit_wait", "slot_wait", "stage",
+                                         "readback_wait", "compute", "pull", "frame"}
         assert snap["completed"] == 1
         assert snap["stage_groups"] == dict.fromkeys(snap["stage_ms_mean"], 1)
         assert set(snap["stage_ms_total"]) == set(snap["stage_ms_mean"])

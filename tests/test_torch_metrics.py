@@ -14,7 +14,8 @@ histogram raises.
 Through both fronts (the JAX aiohttp app and the port's ``wire``, from one
 config), after one request sequence: the ``/metrics`` family set (name and
 kind) equals JAX's less the families of the planes the port does not have
-(``ABSENT_PLANE_FAMILIES``), and the deltas of ``tiles_served_total``, the
+(``ABSENT_PLANE_FAMILIES``), plus the port's own request-span histograms
+(``PORT_SPAN_FAMILIES``), and the deltas of ``tiles_served_total``, the
 result cache's hit and miss counts and ``tile_batches_dispatched_total``
 are equal. Tolerance: zero."""
 
@@ -55,6 +56,9 @@ MEMBERSHIP_FAMILIES = {
 # the session plane's families, on /metrics in both packages
 SESSION_PLANE_FAMILIES = {"session_annotation_ops_total", "session_channel_events_total",
                           "session_pushes_total", "session_channels_live"}
+# the recorder's hand-off and unclaimed time: the port's alone
+PORT_SPAN_FAMILIES = {"request_handoff_seconds": "histogram",
+                      "request_unclaimed_seconds": "histogram"}
 
 
 class _Clock:
@@ -230,7 +234,8 @@ async def test_metrics_families_and_counters_match_jax(tmp_path, _process_defaul
         (_, jh, jbody), (_, ph, pbody) = await jax_get("/metrics"), await port_get("/metrics")
         assert ph["Content-Type"] == jh["Content-Type"] == "text/plain; charset=utf-8"
         jax_fams, port_fams = _families(jbody.decode()), _families(pbody.decode())
-        assert jax_fams == port_fams
+        assert {k: port_fams[k] for k in PORT_SPAN_FAMILIES} == PORT_SPAN_FAMILIES
+        assert jax_fams == {k: v for k, v in port_fams.items() if k not in PORT_SPAN_FAMILIES}
         assert SESSION_PLANE_FAMILIES <= set(port_fams)
         assert MEMBERSHIP_FAMILIES <= set(port_fams)
         after = [_samples(jbody.decode()), _samples(pbody.decode())]

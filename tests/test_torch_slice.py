@@ -115,7 +115,8 @@ def test_one_pass_modes_match_jax_on_both_routes(fixture_image, mode):
     path, truth = fixture_image
     snap = _match_jax_on_both_routes(path, truth, mode, packer="pallas_dense")
     assert snap["packer"] == "pallas_dense"
-    assert set(snap["stage_ms_mean"]) == {"stage", "compute", "pull", "frame"}
+    assert set(snap["stage_ms_mean"]) == {"submit_wait", "slot_wait", "stage",
+                                         "readback_wait", "compute", "pull", "frame"}
 
 
 def test_oversize_lane_encodes_on_device_path(fixture_image):
