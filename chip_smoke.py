@@ -83,7 +83,7 @@ Phases, one JSON line each on stdout:
    meet the JAX ``obs_ok_overhead`` rule (at most 3 %, or 0.3 ms). Between
    ``/metrics`` and ``/healthz`` views just before and after the on arm's
    cold window: ``tiles_served_total`` rises by the 200s and
-   ``device_stage_seconds_count{stage="hist"}`` by the encode groups; the
+   ``device_stage_seconds_count{stage="hist"}`` by the device groups; the
    OpenMetrics body ends with ``# EOF``; an exemplar's trace id resolves
    through ``/debug/requests/{traceId}`` to a kept record with a
    ``device`` stage whose stages sum to no more than its total. Reports
@@ -1377,7 +1377,9 @@ def drive_obs(registry: str, data: np.ndarray, timed, seed: int, device: str = "
     0.3 ms). Over the on arm's cold window, from ``/metrics`` and
     ``/healthz`` views before and after it: ``tiles_served_total`` rises by
     the 200s, ``device_stage_seconds_count`` of ``hist`` (dynamic mode) by
-    the encode groups, the OpenMetrics body ends with ``# EOF``, and an
+    the device groups (``/healthz`` ``queue.completed``: the encode groups
+    less those merged into another's device group, none failed), the
+    OpenMetrics body ends with ``# EOF``, and an
     exemplar's trace id resolves through ``/debug/requests/{traceId}`` to a
     kept record with a ``device`` stage whose stages sum to no more than its
     total (up to their rounding to 0.001 ms each). ``device_idle_share`` is
@@ -1428,10 +1430,15 @@ def drive_obs(registry: str, data: np.ndarray, timed, seed: int, device: str = "
         m0, m1, h0, h1 = window["before"], window["after"], window["h0"], window["h1"]
         served = metric_delta(m1, m0, "tiles_served_total")
         groups = h1["queue"]["groups"] - h0["queue"]["groups"]
+        merged = h1["queue"]["merged"] - h0["queue"]["merged"]
+        device_groups = h1["queue"]["completed"] - h0["queue"]["completed"]
         hist_n = metric_delta(m1, m0, "device_stage_seconds_count", stage="hist")
         require(served == len(reqs), f"tiles_served_total rose {served}, 200s {len(reqs)}")
-        require(hist_n == groups, f"device_stage_seconds_count{{hist}} rose {hist_n}, "
-                                  f"/healthz queue groups {groups}")
+        require(h1["queue"]["failed"] == h0["queue"]["failed"], f"groups failed: {h1['queue']}")
+        require(groups == device_groups + merged, f"/healthz queue groups {groups}, "
+                                                  f"device groups {device_groups}, merged {merged}")
+        require(hist_n == device_groups, f"device_stage_seconds_count{{hist}} rose {hist_n}, "
+                                         f"/healthz queue device groups {device_groups}")
         require(window["om"].endswith("# EOF\n"), "the OpenMetrics body does not end with # EOF")
         resolved = None
         for trace_id in exemplar_ids(window["om"], 'request_stage_seconds_bucket{stage="device"'):
@@ -1465,6 +1472,7 @@ def drive_obs(registry: str, data: np.ndarray, timed, seed: int, device: str = "
         "cold": cold, "warm_hits_sequential": warm,
         "warm_p50_penalty": penalty, "warm_p50_penalty_ms": penalty_ms,
         "tiles_served_delta": served, "hist_observations": hist_n, "queue_groups": groups,
+        "queue_device_groups": device_groups, "queue_merged": merged,
         "device_idle_s": idle_s, "window_s": window["seconds"],
         "device_idle_share": idle_s / window["seconds"],
         "idle_gaps": metric_delta(m1, m0, "device_queue_idle_seconds_count"),

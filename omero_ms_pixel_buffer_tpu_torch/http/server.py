@@ -2297,7 +2297,7 @@ def wire(config: Config, pixels_service=None, session_store=None, session_valida
         device_deflate=be.png.device_deflate, lut_dir=config.render.lut_dir,
         max_tile_bytes=be.max_tile_mb << 20, supertile_mesh=config.supertile.mesh,
         png_filter=be.png.filter, png_level=be.png.level, png_strategy=be.png.strategy,
-        engine=engine,
+        engine=engine, max_batch=be.batching.max_batch,
     )
     host_engine()
     if config.render.enabled:

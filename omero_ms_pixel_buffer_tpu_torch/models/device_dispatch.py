@@ -2,8 +2,9 @@
 in ``omero_ms_pixel_buffer_tpu/models/device_dispatch.py``, every device
 deflate mode, on one device or over a serving mesh).
 
-Callers get a Future per encode group at once. One SUBMIT thread stages
-each group's host batch to the device and launches its first device
+Callers get a Future per encode group at once. Submitted groups wait in
+a FIFO backlog that the queue owns. One SUBMIT thread takes the head
+group, stages its batch to the device and launches its first device
 work; one READBACK thread waits on the group's event, finishes it,
 pulls the streams and frames the PNGs:
 
@@ -20,7 +21,31 @@ pulls the streams and frames the PNGs:
   thread frames RGB8 PNGs (bit depth 8, colour type 2). CUDA events
   around the composite give its device time per group.
 
-A semaphore bounds in-flight groups to ``queue_depth``. All of a group's
+Backlog merging (a deliberate difference from the JAX queue, which runs
+each group alone): once it holds an in-flight slot, the submit thread
+also takes every group directly behind the head that shares its merge
+key (``submit`` groups on one device: lane shape and dtype, ``rows``,
+``row_bytes``, ``bpp``, filter, deflate mode, ``staged``, bit depth and
+colour type), stopping at the first that does not or that would pass
+``merge_lanes`` lanes (the batcher's max batch, ``batching.max-batch``,
+so a merged group is no larger than one batch could be). It waits for
+nothing: a head with an empty backlog runs alone, as does one of
+``merge_lanes`` lanes or more. The
+members' batches are joined into one (``torch.cat`` on the side stream;
+host batches on the host, then copied once), which runs as ONE device
+group: one pass 1 or one-pass chain, one plan (each lane's own Huffman
+tables; pow2 pad lanes dropped), one pass 2, one pull, one framing. So
+every lane's stream is the bytes its own group would have produced. The
+readback thread splits the framed PNGs back into each member's
+``{lane: png}`` (members number their lanes within their own batches,
+so each keeps its offset into the merged one) and resolves each
+member's future. ``submit_render``/``submit_supertile`` groups (tables
+per group) and mesh groups never merge. Why: a device group costs the
+two threads about the same fixed host time whatever its lanes (the
+Python enqueue of each pass's launches), so the lanes queued behind a
+busy submit thread share that cost.
+
+A semaphore bounds in-flight device groups to ``queue_depth``. All of a group's
 device work runs on the queue's side CUDA stream and each pass ends with
 a recorded event, so the threads wait on events, never on the whole
 device. The bit packer is chosen once per queue (``packer``, default
@@ -28,7 +53,10 @@ device. The bit packer is chosen once per queue (``packer``, default
 
 Failure contract: any failure in a group resolves THAT group's future
 with the exception (its lanes answer 500) and is counted in
-``snapshot()["failed"]``; there is no host re-encode.
+``snapshot()["failed"]``; there is no host re-encode. A failure in a
+merged device group fails every member's future, each counted. The
+``device.encode-group`` fault point fires once per submitted group,
+before it takes a slot (the head) or joins a merge.
 
 With a serving mesh (``set_mesh_manager``, ``parallel/mesh.py``), a group
 that is not staged runs wholly on the readback thread, inside
@@ -58,10 +86,16 @@ work, or one pass of a dynamic group. The submit and readback threads
 carry the submitting request's flight record (``record_scope``), so the
 stage observations' exemplars name its trace.
 
-``snapshot()`` keeps, per completed group, the host stages of ``STAGES``:
-the queue's three waits (``submit_wait``, enqueue to the submit thread;
-``slot_wait``, the in-flight slot; ``readback_wait``, hand-off to the
-readback thread) and the work laps on the two threads. Beside them, each
+``snapshot()`` counts submitted groups (``groups``); device groups
+completed (``completed``, with their ``lanes``); submitted groups that
+rode in another's device group (``merged``, also
+``device_encode_groups_merged_total``); and failed groups, so ``groups``
+is ``completed + merged + failed`` once all are resolved. It keeps, per
+completed device group, the host stages of ``STAGES``: the queue's three
+waits (``submit_wait``, enqueue to the submit thread; ``slot_wait``, the
+in-flight slot; ``readback_wait``, hand-off to the readback thread: a
+merged group's are its head's, the longest, as the backlog is FIFO) and
+the work laps on the two threads. Beside them, each
 thread's work spans on two clocks (``threads``: wall and the thread's own
 CPU, leaving out the slot wait, the event waits and the mesh's
 synchronise; a CPU share under 100 % is time the thread waited to run),
@@ -69,11 +103,13 @@ and each group's device span from CUDA timing events (``device_ms_total``
 by kind over ``device_groups``). Every lap, wait and device program
 enqueue enters a profiler range while a profiler runs
 (``obs.recorder.profiler_range``): ``ompb.queue.<stage>`` for the laps and
-waits, ``ompb.prog.<program>`` for the device programs.
+waits, ``ompb.queue.merge`` for a merge's join, ``ompb.prog.<program>``
+for the device programs.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import logging
@@ -138,6 +174,11 @@ DEVICE_QUEUE_IDLE_SECONDS = REGISTRY.histogram(
     "Device-clock gap from the last encode group segment's end event on a "
     "device to the next segment's start event (0 when they overlapped)",
 )
+DEVICE_ENCODE_GROUPS_MERGED = REGISTRY.counter(
+    "device_encode_groups_merged_total",
+    "Encode groups that ran in another group's device group, merged from the "
+    "submit backlog",
+)
 
 
 # how many distinct mesh group shapes the width-change warm-up replays
@@ -192,8 +233,9 @@ class _ThreadClock:
         self._w, self._c = time.perf_counter(), time.thread_time()
 
     def pause(self) -> None:
-        self.wall += time.perf_counter() - self._w
+        # the CPU reading first: its span lies inside the wall span
         self.cpu += time.thread_time() - self._c
+        self.wall += time.perf_counter() - self._w
 
 
 class _Lap:
@@ -239,6 +281,22 @@ class _GroupClock:
             self._name = None
 
 
+class _Submitted:
+    """One submitted group in the backlog: its future, its stage function
+    and arguments, its framing (lanes, sizes, bit depth, colour type), its
+    clock and its merge key (None: it never merges)."""
+
+    __slots__ = ("fut", "stage_fn", "args", "frame", "clock", "key")
+
+    def __init__(self, fut, stage_fn, args, frame, clock: _GroupClock, key):
+        self.fut, self.stage_fn, self.args = fut, stage_fn, args
+        self.frame, self.clock, self.key = frame, clock, key
+
+    @property
+    def lanes(self) -> int:
+        return len(self.frame[0])
+
+
 def _observe_stage(duration: float, stage: str) -> None:
     """The stage histogram, its exemplar deferred to the ambient record."""
     DEVICE_STAGE_SECONDS.observe(duration, stage=stage)
@@ -250,16 +308,21 @@ class DeviceEncodeDispatcher:
     per-group futures resolving to {lane_index: png_bytes}."""
 
     def __init__(self, device: torch.device, queue_depth: int = 2,
-                 packer: Optional[str] = None):
+                 packer: Optional[str] = None, merge_lanes: int = 32):
         self.device = device
         self.queue_depth = max(1, int(queue_depth))
+        # the most lanes a merge takes into one device group: the
+        # batcher's max batch
+        self.merge_lanes = max(1, int(merge_lanes))
         self.packer = resolve_packer(packer, device)
         self._stream = (
             torch.cuda.Stream(device) if device.type == "cuda" else None
         )
-        self._submit_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="devenc-submit"
-        )
+        # the submit thread's FIFO of submitted groups (``_Submitted``),
+        # started with the first group
+        self._backlog: collections.deque = collections.deque()
+        self._backlog_cv = threading.Condition()
+        self._submit_thread: Optional[threading.Thread] = None
         self._readback = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="devenc-readback"
         )
@@ -276,6 +339,7 @@ class DeviceEncodeDispatcher:
         self._lanes = 0
         self._failed = 0
         self._completed = 0
+        self._merged = 0
         self._stage_s = dict.fromkeys(STAGES, 0.0)
         self._stage_n = dict.fromkeys(STAGES, 0)
         self._render_groups = 0
@@ -303,6 +367,11 @@ class DeviceEncodeDispatcher:
         and warm the known shapes when its healthy width changes."""
         self.mesh_manager = manager
         manager.add_width_listener(self._on_mesh_width)
+
+    def _on_mesh(self, staged: bool) -> bool:
+        """Whether a group runs over the serving mesh: every group that is
+        not staged, once a mesh is set."""
+        return self.mesh_manager is not None and not staged
 
     # -- streams and events ----------------------------------------------
 
@@ -368,8 +437,9 @@ class DeviceEncodeDispatcher:
     def close(self, drain_timeout: float = 30.0) -> None:
         """Stop accepting groups, wait up to ``drain_timeout`` for the
         submitted ones, then release the threads. Idempotent."""
-        self._closed = True
-        self._submit_pool.shutdown(wait=False)
+        with self._backlog_cv:
+            self._closed = True  # the submit thread drains the backlog, then ends
+            self._backlog_cv.notify_all()
         with self._pending_lock:
             pending = list(self._pending)
         _, not_done = concurrent.futures.wait(pending, timeout=drain_timeout)
@@ -378,9 +448,10 @@ class DeviceEncodeDispatcher:
         self._readback.shutdown(wait=not not_done)
 
     def snapshot(self) -> dict:
-        """/healthz view: the packer, groups submitted and completed, lanes
-        encoded, groups failed, in-flight count, per stage (``STAGES``)
-        the completed groups that ran it, their total milliseconds and the
+        """/healthz view: the packer, groups submitted, device groups
+        completed, lanes encoded, groups merged into another's device
+        group, groups failed, in-flight count, per stage (``STAGES``)
+        the completed device groups that ran it, their total milliseconds and the
         mean over them, render groups submitted, the device time of the
         completed render groups' composites (CUDA only), the submit and
         readback threads' work milliseconds on the wall and CPU clocks,
@@ -402,6 +473,7 @@ class DeviceEncodeDispatcher:
                 "groups": self._groups,
                 "completed": self._completed,
                 "lanes": self._lanes,
+                "merged": self._merged,
                 "failed": self._failed,
                 "stage_groups": ran,
                 "stage_ms_total": {k: self._stage_s[k] * 1e3 for k in ran},
@@ -430,11 +502,18 @@ class DeviceEncodeDispatcher:
         (plane route, ``staged=True``). All lanes share one real (w, h),
         described by ``rows``/``row_bytes``; ``deflate_mode`` is one of
         ``DEFLATE_MODES`` (the pipeline checks it; any other fails the
-        group)."""
+        group). Groups on one device (staged, or no mesh) merge with the
+        groups of the same key queued behind them."""
+        key = None
+        if not self._on_mesh(staged):
+            # everything the device group is launched and framed with but
+            # the lanes themselves
+            key = (tuple(tiles.shape[1:]), tiles.dtype, rows, row_bytes, bpp, filter_mode,
+                   deflate_mode, staged, bit_depth, color_type)
         return self._enqueue(
             self._stage_group,
             (tiles, rows, row_bytes, bpp, filter_mode, deflate_mode, staged),
-            (list(lanes), list(sizes), bit_depth, color_type))
+            (list(lanes), list(sizes), bit_depth, color_type), key)
 
     def submit_render(
         self, planes, index_tables, color_luts, rows: int, row_bytes: int,
@@ -474,25 +553,29 @@ class DeviceEncodeDispatcher:
              deflate_mode, len(lanes)),
             (list(lanes), [(tile_w, tile_h)] * len(lanes), 8, 2))
 
-    def _enqueue(self, stage_fn, args, frame) -> "concurrent.futures.Future":
-        """Queue ``stage_fn(*args)`` on the submit thread; ``frame`` is
-        (lanes, sizes, bit depth, colour type) for the readback. The
-        caller's ambient flight record rides the group to both threads."""
-        if self._closed:
-            raise RuntimeError("device encode queue is closed")
+    def _enqueue(self, stage_fn, args, frame, key=None) -> "concurrent.futures.Future":
+        """Append ``stage_fn(*args)`` to the submit thread's backlog;
+        ``frame`` is (lanes, sizes, bit depth, colour type) for the
+        readback, ``key`` what a group behind it must share to join its
+        device group (None: it runs alone). The caller's ambient flight
+        record rides the group to both threads."""
         fut: "concurrent.futures.Future" = concurrent.futures.Future()
-        with self._pending_lock:
-            self._pending.add(fut)
+        item = _Submitted(fut, stage_fn, args, frame, _GroupClock(current_record()), key)
+        with self._backlog_cv:  # so close() cannot end the submit thread before it
+            if self._closed:
+                raise RuntimeError("device encode queue is closed")
+            with self._pending_lock:
+                self._pending.add(fut)
+            with self._stats_lock:
+                self._groups += 1
+            item.clock.begin("submit_wait")
+            self._backlog.append(item)
+            if self._submit_thread is None:
+                self._submit_thread = threading.Thread(
+                    target=self._submit_loop, name="devenc-submit", daemon=True)
+                self._submit_thread.start()
+            self._backlog_cv.notify()
         fut.add_done_callback(self._discard_pending)
-        with self._stats_lock:
-            self._groups += 1
-        group = _GroupClock(current_record())
-        group.begin("submit_wait")
-        try:
-            self._submit_pool.submit(self._run_stage, fut, stage_fn, args, frame, group)
-        except RuntimeError as e:  # close() raced the check
-            group.end()
-            self._fail(fut, e)
         return fut
 
     def failed_group(self, exc: Exception) -> "concurrent.futures.Future":
@@ -537,26 +620,78 @@ class DeviceEncodeDispatcher:
 
     # -- the two threads ------------------------------------------------------
 
-    def _run_stage(self, fut, stage_fn, args, frame, group: _GroupClock) -> None:
-        """Submit thread: take an in-flight slot, stage + launch the first
-        device work, hand the group to the readback thread. The
-        ``device.encode-group`` fault point (tests) fails the group before
-        it takes a slot."""
-        group.end()  # submit_wait
+    def _submit_loop(self) -> None:
+        """The submit thread: run the backlog's head group, and the groups
+        merged into it, until the queue is closed and the backlog drained."""
+        while True:
+            with self._backlog_cv:
+                while not self._backlog and not self._closed:
+                    self._backlog_cv.wait()
+                if not self._backlog:
+                    return
+                head = self._backlog.popleft()
+            try:
+                self._run_stage(head)
+            except Exception:  # keep the thread: every later group needs it
+                log.exception("device encode submit failed")
+
+    def _run_stage(self, head: _Submitted) -> None:
+        """Submit thread: take an in-flight slot, merge the compatible
+        groups behind ``head``, stage + launch the first device work, hand
+        the device group to the readback thread."""
+        head.clock.end()  # submit_wait
         clock = self._tls.clock = _ThreadClock()
         try:
-            self._stage_on_submit(fut, stage_fn, args, frame, group, clock)
+            handoff = self._stage_on_submit(head, clock)
         finally:
             self._tls.clock = None
             clock.pause()
+            # counted before the hand-off: a snapshot taken once the
+            # readback thread has resolved the futures holds this time
             self._add_thread("submit", clock)
+        if handoff is None:
+            return
+        group, members = handoff[0], handoff[1]
+        try:
+            self._readback.submit(self._readback_scoped, *handoff)
+        except RuntimeError as e:  # close() shut the readback thread down
+            group.end()
+            self._release_slot()
+            for fut, _ in members:
+                self._fail(fut, e)
 
-    def _stage_on_submit(self, fut, stage_fn, args, frame, group, clock) -> None:
+    def _fire_fault(self, item: _Submitted) -> bool:
+        """The ``device.encode-group`` fault point (tests), once per
+        submitted group: False (the group failed) when it fires."""
         try:
             INJECTOR.fire("device.encode-group")
         except Exception as e:
-            self._fail(fut, e)
-            return
+            self._fail(item.fut, e)
+            return False
+        return True
+
+    def _take_followers(self, head: _Submitted) -> list:
+        """The groups directly behind ``head`` in the backlog that share
+        its merge key, up to ``merge_lanes`` lanes with its own, in FIFO
+        order; each fires the fault point before it joins."""
+        if head.key is None:
+            return []
+        taken, lanes = [], head.lanes
+        with self._backlog_cv:
+            while (self._backlog and self._backlog[0].key == head.key
+                   and lanes + self._backlog[0].lanes <= self.merge_lanes):
+                taken.append(self._backlog.popleft())
+                lanes += taken[-1].lanes
+        for item in taken:
+            item.clock.end()  # submit_wait
+        return [item for item in taken if self._fire_fault(item)]
+
+    def _stage_on_submit(self, head: _Submitted, clock: _ThreadClock):
+        """The submit thread's work on one device group: the arguments of
+        its hand-off to the readback thread, or None when it failed."""
+        if not self._fire_fault(head):
+            return None
+        group = head.clock
         clock.pause()
         group.begin("slot_wait")
         self._slots.acquire()
@@ -564,43 +699,57 @@ class DeviceEncodeDispatcher:
         clock.resume()
         with self._stats_lock:
             self._inflight += 1
+        members = [head]
         try:
+            members += self._take_followers(head)
             with record_scope(group.rec):
                 t0 = time.perf_counter()
+                args = head.args
+                if len(members) > 1:
+                    with profiler_range("queue.merge", group.rec), self._on_stream():
+                        # one batch of the members' lanes, in backlog order;
+                        # a host batch is copied to the device by the stage
+                        args = (torch.cat([m.args[0] for m in members]),) + args[1:]
                 with profiler_range("queue.stage", group.rec):
-                    launched, t_h2d = stage_fn(*args)
+                    launched, t_h2d = head.stage_fn(*args)
                 t_dispatch = time.perf_counter()
                 _observe_stage(t_h2d - t0, "h2d")
-            group.begin("readback_wait")
-            self._readback.submit(self._readback_scoped, fut, group, t_dispatch - t0,
-                                  t_dispatch, launched, *frame)
         except Exception as e:
-            group.end()
             self._release_slot()
-            self._fail(fut, e)
+            for m in members:
+                self._fail(m.fut, e)
+            return None
+        group.begin("readback_wait")
+        return (group, [(m.fut, m.frame) for m in members], t_dispatch - t0, t_dispatch,
+                launched)
 
-    def _readback_scoped(self, fut, group: _GroupClock, *args) -> None:
-        """Readback thread: finish the group under its flight record, free
-        its slot and resolve its future (a failure resolves it with the
+    def _readback_scoped(self, group: _GroupClock, members, *args) -> None:
+        """Readback thread: finish the device group under its head's
+        flight record, free its slot and resolve each member's future
+        with its own lanes (a failure resolves every one with the
         exception)."""
         group.end()  # readback_wait
         clock = self._tls.clock = _ThreadClock()
+        outs = err = None
         try:
             with record_scope(group.rec):
-                out = self._readback_group(group, *args)
+                outs = self._readback_group(group, [frame for _, frame in members], *args)
         except Exception as e:
-            self._release_slot()
-            self._fail(fut, e)
-        else:
-            self._release_slot()
-            try:
-                fut.set_result(out)
-            except concurrent.futures.InvalidStateError:
-                pass  # close()'s drain deadline got there first
+            err = e
         finally:
             self._tls.clock = None
             clock.pause()
+            # counted before the futures resolve, as on the submit thread
             self._add_thread("readback", clock)
+        self._release_slot()
+        for i, (fut, _) in enumerate(members):
+            if err is not None:
+                self._fail(fut, err)
+                continue
+            try:
+                fut.set_result(outs[i])
+            except concurrent.futures.InvalidStateError:
+                pass  # close()'s drain deadline got there first
 
     # -- the device work ---------------------------------------------------
 
@@ -611,7 +760,7 @@ class DeviceEncodeDispatcher:
         segment's kind, its start from ``_open_segment``)), the time the
         first kernel's enqueue began). With a mesh, a group that is not staged
         leaves a ("mesh", (tag, lanes, run)) for the readback thread."""
-        if self.mesh_manager is not None and not staged:
+        if self._on_mesh(staged):
             self._register_mesh_shape(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
             run = self._mesh_tiles_run(tiles, rows, row_bytes, bpp, filter_mode, deflate_mode)
             tag = "dynamic" if deflate_mode == "dynamic" else "tiles"
@@ -643,7 +792,7 @@ class DeviceEncodeDispatcher:
         device tensors, the event that ends them, the composite's timing
         events or None, ("render", the segment's start)), the time the first
         kernel's enqueue began)."""
-        if self.mesh_manager is not None and not staged:
+        if self._on_mesh(staged):
             run = self._mesh_render_run(planes, index_tables, color_luts, rows, row_bytes,
                                         filter_mode, deflate_mode, mask)
             return (("mesh", ("render", planes.shape[0], run), None, None, ("mesh", None)),
@@ -752,7 +901,9 @@ class DeviceEncodeDispatcher:
         first serving dispatch there."""
         with self._warm_lock:
             shapes = [k for k in self._seen_mesh if (width, k) not in self._warmed]
-        if not shapes or self._closed:
+        with self._backlog_cv:
+            closed = self._closed
+        if not shapes or closed:
             return
         t = threading.Thread(target=self._warm_width, args=(width, shapes),
                              name="devenc-mesh-warm", daemon=True)
@@ -775,11 +926,12 @@ class DeviceEncodeDispatcher:
             except Exception:
                 log.exception("mesh warm-up failed for %s", key)
 
-    def _readback_group(self, group: _GroupClock, t_stage, t_dispatch, launched, lanes, sizes,
-                        bit_depth, color_type):
-        """Readback thread: wait for the group's device work (for a dynamic
+    def _readback_group(self, group: _GroupClock, frames, t_stage, t_dispatch, launched):
+        """Readback thread: wait for the device group's work (for a dynamic
         group: pull the counts, plan the tables and run pass 2), then pull
-        and frame; then read its device events and keep its stats."""
+        and frame each member's lanes (``frames``: its lanes, sizes, bit
+        depth and colour type, in batch order); then read its device
+        events and keep its stats. One ``{lane: png}`` a member."""
         mode, tensors, ev, composite, (kind, start) = launched
         rec = group.rec
         timing = dict(group.waits, stage=t_stage)
@@ -835,16 +987,20 @@ class DeviceEncodeDispatcher:
             if start is not None:
                 segments.append((kind, start, ev))
         with _Lap(timing, "pull", rec):
-            streams_np, lengths_np = self._pull(streams, lengths, sizes[0])
+            streams_np, lengths_np = self._pull(streams, lengths, frames[0][1][0])
         _observe_stage(timing["pull"], "d2h")
         with _Lap(timing, "frame", rec):
-            out = {
-                lane: frame_png(
-                    np.ascontiguousarray(streams_np[j, : int(lengths_np[j])]).tobytes(),
-                    sizes[j][0], sizes[j][1], bit_depth, color_type,
-                )
-                for j, lane in enumerate(lanes)
-            }
+            outs, offset = [], 0  # a member's lanes start at its offset
+            for lanes, sizes, bit_depth, color_type in frames:
+                outs.append({
+                    lane: frame_png(
+                        np.ascontiguousarray(
+                            streams_np[offset + j, : int(lengths_np[offset + j])]).tobytes(),
+                        sizes[j][0], sizes[j][1], bit_depth, color_type,
+                    )
+                    for j, lane in enumerate(lanes)
+                })
+                offset += len(lanes)
         _observe_stage(timing["frame"], "frame")
         composite_ms = composite[0].elapsed_time(composite[1]) if composite else None
         device_ms = self._read_segments(segments)
@@ -859,9 +1015,12 @@ class DeviceEncodeDispatcher:
                 for kind, ms in device_ms.items():
                     self._device_ms[kind] += ms
                 self._device_n += 1
-            self._lanes += len(lanes)
+            self._lanes += offset
             self._completed += 1
-        return out
+            self._merged += len(frames) - 1
+        if len(frames) > 1:
+            DEVICE_ENCODE_GROUPS_MERGED.inc(len(frames) - 1)
+        return outs
 
     @staticmethod
     def _read_segments(segments) -> Dict[str, float]:

@@ -255,6 +255,9 @@ class TilePipeline:
     the host mirror, histograms ``histogram_host``; raw and TIFF lanes are
     the same on both engines. ``device`` is None there.
 
+    ``max_batch`` is the batcher's max batch (``batching.max-batch``):
+    the encode queue merges queued groups up to that many lanes.
+
     ``lut_dir`` holds operator ``.lut`` files for render lanes;
     ``max_tile_bytes`` bounds a lane's pixels (a projection's whole
     stack). Only tests pass ``device="cpu"``, which runs the kernels'
@@ -276,6 +279,7 @@ class TilePipeline:
         png_level: int = PNG_LEVEL,
         png_strategy: str = PNG_STRATEGY,
         engine: str = "device",
+        max_batch: int = 32,
     ):
         if device_deflate_mode not in DEFLATE_MODES:
             raise ValueError(f"Unknown device deflate mode: {device_deflate_mode}")
@@ -299,7 +303,7 @@ class TilePipeline:
             self.device = resolve_device(device)
             self.plane_cache = DevicePlaneCache(self.device)
             self.dispatcher = DeviceEncodeDispatcher(
-                self.device, queue_depth=queue_depth, packer=packer)
+                self.device, queue_depth=queue_depth, packer=packer, merge_lanes=max_batch)
         self.device_deflate = device_deflate
         self.max_tile_bytes = max_tile_bytes
         # PNG lanes encoded on the host (larger than every bucket, filter

@@ -567,6 +567,7 @@ def test_non_default_knobs_show_on_healthz(restore_process_state):
         assert c["batching"] == {"buckets": [128, 512], "max_batch": 8,
                                  "coalesce_window_ms": 5.0, "burst_window_ms": 10.0,
                                  "workers": 5}
+        assert server.pipeline.dispatcher.merge_lanes == 8  # the queue merges up to a batch
         assert c["max_tile_bytes"] == 64 << 20
         assert c["tile_sizes"]["dzi"] == 512 and not h["protocols"]["iiif"]
         assert c["analysis_max_bins"] == 1024 and c["jpeg_quality"] == 75

@@ -15,7 +15,7 @@ Through both fronts (the JAX aiohttp app and the port's ``wire``, from one
 config), after one request sequence: the ``/metrics`` family set (name and
 kind) equals JAX's less the families of the planes the port does not have
 (``ABSENT_PLANE_FAMILIES``), plus the port's own request-span histograms
-(``PORT_SPAN_FAMILIES``), and the deltas of ``tiles_served_total``, the
+and encode-queue merge counter (``PORT_SPAN_FAMILIES``), and the deltas of ``tiles_served_total``, the
 result cache's hit and miss counts and ``tile_batches_dispatched_total``
 are equal. Tolerance: zero."""
 
@@ -56,9 +56,12 @@ MEMBERSHIP_FAMILIES = {
 # the session plane's families, on /metrics in both packages
 SESSION_PLANE_FAMILIES = {"session_annotation_ops_total", "session_channel_events_total",
                           "session_pushes_total", "session_channels_live"}
-# the recorder's hand-off and unclaimed time: the port's alone
+# the recorder's hand-off and unclaimed time, and the groups the encode
+# queue merged from its backlog (the JAX queue runs each group alone): the
+# port's alone
 PORT_SPAN_FAMILIES = {"request_handoff_seconds": "histogram",
-                      "request_unclaimed_seconds": "histogram"}
+                      "request_unclaimed_seconds": "histogram",
+                      "device_encode_groups_merged_total": "counter"}
 
 
 class _Clock:

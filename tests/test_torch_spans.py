@@ -55,7 +55,10 @@ def test_queue_reports_waits_and_thread_clocks(mode):
         snap = q.snapshot()
     finally:
         q.close()
-    assert snap["completed"] == 4 and snap["failed"] == 0
+    # the groups queued behind the submit thread merge: ``completed``
+    # counts device groups, ``merged`` the groups that rode in another's
+    assert snap["groups"] == 4 and snap["failed"] == 0
+    assert snap["completed"] + snap["merged"] == 4 and snap["lanes"] == 12
     for stage, n in snap["stage_groups"].items():
         assert n == snap["completed"], stage
     for w in WAITS:
