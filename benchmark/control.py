@@ -11,7 +11,9 @@ One JSON line per seed with the numbers compared and the verdict."""
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,8 +29,12 @@ if __name__ == "__main__":
     cell = manifest.resolve(args.workload)
     for seed in args.seeds:
         t = time.monotonic()
-        data = fixture.pixels(cell.config["image"], cell.config["content"], seed,
-                              fixture.default_workers())
+        img, content = cell.config["image"], cell.config["content"]
+        work = tempfile.TemporaryDirectory(prefix="bench-control-")
+        # a JPEG source's reference is its file's tiles
+        source = (fixture.write(os.path.join(work.name, "image.ome.tiff"), img, content, seed,
+                                fixture.default_workers()) if fixture.lossy(img)
+                  else fixture.pixels(img, content, seed, fixture.default_workers()))
         streams = [traffic.Client(cell.kind, cell.config, cell.traffic, seed, k)
                    for k in range(cell.traffic["clients"])]
         specs = []
@@ -36,8 +42,10 @@ if __name__ == "__main__":
             for s in streams:
                 specs += s.step()
         specs = specs[:args.answers]
-        numbers = check.judge_arrays(specs, cell.kind.control, cell.kind, data)
-        reference = check.judge_arrays(specs, cell.kind.expected, cell.kind, data)
+        numbers = check.judge_arrays(specs, cell.kind.control, cell.kind, source)
+        reference = check.judge_arrays(specs, cell.kind.expected, cell.kind, source)
+        source.close()
+        work.cleanup()
         print(json.dumps({"workload": args.workload, "seed": seed, "answers": len(specs),
                           "control": numbers, "control_correct": check.verdict(numbers),
                           "reference_as_answer": reference,

@@ -87,7 +87,7 @@ class Server:
     """The launcher's process: the port's server with the window signals."""
 
     def __init__(self, root: Path, work: str, config_path: str, device: str,
-                 trace: int, preload=None, cores=None):
+                 trace: int, preload=None, cores=None, server_env=None):
         self.work, self.port = work, free_port()
         cmd = [sys.executable, str(Path(launcher.__file__)), "--work", work,
                "--trace", str(trace)]
@@ -97,6 +97,9 @@ class Server:
                 "--host", client.HOST, "--port", str(self.port)]
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        # the configuration's OMPB_* variables: this process's own
+        # environment stays as it is
+        env.update(server_env or {})
         self.err_path = os.path.join(work, "server.stderr")
         with open(self.err_path, "w") as err:
             # a process group of its own, so that stop() reaches whatever
@@ -323,8 +326,8 @@ def run(argv, start: float, root: Path = manifest.ROOT, device: str = "cuda",
         with tempfile.TemporaryDirectory(prefix="bench-") as work:
             image = os.path.join(work, "image.ome.tiff")
             t = time.monotonic()
-            data = fixture.write(image, img, cell.config["content"], args.seed,
-                                 fixture.default_workers())
+            source = fixture.write(image, img, cell.config["content"], args.seed,
+                                   fixture.default_workers())
             print(f"benchmark: image {time.monotonic() - t:.2f} s, "
                   f"{os.path.getsize(image)} bytes", file=sys.stderr)
             registry = os.path.join(work, "registry.json")
@@ -332,7 +335,7 @@ def run(argv, start: float, root: Path = manifest.ROOT, device: str = "cuda",
                 json.dump({"images": [{"id": img["id"], "path": image}]}, f)
             load_core, server_cores = split_cores()
             server = Server(root, work, write_server_config(cell, work, registry), device,
-                            args.trace, preload, server_cores)
+                            args.trace, preload, server_cores, cell.config.get("server_env"))
             if load_core:
                 os.sched_setaffinity(0, load_core)
             try:
@@ -344,11 +347,15 @@ def run(argv, start: float, root: Path = manifest.ROOT, device: str = "cuda",
             finally:
                 server.stop()
             trace = load_trace(work, w) if args.trace else None
-        _diagnose(w)
-        t = time.monotonic()
-        # the warm-up's answers are judged too (their status and format)
-        numbers = check.judge(w["warm"] + w["answers"], cell.kind, cell.config, data)
-        print(f"benchmark: check {time.monotonic() - t:.2f} s", file=sys.stderr)
+            _diagnose(w)
+            t = time.monotonic()
+            # the warm-up's answers are judged too (their status and
+            # format); a JPEG source's reference reads the image's file
+            try:
+                numbers = check.judge(w["warm"] + w["answers"], cell.kind, cell.config, source)
+            finally:
+                source.close()
+            print(f"benchmark: check {time.monotonic() - t:.2f} s", file=sys.stderr)
         for example in numbers["examples"]:
             print(f"benchmark: wrong answer {example}", file=sys.stderr)
     except (RunError, manifest.ManifestError) as e:

@@ -1,17 +1,28 @@
 """``correct``: every answer of the window is judged after the window
-has closed, and a sample of them, drawn from the seed, is decoded by the
-plain PNG decoder and compared pixel for pixel with the plain reference
-computed from the seed's source array.
+has closed, and a sample of them, drawn from the seed, is decoded and
+compared pixel for pixel with the plain reference: the seed's source
+pixels at the request's pyramid level (``spec["level"]``, 0 when the
+kind draws none), or, of a JPEG source, the tiles its file holds as
+Pillow decodes them (``fixture.JpegPixels``).
+
+The request kind owns its answers' format: ``kinds/<kind>.py`` may
+define ``answer_problem(config, spec, body)`` (why the body is not a
+sound answer of the requested size and format, or None; a ValueError
+for a body it cannot read) and ``answer_pixels(config, spec, body)``
+(the body decoded). A kind without them answers PNGs of
+``png_format(config)``, read by the plain PNG decoder.
 
 The numbers compared, each with its limit (exact comparisons, so 0):
 
 - ``bad_answers``: answers that never came (no status, a timeout, an
-  error status) or are not a sound PNG of the requested size and format;
+  error status) or are not a sound answer of the requested size and
+  format;
 - ``wrong_pixels``: pixels of the compared answers that differ from the
   reference (an RGB pixel counts once)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable
 
 import numpy as np
@@ -32,10 +43,29 @@ def wrong_pixels(got: np.ndarray, want: np.ndarray) -> int:
     return int(diff.sum())
 
 
-def judge(answers: Iterable, kind, config: dict, data: np.ndarray) -> dict:
-    """The program's answers (``client.Answer``) against the reference;
-    ``examples`` names the first few answers judged wrong."""
-    fmt = kind.png_format(config)
+def _png_problem(kind, config: dict, spec: dict, body: bytes):
+    w, h, depth, color = png.header(body)
+    if (w, h) != (spec["w"], spec["h"]) or (depth, color) != kind.png_format(config):
+        return f"a {w}x{h} PNG of depth {depth}, colour {color}"
+    return None
+
+
+def _png_pixels(config: dict, spec: dict, body: bytes) -> np.ndarray:
+    return png.decode(body)
+
+
+def expected(kind, source, spec: dict):
+    """The reference's pixels of one request (``source``: ``fixture.Pixels``)."""
+    return kind.expected(source.level(spec.get("level", 0)), spec)
+
+
+def judge(answers: Iterable, kind, config: dict, source) -> dict:
+    """The program's answers (``client.Answer``) against the reference
+    (``source``: ``fixture.Pixels``); ``examples`` names the first few
+    answers judged wrong."""
+    what = "answer" if hasattr(kind, "answer_problem") else "PNG"
+    problem = getattr(kind, "answer_problem", functools.partial(_png_problem, kind))
+    pixels = getattr(kind, "answer_pixels", _png_pixels)
     bad = wrong = compared = 0
     examples = []
     for a in answers:
@@ -44,17 +74,15 @@ def judge(answers: Iterable, kind, config: dict, data: np.ndarray) -> dict:
             why = f"status {a.status} {a.error} {(a.body or b'')[:120]!r}"
         else:
             try:
-                w, h, depth, color = png.header(a.body)
-                if (w, h) != (spec["w"], spec["h"]) or (depth, color) != fmt:
-                    why = f"a {w}x{h} PNG of depth {depth}, colour {color}"
-                elif spec["sample"]:
-                    n = wrong_pixels(png.decode(a.body), kind.expected(data, spec))
+                why = problem(config, spec, a.body)
+                if why is None and spec["sample"]:
+                    n = wrong_pixels(pixels(config, spec, a.body), expected(kind, source, spec))
                     compared += 1
                     wrong += n
                     if n:
                         why = f"{n} wrong pixels"
-            except png.PngError as e:
-                why = f"not a sound PNG: {e}"
+            except ValueError as e:
+                why = f"not a sound {what}: {e}"
         if why is not None:
             bad += not why.endswith("wrong pixels")
             if len(examples) < 5:
@@ -63,13 +91,15 @@ def judge(answers: Iterable, kind, config: dict, data: np.ndarray) -> dict:
             "examples": examples}
 
 
-def judge_arrays(specs: Iterable[dict], answer: Callable, kind, data: np.ndarray) -> dict:
-    """Answers given as pixel arrays (``answer(data, spec)``, such as the
-    control's) against the reference, for the sampled specs."""
+def judge_arrays(specs: Iterable[dict], answer: Callable, kind, source) -> dict:
+    """Answers given as pixel arrays (``answer(level, spec)`` of the
+    request's level, such as the control's) against the reference, for
+    the sampled specs."""
     wrong = compared = 0
     for spec in specs:
         if spec["sample"]:
-            wrong += wrong_pixels(answer(data, spec), kind.expected(data, spec))
+            got = answer(source.level(spec.get("level", 0)), spec)
+            wrong += wrong_pixels(got, expected(kind, source, spec))
             compared += 1
     return {"bad_answers": 0, "wrong_pixels": wrong, "compared": compared}
 

@@ -3,7 +3,9 @@ entry) names a configuration, found as ``configs/<name>.json``, and a
 traffic mix, found as ``traffic/<name>.json``; every metric but
 ``setup_s`` is the reader ``metrics/<name>.py``; a traffic mix's ``kind`` is the request
 kind ``kinds/<kind>.py``. Adding any of them is adding files: nothing
-here lists them."""
+here lists them. A configuration's ``server_env`` may set only ``OMPB_*``
+variables, as strings, and its ``image`` only what ``fixture.write``
+makes."""
 
 from __future__ import annotations
 
@@ -14,11 +16,14 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List
 
+from harness import fixture
+
 BENCH = Path(__file__).resolve().parents[1]  # the benchmark's folder
 ROOT = BENCH.parent  # the checkout
 SETUP = "setup_s"  # the one metric the harness takes itself; every other has a reader
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_.\-/%]{1,16}$")
+SERVER_ENV = re.compile(r"^OMPB_[A-Z0-9_]+$")
 
 
 class ManifestError(ValueError):
@@ -75,6 +80,15 @@ def resolve(workload: str, root: Path = ROOT) -> Cell:
         raise ManifestError(f"{workload}: no configuration {entry['config']!r}")
     with open(root / configs[entry["config"]]["file"]) as f:
         config = json.load(f)
+    env = config.get("server_env", {})
+    if not isinstance(env, dict) or not all(
+            isinstance(k, str) and SERVER_ENV.match(k) and isinstance(v, str)
+            for k, v in env.items()):
+        raise ManifestError(f"{entry['config']}: server_env sets only OMPB_* variables "
+                            f"to strings: {env!r}")
+    bad = fixture.problems(config["image"])
+    if bad:
+        raise ManifestError(f"{entry['config']}: image: {'; '.join(bad)}")
     traffic_path = bench / "traffic" / f"{entry['traffic']}.json"
     if not traffic_path.is_file():
         raise ManifestError(f"missing {traffic_path.relative_to(root)}")

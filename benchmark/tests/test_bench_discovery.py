@@ -25,7 +25,7 @@ def test_new_files_are_found(small_root):
                            "traffic": "throwaway-mix", "chips": 1, "why": "a test"})
     m["per_layer"].append({"name": "throwaway_count", "unit": "requests", "better": "higher",
                            "source": "program_counter", "layer": "a test",
-                           "moves": "tiles_per_s", "workloads": ["throwaway-cell"]})
+                           "moves": "wire_bytes_per_tile", "workloads": ["throwaway-cell"]})
     (small_root / "BENCHMARK.json").write_text(json.dumps(m))
     assert manifest.problems(m) == []
     cell = manifest.resolve("throwaway-cell", small_root)
@@ -56,4 +56,4 @@ def test_cell_added_as_data_runs(small_root, capsys):
                       require_chip=False)
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and result["correct"] is True and result["attempted"] > 0
-    assert {"tiles_per_s", "p50_ms", "wire_bytes_per_tile", "setup_s"} == set(result["metrics"])
+    assert {"wire_bytes_per_tile", "setup_s"} == set(result["metrics"])

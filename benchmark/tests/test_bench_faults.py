@@ -32,7 +32,7 @@ def test_sound_run_is_correct(small_root, capsys, workload):
     result = _run(small_root, capsys, workload, seed=2**31 + 9)
     assert result["correct"] is True, result
     assert result["attempted"] > 0 and result["compared"] > 0
-    assert {"tiles_per_s", "p50_ms", "wire_bytes_per_tile", "setup_s"} == set(result["metrics"])
+    assert {"wire_bytes_per_tile", "setup_s"} == set(result["metrics"])
 
 
 @pytest.mark.parametrize("fault, number", [("answer_altered", "wrong_pixels"),

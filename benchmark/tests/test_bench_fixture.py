@@ -18,9 +18,9 @@ def test_reader_reads_back_the_pixels(tmp_path):
     from omero_ms_pixel_buffer_tpu_torch.io.ometiff import OmeTiffPixelBuffer
 
     path = str(tmp_path / "image.ome.tiff")
-    data = fixture.write(path, IMG, CONTENT, 2**31 + 5, 2)
+    data = fixture.write(path, IMG, CONTENT, 2**31 + 5, 2).data
     assert data.shape == (2, 3, 600, 700)
-    assert np.array_equal(data, fixture.pixels(IMG, CONTENT, 2**31 + 5, 2))
+    assert np.array_equal(data, fixture.pixels(IMG, CONTENT, 2**31 + 5, 2).data)
     buf = OmeTiffPixelBuffer(path, image_id=1)
     try:
         for z in range(3):

@@ -151,11 +151,11 @@ def test_client_side_readers():
     ctx = _ctx(requests=_served([10.0, 30.0, 20.0, 60000.0], [200, 200, 200, 0],
                                 [True, True, False, True]))
     ctx.window_s = 2.0
-    assert _reader("tiles_per_s").read(ctx) == 1.0  # two 200s done inside 2 s
+    assert _reader("traced_tiles_per_s").read(ctx) == 1.0  # two 200s done inside 2 s
     assert _reader("wire_bytes_per_tile").read(ctx) == 200.0  # (100 + 200 + 300) / 3
-    assert _reader("p50_ms").read(ctx) == 20.0  # nearest rank 2 of 4
+    assert _reader("traced_p50_ms").read(ctx) == 20.0  # nearest rank 2 of 4
     ctx.requests = _served([10.0, 60000.0, 60000.0], [200, 0, 0], [True, True, True])
-    assert _reader("p50_ms").read(ctx) == 60000.0  # failed requests count as missing
+    assert _reader("traced_p50_ms").read(ctx) == 60000.0  # failed requests count as missing
     ctx.requests = []
-    for name in ("wire_bytes_per_tile", "p50_ms"):
+    for name in ("wire_bytes_per_tile", "traced_p50_ms"):
         assert _reader(name).read(ctx) is None
